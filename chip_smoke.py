@@ -5,16 +5,25 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds the native runtime and every CUDA kernel of the serving path
-from the checkout, holds each kernel against its plain PyTorch version on
-the card, then serves a Criteo-width factorization machine (2^20 hashed
-features, 16 factors, 39 nonzeros a row) over HTTP through the port's
-``ScoringServer`` and checks every score against a float64 numpy oracle.
-Any failed check raises and the script exits non-zero.  The last two
-lines of its output are the card's name and power limit, and one JSON
-object with ``"ok": true``; the line before them is the per-kernel JSON
-(times, bound, launches on the served path, error against the plain
-version).  It imports nothing of JAX.
+It builds the native runtime and every CUDA kernel from the checkout (side
+by side), holds each kernel against its plain PyTorch version on the card,
+serves a Criteo-width factorization machine (2^20 hashed features, 16
+factors, 39 nonzeros a row) over HTTP through the port's ``ScoringServer``
+and checks every score against a float64 numpy oracle, then trains a
+Higgs-width histogram GBDT (11M rows x 28 features, 256 bins, 20 trees of
+depth 6) through ``GBDT.fit`` and checks its histograms, forests and
+predictions against float64 oracles.  Any failed check raises and the
+script exits non-zero.  The last two lines of its output are the card's
+name and power limit, and one JSON object with ``"ok": true``; the line
+before them is the per-kernel JSON (times, bound, launches on each main
+path, error against the plain version).  It imports nothing of JAX.
+
+    python3 chip_smoke.py --label-study
+
+builds the kernels, then fits the Higgs-width GBDT four ways (histogram
+and leaf sums each on the kernel or on ``index_add``) for two labels and
+three data seeds, and audits every split of every fit against float64
+(see ``label_study``).  It prints its readings and no result line.
 """
 from __future__ import annotations
 
@@ -58,42 +67,48 @@ def run_text(cmd) -> str:
 
 # ---- phase 1: the card and the builds ---------------------------------------
 
+KERNELS = ("segment_sum", "histogram_gh")
+
+
 def phase_builds(native, build):
-    """Build the native runtime (a thread) and the kernel (nvcc) at once."""
+    """Build the native runtime and every kernel at once: one thread for the
+    runtime and one ``nvcc`` for each kernel source, all started together."""
     times = {}
     errors = []
 
-    def native_build():
+    def run(name, fn):
         t0 = time.monotonic()
         try:
-            native.build()
+            fn()
         except Exception as exc:  # re-raised on the main thread below
             errors.append(exc)
-        times["native"] = time.monotonic() - t0
+        times[name] = time.monotonic() - t0
 
-    th = threading.Thread(target=native_build)
-    th.start()
-    t0 = time.monotonic()
-    build.build("segment_sum")
-    times["segment_sum"] = time.monotonic() - t0
-    th.join()
+    jobs = [("libdmlctpu.so", native.build)] + [
+        (f"{k}.cu", lambda k=k: build.build(k)) for k in KERNELS]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
     if errors:
         raise errors[0]
-    print(f"build: libdmlctpu.so {times['native']:.1f} s, "
-          f"segment_sum.cu {times['segment_sum']:.1f} s")
-    for line in build.build_log("segment_sum").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    print("build: " + ", ".join(f"{name} {times[name]:.1f} s"
+                                for name, _ in jobs))
+    for k in KERNELS:
+        for line in build.build_log(k).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 # ---- phase 2: the kernel against its plain version ----------------------------
 
-def device_ms(torch, fn, iters: int) -> tuple:
+def device_ms(torch, fn, iters: int, warmup: int = 3) -> tuple:
     """Device time of one ``fn()`` in ms: ``iters`` calls queued behind a
     sleep kernel so they run back to back, between two CUDA events.
     Returns (ms, covered): covered is False when the host took longer to
     queue the calls than the sleep lasted (then host gaps may count)."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -342,7 +357,525 @@ def phase_profile(torch, params) -> None:
               f"{e.key[:90]}")
 
 
-def main() -> int:
+# ---- phase 5: the histogram GBDT at Higgs width -------------------------------
+
+# UCI HIGGS (Baldi et al., 2014): 11,000,000 rows x 28 dense float features,
+# generated here from a numpy seed; the GBDT at the repo's and XGBoost's
+# defaults (20 trees, depth 6, 256 bins, eta 0.3, lambda 1, logistic)
+HIGGS_ROWS, HIGGS_FEATURES = 11_000_000, 28
+GBDT_KW = dict(num_trees=20, max_depth=6, num_bins=256, learning_rate=0.3,
+               lambda_=1.0, objective="logistic")
+BINNER_SAMPLE = 1_000_000
+PREDICT_ROWS = 100_000
+CHECK_DEPTHS = (0, 3, 5)
+HIST_TOL = 1e-5  # max |kernel - oracle| <= HIST_TOL * max(1, max |oracle|)
+XLA_LOSS_TOL = 1e-4  # |train logloss, kernel fit - index_add fit|
+LEAF_TOL = 1e-5  # |leaf - leaf from float64 sums| (eta 0.3, leaves < 1)
+
+
+def higgs_like(rows: int, seed: int, label: str = "xor") -> tuple:
+    """``rows`` x 28 standard-normal f32 features and a 0/1 label.  "xor"
+    is bench.py's GBDT label, ``(x0*x1 > 0) ^ (x2 > 0.4)``, which gives no
+    feature any marginal signal.  "steps" is a Bernoulli draw from a
+    logistic model over threshold terms of seven features and their
+    conjunctions, so that (like HIGGS's) seven features carry signal."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, HIGGS_FEATURES), dtype=np.float32)
+    if label == "xor":
+        y = (x[:, 0] * x[:, 1] > 0) ^ (x[:, 2] > 0.4)
+        return x, y.astype(np.float32)
+    m = (1.5 * (x[:, 0] > 0.0) - 1.0 * (x[:, 1] > 0.5)
+         + 1.0 * ((x[:, 2] > -0.3) & (x[:, 3] > 0.2)) + 0.8 * (x[:, 4] > 1.0)
+         - 0.6 * (x[:, 5] < -0.8) + 0.5 * ((x[:, 6] > 0) & (x[:, 0] > 0))
+         - 0.9)
+    y = rng.random(rows, dtype=np.float32) < 1.0 / (1.0 + np.exp(-2.0 * m))
+    return x, y.astype(np.float32)
+
+
+def hist_oracle(bins: np.ndarray, rel: np.ndarray, gh: np.ndarray,
+                n_nodes: int, num_bins: int) -> np.ndarray:
+    """float64 [n, F, B, 2] histogram by ``np.bincount``, feature by
+    feature."""
+    rows, F = bins.shape
+    out = np.zeros((n_nodes, F, num_bins, 2))
+    g = gh.astype(np.float64)
+    base = rel.astype(np.int64) * num_bins
+    for f in range(F):
+        key = base + bins[:, f]
+        for lane in range(2):
+            out[:, f, :, lane] = np.bincount(
+                key, weights=g[:, lane], minlength=n_nodes * num_bins
+            ).reshape(n_nodes, num_bins)
+    return out
+
+
+def tree_inputs(torch, model, forest, bins, label):
+    """Yield, tree by tree, what a logistic fit with unit weights gave its
+    tree builder: (grad, hess) [rows, 2], each row's node at every depth as
+    (rel, n_nodes), and each row's leaf, routed through the fitted forest.
+    Margins add up tree by tree as the fit adds them, so the inputs are
+    the fit's own, bit for bit."""
+    margin = forest["base"].expand(label.shape[0]).clone()
+    for t in range(model.num_trees):
+        g, h = model._grad_hess(margin, label)
+        gh = torch.stack([g, h], dim=-1).contiguous()
+        feat, thr = forest["feature"][t], forest["threshold"][t]
+        node = torch.zeros(label.shape[0], dtype=torch.int64,
+                           device=label.device)
+        levels = []
+        for d in range(model.max_depth):
+            levels.append(((node - (2 ** d - 1)).to(torch.int32)
+                           .contiguous(), 2 ** d))
+            b = torch.gather(bins, 1, feat[node].long()[:, None])[:, 0]
+            node = 2 * node + 1 + (b.to(torch.int32) > thr[node]).long()
+        leaf_rel = node - (2 ** model.max_depth - 1)
+        yield gh, levels, leaf_rel.to(torch.int32).contiguous()
+        margin = margin + forest["leaf"][t][leaf_rel]
+
+
+def check_hist(torch, hg, name, bins, rel, gh, n, B) -> float:
+    """Kernel vs plain vs the float64 oracle, and two launches bitwise
+    equal.  Returns max |kernel - plain|."""
+    a = hg.histogram_gh_kernel(bins, rel, gh, n, B)
+    b = hg.histogram_gh_kernel(bins, rel, gh, n, B)
+    plain = hg.histogram_gh_plain(bins, rel, gh, n, B)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"histogram {name}: two launches differ")
+    oracle = hist_oracle(bins.cpu().numpy(), rel.cpu().numpy(),
+                         gh.cpu().numpy(), n, B)
+    tol = HIST_TOL * max(1.0, float(np.abs(oracle).max()))
+    err_o = float(np.abs(a.cpu().numpy() - oracle).max())
+    err_po = float(np.abs(plain.cpu().numpy() - oracle).max())
+    err_p = float((a - plain).abs().max())
+    print(f"histogram [{name}] rows={bins.shape[0]} F={bins.shape[1]} B={B} "
+          f"n={n} {str(bins.dtype)[6:]}: |kernel-plain| {err_p:.3e}, "
+          f"|kernel-oracle| {err_o:.3e}, |plain-oracle| {err_po:.3e}, "
+          f"tol {tol:.3e}; two launches bitwise equal")
+    check(err_o <= tol and err_p <= tol and err_po <= tol,
+          f"histogram {name}: error past {tol}")
+    return err_p
+
+
+def check_leaf_sums(torch, ss_mod, gh, leaf_rel, n_leaves) -> dict:
+    """The segment-sum kernel at the GBDT's leaf-sum shape (every row's
+    (grad, hess) into its leaf), on a fit's own inputs: against its plain
+    version and a float64 ``bincount`` oracle, two launches bitwise equal,
+    and its time beside the plain version, ``index_add`` and its bound."""
+    kernel, plain = ss_mod.segment_sum_kernel, ss_mod.segment_sum_plain
+    a = kernel(gh, leaf_rel, n_leaves)
+    b = kernel(gh, leaf_rel, n_leaves)
+    want = plain(gh, leaf_rel, n_leaves)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "leaf sums: two launches differ")
+    rel, g = leaf_rel.cpu().numpy(), gh.cpu().numpy().astype(np.float64)
+    oracle = np.stack([np.bincount(rel, weights=g[:, lane],
+                                   minlength=n_leaves) for lane in (0, 1)], 1)
+    tol = HIST_TOL * max(1.0, float(np.abs(oracle).max()))
+    err_o = float(np.abs(a.cpu().numpy() - oracle).max())
+    err_po = float(np.abs(want.cpu().numpy() - oracle).max())
+    err_p = float((a - want).abs().max())
+    nnz = gh.shape[0]
+    zeros = torch.zeros(n_leaves, 2, device=gh.device)
+    idx = leaf_rel.long()
+    ms, cov = device_ms(torch, lambda: kernel(gh, leaf_rel, n_leaves), 20)
+    plain_ms, _ = device_ms(torch, lambda: plain(gh, leaf_rel, n_leaves), 2,
+                            warmup=1)
+    lib_ms, _ = device_ms(torch, lambda: torch.index_add(zeros, 0, idx, gh),
+                          20)
+    nbytes = 4 * (2 * nnz + nnz + 2 * n_leaves)
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
+    bound_ms = max(byte_s, op_s) * 1e3
+    print(f"leaf sums [segment_sum, first tree] nnz={nnz} L=2 "
+          f"segments={n_leaves}: |kernel-plain| {err_p:.3e}, |kernel-oracle| "
+          f"{err_o:.3e}, |plain-oracle| {err_po:.3e}, tol {tol:.3e}; two "
+          f"launches bitwise equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, index_add {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({nbytes} "
+          f"bytes); queue covered: {cov}")
+    check(err_o <= tol and err_p <= tol and err_po <= tol,
+          f"leaf sums: error past {tol}")
+    return dict(max_abs_err=err_p, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by="bytes" if byte_s >= op_s else "operations")
+
+
+def tree_losses(torch, model, forest, bins, label) -> list:
+    """Train logloss after 0, 1, ..., num_trees trees."""
+    from dmlc_core_tpu_torch.models import logistic_nll
+    m = forest["base"].expand(label.shape[0]).clone()
+    losses = [float(logistic_nll(m, label).mean())]
+    for i in range(model.num_trees):
+        m += model._tree_margins(forest["feature"][i],
+                                 forest["threshold"][i],
+                                 forest["default_right"][i],
+                                 forest["leaf"][i], bins)
+        losses.append(float(logistic_nll(m, label).mean()))
+    return losses
+
+
+def predict_oracle(forest: dict, bins: np.ndarray, depth: int) -> np.ndarray:
+    """float64 probabilities: every row routed through every tree in
+    numpy."""
+    feat = forest["feature"].cpu().numpy()
+    thr = forest["threshold"].cpu().numpy()
+    leaf = forest["leaf"].cpu().numpy().astype(np.float64)
+    rows = np.arange(bins.shape[0])
+    m = np.full(bins.shape[0], float(forest["base"]))
+    for t in range(feat.shape[0]):
+        node = np.zeros(bins.shape[0], np.int64)
+        for _ in range(depth):
+            node = 2 * node + 1 + (bins[rows, feat[t, node]] > thr[t, node])
+        m += leaf[t, node - (2 ** depth - 1)]
+    return 1.0 / (1.0 + np.exp(-m))
+
+
+def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
+    """One fit of the main path, with the launch counts set to 0 just
+    before it and read just after.  Returns (forest, seconds, histogram
+    launches, segment-sum launches)."""
+    hg.histogram_gh_kernel.launches = 0
+    ss_mod.segment_sum_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    forest = model.fit(bins, label)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    return (forest, secs, hg.histogram_gh_kernel.launches,
+            ss_mod.segment_sum_kernel.launches)
+
+
+def phase_gbdt(torch, ss_mod, dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    rows, F, B = HIGGS_ROWS, HIGGS_FEATURES, GBDT_KW["num_bins"]
+    depth, trees = GBDT_KW["max_depth"], GBDT_KW["num_trees"]
+
+    t0 = time.monotonic()
+    x, y = higgs_like(rows, seed=2014)
+    t_gen = time.monotonic() - t0
+    t0 = time.monotonic()
+    binner = QuantileBinner(num_bins=B, device=dev).fit(x[:BINNER_SAMPLE])
+    t_sketch = time.monotonic() - t0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    bins = binner.transform(torch.from_numpy(x).to(dev))
+    label = torch.from_numpy(y).to(dev)
+    torch.cuda.synchronize()
+    t_bin = time.monotonic() - t0
+    cuts = binner.cuts.cpu().numpy()
+    want = np.stack([np.searchsorted(cuts[f], x[:PREDICT_ROWS, f],
+                                     side="right") for f in range(F)], 1)
+    check(np.array_equal(bins[:PREDICT_ROWS].cpu().numpy(), want),
+          "binner codes differ from numpy searchsorted")
+    del x
+    print(f"gbdt data: {rows} x {F} Higgs-width rows, {y.mean():.3f} "
+          f"positive; generate {t_gen:.1f} s (host), sketch of "
+          f"{BINNER_SAMPLE} rows {t_sketch:.1f} s (host), copy + binning on "
+          f"the card {t_bin:.2f} s; codes {bins.dtype} "
+          f"{tuple(bins.shape)} = {bins.numel() / 1e6:.0f} MB")
+
+    model = GBDT(num_features=F, device=dev, **GBDT_KW)  # histogram="auto"
+    torch.cuda.reset_peak_memory_stats()
+    warm, t_warm, _, _ = fit_timed(torch, hg, ss_mod, model, bins, label)
+
+    # the kernel against its plain version and a float64 oracle, on the
+    # first tree's own level inputs, plus the op surface's edges
+    gh, levels, leaf_rel = next(tree_inputs(torch, model, warm, bins, label))
+    leaf = check_leaf_sums(torch, ss_mod, gh, leaf_rel, 2 ** depth)
+    max_err = 0.0
+    for d in CHECK_DEPTHS:
+        rel, n = levels[d]
+        max_err = max(max_err, check_hist(torch, hg, f"Higgs depth {d}",
+                                          bins, rel, gh, n, B))
+    rng = np.random.default_rng(9)
+    for name, (r, f, b, n, dt) in {
+            "1024 bins": (200_000, 5, 1024, 4, torch.int32),
+            "512 nodes": (1_000_000, F, B, 512, torch.uint8)}.items():
+        cb = torch.from_numpy(rng.integers(0, b, (r, f)).astype(np.int32))
+        cr = torch.from_numpy(rng.integers(0, n, r).astype(np.int32))
+        cg = torch.from_numpy(rng.standard_normal((r, 2)).astype(np.float32))
+        max_err = max(max_err, check_hist(
+            torch, hg, name, cb.to(dt).to(dev).contiguous(), cr.to(dev),
+            cg.to(dev), n, b))
+
+    # time per launch at each level of the first tree, beside its bound,
+    # the plain version and index_add over the prebuilt flattened keys
+    per_level = []
+    for d, (rel, n) in enumerate(levels):
+        ms, cov = device_ms(
+            torch, lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B), 20)
+        plain_ms, _ = device_ms(
+            torch, lambda: hg.histogram_gh_plain(bins, rel, gh, n, B), 1,
+            warmup=1)
+        keys = ((rel.long()[:, None] * F
+                 + torch.arange(F, device=dev)) * B + bins.long()).reshape(-1)
+        src = gh[:, None, :].expand(rows, F, 2).reshape(-1, 2)
+        zeros = torch.zeros(n * F * B, 2, device=dev)
+        lib_ms, _ = device_ms(
+            torch, lambda: torch.index_add(zeros, 0, keys, src), 3, warmup=1)
+        del keys, src
+        nbytes = rows * F + 4 * rows + 8 * rows + 8 * n * F * B
+        byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * rows * F / F32_OPS_PER_S
+        per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=max(byte_s, op_s) * 1e3,
+                              bound_by="bytes" if byte_s >= op_s
+                              else "operations"))
+        print(f"time [histogram, depth {d}, n={n}]: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, bound "
+              f"{per_level[-1]['bound_ms']:.4f} ms ({nbytes} bytes, "
+              f"{per_level[-1]['bound_by']}); queue covered: {cov}")
+    del gh, levels, leaf_rel
+
+    # the main path: two timed fits of the same forest
+    fits = [fit_timed(torch, hg, ss_mod, model, bins, label)
+            for _ in range(2)]
+    forest = fits[0][0]
+    for f_i, secs, h_l, s_l in fits:
+        print(f"gbdt fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
+              f"row_trees_s; launches: histogram_gh {h_l}, segment_sum "
+              f"{s_l}")
+        check(h_l == trees * depth, f"histogram_gh launched {h_l} times in "
+              f"a fit (want {trees * depth})")
+        check(s_l == trees, f"segment_sum launched {s_l} times in a fit "
+              f"(want {trees}: one leaf sum a tree)")
+        check(all(torch.equal(f_i[k], forest[k]) and
+                  torch.equal(warm[k], forest[k]) for k in forest),
+              "two fits gave different forests")
+    print(f"gbdt: warm-up fit {t_warm:.3f} s; three fits bitwise identical; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    losses = tree_losses(torch, model, forest, bins, label)
+    print("gbdt train logloss after 0/1/5/10/20 trees: " + ", ".join(
+        f"{losses[i]:.6f}" for i in (0, 1, 5, 10, trees)))
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          "train logloss did not fall with every tree")
+    loss_k = float(model.loss(forest, bins, label))
+    check(abs(loss_k - losses[-1]) <= 1e-6, "loss() disagrees with the "
+          "tree-by-tree margins")
+
+    # the same fit on the index_add backend
+    xla = GBDT(num_features=F, device=dev, histogram="xla", **GBDT_KW)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    forest_x = xla.fit(bins, label)
+    torch.cuda.synchronize()
+    t_xla = time.monotonic() - t0
+    loss_x = float(xla.loss(forest_x, bins, label))
+    real = forest["threshold"] < B
+    node_differs = ((forest["feature"] != forest_x["feature"])
+                    | (forest["threshold"] != forest_x["threshold"]))
+    differ = int(node_differs.sum())
+    tree_differs = node_differs.any(dim=1).nonzero()
+    first = int(tree_differs[0]) if tree_differs.numel() else None
+    print(f"gbdt index_add fit: {t_xla:.3f} s wall, "
+          f"{rows * trees / t_xla:.0f} row_trees_s; {differ} of "
+          f"{forest['feature'].numel()} split nodes differ from the kernel "
+          f"fit ({int(real.sum())} real splits there; first differing "
+          f"tree: {first}); train logloss "
+          f"{loss_x:.7f} vs {loss_k:.7f}")
+    check(abs(loss_x - loss_k) <= XLA_LOSS_TOL,
+          f"index_add fit logloss {loss_x} vs kernel fit {loss_k}")
+
+    # every level and split of both fits against float64 on their own
+    # inputs; the kernel fit's must hold, the index_add fit's are read
+    for name, m, f, force in (("kernel", model, forest, "pallas"),
+                              ("index_add", xla, forest_x, "xla")):
+        a = split_audit(torch, hg, m, f, bins, label, force)
+        print(f"gbdt audit [{name} fit, every level of {trees} trees]: "
+              f"histogram vs float64 {a['hist_err']:.3e} of the largest "
+              f"bin; {a['off_best']} of {a['nodes']} splits off the float64 "
+              f"best, {a['beyond']} beyond rounding (worst regret/noise "
+              f"{a['worst']:.2f}); replay mismatches {a['replay']}; |leaf - "
+              f"float64 leaf| {a['leaf_err']:.3e}, leaf/float64 leaf - 1 "
+              f"{a['leaf_scale']:+.3e}")
+        if name == "kernel":
+            check(a["hist_err"] <= HIST_TOL and a["beyond"] == 0
+                  and a["replay"] == 0 and a["leaf_err"] <= LEAF_TOL,
+                  f"kernel fit audit: {a}")
+
+    # predict against a float64 numpy routing of the same forest
+    pb = bins[:PREDICT_ROWS]
+    got = model.predict(forest, pb)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = model.predict(forest, pb)
+    torch.cuda.synchronize()
+    t_pred = time.monotonic() - t0
+    err = float(np.abs(got.cpu().numpy().astype(np.float64) - predict_oracle(
+        forest, pb.cpu().numpy(), depth)).max())
+    print(f"gbdt predict: {PREDICT_ROWS} rows in {t_pred * 1e3:.2f} ms "
+          f"(host clock), max |p - float64 oracle| {err:.3e}")
+    check(err <= 1e-5, f"predict error {err}")
+
+    # where one tree's time goes on the card
+    one = GBDT(num_features=F, device=dev,
+               **{**GBDT_KW, "num_trees": 1})
+    one.fit(bins, label)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        one.fit(bins, label)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    dev_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"profile [one tree, under the profiler]: wall {wall_ms:.2f} ms, "
+          f"device busy {dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%), "
+          f"{len(events)} kernel kinds")
+    if not events:
+        print("  device time: not measured (no CUDA events in the trace)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4} "
+              f"{e.key[:90]}")
+    mean = {k: float(np.mean([lv[k] for lv in per_level]))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"launches": fits[0][2], "max_abs_err": max_err,
+            "bound_by": per_level[0]["bound_by"], **mean,
+            "leaf": {**leaf, "launches": fits[0][3]}}
+
+
+# ---- --label-study: where a kernel fit and an index_add fit part ------------
+
+STUDY_SEEDS = (2014, 2015, 2016)
+
+
+def split_gains(torch, h, lam: float, min_child_weight: float):
+    """[n, F, B] gains of "go right if bin > b" from a [n, F, B, 2]
+    histogram, by GBDT._build_tree's formula (no missing lane), in h's
+    dtype."""
+    gl, hl = torch.cumsum(h[..., 0], 2), torch.cumsum(h[..., 1], 2)
+    gt, ht = gl[:, :, -1:], hl[:, :, -1:]
+    gr, hr = gt - gl, ht - hl
+    g = gl ** 2 / (hl + lam) + gr ** 2 / (hr + lam) - gt ** 2 / (ht + lam)
+    return torch.where((hl >= min_child_weight) & (hr >= min_child_weight),
+                       g, -torch.inf)
+
+
+def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
+    """Every level of every tree of a logistic fit against float64, on the
+    fit's own inputs: the route's f32 histogram against a float64 one
+    (``hist_err``, relative to the level's largest bin); each node's split
+    against the float64 best split.  A node's rounding noise is the largest
+    |f32 gain - float64 gain| over its candidates; a split is within
+    rounding when its float64 regret (best gain minus the chosen one's) is
+    at most twice that noise.  ``replay`` counts nodes where the recomputed
+    f32 gains pick another split than the fit did (0 on a deterministic
+    route); ``leaf_err`` is the largest |leaf - float64 leaf|, and
+    ``leaf_scale`` the mean of leaf / float64 leaf, less 1, over leaves
+    past 1e-3 (above 0: the fit's steps are longer than exact sums give)."""
+    B, F = model.num_bins, bins.shape[1]
+    lam, mcw, lr = model.lambda_, model.min_child_weight, model.learning_rate
+    dev = bins.device
+    fidx = torch.arange(F, device=dev)
+    out = dict(hist_err=0.0, leaf_err=0.0, nodes=0, off_best=0, beyond=0,
+               worst=0.0, replay=0)
+    scale = []
+    for t, (gh, levels, leaf_rel) in enumerate(
+            tree_inputs(torch, model, forest, bins, label)):
+        gh64 = gh.double()
+        for rel, n in levels:
+            h32 = hg.histogram_gh(bins, rel, gh, n, B, force=hist_force)
+            keys = ((rel.long()[:, None] * F + fidx) * B
+                    + bins.long()).reshape(-1)
+            h64 = torch.zeros(n * F * B, 2, dtype=torch.float64, device=dev)
+            h64.index_add_(0, keys, gh64[:, None, :].expand(-1, F, 2)
+                           .reshape(-1, 2))
+            del keys
+            h64 = h64.reshape(n, F, B, 2)
+            out["hist_err"] = max(out["hist_err"], float(
+                (h32.double() - h64).abs().max()
+                / max(1.0, float(h64.abs().max()))))
+            g32 = split_gains(torch, h32, lam, mcw).reshape(n, -1)
+            g64 = split_gains(torch, h64, lam, mcw).reshape(n, -1)
+            both = torch.isfinite(g32) & torch.isfinite(g64)
+            noise = torch.where(both, (g32.double() - g64).abs(),
+                                0.0).amax(1)
+            first = n - 1
+            f = forest["feature"][t, first:first + n].long()
+            b = forest["threshold"][t, first:first + n].long()
+            null = b >= B
+            pick = (f * B + b.clamp(max=B - 1))[:, None]
+            chosen = torch.where(null, 0.0, g64.gather(1, pick)[:, 0])
+            best = g64.amax(1).clamp(min=0.0)
+            regret = best - chosen
+            b32 = torch.argmax(g32, 1)
+            null32 = g32.gather(1, b32[:, None])[:, 0] <= 2.0 * model.gamma
+            out["replay"] += int(((null32 != null) | (~null & (
+                b32 != pick[:, 0]))).sum())
+            out["nodes"] += n
+            out["off_best"] += int((regret > 0).sum())
+            out["beyond"] += int((regret > 2.0 * noise).sum())
+            out["worst"] = max(out["worst"], float(
+                (regret / noise.clamp(min=1e-30)).max()))
+        s = torch.zeros(2 ** model.max_depth, 2, dtype=torch.float64,
+                        device=dev).index_add_(0, leaf_rel.long(), gh64)
+        leaf64 = -lr * s[:, 0] / (s[:, 1] + lam)
+        leaf = forest["leaf"][t].double()
+        out["leaf_err"] = max(out["leaf_err"],
+                              float((leaf - leaf64).abs().max()))
+        big = leaf64.abs() > 1e-3
+        scale.append((leaf[big] / leaf64[big]).cpu())
+    out["leaf_scale"] = float(torch.cat(scale).mean()) - 1.0
+    return out
+
+
+def label_study(torch, dev) -> None:
+    """Four fits per data set, the histogram and the leaf sums each on the
+    kernel or on ``index_add``, for bench.py's XOR label and chip_smoke's
+    threshold label over STUDY_SEEDS: train logloss, how far each differs
+    from the all-kernel fit, and its split audit against float64."""
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.ops import histogram as hg
+
+    class IndexAddLeaves(GBDT):
+        @staticmethod
+        def _leaf_impl(grad):
+            return None
+
+    routes = {"hist kernel, leaves kernel": (GBDT, "pallas"),
+              "hist index_add, leaves kernel": (GBDT, "xla"),
+              "hist kernel, leaves index_add": (IndexAddLeaves, "pallas"),
+              "hist index_add, leaves index_add": (IndexAddLeaves, "xla")}
+    F, B = HIGGS_FEATURES, GBDT_KW["num_bins"]
+    for name in ("xor", "steps"):
+        for seed in STUDY_SEEDS:
+            x, y = higgs_like(HIGGS_ROWS, seed, name)
+            binner = QuantileBinner(num_bins=B, device=dev).fit(
+                x[:BINNER_SAMPLE])
+            bins = binner.transform(torch.from_numpy(x).to(dev))
+            label = torch.from_numpy(y).to(dev)
+            del x
+            print(f"study [{name}, seed {seed}]: {y.mean():.4f} positive")
+            ref = None
+            for route, (cls, hist) in routes.items():
+                model = cls(num_features=F, device=dev, histogram=hist,
+                            **GBDT_KW)
+                forest = model.fit(bins, label)
+                loss = float(model.loss(forest, bins, label))
+                a = split_audit(torch, hg, model, forest, bins, label, hist)
+                if ref is None:
+                    ref = (forest, loss)
+                differs = ((forest["feature"] != ref[0]["feature"])
+                           | (forest["threshold"] != ref[0]["threshold"]))
+                trees = differs.any(dim=1).nonzero()
+                first = int(trees[0]) if trees.numel() else None
+                print(f"  {route}: train logloss {loss:.7f} "
+                      f"({loss - ref[1]:+.3e} vs the first route; "
+                      f"{int(differs.sum())} split nodes differ, first in "
+                      f"tree {first}); audit: hist err {a['hist_err']:.2e}, "
+                      f"leaf err {a['leaf_err']:.2e} (leaf/float64 leaf - 1:"
+                      f" {a['leaf_scale']:+.2e}), {a['off_best']} of "
+                      f"{a['nodes']} splits off the float64 best, "
+                      f"{a['beyond']} beyond rounding (worst regret/noise "
+                      f"{a['worst']:.2f}), replay mismatches {a['replay']}")
+            del bins, label
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -358,25 +891,48 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; nvcc: {nvcc}")
     phase_builds(_native, _build)
+    if "--label-study" in argv:
+        label_study(torch, torch.device("cuda"))
+        return 0
 
     params_a, params_b = fm_params(1), fm_params(2)
     kern = phase_kernel(torch, ss_mod, params_a, torch.device("cuda"))
     served = phase_serving(torch, ss_mod, params_a, params_b, "cuda")
     phase_profile(torch, params_a)
+    gbdt = phase_gbdt(torch, ss_mod, torch.device("cuda"))
 
-    t = kern["timings"][NUM_FACTORS]
-    print(json.dumps({"kernels": [{
+    t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
+    segment_sum = {
         "name": "segment_sum",
         "route": "cuda",
         "source": "dmlc_core_tpu_torch/ops/csrc/segment_sum.cu",
         "replaces": "dmlc_core_tpu/ops/pallas_segment.py:67",
+    }
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{
+        **segment_sum,
+        "shape": "served FM micro-batch, L=16",
         "launches": served["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
+        **{k: t[k] for k in keys},
+    }, {
+        **segment_sum,
+        "shape": "GBDT leaf sums, 11M rows x L=2 into 64 leaves",
+        "launches": leaf["launches"],
+        "max_abs_err": leaf["max_abs_err"],
+        **{k: leaf[k] for k in keys},
+    }, {
+        "name": "histogram_gh",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh.cu",
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:168",
+        "launches": gbdt["launches"],
+        "max_abs_err": gbdt["max_abs_err"],
+        "ms": gbdt["ms"],
+        "plain_ms": gbdt["plain_ms"],
+        "bound_ms": gbdt["bound_ms"],
+        "bound_by": gbdt["bound_by"],
+        "library_ms": gbdt["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -386,4 +942,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -22,12 +22,40 @@ def logistic_nll(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
             + torch.log1p(torch.exp(-torch.abs(margin))))
 
 
+#: a GBDT forest's arrays and their dtypes (``GBDT.init()``'s keys)
+FOREST_DTYPES = {"feature": np.int32, "threshold": np.int32,
+                 "default_right": np.int32, "split_gain": np.float32,
+                 "split_cover": np.float32, "leaf": np.float32,
+                 "base": np.float32, "trees_used": np.int32}
+FOREST_REQUIRED = ("feature", "threshold", "leaf", "base")
+
+
+def forest_from_numpy(forest_np: dict, device) -> dict:
+    """The JAX package's GBDT forest as numpy arrays -> the port's forest
+    dict on ``device``, each array copied in its own dtype (int32 node
+    arrays and ``trees_used``, f32 gains, leaves and base; a 0-d ``base``
+    stays 0-d, a softmax ``base`` stays [K]).  Forests saved before
+    ``default_right``, ``split_gain``/``split_cover`` or ``trees_used``
+    existed load without them."""
+    dev = resolve_device(device)
+    unknown = sorted(set(forest_np) - set(FOREST_DTYPES))
+    missing = [k for k in FOREST_REQUIRED if k not in forest_np]
+    if unknown or missing:
+        raise ValueError(f"params of family 'gbdt' (a forest): unknown "
+                         f"keys {unknown}, missing keys {missing}")
+    return {k: torch.tensor(np.asarray(v, FOREST_DTYPES[k]), device=dev)
+            for k, v in forest_np.items()}
+
+
 def params_from_numpy(family: str, params_np: dict,
                       device) -> dict:
     """The JAX package's flat param dict as numpy arrays (``{"w": [F],
     "b": []}`` for linear, plus ``"v": [F, K]`` for fm) -> the port's
     module state on ``device``, ready for ``load_state_dict``.  The arrays
-    are copied; a 0-d ``b`` stays 0-d."""
+    are copied; a 0-d ``b`` stays 0-d.  ``"gbdt"`` is a forest, and goes
+    to :func:`forest_from_numpy`."""
+    if family == "gbdt":
+        return forest_from_numpy(params_np, device)
     if family not in PARAM_KEYS:
         raise ValueError(f"no torch model for family '{family}'")
     want = PARAM_KEYS[family]

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``build/torch_kernels/``, then loaded with ctypes.  The library's file
 name carries a hash of the source and flags, so an edited source is never
-served by a stale build.  Builds run under a file lock, so two threads or
-processes never compile the same kernel at once.  Nothing is built at
+served by a stale build.  Each kernel builds under its own file lock, so
+two threads or processes never compile the same kernel at once, while
+different kernels compile side by side.  Nothing is built at
 import time: the first launch (or an explicit :func:`build`) does it.
 """
 from __future__ import annotations
@@ -51,7 +52,7 @@ def build(name: str) -> Path:
     memory, spills from ``-Xptxas -v``) is kept beside it as ``.log``."""
     so = _target(name)
     _OUT.mkdir(parents=True, exist_ok=True)
-    with open(_OUT / ".build_lock", "w") as lock:
+    with open(_OUT / f".{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if so.exists():
             return so

@@ -3,12 +3,19 @@
 // Replaces the Pallas TPU kernel `_seg_kernel` (dmlc_core_tpu/ops/pallas_segment.py,
 // launched from `_segment_sum_pallas`), which computes the same reduction as a
 // tiled one-hot contraction on the MXU.  Contract kept from it:
-//   * f32 inputs, f32 accumulation, no TF32 anywhere (plain FADDs);
+//   * f32 inputs, f32 accumulation, no TF32 anywhere;
 //   * row ids may be unsorted; ids outside [0, num_segments) are dropped;
 //   * any lane count L >= 1;
 //   * bitwise the same result from run to run: no float atomics.  Every
 //     output is summed by one thread in entry order, and the per-chunk
 //     partials are folded by a second kernel in chunk order.
+//   * close to the exact sum however long a chunk is.  A chunk can hold
+//     ~172k entries (a GBDT's leaf sums: 11M rows into 64 leaves), and one
+//     running f32 sum that long drifted 1.6e-4 relative from the exact
+//     one; the TPU kernel's blocked contraction does not.  So each stage
+//     of 256 entries is summed apart, and the stage sums are added
+//     compensated (Kahan): the low bits one add rounds off are carried
+//     into the next.  The fold adds the chunk partials the same way.
 //
 // Design (simple first).  Block x owns 256 consecutive (row, lane) outputs of
 // the flattened [R * L] result, one per thread; block y owns one contiguous
@@ -31,8 +38,19 @@
 
 namespace {
 
+// acc += x, compensated: comp holds what earlier adds rounded off.  The
+// _rn intrinsics keep nvcc from contracting the compensation into FMAs.
+// Once acc is Inf or NaN the compensation is dropped, so an Inf entry
+// leaves its row Inf, as a plain sum does.
+__device__ __forceinline__ void kahan_add(float& acc, float& comp, float x) {
+  const float y = __fsub_rn(x, comp);
+  const float t = __fadd_rn(acc, y);
+  comp = isfinite(t) ? __fsub_rn(__fsub_rn(t, acc), y) : 0.0f;
+  acc = t;
+}
+
 constexpr int kThreads = 256;  // outputs per block, one per thread
-constexpr int kStage = 1024;   // row ids staged in shared memory per step
+constexpr int kStage = 256;    // row ids staged in shared memory per step
 
 __global__ void __launch_bounds__(kThreads)
 seg_partial(const float* __restrict__ contrib, const int* __restrict__ row_id,
@@ -48,15 +66,17 @@ seg_partial(const float* __restrict__ contrib, const int* __restrict__ row_id,
   const int lane = live ? static_cast<int>(o % lanes) : 0;
   const int64_t k0 = static_cast<int64_t>(blockIdx.y) * chunk;
   const int64_t k1 = k0 + chunk < nnz ? k0 + chunk : nnz;
-  float acc = 0.0f;
+  float acc = 0.0f, comp = 0.0f;
   for (int64_t base = k0; base < k1; base += kStage) {
     const int n = k1 - base < kStage ? static_cast<int>(k1 - base) : kStage;
     __syncthreads();  // the previous stage is fully consumed
     for (int i = threadIdx.x; i < n; i += kThreads) s_rid[i] = row_id[base + i];
     __syncthreads();
+    float part = 0.0f;
     for (int i = 0; i < n; ++i) {
-      if (s_rid[i] == row) acc += contrib[(base + i) * lanes + lane];
+      if (s_rid[i] == row) part += contrib[(base + i) * lanes + lane];
     }
+    kahan_add(acc, comp, part);
   }
   if (live) dst[static_cast<int64_t>(blockIdx.y) * n_out + o] = acc;
 }
@@ -66,8 +86,9 @@ seg_fold(const float* __restrict__ partials, float* __restrict__ out,
          int64_t n_out, int n_chunks) {
   const int64_t o = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (o >= n_out) return;
-  float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) s += partials[c * n_out + o];
+  float s = 0.0f, comp = 0.0f;
+  for (int c = 0; c < n_chunks; ++c)
+    kahan_add(s, comp, partials[c * n_out + o]);
   out[o] = s;
 }
 

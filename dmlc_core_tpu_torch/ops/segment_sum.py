@@ -48,14 +48,18 @@ def _out_shape(contrib: torch.Tensor, num_segments: int) -> tuple:
 # ---- the plain version ------------------------------------------------------
 
 _PLAIN_STEP = 4096  # entries per one-hot block (bounds its memory)
+_PLAIN_GROUP = 64   # blocks summed apart before they join the total
 
 
 def segment_sum_plain(contrib: torch.Tensor, row_id: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the one-hot contraction the
     TPU kernel computes, ``out += onehot(row_id) @ contrib`` over blocks of
-    entries, accumulated in f32 and cast back to contrib's dtype.  Used on
-    CPU tensors and as the reference the kernel is held to on the card."""
+    entries, accumulated in f32 and cast back to contrib's dtype.  The
+    block products are summed in groups of ``_PLAIN_GROUP`` before they
+    join the total, so at 11M entries an output takes ~100 rounded adds
+    and not ~2,700.  Used on CPU tensors and as the reference the kernel
+    is held to on the card."""
     nnz = contrib.shape[0]
     lanes = 1 if contrib.dim() == 1 else contrib.shape[1]
     c = contrib.reshape(nnz, lanes).to(torch.float32)
@@ -63,14 +67,19 @@ def segment_sum_plain(contrib: torch.Tensor, row_id: torch.Tensor,
     rows = torch.arange(num_segments, device=contrib.device)
     out = torch.zeros(num_segments, c.shape[1], dtype=torch.float32,
                       device=contrib.device)
+    group = torch.zeros_like(out)
     # the f32 contract: a TF32 product would keep ~3 decimal digits
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for k0 in range(0, nnz, _PLAIN_STEP):
+        for i, k0 in enumerate(range(0, nnz, _PLAIN_STEP)):
             k1 = k0 + _PLAIN_STEP
             onehot = (rows[:, None] == rid[None, k0:k1]).to(torch.float32)
-            out += onehot @ c[k0:k1]
+            group += onehot @ c[k0:k1]
+            if (i + 1) % _PLAIN_GROUP == 0:
+                out += group
+                group.zero_()
+        out += group
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return out.reshape(_out_shape(contrib, num_segments)).to(contrib.dtype)

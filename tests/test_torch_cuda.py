@@ -5,7 +5,7 @@ conftest::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernel is held to its plain PyTorch version on the same inputs at
+Each kernel is held to its plain PyTorch version on the same inputs at
 atol = rtol = 1e-5 (f32 sums in another order), and to itself bit for bit
 from launch to launch.
 """
@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+from dmlc_core_tpu_torch.ops import histogram as hg
 from dmlc_core_tpu_torch.ops import segment_sum as ss
 from dmlc_core_tpu_torch.serving import (ScoringEngine, ScoringIterator,
                                          pack_snapshot)
@@ -62,6 +64,24 @@ def test_kernel_matches_plain_and_is_bitwise_stable(cuda, name):
     assert a.dtype == torch.float32 and a.device.type == "cuda"
     assert torch.equal(a, b)
     torch.testing.assert_close(a, ss.segment_sum_plain(c, rid, rows), **TOL)
+
+
+def test_kernel_long_chunks_stay_within_rounding_of_float64(cuda):
+    """A GBDT's leaf sums: millions of unsorted (grad, hess) rows into a few
+    segments, ~60k entries a chunk.  The kernel's compensated sums stay
+    within 1e-6 of the float64 sums, relative to the largest; a plain
+    running f32 sum that long drifts ~1e-4."""
+    rng = np.random.default_rng(8)
+    n = 4_000_000
+    rid = rng.integers(0, 4, n).astype(np.int32)
+    gh = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(0.2, 0.25, n)],
+                  1).astype(np.float32)
+    got = ss.segment_sum_kernel(torch.from_numpy(gh).to(cuda),
+                                torch.from_numpy(rid).to(cuda), 4)
+    want = np.stack([np.bincount(rid, weights=gh[:, lane].astype(np.float64),
+                                 minlength=4) for lane in (0, 1)], 1)
+    err = np.abs(got.cpu().numpy() - want).max()
+    assert err <= 1e-6 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32])
@@ -147,3 +167,115 @@ def test_pinned_arena_reuse_keeps_earlier_batch_intact(cuda):
     np.testing.assert_array_equal(a.value.cpu().numpy()[:3], [1.0, 2.0, 3.0])
     np.testing.assert_array_equal(b.value.cpu().numpy()[:3], [4.0, 5.0, 6.0])
     np.testing.assert_array_equal(a.row_ptr.cpu().numpy(), [0, 2, 3])
+
+
+# ---- the histogram kernel ----------------------------------------------------
+
+# (rows, F, num_bins, n_nodes): tests/test_pallas.py's shapes, then the
+# node cap of GBDT's "auto" route, the widest bins of the op's surface, a
+# Higgs-width level and an empty level
+HIST_CASES = [(200, 3, 8, 1), (777, 5, 16, 4), (64, 2, 4, 8),
+              (130, 2, 128, 8), (300, 3, 1024, 4), (120, 2, 2048, 2),
+              (100, 5, 600, 3), (90, 4, 2, 2), (150, 9, 3, 5),
+              (20000, 28, 256, 512), (5000, 3, 2048, 3),
+              (100000, 28, 256, 32), (0, 4, 16, 2)]
+
+
+def _hist_case(rows, F, B, n, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    bins = torch.from_numpy(rng.integers(0, B, (rows, F)).astype(np.int32))
+    rel = torch.from_numpy(rng.integers(0, n, rows).astype(np.int32))
+    gh = torch.from_numpy(rng.standard_normal((rows, 2)).astype(np.float32))
+    return bins.to(dtype).to(device), rel.to(device), gh.to(device)
+
+
+# int32 codes everywhere, uint8 codes (as GBDT stores them) up to 256 bins
+HIST_KERNEL_CASES = ([(s, torch.int32) for s in HIST_CASES]
+                     + [(s, torch.uint8) for s in HIST_CASES if s[2] <= 256])
+
+
+@pytest.mark.parametrize("shape,dtype", HIST_KERNEL_CASES, ids=str)
+def test_histogram_kernel_matches_plain_and_is_bitwise_stable(cuda, shape,
+                                                              dtype):
+    rows, F, B, n = shape
+    bins, rel, gh = _hist_case(rows, F, B, n, dtype, cuda)
+    before = hg.histogram_gh_kernel.launches
+    a = hg.histogram_gh_kernel(bins, rel, gh, n, B)
+    b = hg.histogram_gh_kernel(bins, rel, gh, n, B)
+    torch.cuda.synchronize()
+    assert hg.histogram_gh_kernel.launches == before + 2
+    assert a.shape == (n, F, B, 2) and a.dtype == torch.float32
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, hg.histogram_gh_plain(bins, rel, gh, n, B),
+                               **TOL)
+
+
+def test_histogram_kernel_drops_out_of_range_rows(cuda):
+    bins, rel, gh = _hist_case(3000, 4, 16, 4, torch.int32, cuda, seed=5)
+    rel[::7] = 9       # node ids past n_nodes
+    rel[3::11] = -1
+    bins[5::13, 1] = 16  # codes past num_bins
+    got = hg.histogram_gh_kernel(bins, rel, gh, 4, 16)
+    torch.testing.assert_close(got, hg.histogram_gh_plain(bins, rel, gh, 4,
+                                                          16), **TOL)
+
+
+def test_histogram_kernel_rejects_what_it_does_not_take(cuda):
+    bins, rel, gh = _hist_case(64, 3, 8, 2, torch.uint8, cuda)
+    with pytest.raises(TypeError):
+        hg.histogram_gh_kernel(bins.long(), rel, gh, 2, 8)
+    with pytest.raises(TypeError):
+        hg.histogram_gh_kernel(bins, rel, gh.double(), 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        hg.histogram_gh_kernel(bins.t().contiguous().t(), rel, gh, 2, 8)
+    with pytest.raises(ValueError):
+        hg.histogram_gh_kernel(bins, rel.cpu(), gh, 2, 8)
+    with pytest.raises(ValueError):
+        hg.histogram_gh_kernel(bins, rel[:10], gh, 2, 8)
+
+
+def test_gbdt_forest_on_kernel_equals_forest_on_plain(cuda):
+    """The same fit on the card (histograms on the kernel, leaf sums on the
+    segment-sum kernel) and on the CPU (their plain versions): equal splits,
+    one histogram launch per level, bitwise the same forest twice on the
+    card.  Leaves, gains and covers within atol = rtol = 1e-5: a leaf is
+    -G/(H+lambda) over signed gradients that partly cancel, summed in
+    another order on each device, tree after tree."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((4000, 6)).astype(np.float32)
+    y = (x[:, 0] * x[:, 1] + 0.5 * x[:, 2] > 0).astype(np.float32)
+    kw = dict(num_features=6, num_trees=4, max_depth=4, num_bins=32,
+              learning_rate=0.5, histogram="pallas")
+    forests = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        bins = QuantileBinner(num_bins=32, device=dev).fit_transform(x)
+        before = hg.histogram_gh_kernel.launches
+        forests.append(GBDT(device=dev, **kw).fit(bins, y))
+        launched = hg.histogram_gh_kernel.launches - before
+        assert launched == (4 * 4 if dev.type == "cuda" else 0)
+    for k in forests[0]:
+        assert torch.equal(forests[0][k], forests[1][k]), k
+    gpu, cpu = ({k: v.cpu() for k, v in f.items()} for f in forests[1:])
+    for k in ("feature", "threshold", "default_right", "trees_used"):
+        assert torch.equal(gpu[k], cpu[k]), k
+    for k in ("leaf", "split_gain", "split_cover", "base"):
+        torch.testing.assert_close(gpu[k], cpu[k], **TOL)
+
+
+@pytest.mark.parametrize("histogram", ["pallas", "xla"])
+def test_gbdt_leaf_sums_run_on_the_kernel_for_either_histogram(cuda,
+                                                              histogram):
+    """``histogram=`` picks only the level histogram: on the card every
+    tree's leaf sums launch the segment-sum kernel once, and the histogram
+    kernel launches once a level only on the "pallas" route."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3000, 5)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float32)
+    bins = QuantileBinner(num_bins=16, device=cuda).fit_transform(x)
+    seg0 = ss.segment_sum_kernel.launches
+    hist0 = hg.histogram_gh_kernel.launches
+    GBDT(num_features=5, num_trees=3, max_depth=3, num_bins=16, device=cuda,
+         histogram=histogram).fit(bins, y)
+    assert ss.segment_sum_kernel.launches - seg0 == 3
+    assert (hg.histogram_gh_kernel.launches - hist0
+            == (3 * 3 if histogram == "pallas" else 0))

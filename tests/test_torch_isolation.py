@@ -39,8 +39,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def _entry_points():
-    from dmlc_core_tpu_torch.models import (FactorizationMachine,
-                                            SparseLinearModel)
+    from dmlc_core_tpu_torch.models import (GBDT, FactorizationMachine,
+                                            QuantileBinner, SparseLinearModel)
     from dmlc_core_tpu_torch.serving import (MicroBatchQueue, ScoringEngine,
                                              ScoringIterator, ScoringServer,
                                              pack_snapshot)
@@ -53,12 +53,16 @@ def _entry_points():
         "ScoringIterator": lambda: ScoringIterator(),
         "MicroBatchQueue": lambda: MicroBatchQueue(lambda: None),
         "ScoringServer": lambda: ScoringServer(),
+        "GBDT": lambda: GBDT(num_features=4),
+        "QuantileBinner.transform": lambda: QuantileBinner(num_bins=4).fit(
+            [[0.0], [1.0], [2.0], [3.0]]).transform([[1.5]]),
     }
 
 
 @pytest.mark.parametrize("name", ["SparseLinearModel", "FactorizationMachine",
                                   "ScoringEngine", "ScoringIterator",
-                                  "MicroBatchQueue", "ScoringServer"])
+                                  "MicroBatchQueue", "ScoringServer", "GBDT",
+                                  "QuantileBinner.transform"])
 def test_default_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
