@@ -12,11 +12,15 @@ factors, 39 nonzeros a row) over HTTP through the port's ``ScoringServer``
 and checks every score against a float64 numpy oracle, then trains a
 Higgs-width histogram GBDT (11M rows x 28 features, 256 bins, 20 trees of
 depth 6) through ``GBDT.fit`` and checks its histograms, forests and
-predictions against float64 oracles.  Any failed check raises and the
-script exits non-zero.  The last two lines of its output are the card's
-name and power limit, and one JSON object with ``"ok": true``; the line
-before them is the per-kernel JSON (times, bound, launches on each main
-path, error against the plain version).  It imports nothing of JAX.
+predictions against float64 oracles, then trains a Bosch-width sparse GBDT
+(1,183,747 rows x 968 features, ~19% present) on a CSR batch through
+``GBDT.fit_batch``, audits it against float64, cross-checks it against a
+dense fit of the densified data, and serves it from a snapshot through
+``ScoringServer``.  Any failed check raises and the script exits non-zero.
+The last two lines of its output are the card's name and power limit, and
+one JSON object with ``"ok": true``; the line before them is the
+per-kernel JSON (times, bound, launches on each main path, error against
+the plain version).  It imports nothing of JAX.
 
     python3 chip_smoke.py --label-study
 
@@ -67,7 +71,7 @@ def run_text(cmd) -> str:
 
 # ---- phase 1: the card and the builds ---------------------------------------
 
-KERNELS = ("segment_sum", "histogram_gh")
+KERNELS = ("segment_sum", "histogram_gh", "histogram_gh_sparse")
 
 
 def phase_builds(native, build):
@@ -456,17 +460,19 @@ def check_hist(torch, hg, name, bins, rel, gh, n, B) -> float:
     return err_p
 
 
-def check_leaf_sums(torch, ss_mod, gh, leaf_rel, n_leaves) -> dict:
-    """The segment-sum kernel at the GBDT's leaf-sum shape (every row's
-    (grad, hess) into its leaf), on a fit's own inputs: against its plain
-    version and a float64 ``bincount`` oracle, two launches bitwise equal,
-    and its time beside the plain version, ``index_add`` and its bound."""
+def check_leaf_sums(torch, ss_mod, gh, leaf_rel, n_leaves,
+                    what: str = "leaf sums") -> dict:
+    """The segment-sum kernel at a GBDT's leaf-sum (or node-total) shape
+    (every row's (grad, hess) into its leaf or node), on a fit's own inputs:
+    against its plain version and a float64 ``bincount`` oracle, two
+    launches bitwise equal, and its time beside the plain version,
+    ``index_add`` and its bound."""
     kernel, plain = ss_mod.segment_sum_kernel, ss_mod.segment_sum_plain
     a = kernel(gh, leaf_rel, n_leaves)
     b = kernel(gh, leaf_rel, n_leaves)
     want = plain(gh, leaf_rel, n_leaves)
     torch.cuda.synchronize()
-    check(torch.equal(a, b), "leaf sums: two launches differ")
+    check(torch.equal(a, b), f"{what}: two launches differ")
     rel, g = leaf_rel.cpu().numpy(), gh.cpu().numpy().astype(np.float64)
     oracle = np.stack([np.bincount(rel, weights=g[:, lane],
                                    minlength=n_leaves) for lane in (0, 1)], 1)
@@ -485,14 +491,14 @@ def check_leaf_sums(torch, ss_mod, gh, leaf_rel, n_leaves) -> dict:
     nbytes = 4 * (2 * nnz + nnz + 2 * n_leaves)
     byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
     bound_ms = max(byte_s, op_s) * 1e3
-    print(f"leaf sums [segment_sum, first tree] nnz={nnz} L=2 "
+    print(f"{what} [segment_sum, first tree] nnz={nnz} L=2 "
           f"segments={n_leaves}: |kernel-plain| {err_p:.3e}, |kernel-oracle| "
           f"{err_o:.3e}, |plain-oracle| {err_po:.3e}, tol {tol:.3e}; two "
           f"launches bitwise equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, index_add {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({nbytes} "
           f"bytes); queue covered: {cov}")
     check(err_o <= tol and err_p <= tol and err_po <= tol,
-          f"leaf sums: error past {tol}")
+          f"{what}: error past {tol}")
     return dict(max_abs_err=err_p, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by="bytes" if byte_s >= op_s else "operations")
@@ -738,6 +744,579 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
             "leaf": {**leaf, "launches": fits[0][3]}}
 
 
+# ---- phase 6: the sparse GBDT (fit_batch) at Bosch width ---------------------
+
+# Kaggle Bosch Production Line Performance, train_numeric: 1,183,747 rows x
+# 968 numeric features, ~81% of cells missing, values to 3 decimals (the
+# sparse set of XGBoost's GPU-hist benchmarks, Mitchell et al. 2018).  Made
+# here on the card from a torch.Generator seed: 52 "stations" of ~19
+# features present or absent together per row; same model as the Higgs fit,
+# missing-aware
+BOSCH_ROWS, BOSCH_FEATURES, BOSCH_STATIONS = 1_183_747, 968, 52
+BOSCH_DENSITY = 0.19  # train_numeric's share of cells present
+BOSCH_SKETCH_ROWS = 50_000
+BOSCH_CHUNK = 131_072  # rows generated (and densified) at a time
+SPARSE_REQUEST_ROWS = (1, 7, 64)
+
+
+def bosch_like(torch, dev, seed: int = 2016) -> dict:
+    """A Bosch-width CSR batch on the card.  Station s is present in a row
+    with probability p_s (drawn in [0.02, 0.36], then scaled so that the
+    expected share of cells present is ``BOSCH_DENSITY``), and then all of
+    its features are; a value is N(0, scale_f^2) rounded to 3 decimals (a
+    rounded 0 becomes 0.001, since a stored 0 reads as missing).  Label: a
+    Bernoulli draw from a logistic model over the presence and the values
+    of one feature of each of the six most present stations, so that
+    missingness, thresholds and default directions all carry signal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R, F, S = BOSCH_ROWS, BOSCH_FEATURES, BOSCH_STATIONS
+    station = torch.as_tensor(np.repeat(np.arange(S), [
+        len(c) for c in np.array_split(np.arange(F), S)]), device=dev)
+    p = 0.02 + 0.34 * torch.rand(S, generator=g, device=dev)
+    p *= BOSCH_DENSITY * F / float(p[station].sum())
+    scale = 0.05 + 0.45 * torch.rand(F, generator=g, device=dev)
+    lab = [int((station == s).nonzero()[0])
+           for s in torch.argsort(p, descending=True)[:6]]
+    counts, index, value = [], [], []
+    cols = [[] for _ in lab]
+    for r0 in range(0, R, BOSCH_CHUNK):
+        n = min(BOSCH_CHUNK, R - r0)
+        present = (torch.rand(n, S, generator=g, device=dev) < p)[:, station]
+        counts.append(present.sum(1))
+        r, f = present.nonzero(as_tuple=True)
+        v = torch.round(torch.randn(r.numel(), generator=g, device=dev)
+                        * scale[f] * 1000) / 1000
+        v = torch.where(v == 0, 0.001, v)
+        index.append(f.to(torch.int32))
+        value.append(v)
+        for col, fx in zip(cols, lab):
+            c = torch.full((n,), torch.nan, device=dev)
+            c[r[f == fx]] = v[f == fx]
+            col.append(c)
+    x = [torch.cat(c) / scale[fx] for c, fx in zip(cols, lab)]
+    miss = [torch.isnan(c) for c in x]
+    m = (1.2 * miss[0] + 1.5 * (x[0] > 0.5) - 1.0 * ~miss[1]
+         + 0.8 * (x[2] > 0) - 0.9 * (x[3] < -0.5) + 0.7 * (miss[4] & ~miss[5])
+         + 0.6 * (x[5] > 1.0) - 0.8)
+    y = torch.rand(R, generator=g, device=dev) < torch.sigmoid(2 * m)
+    row_ptr = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    row_ptr[1:] = torch.cumsum(torch.cat(counts), 0)
+    return dict(label=y.to(torch.float32), row_ptr=row_ptr,
+                index=torch.cat(index), value=torch.cat(value))
+
+
+def sparse_tree_inputs(torch, model, forest, ent, label):
+    """Yield, tree by tree, what a logistic fit with unit weights gave its
+    sparse tree builder: gh_row [rows, 2], (rel, n_nodes) at every depth
+    and each row's leaf, routed by sparse routing through the fitted forest
+    (the dense missing-aware route sends every row the same way), margins
+    added tree by tree as the fit adds them."""
+    rows = label.shape[0]
+    rid, fi, ebin, emask = ent[:4]
+    margin = forest["base"].expand(rows).clone()
+    for t in range(model.num_trees):
+        g, h = model._grad_hess(margin, label)
+        gh = torch.stack([g, h], dim=-1).contiguous()
+        feat, thr = forest["feature"][t], forest["threshold"][t]
+        dflt = forest["default_right"][t]
+        node = torch.zeros(rows, dtype=torch.int64, device=label.device)
+        levels = []
+        for d in range(model.max_depth):
+            levels.append(((node - (2 ** d - 1)).to(torch.int32)
+                           .contiguous(), 2 ** d))
+            right = model._route_sparse(fi, ebin, emask, rid, feat[node],
+                                        thr[node], dflt[node], rows)
+            node = 2 * node + 1 + right.to(torch.int64)
+        leaf_rel = node - (2 ** model.max_depth - 1)
+        yield gh, levels, leaf_rel.to(torch.int32).contiguous()
+        margin = margin + forest["leaf"][t][leaf_rel]
+
+
+def sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B):
+    """float64 [n, F, B, 2] histogram of the layout's entries by
+    ``index_add``."""
+    gk = layout.gkey.long()
+    keys = (rel_e.long() * F + gk // layout.nb) * B + gk % layout.nb
+    out = torch.zeros(n * F * B, 2, dtype=torch.float64, device=gh_e.device)
+    out.index_add_(0, keys, gh_e.double())
+    return out.reshape(n, F, B, 2)
+
+
+def check_sparse_hist(torch, hs, name, gkey, rel_e, gh_e, starts, n, F, B,
+                      oracle) -> tuple:
+    """Kernel vs plain vs the float64 oracle, two launches bitwise equal,
+    bin 0 exactly 0.  Returns (max |kernel - plain|, the plain result)."""
+    a = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, n, F, B)
+    b = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, n, F, B)
+    plain = hs.histogram_gh_sparse_plain(gkey, rel_e, gh_e, starts, n, F, B)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"sparse histogram {name}: two launches differ")
+    tol = HIST_TOL * max(1.0, float(oracle.abs().max()))
+    err_o = float((a.double() - oracle).abs().max())
+    err_po = float((plain.double() - oracle).abs().max())
+    err_p = float((a - plain).abs().max())
+    print(f"sparse histogram [{name}] nnz={gkey.shape[0]} F={F} B={B} n={n}:"
+          f" |kernel-plain| {err_p:.3e}, |kernel-oracle| {err_o:.3e}, "
+          f"|plain-oracle| {err_po:.3e}, tol {tol:.3e}; two launches bitwise"
+          " equal")
+    check(err_o <= tol and err_p <= tol and err_po <= tol,
+          f"sparse histogram {name}: error past {tol}")
+    return err_p, plain
+
+
+def missing_aware_gains(torch, present, node, lam, mcw):
+    """[n, F, B, 2] gains of the sparse split finder (dir 0: missing mass
+    left, dir 1: right) from a present-entry histogram and node totals."""
+    gl = torch.cumsum(present, 2)
+    miss = node[:, None, :] - present.sum(2)
+    gt, ht = node[:, 0][:, None, None], node[:, 1][:, None, None]
+
+    def gain(gl_, hl_):
+        gr, hr = gt - gl_, ht - hl_
+        g = gl_ ** 2 / (hl_ + lam) + gr ** 2 / (hr + lam) - gt ** 2 / (ht + lam)
+        return torch.where((hl_ >= mcw) & (hr >= mcw), g, -torch.inf)
+
+    return torch.stack([gain(gl[..., 0] + miss[:, :, None, 0],
+                             gl[..., 1] + miss[:, :, None, 1]),
+                        gain(gl[..., 0], gl[..., 1])], dim=3)
+
+
+def dense_missing_gains(torch, h, lam, mcw):
+    """[n, F, B, 2] gains of ``GBDT._build_tree``'s missing-aware split
+    finder from a dense histogram whose bin 0 holds the missing mass."""
+    gl, hl = torch.cumsum(h[..., 0], 2), torch.cumsum(h[..., 1], 2)
+    gt, ht = gl[:, :, -1:], hl[:, :, -1:]
+
+    def gain(gl_, hl_):
+        gr, hr = gt - gl_, ht - hl_
+        g = gl_ ** 2 / (hl_ + lam) + gr ** 2 / (hr + lam) - gt ** 2 / (ht + lam)
+        return torch.where((hl_ >= mcw) & (hr >= mcw), g, -torch.inf)
+
+    return torch.stack([gain(gl, hl), gain(gl - h[:, :, 0:1, 0],
+                                           hl - h[:, :, 0:1, 1])], dim=3)
+
+
+def sparse_split_audit(torch, model, forest, ent, layout, label,
+                       dense_bins=None) -> dict:
+    """``split_audit`` for a missing-aware fit of the Bosch batch: every
+    level of every tree against float64 on the fit's own inputs.  The f32
+    side is the sparse kernel's histogram and the segment-sum kernel's node
+    totals (``dense_bins`` None: the fit_batch route, replayed through
+    ``GBDT._level_splits_from_hist``), or the dense kernel's histogram of
+    ``dense_bins`` (the ``fit`` route).  The float64 side is the same for
+    both: present-entry sums and node totals by ``index_add``, missing mass
+    as their difference.  A split is within rounding when its float64
+    regret is at most twice the node's largest |f32 - float64| gain."""
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.segment_sum import segment_sum
+    B, F = model.num_bins, model.num_features
+    lam, mcw, lr = model.lambda_, model.min_child_weight, model.learning_rate
+    rid_l = layout.rid.long()
+    out = dict(hist_err=0.0, leaf_err=0.0, nodes=0, off_best=0, beyond=0,
+               worst=0.0, replay=0)
+    scale = []
+    for t, (gh, levels, leaf_rel) in enumerate(
+            sparse_tree_inputs(torch, model, forest, ent, label)):
+        gh_e = gh[rid_l].contiguous()
+        gh64 = gh.double()
+        for rel, n in levels:
+            rel_e = rel[rid_l].contiguous()
+            h64 = sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B)
+            node64 = torch.zeros(n, 2, dtype=torch.float64,
+                                 device=gh.device).index_add_(
+                0, rel.long(), gh64)
+            big = max(1.0, float(h64.abs().max()))
+            first = n - 1
+            f = forest["feature"][t, first:first + n].long()
+            b = forest["threshold"][t, first:first + n].long()
+            d = forest["default_right"][t, first:first + n].long()
+            if dense_bins is None:
+                h32 = hs.histogram_gh_sparse_kernel(
+                    layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
+                    layout=layout)
+                node32 = segment_sum(gh, rel, n, force="pallas")
+                g32 = missing_aware_gains(torch, h32, node32, lam, mcw)
+                err = (h32.double() - h64).abs().max()
+                rf, rb, rd, *_ = model._level_splits_from_hist(
+                    h32, node32, torch.full((1,), -torch.inf,
+                                            device=gh.device),
+                    torch.full((1,), torch.inf, device=gh.device), None)
+            else:
+                h32 = hg.histogram_gh(dense_bins, rel, gh, n, B,
+                                      force="pallas")
+                miss64 = node64[:, None, :] - h64.sum(2)
+                err = torch.maximum((h32[:, :, 1:].double()
+                                     - h64[:, :, 1:]).abs().max(),
+                                    (h32[:, :, 0].double()
+                                     - miss64).abs().max())
+                g32 = dense_missing_gains(torch, h32, lam, mcw)
+                rf, rb, rd, _ = model._pick_splits(
+                    model._collapse_dir_ties(g32), None)
+                big = max(big, float(miss64.abs().max()))
+            out["hist_err"] = max(out["hist_err"], float(err) / big)
+            g64 = missing_aware_gains(torch, h64, node64, lam, mcw)
+            g32, g64 = g32.reshape(n, -1), g64.reshape(n, -1)
+            both = torch.isfinite(g32) & torch.isfinite(g64)
+            noise = torch.where(both, (g32.double() - g64).abs(),
+                                0.0).amax(1)
+            null = b >= B
+            pick = ((f * B + b.clamp(max=B - 1)) * 2 + d)[:, None]
+            chosen = torch.where(null, 0.0, g64.gather(1, pick)[:, 0])
+            regret = g64.amax(1).clamp(min=0.0) - chosen
+            out["replay"] += int(((rf.long() != f) | (rb.long() != b)
+                                  | ((rd.long() != d) & ~null)).sum())
+            out["nodes"] += n
+            out["off_best"] += int((regret > 0).sum())
+            out["beyond"] += int((regret > 2.0 * noise).sum())
+            out["worst"] = max(out["worst"], float(
+                (regret / noise.clamp(min=1e-30)).max()))
+        s = torch.zeros(2 ** model.max_depth, 2, dtype=torch.float64,
+                        device=gh.device).index_add_(0, leaf_rel.long(), gh64)
+        leaf64 = -lr * s[:, 0] / (s[:, 1] + lam)
+        leaf = forest["leaf"][t].double()
+        out["leaf_err"] = max(out["leaf_err"],
+                              float((leaf - leaf64).abs().max()))
+        big = leaf64.abs() > 1e-3
+        scale.append((leaf[big] / leaf64[big]).cpu())
+    out["leaf_scale"] = float(torch.cat(scale).mean()) - 1.0
+    return out
+
+
+def print_audit(name, a, trees):
+    print(f"gbdt_sparse audit [{name}, every level of {trees} trees]: "
+          f"histogram vs float64 {a['hist_err']:.3e} of the largest bin; "
+          f"{a['off_best']} of {a['nodes']} splits off the float64 best, "
+          f"{a['beyond']} beyond rounding (worst regret/noise "
+          f"{a['worst']:.2f}); replay mismatches {a['replay']}; |leaf - "
+          f"float64 leaf| {a['leaf_err']:.3e}, leaf/float64 leaf - 1 "
+          f"{a['leaf_scale']:+.3e}")
+
+
+def sparse_predict_oracle(forest, rid, fi, ebin, rows, depth) -> np.ndarray:
+    """float64 probabilities of a missing-aware forest, every row routed
+    through every tree in numpy over dense codes made from the entries."""
+    bins = np.zeros((rows, int(fi.max()) + 1), np.int32)
+    bins[rid, fi] = ebin
+    feat = forest["feature"].cpu().numpy()
+    thr = forest["threshold"].cpu().numpy()
+    dflt = forest["default_right"].cpu().numpy()
+    leaf = forest["leaf"].cpu().numpy().astype(np.float64)
+    r = np.arange(rows)
+    m = np.full(rows, float(forest["base"]))
+    for t in range(feat.shape[0]):
+        node = np.zeros(rows, np.int64)
+        for _ in range(depth):
+            b = bins[r, np.minimum(feat[t, node], bins.shape[1] - 1)]
+            b = np.where(feat[t, node] < bins.shape[1], b, 0)
+            right = np.where(b == 0, dflt[t, node] == 1, b > thr[t, node])
+            node = 2 * node + 1 + right
+        m += leaf[t, node - (2 ** depth - 1)]
+    return 1.0 / (1.0 + np.exp(-m))
+
+
+def sub_batch(torch, PaddedBatch, data, r0, r1):
+    """Rows [r0, r1) of the Bosch CSR arrays as a PaddedBatch."""
+    rp = data["row_ptr"]
+    e0, e1 = int(rp[r0]), int(rp[r1])
+    return PaddedBatch(label=data["label"][r0:r1],
+                       weight=torch.ones(r1 - r0, device=rp.device),
+                       row_ptr=(rp[r0:r1 + 1] - e0).contiguous(),
+                       index=data["index"][e0:e1],
+                       value=data["value"][e0:e1], num_rows=r1 - r0)
+
+
+def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_core_tpu_torch.data.staging import PaddedBatch
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner, logistic_nll
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.sparse import csr_to_dense_missing
+    from dmlc_core_tpu_torch.serving import (ScoringServer, pack_snapshot,
+                                             push_snapshot, snapshot_digest)
+    R, F, B = BOSCH_ROWS, BOSCH_FEATURES, GBDT_KW["num_bins"]
+    depth, trees = GBDT_KW["max_depth"], GBDT_KW["num_trees"]
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    data = bosch_like(torch, dev)
+    torch.cuda.synchronize()
+    t_gen = time.monotonic() - t0
+    nnz = data["index"].shape[0]
+    batch = PaddedBatch(label=data["label"], weight=torch.ones(R, device=dev),
+                        row_ptr=data["row_ptr"], index=data["index"],
+                        value=data["value"], num_rows=R)
+    t0 = time.monotonic()
+    e_s = int(data["row_ptr"][BOSCH_SKETCH_ROWS])
+    binner = QuantileBinner(num_bins=B, missing_aware=True,
+                            device=dev).fit_sparse(
+        data["index"][:e_s].cpu().numpy(), data["value"][:e_s].cpu().numpy(),
+        F)
+    t_sketch = time.monotonic() - t0
+    model = GBDT(num_features=F, missing_aware=True, device=dev, **GBDT_KW)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ent = model._sparse_entries(*model._entry_bins(batch, binner))
+    torch.cuda.synchronize()
+    t_bin = time.monotonic() - t0
+    t0 = time.monotonic()
+    layout = hs.sparse_hist_layout(ent[0], ent[1], ent[2], ent[3], F, B)
+    torch.cuda.synchronize()
+    t_layout = time.monotonic() - t0
+    rid, fi, ebin, emask = ent[:4]
+    check(bool(emask.all()) and int(ebin.min()) >= 1
+          and layout.nnz_live == nnz, "Bosch entries: a masked or bin-0 entry")
+    check(abs(nnz / (R * F) - BOSCH_DENSITY) < 2e-3,
+          f"Bosch density {nnz / (R * F)}, want {BOSCH_DENSITY}")
+    print(f"gbdt_sparse data: {R} x {F} Bosch-width rows, {nnz} entries "
+          f"(density {nnz / (R * F):.4f}), {float(data['label'].mean()):.3f}"
+          f" positive; generate on the card {t_gen:.2f} s, fit_sparse sketch "
+          f"of {BOSCH_SKETCH_ROWS} rows ({e_s} entries) {t_sketch:.1f} s "
+          f"(host), transform_entries + row ids {t_bin:.3f} s, layout sort "
+          f"{t_layout:.3f} s (card)")
+
+    def fit_sparse_timed():
+        hs.histogram_gh_sparse_kernel.launches = 0
+        ss_mod.segment_sum_kernel.launches = 0
+        hg.histogram_gh_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        forest = model.fit_batch(batch, binner)
+        torch.cuda.synchronize()
+        return (forest, time.monotonic() - t0,
+                hs.histogram_gh_sparse_kernel.launches,
+                ss_mod.segment_sum_kernel.launches,
+                hg.histogram_gh_kernel.launches)
+
+    torch.cuda.reset_peak_memory_stats()
+    warm, t_warm, *_ = fit_sparse_timed()
+
+    # the kernel on the first tree's own levels, against its plain version
+    # and float64; per-level times beside the plain version, index_add over
+    # the flattened keys and the bound
+    rid_l = layout.rid.long()
+    gh, levels, leaf_rel = next(sparse_tree_inputs(torch, model, warm, ent,
+                                                   data["label"]))
+    gh_e = gh[rid_l].contiguous()
+    node_tot = check_leaf_sums(torch, ss_mod, gh, levels[-1][0],
+                               levels[-1][1],
+                               what=f"node totals (depth {depth - 1})")
+    max_err, per_level = 0.0, []
+    for d, (rel, n) in enumerate(levels):
+        rel_e = rel[rid_l].contiguous()
+        ms, cov = device_ms(torch, lambda: hs.histogram_gh_sparse_kernel(
+            layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
+            layout=layout), 20)
+        plain_ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_plain(
+            layout.gkey, rel_e, gh_e, layout.starts, n, F, B), 1, warmup=1)
+        gk = layout.gkey.long()
+        keys = (rel_e.long() * F + gk // layout.nb) * B + gk % layout.nb
+        del gk
+        zeros = torch.zeros(n * F * B, 2, device=dev)
+        lib_ms, _ = device_ms(
+            torch, lambda: torch.index_add(zeros, 0, keys, gh_e), 3,
+            warmup=1)
+        del keys, zeros
+        nbytes = 16 * nnz + 8 * n * F * B
+        byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
+        per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=max(byte_s, op_s) * 1e3,
+                              bound_by="bytes" if byte_s >= op_s
+                              else "operations"))
+        print(f"time [sparse histogram, depth {d}, n={n}]: kernel {ms:.3f} "
+              f"ms, plain {plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, "
+              f"bound {per_level[-1]['bound_ms']:.4f} ms ({nbytes} bytes, "
+              f"{per_level[-1]['bound_by']}); queue covered: {cov}")
+        if d in CHECK_DEPTHS:
+            err, _ = check_sparse_hist(
+                torch, hs, f"Bosch depth {d}", layout.gkey, rel_e, gh_e,
+                layout.starts, n, F, B,
+                sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B))
+            max_err = max(max_err, err)
+    rng = torch.Generator(device=dev).manual_seed(9)
+    for name, (c_nnz, c_f, c_b, c_n) in {
+            "512 nodes": (5_000_000, 100, 256, 512),
+            "1000 bins, 40 nodes (two node tiles)": (2_000_000, 50, 1000, 40),
+            "200 bins": (2_000_000, 50, 200, 16)}.items():
+        c_fi = torch.sort(torch.randint(0, c_f, (c_nnz,), generator=rng,
+                                        device=dev)).values
+        c_nb = 1 << max(c_b - 1, 1).bit_length()
+        c_l = hs.SparseHistLayout(
+            num_features=c_f, num_bins=c_b, nb=c_nb,
+            nnz_live=c_nnz, rid=None, gkey=(c_fi * c_nb + torch.randint(
+                1, c_b, (c_nnz,), generator=rng, device=dev)).to(torch.int32),
+            starts=torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(
+                torch.bincount(c_fi, minlength=c_f), 0).cpu()]))
+        c_rel = torch.randint(0, c_n, (c_nnz,), generator=rng, device=dev,
+                              dtype=torch.int32)
+        c_gh = torch.randn(c_nnz, 2, generator=rng, device=dev)
+        err, _ = check_sparse_hist(
+            torch, hs, name, c_l.gkey, c_rel, c_gh, c_l.starts, c_n, c_f, c_b,
+            sparse_oracle64(torch, c_l, c_rel, c_gh, c_n, c_f, c_b))
+        max_err = max(max_err, err)
+    del gh, gh_e, levels, leaf_rel
+
+    # the main path: two timed fits of the same forest
+    fits = [fit_sparse_timed() for _ in range(2)]
+    forest = fits[0][0]
+    for f_i, secs, h_l, s_l, d_l in fits:
+        print(f"gbdt_sparse fit_batch: {secs:.3f} s wall, "
+              f"{R * trees / secs:.0f} row_trees_s; launches: "
+              f"histogram_gh_sparse {h_l}, segment_sum {s_l}, histogram_gh "
+              f"{d_l}")
+        check(h_l == trees * depth, f"histogram_gh_sparse launched {h_l} "
+              f"times in a fit (want {trees * depth})")
+        check(s_l == trees * (depth + 1), f"segment_sum launched {s_l} times "
+              f"in a fit (want {trees * (depth + 1)}: {depth} node totals "
+              "and one leaf sum a tree)")
+        check(d_l == 0, "the sparse fit launched the dense histogram")
+        check(all(torch.equal(f_i[k], forest[k]) and
+                  torch.equal(warm[k], forest[k]) for k in forest),
+              "two fit_batch fits gave different forests")
+    print(f"gbdt_sparse: warm-up fit {t_warm:.3f} s; three fits bitwise "
+          f"identical; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    label = data["label"]
+    m = forest["base"].expand(R).clone()
+    losses = [float(logistic_nll(m, label).mean())]
+    for i in range(trees):
+        m += model._tree_margins_sparse_one(
+            forest["feature"][i], forest["threshold"][i],
+            forest["default_right"][i], forest["leaf"][i], *ent[:4], R)
+        losses.append(float(logistic_nll(m, label).mean()))
+    print("gbdt_sparse train logloss after 0/1/5/10/20 trees: " + ", ".join(
+        f"{losses[i]:.6f}" for i in (0, 1, 5, 10, trees)))
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          "train logloss did not fall with every tree")
+    a = sparse_split_audit(torch, model, forest, ent, layout, label)
+    print_audit("fit_batch on the kernel", a, trees)
+    check(a["hist_err"] <= HIST_TOL and a["beyond"] == 0 and a["replay"] == 0
+          and a["leaf_err"] <= LEAF_TOL, f"fit_batch audit: {a}")
+
+    # the dense cross-check: the same data densified with NaN for absent
+    # cells, binned with the same cuts, and fit on the dense kernel
+    t0 = time.monotonic()
+    dense_bins = torch.empty(R, F, dtype=torch.uint8, device=dev)
+    for r0 in range(0, R, BOSCH_CHUNK):
+        r1 = min(r0 + BOSCH_CHUNK, R)
+        sb = sub_batch(torch, PaddedBatch, data, r0, r1)
+        dense_bins[r0:r1] = binner.transform(csr_to_dense_missing(
+            sb.index, sb.value, sb.row_ids(), r1 - r0, F))
+    torch.cuda.synchronize()
+    t_dense = time.monotonic() - t0
+    check(torch.equal(dense_bins[rid, fi.long()].to(torch.int32), ebin),
+          "dense codes differ from transform_entries")
+    hg.histogram_gh_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    forest_d = model.fit(dense_bins, label)
+    torch.cuda.synchronize()
+    t_fit_d = time.monotonic() - t0
+    check(hg.histogram_gh_kernel.launches == trees * depth,
+          "the dense fit did not run the dense kernel a level")
+    loss_d = float(model.loss(forest_d, dense_bins, label))
+    differs = ((forest["feature"] != forest_d["feature"])
+               | (forest["threshold"] != forest_d["threshold"]))
+    dflt = forest["default_right"] != forest_d["default_right"]
+    tree_d = differs.any(dim=1).nonzero()
+    print(f"gbdt_sparse dense cross-check: densify + bin {t_dense:.2f} s, "
+          f"fit (dense kernel) {t_fit_d:.3f} s; {int(differs.sum())} of "
+          f"{differs.numel()} split nodes differ from the sparse forest in "
+          f"feature or threshold (first in tree "
+          f"{int(tree_d[0]) if tree_d.numel() else None}), "
+          f"{int((dflt & ~differs).sum())} more in default direction only; "
+          f"train logloss {loss_d:.7f} vs {losses[-1]:.7f}")
+    a_d = sparse_split_audit(torch, model, forest_d, ent, layout, label,
+                             dense_bins=dense_bins)
+    print_audit("dense fit", a_d, trees)
+    check(a_d["hist_err"] <= HIST_TOL and a_d["beyond"] == 0,
+          f"dense cross-check audit: {a_d}")
+    del dense_bins
+
+    # predict_batch on a sub-batch against float64 numpy routing
+    sb = sub_batch(torch, PaddedBatch, data, 0, PREDICT_ROWS)
+    got = model.predict_batch(forest, sb, binner)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = model.predict_batch(forest, sb, binner)
+    torch.cuda.synchronize()
+    t_pred = time.monotonic() - t0
+    e1 = int(data["row_ptr"][PREDICT_ROWS])
+    want = sparse_predict_oracle(forest, sb.row_ids().cpu().numpy(),
+                                 fi[:e1].cpu().numpy(),
+                                 ebin[:e1].cpu().numpy(), PREDICT_ROWS, depth)
+    err = float(np.abs(got.cpu().numpy().astype(np.float64) - want).max())
+    print(f"gbdt_sparse predict_batch: {PREDICT_ROWS} rows in "
+          f"{t_pred * 1e3:.2f} ms (host clock), max |p - float64 oracle| "
+          f"{err:.3e}")
+    check(err <= 1e-5, f"predict_batch error {err}")
+
+    # serving the forest from a DTSNAP01 snapshot that carries its binner
+    cfg = dict(num_features=F, missing_aware=True, **GBDT_KW)
+    snap = pack_snapshot("gbdt", cfg, forest, binner=binner, seq=1)
+    host = {k: data[k].cpu().numpy() for k in ("row_ptr", "index", "value")}
+    gen = np.random.default_rng(12)
+    lat = {n: [] for n in SPARSE_REQUEST_ROWS}
+    worst = 0.0
+    with ScoringServer(device=dev) as srv:
+        url = f"http://127.0.0.1:{srv.http_port}"
+        rep = push_snapshot("127.0.0.1", srv.port, snap, seq=1)
+        check(rep.get("ok") and rep["digest"] == snapshot_digest(snap),
+              f"push of the gbdt snapshot: {rep}")
+        for n in SPARSE_REQUEST_ROWS:
+            for _ in range(LATENCY_REPEATS):
+                r0 = int(gen.integers(0, R - n))
+                rows = [(host["index"][host["row_ptr"][r]:host["row_ptr"][
+                    r + 1]].tolist(), host["value"][host["row_ptr"][r]:host[
+                        "row_ptr"][r + 1]].tolist()) for r in range(r0, r0 + n)]
+                doc, ms = post_score(url, rows)
+                check(doc["model"] == snapshot_digest(snap),
+                      "served model is not the gbdt snapshot")
+                served = np.asarray(doc["scores"], np.float64)
+                want = model.predict_batch(
+                    forest, sub_batch(torch, PaddedBatch, data, r0, r0 + n),
+                    binner).cpu().numpy()
+                e = float(np.abs(served - want).max())
+                check(served.shape == (n,) and e <= TOL,
+                      f"{n}-row gbdt /score err {e}")
+                worst = max(worst, e)
+                lat[n].append(ms)
+    print(f"gbdt_sparse serving: max |score - predict_batch| {worst:.3e}; " +
+          ", ".join(f"/score {n} rows p50 {np.percentile(lat[n], 50):.3f} ms"
+                    for n in SPARSE_REQUEST_ROWS) +
+          f" ({LATENCY_REPEATS} requests each, host clock)")
+
+    # where one sparse tree's time goes on the card
+    g, h = model._grad_hess(forest["base"].expand(R).clone(), label)
+    model._build_tree_sparse(ent, g, h, layout=layout)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model._build_tree_sparse(ent, g, h, layout=layout)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    dev_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"profile [one sparse tree, under the profiler]: wall "
+          f"{wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%), {len(events)} kernel kinds")
+    if not events:
+        print("  device time: not measured (no CUDA events in the trace)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4} "
+              f"{e.key[:90]}")
+    mean = {k: float(np.mean([lv[k] for lv in per_level]))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"launches": fits[0][2], "max_abs_err": max_err, "nnz": nnz,
+            "bound_by": per_level[0]["bound_by"], **mean,
+            "node_totals": {**node_tot, "launches": fits[0][3]}}
+
+
 # ---- --label-study: where a kernel fit and an index_add fit part ------------
 
 STUDY_SEEDS = (2014, 2015, 2016)
@@ -900,8 +1479,10 @@ def main(argv) -> int:
     served = phase_serving(torch, ss_mod, params_a, params_b, "cuda")
     phase_profile(torch, params_a)
     gbdt = phase_gbdt(torch, ss_mod, torch.device("cuda"))
+    sparse = phase_gbdt_sparse(torch, ss_mod, torch.device("cuda"))
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
+    node = sparse["node_totals"]
     segment_sum = {
         "name": "segment_sum",
         "route": "cuda",
@@ -922,6 +1503,14 @@ def main(argv) -> int:
         "max_abs_err": leaf["max_abs_err"],
         **{k: leaf[k] for k in keys},
     }, {
+        **segment_sum,
+        "shape": "sparse GBDT node totals, 1.18M rows x L=2 into 32 nodes;"
+                 " launches: a fit_batch's node totals (6 a tree) and leaf "
+                 "sums (1 a tree)",
+        "launches": node["launches"],
+        "max_abs_err": node["max_abs_err"],
+        **{k: node[k] for k in keys},
+    }, {
         "name": "histogram_gh",
         "route": "cuda",
         "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh.cu",
@@ -933,6 +1522,15 @@ def main(argv) -> int:
         "bound_ms": gbdt["bound_ms"],
         "bound_by": gbdt["bound_by"],
         "library_ms": gbdt["library_ms"],
+    }, {
+        "name": "histogram_gh_sparse",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh_sparse.cu",
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:466",
+        "shape": f"Bosch width, {sparse['nnz']} entries x 256 bins, mean "
+                 "of depths 0-5",
+        "launches": sparse["launches"],
+        **{k: sparse[k] for k in ("max_abs_err", *keys)},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,38 +1,48 @@
 """Histogram gradient-boosted decision trees over binned features.
 
-The port of the dense path of ``dmlc_core_tpu.models.gbdt``: the same
-hist algorithm (XGBoost-hist), in PyTorch, held to the JAX package's
-forests on the same inputs.
+The port of ``dmlc_core_tpu.models.gbdt``: the same hist algorithm
+(XGBoost-hist), in PyTorch, held to the JAX package's forests on the same
+inputs.
 
 * ``QuantileBinner`` cuts each feature at quantiles of a host sample (numpy)
-  and maps values to uint8 bin codes with ``torch.searchsorted``;
-* each tree level builds ONE ``[nodes, features, bins]`` (grad, hess)
-  histogram (``ops.histogram.histogram_gh``: the hand-written CUDA kernel on
-  the card), finds splits with a cumsum and a flat argmax over it, and routes
-  rows to the children with a gather;
+  and maps values to uint8 bin codes with ``torch.searchsorted``, or COO
+  entries to int32 codes with a per-entry binary search;
+* dense path (``fit``): each tree level builds ONE ``[nodes, features,
+  bins]`` (grad, hess) histogram (``ops.histogram.histogram_gh``: the
+  hand-written CUDA kernel on the card), finds splits with a cumsum and a
+  flat argmax over it, and routes rows to the children with a gather;
+* sparse path (``fit_batch``, on a CSR ``PaddedBatch``, no densify): each
+  level's histogram comes from the present entries only
+  (``ops.histogram_sparse``: a hand-written CUDA kernel over a once-a-fit
+  feature-sorted layout), absent cells count as missing, and rows route by
+  a segment-max over their entries;
 * trees are fixed-depth complete binary heaps in flat arrays, so a forest is
   a dict of tensors with the JAX package's keys, shapes and dtypes.
 
-Not ported yet: the sparse COO path (``fit_batch``, ``fit_streamed``, the
-entry binning), the multi-device histogram route (``histogram_mesh``), and
-sampling below 1.0 (``subsample``, ``colsample_bytree``,
-``colsample_bylevel``), whose draws come from ``jax.random``'s threefry
-stream; see ROADMAP.md.
+Not ported yet: ``fit_streamed`` and pre-binned ``BinnedBatch`` input
+(ROADMAP A5), ``predict_staged`` (A3), the multi-device histogram route
+(``histogram_mesh``, A6), and sampling below 1.0 (``subsample``,
+``colsample_bytree``, ``colsample_bylevel``), whose draws come from
+``jax.random``'s threefry stream (A10).
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import time
 import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
-from ..data.staging import bucket_pow2
+from ..data.staging import bucket_pow2, pad_batch_to_bucket
 from ..ops.histogram import histogram_gh
-from ..ops.segment_sum import segment_sum
+from ..ops.histogram_sparse import (entry_gh, histogram_gh_sparse,
+                                    sparse_hist_layout)
+from ..ops.segment_sum import clamp_index, segment_sum
 from .common import logistic_nll
 
 
@@ -120,6 +130,70 @@ class QuantileBinner:
     def fit_transform(self, x: np.ndarray) -> torch.Tensor:
         return self.fit(x).transform(np.asarray(x, np.float32))
 
+    # ---- sparse (COO-entry) surface -----------------------------------------
+
+    def fit_sparse(self, index: np.ndarray, value: np.ndarray,
+                   num_features: int) -> "QuantileBinner":
+        """Per-feature quantile cuts from a COO sample (host numpy, the JAX
+        package's nearest-rank rule): the entries of feature f are its
+        PRESENT values.  Requires ``missing_aware=True`` (absent cells are
+        missing by construction in sparse data)."""
+        if not self.missing_aware:
+            raise ValueError("fit_sparse requires missing_aware=True "
+                             "(absent cells are missing, not 0)")
+        index = np.asarray(index, np.int64)
+        value = np.asarray(value, np.float32)
+        # NaN entries are malformed COO (missing = absent entry)
+        keep = ~np.isnan(value)
+        index, value = index[keep], value[keep]
+        order = np.lexsort((value, index))
+        idx_s, val_s = index[order], value[order]
+        feats = np.arange(num_features)
+        starts = np.searchsorted(idx_s, feats)
+        ends = np.searchsorted(idx_s, feats + 1)
+        lens = ends - starts
+        value_bins = self.num_bins - 1
+        qs = np.linspace(0.0, 1.0, value_bins + 1)[1:-1]
+        pos = starts[:, None] + np.round(
+            qs[None, :] * np.maximum(lens[:, None] - 1, 0)).astype(np.int64)
+        pos = np.minimum(pos, np.maximum(ends[:, None] - 1, starts[:, None]))
+        # empty trailing features have starts == ends == len(val_s); keep
+        # the gather in bounds (their cuts are overwritten below anyway)
+        pos = np.clip(pos, 0, max(val_s.size - 1, 0))
+        cuts = (val_s[pos] if val_s.size
+                else np.zeros((num_features, qs.size), np.float32))
+        cuts[lens == 0] = 0.0  # feature never present: degenerate cuts
+        self._set_cuts(np.maximum.accumulate(cuts, axis=1))
+        return self
+
+    def transform_entries(self, index, value) -> torch.Tensor:
+        """Bin COO entries on the binner's device: the code of ``value[k]``
+        under feature ``index[k]``'s cuts, in ``[1, num_bins)`` (0 stays
+        reserved for missing = absent; a NaN value reads as 0).  A binary
+        search of ``ceil(log2(C + 1))`` rounds of one gather each
+        (searchsorted side="right"), with no [nnz, C] cut matrix.  Returns
+        int32 [nnz]."""
+        if not self.missing_aware:
+            raise ValueError("transform_entries requires missing_aware=True")
+        if self.cuts is None:
+            raise RuntimeError("transform_entries before fit")
+        F, C = self.cuts.shape
+        flat = self.cuts.reshape(-1)
+        # an index past the cut table reads its last feature, as JAX's
+        # gather clamps it
+        base = clamp_index(torch.as_tensor(index, device=self.device).to(
+            torch.int64), F) * C
+        v = torch.as_tensor(value, device=self.device).to(torch.float32)
+        lo = torch.zeros(v.shape, dtype=torch.int64, device=self.device)
+        hi = torch.full(v.shape, C, dtype=torch.int64, device=self.device)
+        for _ in range(max(1, int(np.ceil(np.log2(C + 1))))):
+            mid = (lo + hi) // 2
+            cut = flat[base + torch.clamp(mid, max=C - 1)]
+            go = (cut <= v) & (mid < hi)
+            lo = torch.where(go, mid + 1, lo)
+            hi = torch.where(go, hi, mid)
+        return torch.where(torch.isnan(v), 0, lo + 1).to(torch.int32)
+
     def cuts_digest(self) -> str:
         """Short content digest of the fitted cuts (the JAX package's
         identity for a binner's bin vocabulary)."""
@@ -147,11 +221,35 @@ class QuantileBinner:
             self._sketch_absorb(f, col[~np.isnan(col)])
         return self
 
+    def partial_fit_sparse(self, index: np.ndarray, value: np.ndarray,
+                           num_features: int) -> "QuantileBinner":
+        """Accumulate a COO entry chunk (one staged batch's ``index`` /
+        ``value``, padding masked off) into the sketch."""
+        if not self.missing_aware:
+            raise ValueError("partial_fit_sparse requires missing_aware=True "
+                             "(absent cells are missing, not 0)")
+        index = np.asarray(index, np.int64)
+        value = np.asarray(value, np.float32)
+        # malformed entries (NaN values, indices outside [0, num_features))
+        # are dropped, as fit_sparse never visits them
+        keep = (~np.isnan(value)) & (index >= 0) & (index < num_features)
+        index, value = index[keep], value[keep]
+        self._sketch_ensure(num_features)
+        order = np.argsort(index, kind="stable")
+        idx_s, val_s = index[order], value[order]
+        feats = np.unique(idx_s)
+        starts = np.searchsorted(idx_s, feats)
+        ends = np.searchsorted(idx_s, feats + 1)
+        for f, lo, hi in zip(feats, starts, ends):
+            self._sketch_absorb(int(f), val_s[lo:hi])
+        return self
+
     def finalize(self) -> "QuantileBinner":
         """Compute cuts from the accumulated reservoirs (nearest-rank) and
         drop the sketch state."""
         if self._sketch_values is None:
-            raise RuntimeError("finalize before partial_fit")
+            raise RuntimeError("finalize before partial_fit/"
+                               "partial_fit_sparse")
         res, fill = self._sketch_values, self._sketch_fill
         k = res.shape[1]
         value_bins = self.num_bins - 1 if self.missing_aware else self.num_bins
@@ -489,6 +587,56 @@ class GBDT:
         (the single-device route of the JAX package)."""
         return histogram_gh(bins, rel, gh, n_nodes, self.num_bins,
                             force=self._hist_impl(n_nodes))
+
+    # the sparse kernel's node cap for "auto", as the JAX package sets it:
+    # its shared-memory node tiles grow with n_nodes like the dense one's
+    _SPARSE_PALLAS_NODE_LIMIT = 512
+
+    def _hist_impl_sparse(self, n_nodes: int) -> str:
+        """Sparse-histogram backend for a level: an explicit "xla"/"pallas"
+        wins; "auto" is the kernel on a CUDA device within the sparse node
+        cap, ``index_add`` ("xla") elsewhere."""
+        if self.histogram != "auto":
+            return self.histogram
+        if (self.device.type == "cuda"
+                and n_nodes <= self._SPARSE_PALLAS_NODE_LIMIT):
+            return "pallas"
+        return "xla"
+
+    def _sparse_layout_enabled(self) -> bool:
+        """Whether any level of this fit can resolve to the sparse kernel,
+        i.e. whether `_sparse_fit_layout` builds a layout."""
+        if self.histogram == "xla":
+            return False
+        return self.histogram == "pallas" or any(
+            self._hist_impl_sparse(2 ** d) == "pallas"
+            for d in range(self.max_depth))
+
+    def _sparse_fit_layout(self, row_id, findex, ebin, emask):
+        """The once-a-fit feature-sorted entry layout, or None when no level
+        can resolve to the kernel (``index_add`` needs no layout).  Built on
+        the model's device; ``findex`` is the same at every level of every
+        tree, so the sort serves all ``num_trees * max_depth`` levels.  Its
+        cost is published as ``gbdt.entry_sort_us``."""
+        if not self._sparse_layout_enabled():
+            return None
+        t0 = time.monotonic()
+        layout = sparse_hist_layout(row_id, findex, ebin, emask,
+                                    self.num_features, self.num_bins)
+        telemetry.counter_add("gbdt.entry_sort_us",
+                              int((time.monotonic() - t0) * 1e6))
+        return layout
+
+    def _level_histogram_sparse(self, layout, rel: torch.Tensor,
+                                gh_row: torch.Tensor, gh_e: torch.Tensor,
+                                n_nodes: int) -> torch.Tensor:
+        """Sparse per-level [nodes, F, bins, 2] on the kernel (the
+        single-device route of the JAX package): ``gh_e`` is gathered once a
+        tree by the caller (`entry_gh`); only the entries' node ids change
+        by level."""
+        return histogram_gh_sparse(None, None, None, None, rel, gh_row,
+                                   n_nodes, self.num_features, self.num_bins,
+                                   force="pallas", layout=layout, gh_e=gh_e)
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
@@ -968,6 +1116,167 @@ class GBDT:
             node = 2 * node + 1 + go_right.to(torch.int64)
         return leaf[node - (2 ** self.max_depth - 1)]
 
+    # ---- the sparse (COO-entry) path ----------------------------------------
+
+    def _level_splits_from_hist(self, hist: torch.Tensor,
+                                gh_node: torch.Tensor, lo, hi, active):
+        """Split finding for one level from its present-entry [n_nodes, F,
+        B, 2] histogram and [n_nodes, 2] node totals: each (node, feature)'s
+        missing mass is the node total minus its present sum; dir 0 sends
+        it left, dir 1 right.  Kept apart from `_build_tree`'s inline split
+        code, as the JAX package keeps it.  Returns (split_f, split_b,
+        split_d, split_g, lo, hi, active)."""
+        lam = self.lambda_
+        mono = self.monotone_constraints is not None
+        gl = _cumsum_f32(hist, dim=2)                  # present mass
+        miss = gh_node[:, None, :] - torch.sum(hist, dim=2)  # [n, F, 2]
+        g_tot = gh_node[:, 0][:, None, None]           # [n, 1, 1]
+        h_tot = gh_node[:, 1][:, None, None]
+
+        def split_gain(gl_, hl_):
+            gr_ = g_tot - gl_
+            hr_ = h_tot - hl_
+            g = (gl_ ** 2 / (hl_ + lam) + gr_ ** 2 / (hr_ + lam)
+                 - g_tot ** 2 / (h_tot + lam))
+            ok = ((hl_ >= self.min_child_weight)
+                  & (hr_ >= self.min_child_weight))
+            return torch.where(ok, g, -torch.inf)
+
+        dirs = [(gl[..., 0] + miss[:, :, None, 0],
+                 gl[..., 1] + miss[:, :, None, 1]),
+                (gl[..., 0], gl[..., 1])]
+        gain = torch.stack([split_gain(a, b) for a, b in dirs], dim=3)
+        if mono:
+            wl, wr = self._dir_child_weights(dirs, g_tot, h_tot)
+            gain = self._apply_monotone(gain, wl, wr, lo, hi)
+        gain = self._collapse_dir_ties(gain)
+        split_f, split_b, split_d, split_g = self._pick_splits(
+            gain, self._level_feature_mask(active))
+        if mono:
+            lo, hi = self._child_bounds(split_f, split_b, split_d,
+                                        wl, wr, lo, hi)
+        if active is not None:
+            active = self._next_active(active, split_f, split_b)
+        return split_f, split_b, split_d, split_g, lo, hi, active
+
+    @staticmethod
+    def _sparse_entries(row_id, findex, ebin, emask):
+        """The entry arrays `_build_tree_sparse` reads, cast once a fit:
+        int64 row ids (the routing scatter's index), int32 features and
+        bins, the bool mask."""
+        return (row_id.to(torch.int64), findex.to(torch.int32),
+                ebin.to(torch.int32), emask)
+
+    @torch.no_grad()
+    def _build_tree_sparse(self, entries, grad: torch.Tensor,
+                           hess: torch.Tensor, layout=None):
+        """One tree from COO entries, O(nnz) histogram work a level.
+
+        Present entries add their row's (grad, hess) into [nodes, features,
+        bins] by (node of the row, feature, bin); missing mass comes from
+        the node totals (`_level_splits_from_hist`).  Needs missing-aware
+        codes from ``transform_entries`` (bin 0 stays empty).  A level's
+        histogram goes to the kernel over ``layout`` or to ``index_add``
+        (`_hist_impl_sparse`); node totals and leaf sums go through the
+        segment-sum kernel on the card whatever ``histogram`` says
+        (`_leaf_impl`).  Returns `_build_tree`'s 7-tuple."""
+        F, B = self.num_features, self.num_bins
+        rows = grad.shape[0]
+        dev = grad.device
+        mono = self.monotone_constraints is not None
+        rid, fi, ebin, emask = entries
+        gh_row = torch.stack([grad, hess], dim=-1).contiguous()  # [rows, 2]
+        # entry (grad, hess), gathered once a tree for each backend its
+        # levels take: the kernel's in feature order, index_add's in entry
+        # order with padding lanes carrying 0 mass
+        gh_e = {}
+        node = torch.zeros(rows, dtype=torch.int32, device=dev)
+        lo = torch.full((1,), -torch.inf, device=dev)
+        hi = torch.full((1,), torch.inf, device=dev)
+        active = (torch.ones(1, self._interaction_groups.shape[0],
+                             dtype=torch.bool, device=dev)
+                  if self._interaction_groups is not None else None)
+        features, thresholds, defaults, gains, covers = [], [], [], [], []
+        for depth in range(self.max_depth):
+            n_nodes = 2 ** depth
+            rel = node - (n_nodes - 1)
+            impl = (self._hist_impl_sparse(n_nodes) if layout is not None
+                    else "xla")
+            if impl not in gh_e:
+                gh_e[impl] = entry_gh(gh_row, rid, emask, layout
+                                      if impl == "pallas" else None)
+            if impl == "pallas":
+                hist = self._level_histogram_sparse(layout, rel, gh_row,
+                                                    gh_e[impl], n_nodes)
+            else:                                      # bin 0 is empty
+                hist = histogram_gh_sparse(rid, fi, ebin, emask, rel, gh_row,
+                                           n_nodes, F, B, gh_e=gh_e[impl])
+            gh_node = segment_sum(gh_row, rel, n_nodes,
+                                  force=self._leaf_impl(grad))
+            (split_f, split_b, split_d, split_g,
+             lo, hi, active) = self._level_splits_from_hist(
+                hist, gh_node, lo, hi, active)
+            features.append(split_f)
+            thresholds.append(split_b)
+            defaults.append(split_d)
+            gains.append(split_g)
+            covers.append(gh_node[:, 1])
+            rel_l = rel.to(torch.int64)
+            go_right = self._route_sparse(fi, ebin, emask, rid,
+                                          split_f[rel_l], split_b[rel_l],
+                                          split_d[rel_l], rows)
+            node = 2 * node + 1 + go_right.to(torch.int32)
+
+        n_leaves = 2 ** self.max_depth
+        leaf_rel = node - (n_leaves - 1)
+        gh_leaf = segment_sum(gh_row, leaf_rel, n_leaves,
+                              force=self._leaf_impl(grad))
+        leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
+        if mono:
+            leaf_w = torch.clamp(leaf_w, lo, hi)
+        leaf = self.learning_rate * leaf_w
+        return (torch.cat(features), torch.cat(thresholds),
+                torch.cat(defaults), torch.cat(gains), torch.cat(covers),
+                leaf, leaf_rel)
+
+    @staticmethod
+    def _route_sparse(fi, ebin, emask, rid, row_feat, row_thr, row_dir,
+                      rows: int) -> torch.Tensor:
+        """One level of sparse routing, shared by training and inference:
+        each row's bin for its split feature is the max over its matching
+        entries (a ``scatter_reduce`` "amax" over a zero base, which also
+        gives 0 = missing to rows with no matching entry), then the
+        threshold / default-direction rule.  ``rid`` is int64."""
+        match = (fi == row_feat[rid]) & emask
+        row_bin = torch.zeros(rows, dtype=torch.int32,
+                              device=fi.device).scatter_reduce(
+            0, rid, torch.where(match, ebin, 0), "amax")
+        return torch.where(row_bin == 0, row_dir == 1, row_bin > row_thr)
+
+    @torch.no_grad()
+    def _tree_margins_sparse_one(self, feature, threshold, default_right,
+                                 leaf, rid, fi, ebin, emask,
+                                 rows: int) -> torch.Tensor:
+        """One tree's leaf weight per row by sparse routing."""
+        node = torch.zeros(rows, dtype=torch.int64, device=fi.device)
+        for _ in range(self.max_depth):
+            go_right = self._route_sparse(fi, ebin, emask, rid,
+                                          feature[node], threshold[node],
+                                          default_right[node], rows)
+            node = 2 * node + 1 + go_right.to(torch.int64)
+        return leaf[node - (2 ** self.max_depth - 1)]
+
+    def _margins_sparse(self, feature, threshold, default_right, leaf,
+                        base, rid, fi, ebin, emask) -> torch.Tensor:
+        """[rows] margins over ``num_trees`` trees, added tree by tree in
+        the JAX package's order (``base`` is [rows])."""
+        m = base
+        for i in range(self.num_trees):
+            m = m + self._tree_margins_sparse_one(
+                feature[i], threshold[i], default_right[i], leaf[i], rid, fi,
+                ebin, emask, base.shape[0])
+        return m
+
     # ---- public API ---------------------------------------------------------
 
     @torch.no_grad()
@@ -1016,6 +1325,147 @@ class GBDT:
         return driver(label, w, build, eval_margin=eval_margin,
                       eval_label=eval_label, eval_weight=eval_weight,
                       early_stopping_rounds=early_stopping_rounds)
+
+    @staticmethod
+    def _entry_arrays(batch):
+        """(row_id, findex, emask) of a PaddedBatch.  Entries whose value is
+        0 are masked as missing (padding lanes, and stored zeros, which the
+        value-0 padding convention cannot tell from them, as
+        ``csr_to_dense_missing`` documents); NaN entries too."""
+        v = batch.value
+        emask = (v != 0) & ~torch.isnan(v)
+        return batch.row_ids(), batch.index, emask
+
+    def _entry_bins(self, batch, binner: QuantileBinner):
+        """(row_id, findex, ebin, emask) of a staged batch on the model's
+        device, the bins from ``binner.transform_entries``."""
+        if hasattr(batch, "ebin"):
+            raise NotImplementedError(
+                "pre-binned BinnedBatch input (the binned epoch cache) is not "
+                "ported yet: ROADMAP A5")
+        rid, fi, emask = self._entry_arrays(batch)
+        ebin = binner.transform_entries(fi, batch.value)
+        return (self._t(rid, torch.int32), self._t(fi, torch.int32),
+                self._t(ebin), self._t(emask))
+
+    @torch.no_grad()
+    def fit_batch(self, batch, binner: QuantileBinner, weight=None,
+                  eval_set=None, early_stopping_rounds: int = 0) -> dict:
+        """Train directly on a staged CSR ``PaddedBatch``, with no densify.
+
+        The sparse XGBoost-hist path: per-entry bins
+        (``binner.transform_entries``), O(nnz) histograms a level, and
+        absent cells handled as missing through the learned default
+        directions.  Needs ``missing_aware=True`` on this model and the
+        binner.  ``weight`` defaults to ``batch.weight`` (padding rows carry
+        0 there).  Entries with a stored 0 count as missing, as in
+        ``csr_to_dense_missing``, so this and ``fit`` on the densified
+        matrix grow the same forest.  ``eval_set``: a held-out
+        ``PaddedBatch`` (its weight masks its padding rows); with
+        ``early_stopping_rounds`` as in ``fit``.  rank:pairwise reads the
+        batches' ``qid``.  Returns the forest dict."""
+        if not (self.missing_aware and binner.missing_aware):
+            raise ValueError("fit_batch requires missing_aware=True on "
+                             "both the GBDT and the QuantileBinner")
+        label = self._t(batch.label, torch.float32)
+        w = self._t(batch.weight if weight is None else weight,
+                    torch.float32)
+        row_id, findex, ebin, emask = self._entry_bins(batch, binner)
+        # the same for every tree: the cast entry arrays and (for the
+        # kernel) the feature-sorted layout, built once
+        entries = self._sparse_entries(row_id, findex, ebin, emask)
+        layout = self._sparse_fit_layout(row_id, findex, ebin, emask)
+        eval_margin = eval_label = eval_weight = None
+        if eval_set is not None:
+            ev = self._sparse_entries(*self._entry_bins(eval_set, binner))
+            eval_label = self._t(eval_set.label, torch.float32)
+            eval_weight = self._t(eval_set.weight, torch.float32)
+            ev_rows = eval_label.shape[0]
+            eval_margin = (lambda f, t, d, leaf:
+                           self._tree_margins_sparse_one(
+                               f, t, d, leaf, ev[0], ev[1], ev[2], ev[3],
+                               ev_rows))
+
+        def build(g, h):
+            return self._build_tree_sparse(entries, g, h, layout=layout)
+
+        if self.objective == "rank:pairwise":
+            grad_hess, eval_loss_fn = self._rank_fns(
+                batch.qid, w,
+                eval_qid=(eval_set.qid if eval_set is not None else None),
+                eval_w=eval_weight, have_eval=eval_set is not None)
+            return self._boost(label, w, build, eval_margin=eval_margin,
+                               eval_label=eval_label,
+                               eval_weight=eval_weight,
+                               early_stopping_rounds=early_stopping_rounds,
+                               grad_hess=grad_hess,
+                               eval_loss_fn=eval_loss_fn)
+        driver = (self._boost_multi if self.objective == "softmax"
+                  else self._boost)
+        return driver(label, w, build, eval_margin=eval_margin,
+                      eval_label=eval_label, eval_weight=eval_weight,
+                      early_stopping_rounds=early_stopping_rounds)
+
+    def _batch_routing(self, params: dict, batch, binner: QuantileBinner,
+                       what: str):
+        if not (self.missing_aware and binner.missing_aware):
+            # a dense missing_aware=False forest has every code shifted -1
+            # against transform_entries: routing it here would be wrong
+            raise ValueError(f"{what} requires missing_aware=True on both "
+                             "the GBDT and the QuantileBinner")
+        entries = self._sparse_entries(*self._entry_bins(batch, binner))
+        return self._forest(params), entries
+
+    @torch.no_grad()
+    def margins_batch(self, params: dict, batch,
+                      binner: QuantileBinner) -> torch.Tensor:
+        """[rows] margins over a staged CSR batch (sparse routing)."""
+        (feature, threshold, default_right), ent = self._batch_routing(
+            params, batch, binner, "margins_batch")
+        base = params["base"].expand(batch.label.shape[0]).to(
+            self.device).clone()
+        return self._margins_sparse(feature, threshold, default_right,
+                                    params["leaf"], base, *ent)
+
+    @torch.no_grad()
+    def margins_multi_batch(self, params: dict, batch,
+                            binner: QuantileBinner) -> torch.Tensor:
+        """[rows, K] softmax margins over a staged CSR batch."""
+        (feature, threshold, default_right), ent = self._batch_routing(
+            params, batch, binner, "margins_multi_batch")
+        K, rows = self.num_class, batch.label.shape[0]
+        m = params["base"].expand(rows, K).clone()
+        for i in range(feature.shape[0]):
+            m[:, i % K] += self._tree_margins_sparse_one(
+                feature[i], threshold[i], default_right[i], params["leaf"][i],
+                *ent, rows)
+        return m
+
+    def predict_batch(self, params: dict, batch,
+                      binner: QuantileBinner) -> torch.Tensor:
+        if self.objective == "softmax":
+            return torch.softmax(
+                self.margins_multi_batch(params, batch, binner), dim=1)
+        m = self.margins_batch(params, batch, binner)
+        return torch.sigmoid(m) if self.objective == "logistic" else m
+
+    def margins_batch_bucketed(self, params: dict, batch,
+                               binner: QuantileBinner, row_bucket=None,
+                               nnz_bucket=None) -> torch.Tensor:
+        """``margins_batch`` on the batch padded up to its pow-2 (rows, nnz)
+        bucket, sliced back to its rows.  Real-row margins are unchanged:
+        padding lanes are value 0 (masked) and padding rows are cut off."""
+        padded = pad_batch_to_bucket(batch, row_bucket, nnz_bucket)
+        return self.margins_batch(params, padded,
+                                  binner)[:batch.batch_size]
+
+    def predict_batch_bucketed(self, params: dict, batch,
+                               binner: QuantileBinner, row_bucket=None,
+                               nnz_bucket=None) -> torch.Tensor:
+        """Bucketed ``predict_batch`` (see :meth:`margins_batch_bucketed`);
+        the serving engine's route for a gbdt snapshot."""
+        padded = pad_batch_to_bucket(batch, row_bucket, nnz_bucket)
+        return self.predict_batch(params, padded, binner)[:batch.batch_size]
 
     def _bins(self, bins) -> torch.Tensor:
         """Codes on the model's device, uint8 or int32 as the kernel reads

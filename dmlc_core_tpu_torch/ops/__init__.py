@@ -1,11 +1,11 @@
 """Sparse ops and the hand-written CUDA kernels they reduce through.
 
-The segment-sum front end, its kernel wrapper and its plain version live
-in the submodule :mod:`.segment_sum` (not re-exported here, so the name
-stays the module's)."""
+Each kernel's front end, wrapper and plain version live in their submodule
+(:mod:`.segment_sum`, :mod:`.histogram`, :mod:`.histogram_sparse`; not
+re-exported here, so the names stay the modules')."""
 from .segment_sum import VALID_FORCE, check_force
 from .sparse import (csr_matmul, csr_matvec, csr_row_sumsq_matmul,
-                     padded_row_mean)
+                     csr_to_dense_missing, padded_row_mean)
 
 __all__ = ["VALID_FORCE", "check_force", "csr_matvec", "csr_matmul",
-           "csr_row_sumsq_matmul", "padded_row_mean"]
+           "csr_row_sumsq_matmul", "csr_to_dense_missing", "padded_row_mean"]

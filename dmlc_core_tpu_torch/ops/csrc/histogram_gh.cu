@@ -5,7 +5,8 @@
 // launched from `_histogram_gh_pallas`), which computes the same histogram as a
 // one-hot contraction on the MXU over an int32 [F, rows] copy of the codes.
 // Contract kept from it:
-//   * f32 (grad, hess) inputs, f32 accumulation, no TF32 anywhere (plain FADDs);
+//   * f32 (grad, hess) inputs and f32 results, no TF32 anywhere; the sums
+//     are carried in f64 inside a block (see "Accuracy");
 //   * any num_bins >= 1 and any n_nodes >= 1; rows need not be a multiple of
 //     anything; rows whose node id or bin code is out of range add nothing;
 //   * bitwise the same result from launch to launch: no float atomics.
@@ -16,7 +17,8 @@
 //
 // Design (simple first).  Block (x, y) is (feature group x node tile, row
 // chunk).  Each warp of the block owns one feature of the group and a private
-// shared-memory histogram of `node_tile` nodes x num_bins bins x (g, h).  The
+// shared-memory histogram of `node_tile` nodes x num_bins bins x (g, h) in
+// f64.  The
 // warp walks its chunk 32 rows a step, one row per lane.  Lanes whose
 // (node, bin) keys are equal are grouped with __match_any_sync; each lane takes
 // its rank in its group (the count of lower lanes with its key), and the warp
@@ -25,6 +27,13 @@
 // never race, and every bin is summed in row order.  The chunk's histogram is
 // written to a partial [n_chunks, n, F, B, 2]; a second kernel folds the
 // partials in chunk order.  With one chunk it is written to the output.
+//
+// Accuracy.  A bin's running sum in a chunk can take 1e5 adds (the missing
+// bin of sparse data densified with NaN holds most rows), and f32 adds of
+// near-equal values round the same way: an f32 chain that long drifted
+// 2.8e-3 of the largest bin from float64 at Bosch width (1.18M x 968).  The
+// shared-memory sums are f64 and rounded to f32 once; the fold adds the
+// chunk partials in f64 too.
 //
 // What bounds it.  The function must move rows * F code bytes plus 12 bytes a
 // row (rel, gh) and write 8 * n * F * B bytes: 0.131 ms at 3.35 TB/s for
@@ -48,7 +57,7 @@ hist_partial(const Code* __restrict__ bins, const int* __restrict__ rel,
              const float2* __restrict__ gh, float2* __restrict__ dst,
              int64_t rows, int num_features, int num_bins, int n_nodes,
              int warps, int node_tile, int n_groups, int64_t chunk) {
-  extern __shared__ float2 s_hist[];
+  extern __shared__ double2 s_hist[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int group = blockIdx.x % n_groups;
@@ -58,8 +67,8 @@ hist_partial(const Code* __restrict__ bins, const int* __restrict__ rel,
   if (f >= num_features) return;
   const int n0 = tile * node_tile;
   const int keys = node_tile * num_bins;
-  float2* h = s_hist + static_cast<int64_t>(warp) * keys;
-  for (int k = lane; k < keys; k += kWarp) h[k] = make_float2(0.0f, 0.0f);
+  double2* h = s_hist + static_cast<int64_t>(warp) * keys;
+  for (int k = lane; k < keys; k += kWarp) h[k] = make_double2(0.0, 0.0);
   __syncwarp();
 
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * chunk;
@@ -83,7 +92,7 @@ hist_partial(const Code* __restrict__ bins, const int* __restrict__ rel,
     const int last = __reduce_max_sync(0xffffffffu, rank);
     for (int k = 0; k <= last; ++k) {
       if (key >= 0 && rank == k) {
-        float2 a = h[key];
+        double2 a = h[key];
         a.x += v.x;
         a.y += v.y;
         h[key] = a;
@@ -100,7 +109,8 @@ hist_partial(const Code* __restrict__ bins, const int* __restrict__ rel,
     const int node = n0 + k / num_bins;
     if (node >= n_nodes) break;
     out[(static_cast<int64_t>(node) * num_features + f) * num_bins +
-        k % num_bins] = h[k];
+        k % num_bins] = make_float2(static_cast<float>(h[k].x),
+                                    static_cast<float>(h[k].y));
   }
 }
 
@@ -109,9 +119,9 @@ hist_fold(const float* __restrict__ partials, float* __restrict__ out,
           int64_t n_out, int n_chunks) {
   const int64_t o = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   if (o >= n_out) return;
-  float s = 0.0f;
+  double s = 0.0;
   for (int c = 0; c < n_chunks; ++c) s += partials[c * n_out + o];
-  out[o] = s;
+  out[o] = static_cast<float>(s);
 }
 
 template <typename Code>
@@ -121,7 +131,7 @@ cudaError_t launch_partial(const void* bins, const void* rel, const void* gh,
                            int n_chunks, int64_t chunk, cudaStream_t s) {
   const int n_groups = (num_features + warps - 1) / warps;
   const int n_tiles = (n_nodes + node_tile - 1) / node_tile;
-  const size_t smem = sizeof(float2) * static_cast<size_t>(warps) *
+  const size_t smem = sizeof(double2) * static_cast<size_t>(warps) *
                       node_tile * num_bins;
   cudaError_t err = cudaFuncSetAttribute(
       hist_partial<Code>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -145,7 +155,7 @@ extern "C" {
 // * 2], unused (may be null) when n_chunks == 1.  Rows [c * chunk, (c+1) *
 // chunk) belong to chunk c.  `warps` features share a block (1..4) and
 // `node_tile` nodes a pass over the rows; the block takes warps * node_tile *
-// num_bins * 8 bytes of shared memory.  Launches on `stream`, does not
+// num_bins * 16 bytes of shared memory.  Launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 on success).
 int dmlc_histogram_gh_f32(const void* bins, int code_bytes, const void* rel,
                           const void* gh, void* out, void* partials,

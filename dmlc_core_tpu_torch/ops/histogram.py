@@ -10,8 +10,8 @@ Backends keep the JAX package's names (``histogram=`` on ``GBDT``):
 
 * ``"pallas"``: the hand-written CUDA kernel ``csrc/histogram_gh.cu`` for a
   CUDA tensor, its plain PyTorch version for a CPU tensor.  It reads uint8
-  (or int32) codes as stored, accumulates in f32, casts back to gh's dtype,
-  and is bitwise reproducible from launch to launch.
+  (or int32) codes as stored, carries its sums in f64 and returns f32 (cast
+  back to gh's dtype), and is bitwise reproducible from launch to launch.
 * ``None`` / ``"xla"``: ``index_add`` over flattened ``(node, feature, bin)``
   keys, the counterpart of the XLA scatter-add the JAX package leaves outside
   any kernel.  It materializes [rows, F] int64 keys and a [rows, F, 2]
@@ -113,7 +113,7 @@ def launch_geometry(rows: int, num_features: int, num_bins: int,
     nodes a pass over the rows, and ``n_chunks`` row chunks of ``chunk``
     rows (partials folded in chunk order when there is more than one)."""
     warps = min(_MAX_WARPS, max(1, num_features))
-    per_node = 8 * num_bins  # bytes of one node's (g, h) bins
+    per_node = 16 * num_bins  # bytes of one node's f64 (g, h) bins
     if per_node > _SMEM_MAX:
         raise ValueError(f"histogram_gh_kernel: num_bins={num_bins} needs "
                          f"{per_node} B of shared memory a node (max "

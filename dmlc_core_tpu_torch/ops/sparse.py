@@ -43,6 +43,30 @@ def csr_row_sumsq_matmul(table: torch.Tensor, index: torch.Tensor,
     return segment_sum(gathered, row_id, num_rows, force=force)
 
 
+def csr_to_dense_missing(index: torch.Tensor, value: torch.Tensor,
+                         row_id: torch.Tensor, num_rows: int,
+                         num_features: int) -> torch.Tensor:
+    """Densify a COO batch with NaN for ABSENT cells (absent feature !=
+    zero-valued feature, XGBoost's sparse semantics): ``out[r, f]`` is the
+    sum of ``value[k]`` over entries at (r, f), NaN where none has a
+    nonzero value.  Padding lanes (value 0) mark nothing, so a stored 0
+    reads as missing; entries with an out-of-range row or feature are
+    dropped.  Feed the result to a ``missing_aware`` QuantileBinner/GBDT
+    pair.  Returns f32 [num_rows, num_features]."""
+    # one two-lane scatter (value, presence) over flattened (row, feature)
+    # cells; dropped entries go to one spare cell that is cut off
+    lanes = torch.stack([value.to(torch.float32),
+                         (value != 0).to(torch.float32)], dim=-1)
+    r, f = row_id.to(torch.int64), index.to(torch.int64)
+    cells = num_rows * num_features
+    keep = (r >= 0) & (r < num_rows) & (f >= 0) & (f < num_features)
+    flat = torch.where(keep, r * num_features + f, cells)
+    acc = torch.zeros(cells + 1, 2, dtype=torch.float32,
+                      device=value.device).index_add_(0, flat, lanes)
+    acc = acc[:cells].reshape(num_rows, num_features, 2)
+    return torch.where(acc[..., 1] > 0, acc[..., 0], torch.nan)
+
+
 def padded_row_mean(per_row: torch.Tensor,
                     weight: torch.Tensor) -> torch.Tensor:
     """Weighted mean over rows that treats padding rows (weight 0) as

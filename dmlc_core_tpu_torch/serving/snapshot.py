@@ -3,16 +3,18 @@
 Byte for byte the JAX package's format: an 8-byte magic, a length-prefixed
 JSON meta record (model family, constructor config, leaf manifest,
 sequence number), then the raw leaf bytes back-to-back in manifest order.
-The same numpy params therefore pack to the same payload and the same
-:func:`snapshot_digest` in both packages, and a snapshot packed by either
-loads in the other.
+A GBDT snapshot also carries its binner, as the cuts array and the
+binner's constructor knobs, so ``cuts_digest()`` survives the round trip.
+The same numpy params (and cuts) therefore pack to the same payload and the
+same :func:`snapshot_digest` in both packages, and a snapshot packed by
+either loads in the other.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +23,7 @@ MAGIC = b"DTSNAP01"
 _U32 = struct.Struct("<I")
 
 _FAMILIES = ("linear", "fm", "ffm", "gbdt")
-_NOT_PORTED = ("ffm", "gbdt")
+_NOT_PORTED = ("ffm",)
 
 
 def family_cls(family: str):
@@ -31,7 +33,7 @@ def family_cls(family: str):
             f"model family '{family}' is not yet ported to torch")
     from .. import models
     table = {"linear": models.SparseLinearModel,
-             "fm": models.FactorizationMachine}
+             "fm": models.FactorizationMachine, "gbdt": models.GBDT}
     if family not in table:
         raise ValueError(f"unknown model family '{family}' "
                          f"(expected one of {_FAMILIES})")
@@ -49,12 +51,13 @@ def _to_numpy(v) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(v))
 
 
-def pack_snapshot(family: str, config: dict, params: dict,
+def pack_snapshot(family: str, config: dict, params: dict, binner=None,
                   seq: int = 0) -> bytes:
-    """Serialize (family, constructor config, flat params dict) into one
-    payload.  ``config`` holds the keyword arguments that rebuild the
-    model (JSON-serializable, no ``device``); ``params`` a flat dict of
-    numpy arrays, scalars or tensors (a model's ``state_dict()`` works)."""
+    """Serialize (family, constructor config, flat params dict[, binner])
+    into one payload.  ``config`` holds the keyword arguments that rebuild
+    the model (JSON-serializable, no ``device``); ``params`` a flat dict of
+    numpy arrays, scalars or tensors (a model's ``state_dict()`` or a GBDT
+    forest works); ``binner`` a fitted ``QuantileBinner`` (gbdt)."""
     family_cls(family)  # validate early, before any bytes move
     manifest = []
     blobs = []
@@ -74,14 +77,24 @@ def pack_snapshot(family: str, config: dict, params: dict,
         blobs.append(a.tobytes())
     meta = {"version": 1, "family": family, "config": dict(config),
             "seq": int(seq), "leaves": manifest}
+    if binner is not None:
+        if binner.cuts is None:
+            raise ValueError("binner must be fitted before snapshotting")
+        cuts = np.ascontiguousarray(_to_numpy(binner.cuts).astype(
+            np.float32))
+        meta["binner"] = {"num_bins": binner.num_bins,
+                          "missing_aware": binner.missing_aware,
+                          "cuts_shape": list(cuts.shape)}
+        blobs.append(cuts.tobytes())
     head = json.dumps(meta, sort_keys=True).encode()
     return b"".join([MAGIC, _U32.pack(len(head)), head] + blobs)
 
 
-def unpack_snapshot(data) -> Tuple[str, dict, dict]:
-    """Decode a payload -> ``(family, config, params)`` with numpy leaves
-    (owned copies; 0-d leaves stay 0-d).  A binner section (GBDT) is not
-    yet ported and raises."""
+def unpack_snapshot(data) -> Tuple[str, dict, dict, Optional[object]]:
+    """Decode a payload -> ``(family, config, params, binner)`` with numpy
+    leaves (owned copies; 0-d leaves stay 0-d).  The binner, when the
+    snapshot has one, is a fitted ``QuantileBinner`` holding its cuts on the
+    host, as the params are; ``ScoringEngine`` copies it to its device."""
     data = bytes(data)
     if data[:len(MAGIC)] != MAGIC:
         raise ValueError("not a model snapshot (bad magic)")
@@ -92,9 +105,6 @@ def unpack_snapshot(data) -> Tuple[str, dict, dict]:
     off += head_len
     if meta.get("version") != 1:
         raise ValueError(f"unsupported snapshot version {meta.get('version')}")
-    if "binner" in meta:
-        raise NotImplementedError("snapshots with a binner (gbdt) are not "
-                                  "yet ported to torch")
     params = {}
     for leaf in meta["leaves"]:
         if leaf["kind"] == "none":
@@ -109,7 +119,22 @@ def unpack_snapshot(data) -> Tuple[str, dict, dict]:
         a = np.frombuffer(data, dt, count=count, offset=off).reshape(shape)
         off += dt.itemsize * count
         params[leaf["key"]] = a.copy()  # frombuffer views are read-only
+    binner = None
+    if "binner" in meta:
+        from ..models import QuantileBinner
+        b = meta["binner"]
+        shape = tuple(b["cuts_shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if off + 4 * count > len(data):
+            raise ValueError("snapshot payload ends inside the binner cuts "
+                             "(torn write?)")
+        cuts = np.frombuffer(data, np.float32, count=count,
+                             offset=off).reshape(shape)
+        off += 4 * count
+        binner = QuantileBinner.from_cuts(cuts, b["num_bins"],
+                                          missing_aware=b["missing_aware"],
+                                          device="cpu")
     if off != len(data):
         raise ValueError(f"snapshot payload has {len(data) - off} "
                          "trailing bytes (torn write?)")
-    return meta["family"], meta["config"], params
+    return meta["family"], meta["config"], params, binner

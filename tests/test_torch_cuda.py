@@ -5,7 +5,8 @@ conftest::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel is held to its plain PyTorch version on the same inputs at
+Each kernel (segment sum, dense and sparse histogram) is held to its plain
+PyTorch version on the same inputs at
 atol = rtol = 1e-5 (f32 sums in another order), and to itself bit for bit
 from launch to launch.
 """
@@ -210,6 +211,28 @@ def test_histogram_kernel_matches_plain_and_is_bitwise_stable(cuda, shape,
                                **TOL)
 
 
+def test_histogram_kernel_heavy_bin_stays_within_rounding_of_float64(cuda):
+    """Sparse data densified with NaN puts most rows in the missing bin 0: a
+    bin summing thousands of near-equal hessians in a chunk.  The kernel's
+    f64 sums keep it within 1e-6 of float64, relative to the largest bin; an
+    f32 chain that long drifted 2.8e-3 at Bosch width."""
+    rng = np.random.default_rng(12)
+    rows, F, B = 2_000_000, 4, 16
+    bins = np.where(rng.random((rows, F)) < 0.9, 0,
+                    rng.integers(1, B, (rows, F))).astype(np.uint8)
+    gh = np.stack([rng.uniform(-0.5, 0.5, rows), rng.uniform(0.24, 0.25, rows)],
+                  1).astype(np.float32)
+    got = hg.histogram_gh_kernel(torch.from_numpy(bins).to(cuda),
+                                 torch.zeros(rows, dtype=torch.int32,
+                                             device=cuda),
+                                 torch.from_numpy(gh).to(cuda), 1, B)
+    want = np.stack([[np.stack([np.bincount(
+        bins[:, f], weights=gh[:, lane].astype(np.float64), minlength=B)
+        for lane in (0, 1)], 1) for f in range(F)]])
+    err = np.abs(got.cpu().numpy() - want).max()
+    assert err <= 1e-6 * np.abs(want).max()
+
+
 def test_histogram_kernel_drops_out_of_range_rows(cuda):
     bins, rel, gh = _hist_case(3000, 4, 16, 4, torch.int32, cuda, seed=5)
     rel[::7] = 9       # node ids past n_nodes
@@ -279,3 +302,229 @@ def test_gbdt_leaf_sums_run_on_the_kernel_for_either_histogram(cuda,
     assert ss.segment_sum_kernel.launches - seg0 == 3
     assert (hg.histogram_gh_kernel.launches - hist0
             == (3 * 3 if histogram == "pallas" else 0))
+
+
+# ---- the sparse histogram kernel ---------------------------------------------
+
+# (rows, F, num_bins, n_nodes, nnz): tests/test_pallas.py:297-303's shapes,
+# 32 nodes at 256 bins (one pass), the node cap of "auto", non-pow-2 bins,
+# a Bosch-width level, an empty feature stream
+SPARSE_CASES = [(100, 3, 8, 1, 500), (200, 5, 16, 4, 2000),
+                (150, 6, 256, 2, 1500), (120, 4, 33, 8, 1111),
+                (90, 2, 8, 16, 257), (5000, 50, 256, 32, 200_000),
+                (2000, 20, 256, 512, 100_000), (3000, 9, 300, 5, 50_000),
+                (100_000, 968, 256, 8, 2_000_000), (10, 3, 8, 2, 0)]
+
+
+def _sparse_level(rows, F, B, n, nnz, device, seed=0):
+    """A feature-sorted entry stream with skewed feature counts (the
+    layout's arrays), and its level inputs on ``device``."""
+    from dmlc_core_tpu_torch.ops.histogram_sparse import sparse_hist_layout
+    rng = np.random.default_rng(seed)
+    fi = np.minimum(rng.zipf(1.3, nnz) - 1, F - 1).astype(np.int32)
+    layout = sparse_hist_layout(
+        torch.from_numpy(rng.integers(0, rows, nnz).astype(np.int32)),
+        torch.from_numpy(fi),
+        torch.from_numpy(rng.integers(1, B, nnz).astype(np.int32)),
+        torch.ones(nnz, dtype=torch.bool), F, B)
+    rid = layout.rid.long()
+    rel = torch.from_numpy(rng.integers(0, n, rows).astype(np.int32))
+    gh = torch.from_numpy(rng.standard_normal((rows, 2)).astype(np.float32))
+    return (layout.gkey.to(device), rel[rid].contiguous().to(device),
+            gh[rid].contiguous().to(device), layout.starts)
+
+
+@pytest.mark.parametrize("shape", SPARSE_CASES, ids=str)
+def test_sparse_kernel_matches_plain_and_is_bitwise_stable(cuda, shape):
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    rows, F, B, n, nnz = shape
+    gkey, rel_e, gh_e, starts = _sparse_level(rows, F, B, n, nnz, cuda)
+    before = hs.histogram_gh_sparse_kernel.launches
+    a = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, n, F, B)
+    b = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, n, F, B)
+    torch.cuda.synchronize()
+    assert hs.histogram_gh_sparse_kernel.launches == before + (
+        2 if nnz else 0)
+    assert a.shape == (n, F, B, 2) and a.dtype == torch.float32
+    assert torch.equal(a, b)
+    assert not a[:, :, 0, :].any()  # bin 0: no entry names it
+    torch.testing.assert_close(a, hs.histogram_gh_sparse_plain(
+        gkey, rel_e, gh_e, starts, n, F, B), **TOL)
+
+
+def test_sparse_kernel_tied_bin_stays_within_rounding_of_float64(cuda):
+    """One feature whose values tie in one bin for 90% of its entries: a
+    span sums thousands of near-equal hessians into that bin.  The kernel's
+    f64 sums keep it within 1e-6 of float64, relative to the largest bin."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    rng = np.random.default_rng(13)
+    nnz, B = 4_000_000, 16
+    ebin = np.where(rng.random(nnz) < 0.9, 5,
+                    rng.integers(1, B, nnz)).astype(np.int32)
+    gh = np.stack([rng.uniform(-0.5, 0.5, nnz), rng.uniform(0.24, 0.25, nnz)],
+                  1).astype(np.float32)
+    got = hs.histogram_gh_sparse_kernel(
+        torch.from_numpy(ebin).to(cuda),
+        torch.zeros(nnz, dtype=torch.int32, device=cuda),
+        torch.from_numpy(gh).to(cuda), torch.tensor([0, nnz]), 1, 1, B)
+    want = np.stack([np.bincount(ebin, weights=gh[:, lane].astype(
+        np.float64), minlength=B) for lane in (0, 1)], 1)
+    err = np.abs(got.cpu().numpy()[0, 0] - want).max()
+    assert err <= 1e-6 * np.abs(want).max()
+
+
+def test_sparse_kernel_drops_out_of_range_entries(cuda):
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    gkey, rel_e, gh_e, starts = _sparse_level(3000, 4, 16, 4, 20000, cuda,
+                                              seed=5)
+    rel_e[::7] = 9     # node ids past n_nodes
+    rel_e[3::11] = -1
+    got = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, 4, 4, 16)
+    torch.testing.assert_close(got, hs.histogram_gh_sparse_plain(
+        gkey, rel_e, gh_e, starts, 4, 4, 16), **TOL)
+
+
+def test_sparse_kernel_rejects_what_it_does_not_take(cuda):
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    gkey, rel_e, gh_e, starts = _sparse_level(64, 3, 8, 2, 500, cuda)
+    k = hs.histogram_gh_sparse_kernel
+    with pytest.raises(TypeError):
+        k(gkey.long(), rel_e, gh_e, starts, 2, 3, 8)
+    with pytest.raises(TypeError):
+        k(gkey, rel_e, gh_e.double(), starts, 2, 3, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k(gkey, rel_e, torch.stack([gh_e[:, 0], gh_e[:, 1]], 1).t()
+          .contiguous().t(), starts, 2, 3, 8)
+    with pytest.raises(ValueError):
+        k(gkey, rel_e.cpu(), gh_e, starts, 2, 3, 8)
+    with pytest.raises(ValueError):
+        k(gkey, rel_e[:10], gh_e, starts, 2, 3, 8)
+    with pytest.raises(ValueError):
+        k(gkey, rel_e, gh_e, starts.to(cuda), 2, 3, 8)
+    with pytest.raises(ValueError):
+        k(gkey, rel_e, gh_e, starts[:-1], 2, 3, 8)
+
+
+def _sparse_batch(rows, F, device, seed=0):
+    """A CSR batch whose Bernoulli label depends on the presence and the
+    values of four features, so every split of a depth-3 tree has signal
+    well above f32 rounding (deeper noise splits can tie)."""
+    from dmlc_core_tpu_torch.data.staging import PaddedBatch
+    rng = np.random.default_rng(seed)
+    present = rng.random((rows, F)) < 0.5
+    vals = rng.uniform(-2, 2, (rows, F)).astype(np.float32)
+    vals[vals == 0] = 0.5
+    r, f = np.nonzero(present)
+    x = np.where(present, vals, 0.0)
+    m = (1.5 * (~present[:, 0] | (x[:, 0] > 0.3)) - 1.0 * (x[:, 1] > -0.5)
+         + 0.8 * x[:, 2] - 0.6 * (present[:, 3] & (x[:, 3] < 0.5)))
+    y = (rng.random(rows) < 1 / (1 + np.exp(-2 * m))).astype(np.float32)
+    row_ptr = np.concatenate([[0], np.cumsum(present.sum(1))])
+    batch = PaddedBatch(
+        label=torch.from_numpy(y).to(device),
+        weight=torch.ones(rows, device=device),
+        row_ptr=torch.from_numpy(row_ptr.astype(np.int32)).to(device),
+        index=torch.from_numpy(f.astype(np.int32)).to(device),
+        value=torch.from_numpy(vals[r, f]).to(device), num_rows=rows)
+    return batch, f, vals[r, f], present
+
+
+def _missing_at_nodes(forest, present, codes, depth):
+    """[trees, 2**depth - 1] bool: some training row that reaches the node
+    lacks the node's split feature.  ``codes``: [rows, F] bins (0 absent)."""
+    feat = forest["feature"].numpy()
+    thr = forest["threshold"].numpy()
+    dflt = forest["default_right"].numpy()
+    rows = np.arange(present.shape[0])
+    out = np.zeros(feat.shape, bool)
+    for t in range(feat.shape[0]):
+        node = np.zeros(present.shape[0], np.int64)
+        for _ in range(depth):
+            f = feat[t, node]
+            np.logical_or.at(out[t], node, ~present[rows, f])
+            b = codes[rows, f]
+            node = 2 * node + 1 + np.where(b == 0, dflt[t, node] == 1,
+                                           b > thr[t, node])
+    return out
+
+
+def test_fit_batch_on_kernel_equals_fit_batch_on_plain(cuda):
+    """fit_batch on the card (histograms on the sparse kernel, node totals
+    and leaf sums on the segment-sum kernel) and on the CPU (their plain
+    versions): equal splits, equal default directions where training rows
+    are missing, one histogram launch a level, bitwise the same forest twice
+    on the card.  Leaves, gains and covers within 2e-4 of each array's
+    largest value: on the CPU the node totals and leaf sums are
+    ``index_add``, one f32 chain over up to 20,000 near-equal hessians whose
+    rounding errors line up (a leaf off by 3.4e-4 of itself, 5.8e-5 of 0.3,
+    on the H100), while the card's segment-sum kernel compensates."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    kw = dict(num_features=6, num_trees=3, max_depth=3, num_bins=32,
+              learning_rate=0.5, missing_aware=True, histogram="pallas")
+    forests = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        batch, idx, val, present = _sparse_batch(20000, 6, dev, seed=11)
+        binner = QuantileBinner(num_bins=32, missing_aware=True,
+                                device=dev).fit_sparse(idx, val, 6)
+        before = hs.histogram_gh_sparse_kernel.launches
+        forests.append(GBDT(device=dev, **kw).fit_batch(batch, binner))
+        launched = hs.histogram_gh_sparse_kernel.launches - before
+        assert launched == (3 * 3 if dev.type == "cuda" else 0)
+    for k in forests[0]:
+        assert torch.equal(forests[0][k], forests[1][k]), k
+    gpu, cpu = ({k: v.cpu() for k, v in f.items()} for f in forests[1:])
+    for k in ("feature", "threshold", "trees_used"):
+        assert torch.equal(gpu[k], cpu[k]), k
+    # the default direction wherever a training row is missing; at a node
+    # with no missing mass the two directions tie exactly, and rounding
+    # picks one (ROADMAP C: not a fault)
+    codes = np.zeros(present.shape, np.int64)
+    codes[np.nonzero(present)] = binner.transform_entries(
+        batch.index, batch.value).numpy()
+    miss = _missing_at_nodes(cpu, present, codes, 3)
+    assert miss.sum() > 5
+    np.testing.assert_array_equal(gpu["default_right"].numpy()[miss],
+                                  cpu["default_right"].numpy()[miss])
+    torch.testing.assert_close(gpu["base"], cpu["base"], **TOL)
+    for k in ("leaf", "split_gain", "split_cover"):
+        torch.testing.assert_close(gpu[k], cpu[k], rtol=2e-4,
+                                   atol=2e-4 * float(cpu[k].abs().max()))
+
+
+@pytest.mark.parametrize("histogram", ["auto", "pallas", "xla"])
+def test_fit_batch_totals_and_leaves_run_on_the_segment_sum_kernel(
+        cuda, histogram):
+    """``histogram=`` picks only the level histogram: on the card every
+    level's node totals and every tree's leaf sums launch the segment-sum
+    kernel, and the sparse kernel launches once a level unless "xla"."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    batch, idx, val, _ = _sparse_batch(3000, 5, cuda, seed=4)
+    binner = QuantileBinner(num_bins=16, missing_aware=True,
+                            device=cuda).fit_sparse(idx, val, 5)
+    seg0 = ss.segment_sum_kernel.launches
+    hist0 = hs.histogram_gh_sparse_kernel.launches
+    GBDT(num_features=5, num_trees=3, max_depth=3, num_bins=16,
+         missing_aware=True, device=cuda,
+         histogram=histogram).fit_batch(batch, binner)
+    assert ss.segment_sum_kernel.launches - seg0 == 3 * (3 + 1)
+    assert (hs.histogram_gh_sparse_kernel.launches - hist0
+            == (0 if histogram == "xla" else 3 * 3))
+
+
+def test_gbdt_engine_on_card_matches_cpu(cuda):
+    """A gbdt snapshot served on the card scores like the CPU engine."""
+    batch, idx, val, _ = _sparse_batch(2000, 8, torch.device("cpu"), seed=6)
+    binner = QuantileBinner(num_bins=16, missing_aware=True,
+                            device="cpu").fit_sparse(idx, val, 8)
+    cfg = dict(num_features=8, num_trees=3, max_depth=3, num_bins=16,
+               missing_aware=True)
+    forest = GBDT(device="cpu", **cfg).fit_batch(batch, binner)
+    snap = pack_snapshot("gbdt", cfg, forest, binner=binner)
+    gpu = ScoringEngine.from_snapshot_bytes(snap, device=cuda)
+    cpu = ScoringEngine.from_snapshot_bytes(snap, device="cpu")
+    it_gpu, it_cpu = ScoringIterator(device=cuda), ScoringIterator(device="cpu")
+    for n in (1, 9, 100):
+        reqs = _requests(n, F=8, seed=n)
+        np.testing.assert_allclose(gpu.score(it_gpu.pack(reqs)[0]),
+                                   cpu.score(it_cpu.pack(reqs)[0]),
+                                   rtol=2e-5, atol=2e-5)

@@ -125,7 +125,7 @@ def test_launch_geometry_fits_the_card(rows, F, B, n):
     partials' scratch bounded."""
     geo = hg.launch_geometry(rows, F, B, n)
     assert 1 <= geo["warps"] <= 4 and geo["smem"] <= 227 * 1024
-    assert geo["smem"] == geo["warps"] * geo["node_tile"] * B * 8
+    assert geo["smem"] == geo["warps"] * geo["node_tile"] * B * 16
     assert 1 <= geo["node_tile"] <= n
     assert geo["n_chunks"] * geo["chunk"] >= rows
     assert (geo["n_chunks"] - 1) * geo["chunk"] < max(rows, 1)

@@ -46,6 +46,14 @@ def _entry_points():
                                              pack_snapshot)
     snap = pack_snapshot("linear", {"num_features": 4},
                          {"w": [0.0] * 4, "b": 0.0})
+    cpu = GBDT(num_features=1, num_trees=1, max_depth=1, num_bins=4,
+               missing_aware=True, device="cpu")
+    gbdt_snap = pack_snapshot(
+        "gbdt", {"num_features": 1, "num_trees": 1, "max_depth": 1,
+                 "num_bins": 4, "missing_aware": True}, cpu.init(),
+        binner=QuantileBinner(num_bins=4, missing_aware=True,
+                              device="cpu").fit_sparse([0, 0], [1.0, 2.0],
+                                                       1))
     return {
         "SparseLinearModel": lambda: SparseLinearModel(4),
         "FactorizationMachine": lambda: FactorizationMachine(4),
@@ -56,13 +64,20 @@ def _entry_points():
         "GBDT": lambda: GBDT(num_features=4),
         "QuantileBinner.transform": lambda: QuantileBinner(num_bins=4).fit(
             [[0.0], [1.0], [2.0], [3.0]]).transform([[1.5]]),
+        "QuantileBinner.transform_entries": lambda: QuantileBinner(
+            num_bins=4, missing_aware=True).fit_sparse(
+            [0, 0], [1.0, 2.0], 1).transform_entries([0], [1.5]),
+        "ScoringEngine (gbdt)": lambda: ScoringEngine.from_snapshot_bytes(
+            gbdt_snap),
     }
 
 
 @pytest.mark.parametrize("name", ["SparseLinearModel", "FactorizationMachine",
                                   "ScoringEngine", "ScoringIterator",
                                   "MicroBatchQueue", "ScoringServer", "GBDT",
-                                  "QuantileBinner.transform"])
+                                  "QuantileBinner.transform",
+                                  "QuantileBinner.transform_entries",
+                                  "ScoringEngine (gbdt)"])
 def test_default_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

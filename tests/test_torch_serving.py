@@ -7,12 +7,14 @@ within 2e-5 of the JAX engine (f32 sums in another order; the tolerance
 of tests/test_pallas.py between the reference's two backends), and the
 server keeps the JAX server's HTTP and hot-swap contracts.
 """
+import functools
 import json
 import threading
 import time
 import urllib.error
 import urllib.request
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -21,7 +23,10 @@ from dmlc_core_tpu.serving import ScoringIterator as JaxIterator
 from dmlc_core_tpu.serving import pack_snapshot as jax_pack
 from dmlc_core_tpu.serving import push_snapshot as jax_push
 from dmlc_core_tpu.serving import unpack_snapshot as jax_unpack
+from dmlc_core_tpu.models.gbdt import GBDT as JaxGBDT
+from dmlc_core_tpu.models.gbdt import QuantileBinner as JaxBinner
 from dmlc_core_tpu_torch import faultinject, telemetry
+from dmlc_core_tpu_torch.models import QuantileBinner
 from dmlc_core_tpu_torch.serving import (MicroBatchQueue, MicroBatchTuner,
                                          ScoringEngine, ScoringIterator,
                                          ScoringServer, pack_snapshot,
@@ -78,10 +83,11 @@ def test_snapshot_bytes_and_digest_match_jax(family):
     assert ours == theirs
     assert snapshot_digest(ours) == snapshot_digest(theirs)
     # each package unpacks the other's bytes to the same leaves
-    fam, cfg2, got = unpack_snapshot(theirs)
+    fam, cfg2, got, binner_t = unpack_snapshot(theirs)
     fam_j, cfg_j, want, binner = jax_unpack(ours)
     assert fam == fam_j == family and cfg2 == cfg_j == cfg
-    assert binner is None and sorted(got) == sorted(want)
+    assert binner is None and binner_t is None
+    assert sorted(got) == sorted(want)
     for k in got:
         assert got[k].shape == np.asarray(want[k]).shape  # 0-d b stays 0-d
         np.testing.assert_array_equal(got[k], np.asarray(want[k]))
@@ -102,9 +108,15 @@ def test_snapshot_rejects_torn_and_unported():
         unpack_snapshot(snap[:-4])
     with pytest.raises(ValueError, match="magic"):
         unpack_snapshot(b"NOTSNAP0" + snap[8:])
-    for family in ("ffm", "gbdt"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            pack_snapshot(family, {"num_features": F}, {"w": np.zeros(F)})
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        pack_snapshot("ffm", {"num_features": F}, {"w": np.zeros(F)})
+    gbdt = _gbdt_snapshot()
+    with pytest.raises(ValueError, match="ends inside the binner"):
+        unpack_snapshot(gbdt[:-4])
+    with pytest.raises(ValueError, match="fitted"):
+        pack_snapshot("gbdt", GBDT_CONFIG, {},
+                      binner=QuantileBinner(num_bins=8, missing_aware=True,
+                                            device="cpu"))
     with pytest.raises(ValueError, match="unknown model family"):
         pack_snapshot("svm", {}, {})
 
@@ -124,6 +136,95 @@ def test_jax_snapshot_scores_in_port_engine(family):
         want = want_eng.score(jit.pack(reqs)[0])
         assert got.shape == (n,) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, **TOL)
+
+
+# ---- gbdt snapshots (a forest and its binner) ---------------------------------
+
+GBDT_CONFIG = {"num_features": F, "num_trees": 3, "max_depth": 3,
+               "num_bins": 8, "learning_rate": 0.5, "missing_aware": True}
+
+
+@functools.lru_cache(maxsize=None)
+def _gbdt_parts():
+    """A JAX-trained sparse forest and its binner over F features, as
+    numpy (forest, cuts), from the same COO generator as the requests."""
+    from dmlc_core_tpu.data.staging import PaddedBatch as JaxBatch
+    reqs = _requests(300, seed=21)
+    rid = np.concatenate([[r] * len(i) for r, (i, _) in enumerate(reqs)])
+    idx = np.concatenate([i for i, _ in reqs]).astype(np.int32)
+    val = np.concatenate([v for _, v in reqs]).astype(np.float32)
+    dense = np.full((300, F), np.nan, np.float32)
+    dense[rid, idx] = val
+    y = np.where(np.isnan(dense[:, 3]), 1.0, dense[:, 3] > 0.6)
+    binner = JaxBinner(num_bins=8, missing_aware=True).fit_sparse(idx, val, F)
+    row_ptr = np.concatenate([[0], np.cumsum([len(i) for i, _ in reqs])])
+    batch = JaxBatch(label=jnp.asarray(y, jnp.float32),
+                     weight=jnp.ones(300, jnp.float32),
+                     row_ptr=jnp.asarray(row_ptr, jnp.int32),
+                     index=jnp.asarray(idx), value=jnp.asarray(val),
+                     num_rows=jnp.asarray(np.int32(300)))
+    forest = JaxGBDT(histogram="xla", **GBDT_CONFIG).fit_batch(batch, binner)
+    return {k: np.asarray(v) for k, v in forest.items()}, np.asarray(
+        binner.cuts)
+
+
+def _gbdt_snapshot(seq=0):
+    forest, cuts = _gbdt_parts()
+    return jax_pack("gbdt", GBDT_CONFIG, forest,
+                    binner=_jax_binner(cuts), seq=seq)
+
+
+def _jax_binner(cuts):
+    b = JaxBinner(num_bins=8, missing_aware=True)
+    b.cuts = jnp.asarray(cuts)
+    return b
+
+
+def test_gbdt_snapshot_round_trips_between_packages():
+    """A JAX-packed gbdt snapshot unpacks in the port and a port-packed one
+    in the JAX package: same bytes, same digest, same cuts_digest."""
+    forest, cuts = _gbdt_parts()
+    theirs = _gbdt_snapshot(seq=4)
+    fam, cfg, params, binner = unpack_snapshot(theirs)
+    assert fam == "gbdt" and cfg == GBDT_CONFIG
+    assert binner.cuts_digest() == _jax_binner(cuts).cuts_digest()
+    assert binner.missing_aware and binner.num_bins == 8
+    for k, v in forest.items():
+        np.testing.assert_array_equal(params[k], v)
+    ours = pack_snapshot("gbdt", cfg, params, binner=binner, seq=4)
+    assert ours == theirs and snapshot_digest(ours) == snapshot_digest(theirs)
+    fam_j, _, params_j, binner_j = jax_unpack(ours)
+    assert fam_j == "gbdt" and binner_j.cuts_digest() == binner.cuts_digest()
+    assert sorted(params_j) == sorted(forest)
+
+
+def test_gbdt_snapshot_scores_in_port_engine_and_server():
+    """A CPU engine and ScoringServer serving a JAX-packed gbdt snapshot
+    return the JAX engine's scores within 2e-5."""
+    snap = _gbdt_snapshot(seq=2)
+    want_eng = JaxEngine.from_snapshot_bytes(snap)
+    eng = ScoringEngine.from_snapshot_bytes(snap, device="cpu")
+    assert eng.digest == want_eng.digest and eng.family == "gbdt"
+    it, jit = ScoringIterator(device="cpu"), JaxIterator()
+    for n, seed in ((1, 30), (7, 31), (64, 32)):
+        reqs = _requests(n, seed)
+        got = eng.score(it.pack(reqs)[0])
+        want = want_eng.score(jit.pack(reqs)[0])
+        assert got.shape == (n,) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, **TOL)
+    with ScoringServer(max_delay_us=200, device="cpu") as srv:
+        assert push_snapshot("127.0.0.1", srv.port, snap, seq=2)["ok"]
+        url = f"http://127.0.0.1:{srv.http_port}"
+        reqs = _requests(9, seed=33)
+        doc = _score_http(url, reqs)
+        assert doc["model"] == snapshot_digest(snap) and doc["seq"] == 2
+        np.testing.assert_allclose(np.asarray(doc["scores"], np.float32),
+                                   want_eng.score(jit.pack(reqs)[0]), **TOL)
+    fam, cfg, params, _ = jax_unpack(snap)
+    with pytest.raises(ValueError, match="binner"):
+        ScoringEngine.from_snapshot_bytes(
+            jax_pack(fam, cfg, {k: np.asarray(v) for k, v in params.items()}),
+            device="cpu")
 
 
 # ---- request packing ----------------------------------------------------------
