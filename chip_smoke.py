@@ -6,13 +6,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the native runtime and every CUDA kernel from the checkout (side
-by side), holds each kernel against its plain PyTorch version on the card,
+by side) and prints the histogram kernels' atomic instructions from the
+SASS, holds each kernel against its plain PyTorch version on the card,
 serves a Criteo-width factorization machine (2^20 hashed features, 16
 factors, 39 nonzeros a row) over HTTP through the port's ``ScoringServer``
 and checks every score against a float64 numpy oracle, then trains a
 Higgs-width histogram GBDT (11M rows x 28 features, 256 bins, 20 trees of
-depth 6) through ``GBDT.fit`` and checks its histograms, forests and
-predictions against float64 oracles, then trains a Bosch-width sparse GBDT
+depth 6) through ``GBDT.fit`` and checks its histograms (every level of
+the first tree timed beside the previous kernel, ``index_add`` and the
+bound),
+forests and predictions against float64 oracles, then trains a Bosch-width
+sparse GBDT
 (1,183,747 rows x 968 features, ~19% present) on a CSR batch through
 ``GBDT.fit_batch``, audits it against float64, cross-checks it against a
 dense fit of the densified data, and serves it from a snapshot through
@@ -28,10 +32,18 @@ builds the kernels, then fits the Higgs-width GBDT four ways (histogram
 and leaf sums each on the kernel or on ``index_add``) for two labels and
 three data seeds, and audits every split of every fit against float64
 (see ``label_study``).  It prints its readings and no result line.
+
+    python3 chip_smoke.py --geometry-sweep
+
+builds the kernels, then times the dense histogram kernel at every level
+of a Higgs-width first tree under every launch geometry that fits (see
+``geometry_sweep``), beside the one ``launch_geometry`` picks.  It prints
+its readings and no result line.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -103,6 +115,35 @@ def phase_builds(native, build):
         for line in build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
+    for k in ("histogram_gh", "histogram_gh_sparse"):
+        sass_atomics(build, k)
+
+
+ATOMIC_OP = re.compile(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)")
+
+
+def sass_atomics(build, name: str) -> None:
+    """Print the atomic instructions of each kernel of ``name`` as
+    ``cuobjdump -sass`` shows them, and fail on a compare-and-swap loop or a
+    float atomic: the histogram kernels add integers with native atomics."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = run_text([str(cuobjdump), "-sass", str(build.build(name))])
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        for op in ATOMIC_OP.findall(line):
+            counts.setdefault(fn, {}).setdefault(op, 0)
+            counts[fn][op] += 1
+    for fn, ops in counts.items():
+        print(f"  sass {name} {fn[:48]}: " + ", ".join(
+            f"{op} x{c}" for op, c in sorted(ops.items())))
+        bad = [op for op in ops if "CAS" in op or ".F" in op]
+        check(not bad, f"{name} {fn}: {bad} (want native integer atomics)")
+    check(any(op.startswith("ATOMS.ADD") for ops in counts.values()
+              for op in ops), f"{name}: no shared-memory integer add")
 
 
 # ---- phase 2: the kernel against its plain version ----------------------------
@@ -460,6 +501,39 @@ def check_hist(torch, hg, name, bins, rel, gh, n, B) -> float:
     return err_p
 
 
+# per-level times of the previous design, per-warp f64 histograms, on the
+# same shapes (PERF.md's per-level table; H100 80GB HBM3, 700 W)
+F64_WARP_DENSE_MS = (3.533, 5.532, 6.391, 12.430, 17.522, 32.784)
+F64_WARP_SPARSE_MS = (2.379, 3.418, 4.335, 12.599, 16.860, 29.450)
+
+
+def level_error(h32, h64) -> float:
+    """max |f32 histogram - float64 sums| relative to max(1, the largest
+    float64 bin)."""
+    h64 = h64.reshape(h32.shape)
+    return float((h32.double() - h64).abs().max()) / max(
+        1.0, float(h64.abs().max()))
+
+
+def print_level(what, d, n, lv, before_ms, err, nbytes, cov) -> None:
+    print(f"time [{what}, depth {d}, n={n}]: kernel {lv['ms']:.3f} ms "
+          f"(per-warp f64 kernel: {before_ms:.3f}), plain "
+          f"{lv['plain_ms']:.1f} ms, index_add {lv['library_ms']:.3f} ms, bound {lv['bound_ms']:.4f} ms "
+          f"({nbytes} bytes, {lv['bound_by']}); |kernel - float64| "
+          f"{err:.3e} of the largest bin; queue covered: {cov}")
+
+
+def level_summary(what, per_level, before_ms) -> None:
+    ms = [lv["ms"] for lv in per_level]
+    lib = [lv["library_ms"] for lv in per_level]
+    print(f"{what} per level: mean {np.mean(ms):.3f} ms (per-warp f64 "
+          f"kernel: {np.mean(before_ms):.3f}, index_add {np.mean(lib):.3f}); "
+          f"faster than the per-warp f64 kernel at depths "
+          f"{[d for d, (a, b) in enumerate(zip(ms, before_ms)) if a < b]}, "
+          f"than index_add at depths "
+          f"{[d for d, (a, b) in enumerate(zip(ms, lib)) if a < b]}")
+
+
 def check_leaf_sums(torch, ss_mod, gh, leaf_rel, n_leaves,
                     what: str = "leaf sums") -> dict:
     """The segment-sum kernel at a GBDT's leaf-sum (or node-total) shape
@@ -537,16 +611,19 @@ def predict_oracle(forest: dict, bins: np.ndarray, depth: int) -> np.ndarray:
 def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     """One fit of the main path, with the launch counts set to 0 just
     before it and read just after.  Returns (forest, seconds, histogram
-    launches, segment-sum launches)."""
+    launches, segment-sum launches, peak device memory of the fit in
+    bytes)."""
     hg.histogram_gh_kernel.launches = 0
     ss_mod.segment_sum_kernel.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     forest = model.fit(bins, label)
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
     return (forest, secs, hg.histogram_gh_kernel.launches,
-            ss_mod.segment_sum_kernel.launches)
+            ss_mod.segment_sum_kernel.launches,
+            torch.cuda.max_memory_allocated())
 
 
 def phase_gbdt(torch, ss_mod, dev) -> dict:
@@ -582,8 +659,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
           f"{tuple(bins.shape)} = {bins.numel() / 1e6:.0f} MB")
 
     model = GBDT(num_features=F, device=dev, **GBDT_KW)  # histogram="auto"
-    torch.cuda.reset_peak_memory_stats()
-    warm, t_warm, _, _ = fit_timed(torch, hg, ss_mod, model, bins, label)
+    warm, t_warm, *_ = fit_timed(torch, hg, ss_mod, model, bins, label)
 
     # the kernel against its plain version and a float64 oracle, on the
     # first tree's own level inputs, plus the op surface's edges
@@ -605,8 +681,10 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
             torch, hg, name, cb.to(dt).to(dev).contiguous(), cr.to(dev),
             cg.to(dev), n, b))
 
-    # time per launch at each level of the first tree, beside its bound,
-    # the plain version and index_add over the prebuilt flattened keys
+    # time per launch at each level of the first tree, beside the previous
+    # kernel's, its bound, the plain version and index_add over the
+    # prebuilt flattened keys; the error against float64 sums by index_add
+    # at every level
     per_level = []
     for d, (rel, n) in enumerate(levels):
         ms, cov = device_ms(
@@ -620,27 +698,32 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
         zeros = torch.zeros(n * F * B, 2, device=dev)
         lib_ms, _ = device_ms(
             torch, lambda: torch.index_add(zeros, 0, keys, src), 3, warmup=1)
-        del keys, src
+        h64 = torch.zeros(n * F * B, 2, dtype=torch.float64, device=dev)
+        h64.index_add_(0, keys, src.double())
+        err = level_error(hg.histogram_gh_kernel(bins, rel, gh, n, B), h64)
+        del keys, src, h64
         nbytes = rows * F + 4 * rows + 8 * rows + 8 * n * F * B
         byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * rows * F / F32_OPS_PER_S
         per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=max(byte_s, op_s) * 1e3,
                               bound_by="bytes" if byte_s >= op_s
                               else "operations"))
-        print(f"time [histogram, depth {d}, n={n}]: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, bound "
-              f"{per_level[-1]['bound_ms']:.4f} ms ({nbytes} bytes, "
-              f"{per_level[-1]['bound_by']}); queue covered: {cov}")
+        print_level("histogram", d, n, per_level[-1], F64_WARP_DENSE_MS[d], err,
+                    nbytes, cov)
+        check(err <= HIST_TOL, f"histogram depth {d}: {err} of the largest "
+              "bin from float64")
+    level_summary("histogram", per_level, F64_WARP_DENSE_MS)
     del gh, levels, leaf_rel
 
     # the main path: two timed fits of the same forest
     fits = [fit_timed(torch, hg, ss_mod, model, bins, label)
             for _ in range(2)]
     forest = fits[0][0]
-    for f_i, secs, h_l, s_l in fits:
+    for f_i, secs, h_l, s_l, peak in fits:
         print(f"gbdt fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
               f"row_trees_s; launches: histogram_gh {h_l}, segment_sum "
-              f"{s_l}")
+              f"{s_l}; peak device memory of the fit {peak / 2**30:.2f} GiB "
+              f"(codes {bins.numel() / 2**30:.2f} GiB)")
         check(h_l == trees * depth, f"histogram_gh launched {h_l} times in "
               f"a fit (want {trees * depth})")
         check(s_l == trees, f"segment_sum launched {s_l} times in a fit "
@@ -648,9 +731,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
         check(all(torch.equal(f_i[k], forest[k]) and
                   torch.equal(warm[k], forest[k]) for k in forest),
               "two fits gave different forests")
-    print(f"gbdt: warm-up fit {t_warm:.3f} s; three fits bitwise identical; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB")
+    print(f"gbdt: warm-up fit {t_warm:.3f} s; three fits bitwise identical")
     losses = tree_losses(torch, model, forest, bins, label)
     print("gbdt train logloss after 0/1/5/10/20 trees: " + ", ".join(
         f"{losses[i]:.6f}" for i in (0, 1, 5, 10, trees)))
@@ -909,6 +990,7 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
     regret is at most twice the node's largest |f32 - float64| gain."""
     from dmlc_core_tpu_torch.ops import histogram as hg
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.fixed_point import lane_amax
     from dmlc_core_tpu_torch.ops.segment_sum import segment_sum
     B, F = model.num_bins, model.num_features
     lam, mcw, lr = model.lambda_, model.min_child_weight, model.learning_rate
@@ -934,7 +1016,7 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
             if dense_bins is None:
                 h32 = hs.histogram_gh_sparse_kernel(
                     layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
-                    layout=layout)
+                    layout=layout, gh_amax=lane_amax(gh))
                 node32 = segment_sum(gh, rel, n, force="pallas")
                 g32 = missing_aware_gains(torch, h32, node32, lam, mcw)
                 err = (h32.double() - h64).abs().max()
@@ -1033,6 +1115,7 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     from dmlc_core_tpu_torch.models import GBDT, QuantileBinner, logistic_nll
     from dmlc_core_tpu_torch.ops import histogram as hg
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.fixed_point import lane_amax
     from dmlc_core_tpu_torch.ops.sparse import csr_to_dense_missing
     from dmlc_core_tpu_torch.serving import (ScoringServer, pack_snapshot,
                                              push_snapshot, snapshot_digest)
@@ -1082,24 +1165,27 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
         ss_mod.segment_sum_kernel.launches = 0
         hg.histogram_gh_kernel.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         forest = model.fit_batch(batch, binner)
         torch.cuda.synchronize()
         return (forest, time.monotonic() - t0,
                 hs.histogram_gh_sparse_kernel.launches,
                 ss_mod.segment_sum_kernel.launches,
-                hg.histogram_gh_kernel.launches)
+                hg.histogram_gh_kernel.launches,
+                torch.cuda.max_memory_allocated())
 
-    torch.cuda.reset_peak_memory_stats()
     warm, t_warm, *_ = fit_sparse_timed()
 
     # the kernel on the first tree's own levels, against its plain version
-    # and float64; per-level times beside the plain version, index_add over
-    # the flattened keys and the bound
+    # and float64; per-level times beside the previous kernel's, the plain
+    # version, index_add over the flattened keys and the bound; the
+    # launches take the rows' amax as the fit's do
     rid_l = layout.rid.long()
     gh, levels, leaf_rel = next(sparse_tree_inputs(torch, model, warm, ent,
                                                    data["label"]))
     gh_e = gh[rid_l].contiguous()
+    amax = lane_amax(gh)
     node_tot = check_leaf_sums(torch, ss_mod, gh, levels[-1][0],
                                levels[-1][1],
                                what=f"node totals (depth {depth - 1})")
@@ -1108,7 +1194,7 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
         rel_e = rel[rid_l].contiguous()
         ms, cov = device_ms(torch, lambda: hs.histogram_gh_sparse_kernel(
             layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
-            layout=layout), 20)
+            layout=layout, gh_amax=amax), 20)
         plain_ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_plain(
             layout.gkey, rel_e, gh_e, layout.starts, n, F, B), 1, warmup=1)
         gk = layout.gkey.long()
@@ -1119,22 +1205,27 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
             torch, lambda: torch.index_add(zeros, 0, keys, gh_e), 3,
             warmup=1)
         del keys, zeros
+        oracle = sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B)
+        err = level_error(hs.histogram_gh_sparse_kernel(
+            layout.gkey, rel_e, gh_e, layout.starts, n, F, B, layout=layout,
+            gh_amax=amax), oracle)
         nbytes = 16 * nnz + 8 * n * F * B
         byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
         per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=max(byte_s, op_s) * 1e3,
                               bound_by="bytes" if byte_s >= op_s
                               else "operations"))
-        print(f"time [sparse histogram, depth {d}, n={n}]: kernel {ms:.3f} "
-              f"ms, plain {plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, "
-              f"bound {per_level[-1]['bound_ms']:.4f} ms ({nbytes} bytes, "
-              f"{per_level[-1]['bound_by']}); queue covered: {cov}")
+        print_level("sparse histogram", d, n, per_level[-1],
+                    F64_WARP_SPARSE_MS[d], err, nbytes, cov)
+        check(err <= HIST_TOL, f"sparse histogram depth {d}: {err} of the "
+              "largest bin from float64")
         if d in CHECK_DEPTHS:
             err, _ = check_sparse_hist(
                 torch, hs, f"Bosch depth {d}", layout.gkey, rel_e, gh_e,
-                layout.starts, n, F, B,
-                sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B))
+                layout.starts, n, F, B, oracle)
             max_err = max(max_err, err)
+        del oracle
+    level_summary("sparse histogram", per_level, F64_WARP_SPARSE_MS)
     rng = torch.Generator(device=dev).manual_seed(9)
     for name, (c_nnz, c_f, c_b, c_n) in {
             "512 nodes": (5_000_000, 100, 256, 512),
@@ -1161,11 +1252,11 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     # the main path: two timed fits of the same forest
     fits = [fit_sparse_timed() for _ in range(2)]
     forest = fits[0][0]
-    for f_i, secs, h_l, s_l, d_l in fits:
+    for f_i, secs, h_l, s_l, d_l, peak in fits:
         print(f"gbdt_sparse fit_batch: {secs:.3f} s wall, "
               f"{R * trees / secs:.0f} row_trees_s; launches: "
               f"histogram_gh_sparse {h_l}, segment_sum {s_l}, histogram_gh "
-              f"{d_l}")
+              f"{d_l}; peak device memory of the fit {peak / 2**30:.2f} GiB")
         check(h_l == trees * depth, f"histogram_gh_sparse launched {h_l} "
               f"times in a fit (want {trees * depth})")
         check(s_l == trees * (depth + 1), f"segment_sum launched {s_l} times "
@@ -1176,8 +1267,7 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
                   torch.equal(warm[k], forest[k]) for k in forest),
               "two fit_batch fits gave different forests")
     print(f"gbdt_sparse: warm-up fit {t_warm:.3f} s; three fits bitwise "
-          f"identical; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"identical")
     label = data["label"]
     m = forest["base"].expand(R).clone()
     losses = [float(logistic_nll(m, label).mean())]
@@ -1315,6 +1405,76 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     return {"launches": fits[0][2], "max_abs_err": max_err, "nnz": nnz,
             "bound_by": per_level[0]["bound_by"], **mean,
             "node_totals": {**node_tot, "launches": fits[0][3]}}
+
+
+# ---- --geometry-sweep: the dense kernel's launch geometry -------------------
+
+SWEEP_GROUPS = (1, 3, 7, 14, 28)        # features a block takes
+SWEEP_BLOCKS = (264, 528, 1056, 2112)   # blocks a launch aims at
+SWEEP_SHOW = 6
+
+
+def geometry_sweep(torch, dev) -> None:
+    """The dense kernel at each level of a Higgs-width first tree under
+    every geometry that fits a block's shared memory: node tile (a power of
+    two up to the level's nodes) x feature group (SWEEP_GROUPS) x block
+    count (SWEEP_BLOCKS).  Each gives the histogram of the geometry
+    ``launch_geometry`` picks, bit for bit; prints the picked geometry's
+    device time, the SWEEP_SHOW fastest and the slowest."""
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    rows, F, B = HIGGS_ROWS, HIGGS_FEATURES, GBDT_KW["num_bins"]
+    x, y = higgs_like(rows, seed=2014)
+    binner = QuantileBinner(num_bins=B, device=dev).fit(x[:BINNER_SAMPLE])
+    bins = binner.transform(torch.from_numpy(x).to(dev))
+    label = torch.from_numpy(y).to(dev)
+    del x
+    model = GBDT(num_features=F, device=dev, **GBDT_KW)
+    gh, levels, _ = next(tree_inputs(torch, model, model.fit(bins, label),
+                                     bins, label))
+    picked, most = hg.launch_geometry, hg._SMEM_MAX // (16 * B)
+
+    def run(rel, n):
+        return hg.histogram_gh_kernel(bins, rel, gh, n, B)
+
+    def show(ms, g):
+        return (f"{ms:.3f} ms: node_tile {g['node_tile']} x feat_group "
+                f"{g['feat_group']}, {g['blocks']} blocks, "
+                f"{g['smem'] // 1024} KB")
+
+    try:
+        for d, (rel, n) in enumerate(levels):
+            want = run(rel, n)
+            base = device_ms(torch, lambda: run(rel, n), 10)[0]
+            timed = []
+            for fg in SWEEP_GROUPS:
+                groups = -(-F // fg)
+                fg = -(-F // groups)
+                t = 1
+                while t <= n and t * fg <= most:
+                    tiles = -(-n // t)
+                    for target in SWEEP_BLOCKS:
+                        chunk = -(-rows // max(1, -(-target
+                                                    // (groups * tiles))))
+                        g = dict(node_tile=t, feat_group=fg, chunk=chunk,
+                                 blocks=-(-rows // chunk) * groups * tiles,
+                                 smem=16 * B * t * fg)
+                        hg.launch_geometry = lambda *_, g=g: g
+                        check(torch.equal(run(rel, n), want),
+                              f"geometry {g} changed the histogram")
+                        timed.append((device_ms(torch, lambda: run(rel, n),
+                                                10)[0], g))
+                    t *= 2
+                hg.launch_geometry = picked
+            timed.sort(key=lambda r: r[0])
+            print(f"geometry [Higgs depth {d}, n={n}]: picked "
+                  f"{show(base, picked(rows, F, B, n))}; {len(timed)} "
+                  "geometries, all bitwise equal")
+            for ms, g in timed[:SWEEP_SHOW]:
+                print(f"  {show(ms, g)}")
+            print(f"  slowest {show(*timed[-1])}")
+    finally:
+        hg.launch_geometry = picked
 
 
 # ---- --label-study: where a kernel fit and an index_add fit part ------------
@@ -1472,6 +1632,9 @@ def main(argv) -> int:
     phase_builds(_native, _build)
     if "--label-study" in argv:
         label_study(torch, torch.device("cuda"))
+        return 0
+    if "--geometry-sweep" in argv:
+        geometry_sweep(torch, torch.device("cuda"))
         return 0
 
     params_a, params_b = fm_params(1), fm_params(2)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``build/torch_kernels/``, then loaded with ctypes.  The library's file
-name carries a hash of the source and flags, so an edited source is never
-served by a stale build.  Each kernel builds under its own file lock, so
+name carries a hash of the flags, the source and every header it includes
+(``csrc/*.cuh``), so an edited source or header is never served by a stale
+build.  Each kernel builds under its own file lock, so
 two threads or processes never compile the same kernel at once, while
 different kernels compile side by side.  Nothing is built at
 import time: the first launch (or an explicit :func:`build`) does it.
@@ -15,6 +16,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,9 +42,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header it includes with quotes, directly
+    or through another header (resolved beside the including file), in the
+    order first met."""
+    found, todo = [], [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return _OUT / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -10,8 +10,9 @@ Backends keep the JAX package's names (``histogram=`` on ``GBDT``):
 
 * ``"pallas"``: the hand-written CUDA kernel ``csrc/histogram_gh.cu`` for a
   CUDA tensor, its plain PyTorch version for a CPU tensor.  It reads uint8
-  (or int32) codes as stored, carries its sums in f64 and returns f32 (cast
-  back to gh's dtype), and is bitwise reproducible from launch to launch.
+  (or int32) codes as stored, sums 64-bit fixed-point integers
+  (:mod:`.fixed_point`) and returns f32 (cast back to gh's dtype), and is
+  bitwise reproducible from launch to launch.
 * ``None`` / ``"xla"``: ``index_add`` over flattened ``(node, feature, bin)``
   keys, the counterpart of the XLA scatter-add the JAX package leaves outside
   any kernel.  It materializes [rows, F] int64 keys and a [rows, F, 2]
@@ -26,6 +27,7 @@ import threading
 import torch
 
 from . import _build
+from .fixed_point import fixed_point_scale, lane_amax, value_limit
 from .segment_sum import check_force, segment_sum
 
 # ---- the plain version ------------------------------------------------------
@@ -79,13 +81,12 @@ def histogram_gh_plain(bins: torch.Tensor, rel: torch.Tensor,
 
 # ---- the kernel -------------------------------------------------------------
 
-_MAX_WARPS = 4             # features per block (csrc kMaxWarps)
-_SMEM_TILE = 64 * 1024     # shared memory a block aims at
 _SMEM_MAX = 227 * 1024     # what a Hopper block may take at most
-_TARGET_BLOCKS = 1024      # blocks a launch aims at (132 SMs, a few each)
-_MAX_CHUNKS = 256          # row chunks a launch splits into (grid y)
-_MIN_CHUNK = 2048          # rows per chunk before another chunk pays off
-_MAX_PARTIAL_BYTES = 1 << 29
+_WIDE_PAIRS = 14           # (node, feature) pairs a shallow block takes
+_DEEP_GROUP = 3            # features a block takes at deeper levels
+_WIDE_BLOCKS = 264         # blocks a shallow launch aims at (2 per SM)
+_DEEP_BLOCKS = 2112        # blocks a deeper launch aims at (16 per SM)
+_MIN_CHUNK = 4096          # rows per block before another chunk pays off
 
 _lib = None
 _launch_lock = threading.Lock()
@@ -95,12 +96,13 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("histogram_gh")
-        lib.dmlc_histogram_gh_f32.argtypes = [
+        lib.dmlc_histogram_gh_fixed.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-        lib.dmlc_histogram_gh_f32.restype = ctypes.c_int
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.dmlc_histogram_gh_fixed.restype = ctypes.c_int
         lib.dmlc_histogram_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_histogram_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -109,28 +111,35 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def launch_geometry(rows: int, num_features: int, num_bins: int,
                     n_nodes: int) -> dict:
-    """How one launch cuts the work: ``warps`` features a block, ``node_tile``
-    nodes a pass over the rows, and ``n_chunks`` row chunks of ``chunk``
-    rows (partials folded in chunk order when there is more than one)."""
-    warps = min(_MAX_WARPS, max(1, num_features))
-    per_node = 16 * num_bins  # bytes of one node's f64 (g, h) bins
-    if per_node > _SMEM_MAX:
+    """How one launch cuts the work: a block's shared histogram holds
+    ``node_tile`` x ``feat_group`` (node, feature) pairs of ``chunk`` rows.
+    While every node of the level fits with more than ``_DEEP_GROUP``
+    features in ``_WIDE_PAIRS`` pairs (depths 0-1), a block takes all nodes
+    and those features; deeper, ``_DEEP_GROUP`` features and as many nodes
+    as fit, in even node tiles (each tile scans all rows, so they are
+    few).  The constants are the fastest geometries at every depth at
+    Higgs width on an H100 (``python3 chip_smoke.py --geometry-sweep``;
+    PERF.md)."""
+    per_pair = 16 * num_bins  # bytes of one (node, feature)'s int64 (g, h)
+    most = _SMEM_MAX // per_pair
+    if most < 1:
         raise ValueError(f"histogram_gh_kernel: num_bins={num_bins} needs "
-                         f"{per_node} B of shared memory a node (max "
+                         f"{per_pair} B of shared memory a node (max "
                          f"{_SMEM_MAX})")
-    warps = min(warps, _SMEM_MAX // per_node)
-    node_tile = max(1, min(n_nodes, _SMEM_TILE // (warps * per_node)))
-    groups = -(-num_features // warps)
-    tiles = -(-n_nodes // node_tile)
-    out_bytes = 8 * n_nodes * num_features * num_bins
-    n_chunks = max(1, min(_MAX_CHUNKS,
-                          -(-_TARGET_BLOCKS // (groups * tiles)),
-                          -(-rows // _MIN_CHUNK),
-                          _MAX_PARTIAL_BYTES // max(1, out_bytes)))
+    per_node = min(_WIDE_PAIRS, most) // n_nodes
+    wide = per_node > _DEEP_GROUP
+    feat_group = (min(num_features, per_node) if wide
+                  else min(num_features, _DEEP_GROUP, most))
+    groups = -(-num_features // feat_group)
+    feat_group = -(-num_features // groups)
+    tiles = -(-n_nodes // (most // feat_group))
+    node_tile = -(-n_nodes // tiles)
+    n_chunks = max(1, min(-(-rows // _MIN_CHUNK), -(-(
+        _WIDE_BLOCKS if wide else _DEEP_BLOCKS) // (groups * tiles))))
     chunk = max(1, -(-rows // n_chunks))
-    n_chunks = max(1, -(-rows // chunk))
-    return dict(warps=warps, node_tile=node_tile, n_chunks=n_chunks,
-                chunk=chunk, smem=warps * node_tile * per_node)
+    return dict(node_tile=node_tile, feat_group=feat_group, chunk=chunk,
+                blocks=-(-rows // chunk) * groups * tiles,
+                smem=node_tile * feat_group * per_pair)
 
 
 def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
@@ -140,9 +149,10 @@ def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
     and int32 ``rel`` [rows] -> f32 [n_nodes, F, num_bins, 2].
 
     On a CUDA tensor it launches ``csrc/histogram_gh.cu`` on the calling
-    thread's current stream (and bumps ``histogram_gh_kernel.launches``); on
-    a CPU tensor it runs :func:`histogram_gh_plain`.  Raises on anything else
-    the kernel does not take."""
+    thread's current stream (and bumps ``histogram_gh_kernel.launches``),
+    in the fixed point of :mod:`.fixed_point` with ``n_max = rows``.  On a
+    CPU tensor it runs :func:`histogram_gh_plain`.
+    Raises on anything else the kernel does not take."""
     if gh.device.type == "cpu":
         return histogram_gh_plain(bins, rel, gh, n_nodes, num_bins)
     if (gh.device.type != "cuda" or bins.device != gh.device
@@ -173,18 +183,17 @@ def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
     if out.numel() == 0:
         return out
     geo = launch_geometry(rows, F, num_bins, n_nodes)
-    partials = (torch.empty(geo["n_chunks"], out.numel(), dtype=torch.float32,
-                            device=gh.device)
-                if geo["n_chunks"] > 1 else None)
+    scale = fixed_point_scale(lane_amax(gh), rows)
+    # the bins, then each lane's overflow mark
+    acc = torch.zeros(out.numel() + 2, dtype=torch.int64, device=gh.device)
     lib = _kernel_lib()
     with torch.cuda.device(gh.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dmlc_histogram_gh_f32(
+        err = lib.dmlc_histogram_gh_fixed(
             bins.data_ptr(), bins.element_size(), rel.data_ptr(),
-            gh.data_ptr(), out.data_ptr(),
-            partials.data_ptr() if partials is not None else None,
-            rows, F, num_bins, n_nodes, geo["warps"], geo["node_tile"],
-            geo["n_chunks"], geo["chunk"], stream)
+            gh.data_ptr(), scale.data_ptr(), value_limit(rows),
+            acc.data_ptr(), out.data_ptr(), rows, F, num_bins, n_nodes,
+            geo["node_tile"], geo["feat_group"], geo["chunk"], stream)
     if err != 0:
         raise RuntimeError("histogram_gh kernel launch failed: "
                            + lib.dmlc_histogram_error_string(err).decode())

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .fixed_point import fixed_point_scale, lane_amax, value_limit
 from .segment_sum import check_force, clamp_index, segment_sum
 
 # ---- the layout -------------------------------------------------------------
@@ -176,12 +177,9 @@ def histogram_gh_sparse_plain(gkey: torch.Tensor, rel_e: torch.Tensor,
 
 # ---- the kernel -------------------------------------------------------------
 
-_MAX_WARPS = 4               # spans per block (csrc kMaxWarps)
-_MIN_WARPS_SM = 3            # warps a node tile leaves on an SM, at least
 _SMEM_MAX = 227 * 1024       # what a Hopper block (and an SM) may take
-_TARGET_SPANS = 4096         # spans a launch aims at (132 SMs, many waves)
-_MIN_SPAN = 2048             # entries per span before another span pays off
-_MAX_PARTIAL_BYTES = 1 << 29
+_TARGET_SPANS = 1024         # spans a launch aims at (132 SMs, many waves)
+_MIN_SPAN = 16384            # entries per span before another span pays off
 
 _lib = None
 _launch_lock = threading.Lock()
@@ -191,12 +189,13 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("histogram_gh_sparse")
-        lib.dmlc_histogram_gh_sparse_f32.argtypes = [
+        lib.dmlc_histogram_gh_sparse_fixed.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.dmlc_histogram_gh_sparse_f32.restype = ctypes.c_int
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.dmlc_histogram_gh_sparse_fixed.restype = ctypes.c_int
         lib.dmlc_histogram_sparse_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_histogram_sparse_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -205,34 +204,26 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def launch_geometry(nnz: int, num_features: int, num_bins: int,
                     n_nodes: int) -> dict:
-    """How one launch cuts the work: ``node_tile`` nodes a pass over the
-    entries (as many as leave ``_MIN_WARPS_SM`` warps' histograms in an
-    SM's shared memory, split evenly over the passes), ``warps`` spans a
-    block, and spans of at most ``span`` entries of one feature (partials
-    bounded by ``_MAX_PARTIAL_BYTES``)."""
-    per_node = 16 * num_bins  # bytes of one node's f64 (g, h) bins
-    if per_node > _SMEM_MAX:
+    """How one launch cuts the work: a block's shared histogram holds
+    ``node_tile`` nodes (every node of the level while they fit, else even
+    tiles, one pass over the entries each), and spans of at most ``span``
+    entries of one feature."""
+    per_node = 16 * num_bins  # bytes of one node's int64 (g, h) bins
+    most = _SMEM_MAX // per_node
+    if most < 1:
         raise ValueError(f"histogram_gh_sparse_kernel: num_bins={num_bins} "
                          f"needs {per_node} B of shared memory a node (max "
                          f"{_SMEM_MAX})")
-    most = max(1, _SMEM_MAX // (_MIN_WARPS_SM * per_node))
     tiles = -(-n_nodes // most)
     node_tile = max(1, -(-n_nodes // tiles))
-    warps = max(1, min(_MAX_WARPS, _SMEM_MAX // (node_tile * per_node)))
     span = max(_MIN_SPAN, -(-nnz // _TARGET_SPANS))
-    per_span = 8 * n_nodes * num_bins
-    while (span < nnz and (nnz // span + num_features) * per_span
-           > _MAX_PARTIAL_BYTES):
-        span *= 2
-    return dict(node_tile=node_tile, warps=warps, span=span,
-                smem=warps * node_tile * per_node)
+    return dict(node_tile=node_tile, span=span, smem=node_tile * per_node)
 
 
 def span_table(starts, span: int) -> tuple:
     """Cut each feature's entries ``[starts[f], starts[f + 1])`` into spans
     of at most ``span`` entries.  Returns (n_spans, int64 table): span
-    begins, span ends, span features, then the prefix count of spans per
-    feature ([F + 1]), as the kernel reads them."""
+    begins, span ends and span features, as the kernel reads them."""
     st = _tensor(starts).cpu().numpy().astype(np.int64)
     per = -(-np.diff(st) // span)
     feat_spans = np.zeros(st.size, np.int64)
@@ -241,13 +232,14 @@ def span_table(starts, span: int) -> tuple:
     feat = np.repeat(np.arange(st.size - 1, dtype=np.int64), per)
     begin = st[feat] + (np.arange(n_spans) - feat_spans[feat]) * span
     end = np.minimum(begin + span, st[feat + 1])
-    return n_spans, np.concatenate([begin, end, feat, feat_spans])
+    return n_spans, np.concatenate([begin, end, feat])
 
 
 def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
                                gh_e: torch.Tensor, starts, n_nodes: int,
                                num_features: int, num_bins: int,
-                               layout: SparseHistLayout | None = None
+                               layout: SparseHistLayout | None = None, *,
+                               gh_amax: torch.Tensor | None = None
                                ) -> torch.Tensor:
     """Histogram of feature-sorted entries: int32 ``gkey`` [nnz] (``f * nb
     + bin``), int32 ``rel_e`` [nnz] (each entry's node), f32 ``gh_e`` [nnz,
@@ -259,7 +251,14 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
 
     On a CUDA tensor it launches ``csrc/histogram_gh_sparse.cu`` on the
     calling thread's current stream (and bumps
-    ``histogram_gh_sparse_kernel.launches``); on a CPU tensor it runs
+    ``histogram_gh_sparse_kernel.launches``), in the fixed point of
+    :mod:`.fixed_point` with ``n_max`` = the most entries of one feature and
+    ``amax`` = ``gh_amax`` (f32 [2] on the card, a bound on ``|gh_e|`` of
+    each lane; default :func:`.fixed_point.lane_amax` of ``gh_e``; the
+    result depends on it, so callers that must agree bit for bit pass the
+    same).  A ``gh_amax`` below the values gives NaN in a lane where a
+    value could carry a bin past int64 (:func:`.fixed_point.value_limit`),
+    else the exact sums at a finer scale.  On a CPU tensor it runs
     :func:`histogram_gh_sparse_plain`.  Raises on anything else the kernel
     does not take."""
     if gh_e.device.type == "cpu":
@@ -295,6 +294,11 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
     if gh_e.data_ptr() % 8:
         raise ValueError("histogram_gh_sparse_kernel reads gh_e as float2: "
                          "its data must be 8-byte aligned")
+    if gh_amax is not None and (gh_amax.shape != (2,)
+                                or gh_amax.device != gh_e.device):
+        raise ValueError(f"histogram_gh_sparse_kernel: gh_amax "
+                         f"{tuple(gh_amax.shape)} on {gh_amax.device}, want "
+                         f"[2] on {gh_e.device}")
     nb = _sparse_geometry(num_features, num_bins)
     out = torch.empty(n_nodes, num_features, num_bins, 2,
                       dtype=torch.float32, device=gh_e.device)
@@ -308,16 +312,20 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
         table = torch.from_numpy(table).to(gh_e.device)
     if n_spans == 0:
         return out.zero_()
-    partials = torch.empty(n_spans * n_nodes * num_bins * 2,
-                           dtype=torch.float32, device=gh_e.device)
+    n_max = int((st[1:] - st[:-1]).max())
+    scale = fixed_point_scale(
+        lane_amax(gh_e) if gh_amax is None else gh_amax, n_max)
+    # the bins, then each lane's overflow mark
+    acc = torch.zeros(out.numel() + 2, dtype=torch.int64, device=gh_e.device)
+    vec = all(t.data_ptr() % 16 == 0 for t in (gkey, rel_e, gh_e))
     lib = _kernel_lib()
     with torch.cuda.device(gh_e.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dmlc_histogram_gh_sparse_f32(
-            gkey.data_ptr(), rel_e.data_ptr(), gh_e.data_ptr(),
-            table.data_ptr(), n_spans, num_features, num_bins, nb, n_nodes,
-            geo["warps"], geo["node_tile"], partials.data_ptr(),
-            out.data_ptr(), stream)
+        err = lib.dmlc_histogram_gh_sparse_fixed(
+            gkey.data_ptr(), rel_e.data_ptr(), gh_e.data_ptr(), nnz, int(vec),
+            scale.data_ptr(), value_limit(n_max), table.data_ptr(), n_spans,
+            num_features, num_bins, nb, n_nodes, geo["node_tile"],
+            acc.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("histogram_gh_sparse kernel launch failed: "
                            + lib.dmlc_histogram_sparse_error_string(err)
@@ -366,10 +374,10 @@ def histogram_gh_sparse(row_id, findex, ebin, emask, rel: torch.Tensor,
         if gh_e is None:
             gh_e = entry_gh(gh, layout=layout)
         rel_e = rel.to(torch.int32)[layout.rid].contiguous()
-        out = histogram_gh_sparse_kernel(layout.gkey, rel_e, gh_e,
-                                         layout.starts, n_nodes,
-                                         num_features, num_bins,
-                                         layout=layout)
+        out = histogram_gh_sparse_kernel(
+            layout.gkey, rel_e, gh_e, layout.starts, n_nodes, num_features,
+            num_bins, layout=layout,
+            gh_amax=lane_amax(gh) if gh_e.device.type == "cuda" else None)
         return out.to(gh.dtype)
     rid = clamp_index(_tensor(row_id).to(gh.device).to(torch.int64),
                       gh.shape[0])

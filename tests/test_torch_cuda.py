@@ -3,12 +3,14 @@ no CUDA device is present).  They import neither JAX nor the JAX package,
 so on a machine with a card and no JAX they run without the suite's
 conftest::
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda -rP tests/test_torch_cuda.py
 
 Each kernel (segment sum, dense and sparse histogram) is held to its plain
 PyTorch version on the same inputs at
 atol = rtol = 1e-5 (f32 sums in another order), and to itself bit for bit
-from launch to launch.
+from launch to launch.  The histogram kernels' fixed-point sums are also
+held to their error bound against float64 (``-rP`` prints the measured
+errors).
 """
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ import torch
 
 from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
 from dmlc_core_tpu_torch.ops import histogram as hg
+from dmlc_core_tpu_torch.ops.fixed_point import (error_bound,
+                                                 fixed_point_scale, lane_amax)
 from dmlc_core_tpu_torch.ops import segment_sum as ss
 from dmlc_core_tpu_torch.serving import (ScoringEngine, ScoringIterator,
                                          pack_snapshot)
@@ -211,11 +215,20 @@ def test_histogram_kernel_matches_plain_and_is_bitwise_stable(cuda, shape,
                                **TOL)
 
 
+def _fixed_point_bound(gh, counts, n_max, got):
+    """The kernels' bound per bin (csrc/hist_fixed.cuh): m * 2^-(k+1) for
+    the m values a bin sums, plus one f32 ulp of the result for its
+    rounding; float64 numpy of the result's shape [..., 2]."""
+    scale = fixed_point_scale(lane_amax(torch.from_numpy(gh)), n_max)
+    return (counts[..., None] * error_bound(scale, 1).numpy()
+            + np.spacing(np.abs(got).astype(np.float32)).astype(np.float64))
+
+
 def test_histogram_kernel_heavy_bin_stays_within_rounding_of_float64(cuda):
     """Sparse data densified with NaN puts most rows in the missing bin 0: a
-    bin summing thousands of near-equal hessians in a chunk.  The kernel's
-    f64 sums keep it within 1e-6 of float64, relative to the largest bin; an
-    f32 chain that long drifted 2.8e-3 at Bosch width."""
+    bin summing millions of near-equal hessians.  Every bin stays within
+    the fixed point's bound of float64, and within 1e-6 of the largest bin;
+    an f32 chain that long drifted 2.8e-3 at Bosch width."""
     rng = np.random.default_rng(12)
     rows, F, B = 2_000_000, 4, 16
     bins = np.where(rng.random((rows, F)) < 0.9, 0,
@@ -226,11 +239,134 @@ def test_histogram_kernel_heavy_bin_stays_within_rounding_of_float64(cuda):
                                  torch.zeros(rows, dtype=torch.int32,
                                              device=cuda),
                                  torch.from_numpy(gh).to(cuda), 1, B)
+    got = got.cpu().numpy()
     want = np.stack([[np.stack([np.bincount(
         bins[:, f], weights=gh[:, lane].astype(np.float64), minlength=B)
         for lane in (0, 1)], 1) for f in range(F)]])
-    err = np.abs(got.cpu().numpy() - want).max()
-    assert err <= 1e-6 * np.abs(want).max()
+    counts = np.stack([[np.bincount(bins[:, f], minlength=B)
+                        for f in range(F)]])
+    bound = _fixed_point_bound(gh, counts, rows, got)
+    err = np.abs(got - want)
+    print(f"heavy bin: max |kernel - float64| {err.max():.3e} = "
+          f"{err.max() / np.abs(want).max():.3e} of the largest bin; worst "
+          f"error / bound {(err / bound).max():.3f}")
+    assert (err <= bound).all()
+    assert err.max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("lanes", ["large, one sign", "large, cancelling"])
+def test_histogram_kernels_one_bin_of_large_values_does_not_overflow(cuda,
+                                                                     lanes):
+    """Every row in one bin with |g| ~ 1e30, the fixed point's worst case:
+    the int64 sums do not wrap.  One sign: within f32 rounding of the exact
+    sum; +v and -v in equal numbers: exactly 0, as integers cancel."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    rows = 1 << 22
+    v = np.float32(1.0e30)
+    gh = np.full((rows, 2), v, np.float32)
+    gh[:, 1] = 3.0e30
+    if lanes == "large, cancelling":
+        gh[1::2] *= -1
+    want = gh.astype(np.float64).sum(0)
+    g = torch.from_numpy(gh).to(cuda)
+    zeros = torch.zeros(rows, dtype=torch.int32, device=cuda)
+    dense = hg.histogram_gh_kernel(torch.zeros(rows, 1, dtype=torch.uint8,
+                                               device=cuda), zeros, g, 1, 4)
+    sparse = hs.histogram_gh_sparse_kernel(zeros + 2, zeros, g,
+                                           torch.tensor([0, rows]), 1, 1, 4)
+    for got in (dense[0, 0, 0].cpu().numpy(), sparse[0, 0, 2].cpu().numpy()):
+        assert np.isfinite(got).all()
+        if lanes == "large, cancelling":
+            assert (got == 0).all()
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_histogram_kernels_poison_a_non_finite_lane(cuda, bad):
+    """A NaN or Inf in one lane makes that lane NaN in every bin of either
+    kernel; the other lane is bitwise what it is without it."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    bins, rel, gh = _hist_case(5000, 4, 16, 4, torch.uint8, cuda, seed=3)
+    clean = hg.histogram_gh_kernel(bins, rel, gh, 4, 16)
+    bad_gh = gh.clone()
+    bad_gh[17, 0] = float(bad)
+    got = hg.histogram_gh_kernel(bins, rel, bad_gh, 4, 16)
+    assert got[..., 0].isnan().all() and torch.equal(got[..., 1],
+                                                     clean[..., 1])
+    gkey, rel_e, gh_e, starts = _sparse_level(3000, 4, 16, 4, 20000, cuda,
+                                              seed=3)
+    clean = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, 4, 4, 16)
+    gh_e = gh_e.clone()
+    gh_e[5, 1] = float(bad)
+    got = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, 4, 4, 16)
+    assert got[..., 1].isnan().all() and torch.equal(got[..., 0],
+                                                     clean[..., 0])
+
+
+@pytest.mark.parametrize("under,poisoned", [(2.0 ** 20, True),
+                                            (2.0, False)])
+def test_sparse_kernel_understated_gh_amax_is_nan_or_exact(cuda, under,
+                                                           poisoned):
+    """A ``gh_amax`` below the grad lane's values: far below, a value could
+    carry a bin past int64, and that lane is NaN everywhere; a little
+    below (half), the scale is twice as fine and the sums stay exact,
+    within the fixed
+    point's bound of float64 (no wrap, no saturation).  The hess lane,
+    bounded truly, is bitwise as with the true bound."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    gkey, rel_e, gh_e, starts = _sparse_level(3000, 4, 16, 4, 20000, cuda,
+                                              seed=5)
+    amax = lane_amax(gh_e)
+    clean = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, 4, 4, 16,
+                                          gh_amax=amax)
+    low = amax.clone()
+    low[0] /= under
+    got = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, 4, 4, 16,
+                                        gh_amax=low)
+    assert torch.equal(got[..., 1], clean[..., 1])
+    if poisoned:
+        assert got[..., 0].isnan().all()
+        return
+    n_max = int((starts[1:] - starts[:-1]).max())
+    scale = fixed_point_scale(low, n_max)
+    assert float(scale[0]) > float(fixed_point_scale(amax, n_max)[0])
+    gk = gkey.long()
+    keys = ((rel_e.long() * 4 + gk // 16) * 16 + gk % 16).cpu().numpy()
+    g = gh_e[:, 0].double().cpu().numpy()
+    want = np.bincount(keys, g, minlength=4 * 4 * 16).reshape(4, 4, 16)
+    m = np.bincount(keys, minlength=4 * 4 * 16).reshape(4, 4, 16)
+    have = got[..., 0].cpu().numpy()
+    bound = m * float(error_bound(scale, 1)[0]) + np.spacing(np.abs(have))
+    assert (np.abs(have - want) <= bound).all()
+
+
+def test_histogram_kernels_are_bitwise_the_same_for_any_order(cuda):
+    """Integer sums do not depend on order: permuted rows (dense) and
+    entries permuted within each feature (sparse) give bitwise the same
+    histogram."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    bins, rel, gh = _hist_case(300_000, 28, 256, 32, torch.uint8, cuda,
+                               seed=4)
+    perm = torch.randperm(300_000, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(cuda)
+    a = hg.histogram_gh_kernel(bins, rel, gh, 32, 256)
+    b = hg.histogram_gh_kernel(bins[perm].contiguous(), rel[perm].contiguous(),
+                               gh[perm].contiguous(), 32, 256)
+    assert torch.equal(a, b)
+    gkey, rel_e, gh_e, starts = _sparse_level(50_000, 40, 256, 32, 1_000_000,
+                                              cuda, seed=4)
+    rng = np.random.default_rng(0)
+    st = starts.numpy()
+    p = torch.from_numpy(np.concatenate([
+        st[f] + rng.permutation(st[f + 1] - st[f]) for f in range(40)]))
+    p = p.to(cuda)
+    a = hs.histogram_gh_sparse_kernel(gkey, rel_e, gh_e, starts, 32, 40, 256)
+    b = hs.histogram_gh_sparse_kernel(gkey[p].contiguous(),
+                                      rel_e[p].contiguous(),
+                                      gh_e[p].contiguous(), starts, 32, 40,
+                                      256)
+    assert torch.equal(a, b)
 
 
 def test_histogram_kernel_drops_out_of_range_rows(cuda):
@@ -354,8 +490,8 @@ def test_sparse_kernel_matches_plain_and_is_bitwise_stable(cuda, shape):
 
 def test_sparse_kernel_tied_bin_stays_within_rounding_of_float64(cuda):
     """One feature whose values tie in one bin for 90% of its entries: a
-    span sums thousands of near-equal hessians into that bin.  The kernel's
-    f64 sums keep it within 1e-6 of float64, relative to the largest bin."""
+    bin sums millions of near-equal hessians.  Every bin stays within the
+    fixed point's bound of float64, and within 1e-6 of the largest bin."""
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
     rng = np.random.default_rng(13)
     nnz, B = 4_000_000, 16
@@ -367,10 +503,16 @@ def test_sparse_kernel_tied_bin_stays_within_rounding_of_float64(cuda):
         torch.from_numpy(ebin).to(cuda),
         torch.zeros(nnz, dtype=torch.int32, device=cuda),
         torch.from_numpy(gh).to(cuda), torch.tensor([0, nnz]), 1, 1, B)
+    got = got.cpu().numpy()[0, 0]
     want = np.stack([np.bincount(ebin, weights=gh[:, lane].astype(
         np.float64), minlength=B) for lane in (0, 1)], 1)
-    err = np.abs(got.cpu().numpy()[0, 0] - want).max()
-    assert err <= 1e-6 * np.abs(want).max()
+    bound = _fixed_point_bound(gh, np.bincount(ebin, minlength=B), nnz, got)
+    err = np.abs(got - want)
+    print(f"tied bin: max |kernel - float64| {err.max():.3e} = "
+          f"{err.max() / np.abs(want).max():.3e} of the largest bin; worst "
+          f"error / bound {(err / bound).max():.3f}")
+    assert (err <= bound).all()
+    assert err.max() <= 1e-6 * np.abs(want).max()
 
 
 def test_sparse_kernel_drops_out_of_range_entries(cuda):

@@ -20,7 +20,9 @@ from dmlc_core_tpu.ops.pallas_segment import \
     histogram_gh_sparse as jax_histogram_gh_sparse
 from dmlc_core_tpu.ops.pallas_segment import \
     sparse_hist_layout as jax_sparse_hist_layout
+from dmlc_core_tpu_torch.ops import fixed_point
 from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+from dmlc_core_tpu_torch.ops.fixed_point import fixed_point_scale, lane_amax
 from dmlc_core_tpu_torch.ops.histogram_sparse import (histogram_gh_sparse,
                                                       sparse_hist_layout)
 
@@ -198,20 +200,23 @@ def test_kernel_wrapper_rejects_other_devices():
                                        (1_000_000, 968, 256, 512),
                                        (5000, 3, 2048, 3), (0, 4, 16, 2)])
 def test_launch_geometry_fits_the_card(nnz, F, B, n):
-    """Shared memory within a Hopper block's 227 KB, at least three warps'
-    f64 histograms on an SM where one node fits that often, depths 0-4 at
-    256 bins in one pass and depth 5 in two even tiles, every node in some
-    tile, partials bounded."""
+    """One shared histogram of node_tile nodes a block, within a Hopper
+    block's 227 KB; every node of the level in one tile while they fit
+    (depths 0-5 at 256 bins take one pass over the entries), else even
+    tiles; spans of at least ``_MIN_SPAN`` entries, about
+    ``_TARGET_SPANS`` of them."""
     geo = hs.launch_geometry(nnz, F, B, n)
-    assert 1 <= geo["warps"] <= 4 and geo["smem"] <= 227 * 1024
-    assert geo["smem"] == geo["warps"] * geo["node_tile"] * B * 16
+    assert geo["smem"] <= 227 * 1024
+    assert geo["smem"] == geo["node_tile"] * B * 16
     assert 1 <= geo["node_tile"] <= n
-    if 3 * B * 16 <= 227 * 1024:
-        assert geo["warps"] >= 3
+    tiles = -(-n // geo["node_tile"])
+    if n * B * 16 <= 227 * 1024:
+        assert tiles == 1
+    assert tiles * geo["node_tile"] - n < tiles
     if B == 256 and n <= 32:
-        assert geo["node_tile"] == (n if n <= 16 else 16)
-    spans = nnz // geo["span"] + F
-    assert spans * n * B * 8 <= max(1 << 29, F * n * B * 8)
+        assert geo["node_tile"] == n
+    assert geo["span"] >= hs._MIN_SPAN
+    assert nnz // geo["span"] <= hs._TARGET_SPANS
     with pytest.raises(ValueError, match="shared memory"):
         hs.launch_geometry(100, 2, 40000, 1)
 
@@ -219,11 +224,9 @@ def test_launch_geometry_fits_the_card(nnz, F, B, n):
 def test_span_table_cuts_features_into_spans():
     starts = np.array([0, 0, 5, 12, 12, 30])
     n_spans, table = hs.span_table(starts, 4)
-    begin, end, feat, fs = (table[:n_spans], table[n_spans:2 * n_spans],
-                            table[2 * n_spans:3 * n_spans],
-                            table[3 * n_spans:])
-    assert n_spans == 2 + 2 + 5
-    np.testing.assert_array_equal(fs, [0, 0, 2, 4, 4, 9])
+    assert n_spans == 2 + 2 + 5 and table.shape == (3 * n_spans,)
+    begin, end, feat = table.reshape(3, n_spans)
+    np.testing.assert_array_equal(feat, [1, 1, 2, 2, 4, 4, 4, 4, 4])
     for s in range(n_spans):
         f = feat[s]
         assert starts[f] <= begin[s] < end[s] <= starts[f + 1]
@@ -262,3 +265,113 @@ def test_pregathered_entry_gh_gives_the_same_histogram(force):
     got = histogram_gh_sparse(*t, rel_t, gh_t, n, F, B, force=force,
                               layout=layout, gh_e=gh_e)
     assert torch.equal(got, want)
+
+
+# ---- the kernel's fixed-point numerics (csrc/hist_fixed.cuh) -----------------
+
+def _bosch_like_level(rng, rows, F, n, nnz, tied):
+    """Feature-sorted entries of a mostly-missing matrix: feature counts
+    skewed, ``tied`` of each feature's entries in one bin (tied values),
+    logistic (grad, hess) by row.  Returns (layout, rel_e, gh_e, gh)."""
+    fi = np.minimum(rng.zipf(1.5, nnz) - 1, F - 1).astype(np.int32)
+    eb = rng.integers(1, 256, nnz).astype(np.int32)
+    eb[rng.random(nnz) < tied] = 7
+    layout = sparse_hist_layout(*_torch((rng.integers(0, rows, nnz).astype(
+        np.int32), fi, eb, np.ones(nnz, bool))), F, 256)
+    p = 1 / (1 + np.exp(-rng.standard_normal(rows)))
+    gh = np.stack([p - (rng.random(rows) < p), p * (1 - p)], 1).astype(
+        np.float32)
+    rel = rng.integers(0, n, rows).astype(np.int32)
+    rid = layout.rid.numpy()
+    return layout, rel[rid], gh[rid], gh
+
+
+def _fixed_point_sparse(layout, rel_e, gh_e, n, F, scale):
+    """The kernel's arithmetic in numpy: each entry's values quantised once
+    (exact f32 product by a power of two, ``np.rint`` half to even like
+    ``__float2ll_rn``), summed exactly in int64 by sorted key, each bin
+    rounded once to f32; a lane with a non-finite scale, or with a value at
+    or past ``value_limit`` of the most entries of one feature, is NaN."""
+    s = scale.numpy()
+    limit = fixed_point.value_limit(int(np.diff(layout.starts.numpy()).max()))
+    with np.errstate(invalid="ignore", over="ignore"):
+        qf = np.rint(gh_e * s).astype(np.float64)
+        ok = (np.isfinite(s) & (s > 0)
+              & (np.abs(qf) < float(limit)).all(0))
+    q = np.where(ok, qf, 0).astype(np.int64)
+    gk = layout.gkey.numpy().astype(np.int64)
+    keys = (rel_e.astype(np.int64) * F + gk // layout.nb) * 256 + gk % layout.nb
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], q[order]
+    first = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    acc = np.zeros((n * F * 256, 2), np.int64)
+    acc[ks[first]] = np.add.reduceat(vs, first, axis=0)
+    out = (acc / np.where(ok, s, 1).astype(np.float64)).astype(np.float32)
+    out[:, ~ok] = np.nan
+    return out.reshape(n, F, 256, 2), keys
+
+
+def _scale_of(layout, gh):
+    n_max = int(np.diff(layout.starts.numpy()).max())
+    return fixed_point_scale(lane_amax(torch.from_numpy(gh)), n_max), n_max
+
+
+@pytest.mark.parametrize("n,tied", [(16, 0.9), (1, 0.0), (32, 0.5)])
+def test_fixed_point_error_within_bound_of_float64(n, tied):
+    """Bosch-like levels, scaled down (tied values pile into one bin):
+    every bin within the header's bound (m * 2^-(k+1) for m entries, plus
+    one f32 ulp of the result) of float64, and within 1e-5 of the
+    largest bin.  The scale takes n_max = the most entries of one feature
+    and amax over the rows' (grad, hess), as the fit's launches do."""
+    rng = np.random.default_rng(21 + n)
+    F = 40
+    layout, rel_e, gh_e, gh = _bosch_like_level(rng, 30_000, F, n, 400_000,
+                                                tied)
+    scale, n_max = _scale_of(layout, gh)
+    got, keys = _fixed_point_sparse(layout, rel_e, gh_e, n, F, scale)
+    want = np.stack([np.bincount(keys, gh_e[:, lane].astype(np.float64),
+                                 minlength=n * F * 256) for lane in (0, 1)],
+                    1).reshape(n, F, 256, 2)
+    m = np.bincount(keys, minlength=n * F * 256).reshape(n, F, 256, 1)
+    assert m.max() <= n_max
+    bound = m * fixed_point.error_bound(scale, 1).numpy() + np.spacing(
+        np.abs(got))
+    assert (np.abs(got - want) <= bound).all()
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    assert not got[:, :, 0].any()  # a bin no entry names stays exactly 0
+
+
+def test_fixed_point_sum_is_the_same_for_any_entry_order():
+    """The kernel's blocks add in any order; the fixed-point sum of a
+    permuted entry stream (same feature spans) is the same, bitwise."""
+    rng = np.random.default_rng(22)
+    F, n = 12, 8
+    layout, rel_e, gh_e, gh = _bosch_like_level(rng, 5000, F, n, 60_000, 0.3)
+    scale, _ = _scale_of(layout, gh)
+    a, _ = _fixed_point_sparse(layout, rel_e, gh_e, n, F, scale)
+    st = layout.starts.numpy()
+    perm = np.concatenate([st[f] + rng.permutation(st[f + 1] - st[f])
+                           for f in range(F)])
+    shuffled = hs.SparseHistLayout(
+        num_features=F, num_bins=256, nb=layout.nb, nnz_live=layout.nnz_live,
+        gkey=layout.gkey[perm], rid=layout.rid[perm], starts=layout.starts)
+    b, _ = _fixed_point_sparse(shuffled, rel_e[perm], gh_e[perm], n, F, scale)
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("lane,bad", [(0, np.nan), (1, np.inf)])
+def test_fixed_point_non_finite_lane_is_nan(lane, bad):
+    """A NaN or Inf in one lane of the rows' (grad, hess) gives that lane a
+    NaN scale and NaN in every bin; the other lane is untouched."""
+    rng = np.random.default_rng(23)
+    F, n = 6, 4
+    layout, rel_e, gh_e, gh = _bosch_like_level(rng, 2000, F, n, 20_000, 0.2)
+    clean, _ = _fixed_point_sparse(layout, rel_e, gh_e, n, F,
+                                   _scale_of(layout, gh)[0])
+    gh[layout.rid.numpy()[5], lane] = bad
+    gh_e = gh[layout.rid.numpy()]
+    scale, _ = _scale_of(layout, gh)
+    assert np.isnan(scale[lane].item()) and np.isfinite(scale[1 - lane].item())
+    got, _ = _fixed_point_sparse(layout, rel_e, gh_e, n, F, scale)
+    assert np.isnan(got[..., lane]).all()
+    assert np.array_equal(got[..., 1 - lane], clean[..., 1 - lane])
