@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the native runtime and every CUDA kernel from the checkout (side
-by side) and prints the histogram kernels' atomic instructions from the
-SASS, holds each kernel against its plain PyTorch version on the card,
+by side) and prints each kernel's atomic instructions from the SASS, holds
+each kernel against its plain PyTorch version on the card,
 serves a Criteo-width factorization machine (2^20 hashed features, 16
 factors, 39 nonzeros a row) over HTTP through the port's ``ScoringServer``
 and checks every score against a float64 numpy oracle, then trains a
@@ -32,6 +32,13 @@ builds the kernels, then fits the Higgs-width GBDT four ways (histogram
 and leaf sums each on the kernel or on ``index_add``) for two labels and
 three data seeds, and audits every split of every fit against float64
 (see ``label_study``).  It prints its readings and no result line.
+
+    python3 chip_smoke.py --segment-sweep
+
+builds the kernels, then times the segment-sum kernel at its five
+main-path shapes under every launch geometry of ``segment_sweep``, beside
+the one ``segment_sum.launch_geometry`` picks.  It prints its readings and
+no result line.
 
     python3 chip_smoke.py --geometry-sweep
 
@@ -115,7 +122,7 @@ def phase_builds(native, build):
         for line in build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
-    for k in ("histogram_gh", "histogram_gh_sparse"):
+    for k in KERNELS:
         sass_atomics(build, k)
 
 
@@ -125,7 +132,7 @@ ATOMIC_OP = re.compile(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)")
 def sass_atomics(build, name: str) -> None:
     """Print the atomic instructions of each kernel of ``name`` as
     ``cuobjdump -sass`` shows them, and fail on a compare-and-swap loop or a
-    float atomic: the histogram kernels add integers with native atomics."""
+    float atomic: every kernel adds integers with native atomics."""
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = run_text([str(cuobjdump), "-sass", str(build.build(name))])
     counts, fn = {}, None
@@ -191,6 +198,8 @@ def served_inputs(torch, params, device):
 
 
 def phase_kernel(torch, ss_mod, params, device) -> dict:
+    from dmlc_core_tpu_torch.ops.fixed_point import (fixed_point_scale,
+                                                     lane_amax)
     kernel, plain = ss_mod.segment_sum_kernel, ss_mod.segment_sum_plain
     rng = np.random.default_rng(3)
 
@@ -216,19 +225,55 @@ def phase_kernel(torch, ss_mod, params, device) -> dict:
         "unsorted, out-of-range ids": case(256, 16384, 16, lo=-8, hi=264,
                                            sort=False),
         "empty": case(256, 0, 16),
+        # a served bucket at max_batch: 65,536 outputs, past shared memory
+        "4096 rows x 16 lanes, unsorted": case(4096, 160_000, 16, lo=-4,
+                                               hi=4100, sort=False),
     }
+    # a tree's root node total: (grad, hess)-like rows all on one id, held
+    # like the leaf sums to 1e-5 of the largest output (and to float64)
+    one = "one segment, 1.2M entries"
+    gh = np.stack([rng.uniform(-0.5, 0.5, 1_200_000),
+                   rng.uniform(0.2, 0.25, 1_200_000)], 1).astype(np.float32)
+    cases[one] = (1, cuda(np.zeros(1_200_000, np.int32)), cuda(gh))
+    for bad in ("nan", "inf"):
+        rows, rid, c = case(256, 16384, 16)
+        c[777, 3] = float(bad)
+        cases[f"{bad} in lane 3"] = (rows, rid, c)
     max_err = 0.0
     for name, (rows, rid, c) in cases.items():
-        a = kernel(c, rid, rows)
+        a, scale = kernel(c, rid, rows, return_scale=True)
         b = kernel(c, rid, rows)
         torch.cuda.synchronize()
-        check(torch.equal(a, b), f"{name}: two launches differ")
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"{name}: two launches differ")
+        c2 = c if c.dim() == 2 else c[:, None]
+        want_scale = fixed_point_scale(lane_amax(c2), c2.shape[0])
+        check(torch.equal(scale.isnan(), want_scale.isnan()) and torch.equal(
+            scale.nan_to_num(), want_scale.nan_to_num()),
+            f"{name}: kernel scale {scale} != fixed_point_scale {want_scale}")
         want = plain(c, rid, rows)
+        if name.endswith("in lane 3"):
+            # the lane is NaN in every output; the plain one-hot product
+            # makes it non-finite; the other lanes as without it
+            keep = torch.arange(16, device=device) != 3
+            check(bool(a[:, 3].isnan().all())
+                  and not bool(want[:, 3].isfinite().any()),
+                  f"{name}: lane 3 not poisoned")
+            a, want = a[:, keep], want[:, keep]
         err = float((a - want).abs().max()) if a.numel() else 0.0
+        tol = TOL
+        if name == one:
+            f64 = c.double().sum(0)
+            tol = HIST_TOL * max(1.0, float(f64.abs().max()))
+            err_o = float((a[0].double() - f64).abs().max())
+            print(f"kernel vs float64 [{name}]: {err_o:.3e}, tol {tol:.3e}")
+            check(err_o <= tol, f"{name}: {err_o} from float64 > {tol}")
         print(f"kernel vs plain [{name}] rows={rows} "
-              f"contrib={tuple(c.shape)}: max abs err {err:.3e}")
-        check(err <= TOL, f"{name}: max abs err {err} > {TOL}")
-        max_err = max(max_err, err)
+              f"contrib={tuple(c.shape)}: max abs err {err:.3e}, tol "
+              f"{tol:.1e}; scale equals fixed_point_scale bit for bit")
+        check(err <= tol, f"{name}: max abs err {err} > {tol}")
+        if name != one:  # reported with the node totals
+            max_err = max(max_err, err)
     # bf16 through the front end: f32 accumulation, cast back; k/8 values
     # sum exactly, so the two agree bit for bit
     rows, rid, _ = cases["unsorted, out-of-range ids"]
@@ -578,6 +623,15 @@ def check_leaf_sums(torch, ss_mod, gh, leaf_rel, n_leaves,
                 bound_by="bytes" if byte_s >= op_s else "operations")
 
 
+def segment_share(events, busy_ms: float) -> None:
+    """Print the segment-sum kernel's device time in a profiled tree and
+    its share of the device's busy time."""
+    seg = [e for e in events if "seg_fixed" in e.key]
+    ms = sum(e.device_time_total for e in seg) / 1e3
+    print(f"  segment_sum: {ms:.3f} ms in {sum(e.count for e in seg)} "
+          f"launches, {100 * ms / max(busy_ms, 1e-9):.1f}% of busy")
+
+
 def tree_losses(torch, model, forest, bins, label) -> list:
     """Train logloss after 0, 1, ..., num_trees trees."""
     from dmlc_core_tpu_torch.models import logistic_nll
@@ -818,6 +872,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4} "
               f"{e.key[:90]}")
+    segment_share(events, dev_ms)
     mean = {k: float(np.mean([lv[k] for lv in per_level]))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"launches": fits[0][2], "max_abs_err": max_err,
@@ -1189,6 +1244,8 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     node_tot = check_leaf_sums(torch, ss_mod, gh, levels[-1][0],
                                levels[-1][1],
                                what=f"node totals (depth {depth - 1})")
+    root_tot = check_leaf_sums(torch, ss_mod, gh, levels[0][0], levels[0][1],
+                               what="node totals (depth 0, one segment)")
     max_err, per_level = 0.0, []
     for d, (rel, n) in enumerate(levels):
         rel_e = rel[rid_l].contiguous()
@@ -1400,11 +1457,13 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4} "
               f"{e.key[:90]}")
+    segment_share(events, dev_ms)
     mean = {k: float(np.mean([lv[k] for lv in per_level]))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"launches": fits[0][2], "max_abs_err": max_err, "nnz": nnz,
             "bound_by": per_level[0]["bound_by"], **mean,
-            "node_totals": {**node_tot, "launches": fits[0][3]}}
+            "node_totals": {**node_tot, "launches": fits[0][3]},
+            "root_totals": {**root_tot, "launches": fits[0][3]}}
 
 
 # ---- --geometry-sweep: the dense kernel's launch geometry -------------------
@@ -1475,6 +1534,77 @@ def geometry_sweep(torch, dev) -> None:
             print(f"  slowest {show(*timed[-1])}")
     finally:
         hg.launch_geometry = picked
+
+
+# ---- --segment-sweep: the segment-sum kernel's launch geometry ---------------
+
+SEGMENT_RUNS = (1, 2, 4, 8)  # runs of entries a thread takes (before a block)
+
+
+def segment_sweep(torch, dev) -> None:
+    """The segment-sum kernel at the five main-path shapes (served L=1 and
+    L=16, leaf sums, node totals into 32 and into one segment; the GBDT
+    shapes on random ids and (grad, hess)-like values) under every
+    ``_RUNS_PER_THREAD`` in SEGMENT_RUNS, adding in shared memory (where
+    the outputs fit) or straight into the global buffer, beside the
+    geometry ``launch_geometry`` picks.  Every geometry gives the picked
+    one's result bit for bit."""
+    from dmlc_core_tpu_torch.ops import segment_sum as ss
+    R, rid_s, served = served_inputs(torch, fm_params(1), dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def gbdt(nnz, segments):
+        gh = torch.stack([torch.rand(nnz, generator=g, device=dev) - 0.5,
+                          0.2 + 0.05 * torch.rand(nnz, generator=g,
+                                                  device=dev)], 1)
+        rid = torch.randint(0, segments, (nnz,), generator=g, device=dev,
+                            dtype=torch.int32)
+        return segments, rid, gh.contiguous()
+
+    shapes = {"served L=1": (R, rid_s, served[1]),
+              "served L=16": (R, rid_s, served[NUM_FACTORS]),
+              "leaf sums, 11M into 64": gbdt(HIGGS_ROWS, 64),
+              "node totals, 1.18M into 32": gbdt(BOSCH_ROWS, 32),
+              "node totals, 1.18M into 1": gbdt(BOSCH_ROWS, 1)}
+    picked, runs0 = ss.launch_geometry, ss._RUNS_PER_THREAD
+    try:
+        for name, (rows, rid, c) in shapes.items():
+            lanes = 1 if c.dim() == 1 else c.shape[1]
+            ss._RUNS_PER_THREAD = runs0
+            want = ss.segment_sum_kernel(c, rid, rows)
+            base = device_ms(torch, lambda: ss.segment_sum_kernel(c, rid,
+                                                                  rows), 50)[0]
+            geo0 = picked(c.shape[0], rows, lanes)
+            timed = []
+            for runs in SEGMENT_RUNS:
+                ss._RUNS_PER_THREAD = runs
+                for shared in (True, False):
+                    geo = dict(picked(c.shape[0], rows, lanes), shared=shared,
+                               smem=8 * lanes * (1 + rows * shared))
+                    if geo["smem"] > 227 * 1024:
+                        continue
+                    ss.launch_geometry = lambda *_, geo=geo: geo
+                    got = ss.segment_sum_kernel(c, rid, rows)
+                    check(torch.equal(got.view(torch.int32),
+                                      want.view(torch.int32)),
+                          f"segment sweep {name}: {geo} changed the result")
+                    timed.append((device_ms(
+                        torch, lambda: ss.segment_sum_kernel(c, rid, rows),
+                        50)[0], runs, geo))
+                    ss.launch_geometry = picked
+            timed.sort(key=lambda r: r[0])
+
+            def show(ms, r, gg):
+                return (f"{ms * 1e3:.2f} us (runs {r}, "
+                        f"{'shared' if gg['shared'] else 'global'}, "
+                        f"{gg['blocks']} blocks asked)")
+
+            print(f"segment sweep [{name}]: picked {show(base, runs0, geo0)};"
+                  f" {len(timed)} geometries, all bitwise equal; fastest "
+                  + ", ".join(show(*t) for t in timed[:3])
+                  + f"; slowest {show(*timed[-1])}")
+    finally:
+        ss.launch_geometry, ss._RUNS_PER_THREAD = picked, runs0
 
 
 # ---- --label-study: where a kernel fit and an index_add fit part ------------
@@ -1633,6 +1763,9 @@ def main(argv) -> int:
     if "--label-study" in argv:
         label_study(torch, torch.device("cuda"))
         return 0
+    if "--segment-sweep" in argv:
+        segment_sweep(torch, torch.device("cuda"))
+        return 0
     if "--geometry-sweep" in argv:
         geometry_sweep(torch, torch.device("cuda"))
         return 0
@@ -1645,7 +1778,7 @@ def main(argv) -> int:
     sparse = phase_gbdt_sparse(torch, ss_mod, torch.device("cuda"))
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
-    node = sparse["node_totals"]
+    node, root = sparse["node_totals"], sparse["root_totals"]
     segment_sum = {
         "name": "segment_sum",
         "route": "cuda",
@@ -1673,6 +1806,13 @@ def main(argv) -> int:
         "launches": node["launches"],
         "max_abs_err": node["max_abs_err"],
         **{k: node[k] for k in keys},
+    }, {
+        **segment_sum,
+        "shape": "sparse GBDT node totals at depth 0, 1.18M rows x L=2 into "
+                 "one segment; launches: as the 32-node entry",
+        "launches": root["launches"],
+        "max_abs_err": root["max_abs_err"],
+        **{k: root[k] for k in keys},
     }, {
         "name": "histogram_gh",
         "route": "cuda",

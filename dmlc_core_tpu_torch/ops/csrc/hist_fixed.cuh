@@ -1,5 +1,6 @@
 // Fixed-point (grad, hess) accumulation shared by the histogram kernels
-// (histogram_gh.cu, histogram_gh_sparse.cu).
+// (histogram_gh.cu, histogram_gh_sparse.cu) and, for any number of lanes,
+// by the segment sum (segment_sum.cu, which finds its scale itself).
 //
 // Each f32 value v of lane l (0: grad, 1: hess) becomes one 64-bit integer
 // q = rint(v * 2^k_l), with one scale 2^k_l per lane and launch, chosen by

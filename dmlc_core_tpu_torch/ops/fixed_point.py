@@ -1,10 +1,11 @@
-"""The fixed-point numerics of the histogram kernels (``csrc/hist_fixed.cuh``).
+"""The fixed-point numerics of the kernels (``csrc/hist_fixed.cuh``).
 
 Each f32 (grad, hess) value of lane l becomes ``q = rint(v * 2^k_l)``, an
 int64, and every histogram sum is an exact int64 add, so the kernels'
 results are the same whatever order their integer atomics run in.  The
 scale is a pure function of the inputs, computed here in plain PyTorch on
-the inputs' device (no host sync):
+the inputs' device (no host sync) for the histogram kernels, and inside
+its launch, by the same steps, by the segment sum:
 
     k_l = 62 - ceil(log2(n_max * amax_l)),  clamped to at most ``K_MAX``
 

@@ -8,9 +8,11 @@ Backends keep the JAX package's names, so configs written there load here
 unchanged (``sdot_backend=`` on the models):
 
 * ``"pallas"``: the hand-written CUDA kernel ``csrc/segment_sum.cu`` for a
-  CUDA tensor, its plain PyTorch version for a CPU tensor.  It accumulates
-  in f32 and casts back to contrib's dtype, is bitwise reproducible run to
-  run, and its gradient is the gather ``g[row_id]``.
+  CUDA tensor, its plain PyTorch version for a CPU tensor.  The kernel sums
+  int64 fixed point (:mod:`.fixed_point`, one scale a lane found inside the
+  launch) and returns f32, cast back to contrib's dtype; it is bitwise
+  reproducible run to run and for any order of the entries, and its
+  gradient is the gather ``g[row_id]``.
 * ``None`` / ``"xla"``: ``index_add``, the counterpart of the XLA
   scatter-add the JAX package leaves outside any kernel.
 """
@@ -22,6 +24,7 @@ import threading
 import torch
 
 from . import _build
+from .fixed_point import fixed_point_scale, lane_amax, value_limit
 
 # the one authoritative list of reduction backends; every force= /
 # sdot_backend= surface validates through check_force
@@ -87,8 +90,12 @@ def segment_sum_plain(contrib: torch.Tensor, row_id: torch.Tensor,
 
 # ---- the kernel -------------------------------------------------------------
 
-_MAX_CHUNKS = 64   # entry chunks a launch splits into (grid y; partials)
-_MIN_CHUNK = 256   # entries per chunk before another chunk pays off
+_THREADS = 512          # threads a block (csrc/segment_sum.cu kThreads)
+_RUN = 4                # consecutive entries a thread loads at once (kRun)
+_RUNS_PER_THREAD = 1    # runs a thread takes before another block pays off
+_MAX_BLOCKS = 1024      # blocks a launch asks for (fewer if fewer fit)
+_MAX_LANES = 4096       # lanes one launch takes (8 B of shared memory each)
+_SHARED_OUT = 96 * 1024  # int64 outputs a block adds in shared memory, bytes
 
 _lib = None
 _launch_lock = threading.Lock()
@@ -98,28 +105,91 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("segment_sum")
-        lib.dmlc_segment_sum_f32.argtypes = [
+        lib.dmlc_segment_sum_fixed.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-        lib.dmlc_segment_sum_f32.restype = ctypes.c_int
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p]
+        lib.dmlc_segment_sum_fixed.restype = ctypes.c_int
         lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def launch_geometry(nnz: int, num_segments: int, lanes: int,
+                    align: int = 16) -> dict:
+    """How one launch of ``csrc/segment_sum.cu`` cuts the work.  ``vec``:
+    lanes a thread loads at once (4 or 2 where they divide ``lanes`` and
+    contrib's address ``align``, else 1).  ``shared``: a block adds into a
+    shared-memory copy of the int64 outputs while they fit in
+    ``_SHARED_OUT``, else with 64-bit atomics straight into the global
+    buffer.  ``blocks``: enough for ``_RUNS_PER_THREAD`` runs of ``_RUN``
+    entries a thread, at most ``_MAX_BLOCKS`` (the launch takes no more
+    than the card holds at once).  The constants are the fastest at every
+    main-path shape on an H100 (``python3 chip_smoke.py --segment-sweep``;
+    PERF.md)."""
+    vec = next(v for v in (4, 2, 1) if lanes % v == 0 and align % (4 * v) == 0)
+    groups = lanes // vec
+    streams = _THREADS // min(groups, _THREADS)
+    per_thread = -(-groups // _THREADS) if groups > _THREADS else 1
+    blocks = -(-nnz * per_thread // (streams * _RUN * _RUNS_PER_THREAD))
+    out_bytes = 8 * num_segments * lanes
+    shared = out_bytes <= _SHARED_OUT
+    return dict(vec=vec, shared=shared,
+                blocks=max(1, min(_MAX_BLOCKS, blocks)),
+                smem=8 * lanes + (out_bytes if shared else 0))
+
+
+def _launch(contrib: torch.Tensor, row_id: torch.Tensor, num_segments: int,
+            out: torch.Tensor, scale: torch.Tensor) -> None:
+    """One launch over f32 [nnz, L] ``contrib`` (L <= ``_MAX_LANES``) into
+    ``out`` [num_segments, L], with each lane's ``2^k`` into ``scale`` [L]."""
+    nnz, lanes = contrib.shape
+    geo = launch_geometry(nnz, num_segments, lanes, contrib.data_ptr() & 15
+                          or 16)
+    # the int64 accumulators, each lane's overflow mark and the blocks'
+    # max |v| bits (u32): the only scratch; the launch zeroes what it needs
+    scratch = torch.empty(num_segments * lanes + lanes
+                          + -(-geo["blocks"] * lanes // 2),
+                          dtype=torch.int64, device=contrib.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(contrib.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dmlc_segment_sum_fixed(
+            contrib.data_ptr(), row_id.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scale.data_ptr(), nnz, num_segments, lanes,
+            geo["vec"], int(geo["shared"]), geo["blocks"],
+            value_limit(max(nnz, 1)), stream)
+    if err != 0:
+        raise RuntimeError("segment_sum kernel launch failed: "
+                           + lib.dmlc_cuda_error_string(err).decode())
+    with _launch_lock:
+        segment_sum_kernel.launches += 1
+
+
 def segment_sum_kernel(contrib: torch.Tensor, row_id: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
+                       num_segments: int, *,
+                       return_scale: bool = False):
     """Segment-sum of f32 ``contrib`` [nnz] or [nnz, L] by i32 ``row_id``
     [nnz] -> f32 [num_segments(, L)].
 
     On a CUDA tensor it launches ``csrc/segment_sum.cu`` on the calling
-    thread's current stream (and bumps ``segment_sum_kernel.launches``);
-    on a CPU tensor it runs :func:`segment_sum_plain`.  Raises on anything
-    else the kernel does not take."""
+    thread's current stream (and bumps ``segment_sum_kernel.launches``
+    once a launch; one launch for L <= ``_MAX_LANES``, one per column chunk
+    of that many past it): int64 fixed point with each lane's scale
+    ``fixed_point_scale(lane_amax(contrib), nnz)`` found inside the launch.
+    A lane holding a NaN or Inf comes out NaN in every output.  With
+    ``return_scale`` it also returns that f32 [L] scale.  On a CPU tensor
+    it runs :func:`segment_sum_plain` (and the scale by
+    :mod:`.fixed_point`).  Raises on anything else the kernel does not
+    take."""
     if contrib.device.type == "cpu":
-        return segment_sum_plain(contrib, row_id, num_segments)
+        out = segment_sum_plain(contrib, row_id, num_segments)
+        if not return_scale:
+            return out
+        c = contrib if contrib.dim() == 2 else contrib[:, None]
+        return out, fixed_point_scale(lane_amax(c), c.shape[0])
     if contrib.device.type != "cuda" or row_id.device != contrib.device:
         raise ValueError(f"segment_sum_kernel: contrib on {contrib.device}, "
                          f"row_id on {row_id.device}; want one CUDA device")
@@ -133,29 +203,24 @@ def segment_sum_kernel(contrib: torch.Tensor, row_id: torch.Tensor,
     if not (contrib.is_contiguous() and row_id.is_contiguous()):
         raise ValueError("segment_sum_kernel takes contiguous tensors")
     nnz = contrib.shape[0]
-    lanes = 1 if contrib.dim() == 1 else contrib.shape[1]
-    out = torch.empty(_out_shape(contrib, num_segments), dtype=torch.float32,
+    c = contrib if contrib.dim() == 2 else contrib[:, None]
+    lanes = c.shape[1]
+    out = torch.empty(num_segments, lanes, dtype=torch.float32,
                       device=contrib.device)
-    if out.numel() == 0:
-        return out
-    n_chunks = max(1, min(_MAX_CHUNKS, -(-nnz // _MIN_CHUNK)))
-    chunk = max(1, -(-nnz // n_chunks))
-    n_chunks = max(1, -(-nnz // chunk))
-    partials = (torch.empty(n_chunks, out.numel(), dtype=torch.float32,
-                            device=contrib.device) if n_chunks > 1 else None)
-    lib = _kernel_lib()
-    with torch.cuda.device(contrib.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dmlc_segment_sum_f32(
-            contrib.data_ptr(), row_id.data_ptr(), out.data_ptr(),
-            partials.data_ptr() if partials is not None else None,
-            nnz, num_segments, lanes, n_chunks, chunk, stream)
-    if err != 0:
-        raise RuntimeError("segment_sum kernel launch failed: "
-                           + lib.dmlc_cuda_error_string(err).decode())
-    with _launch_lock:
-        segment_sum_kernel.launches += 1
-    return out
+    scale = torch.empty(lanes, dtype=torch.float32, device=contrib.device)
+    if out.numel():
+        for l0 in range(0, lanes, _MAX_LANES):
+            l1 = min(l0 + _MAX_LANES, lanes)
+            if l1 - l0 == lanes:
+                _launch(c, row_id, num_segments, out, scale)
+            else:
+                part = torch.empty(num_segments, l1 - l0, dtype=torch.float32,
+                                   device=contrib.device)
+                _launch(c[:, l0:l1].contiguous(), row_id, num_segments, part,
+                        scale[l0:l1])
+                out[:, l0:l1] = part
+    out = out.reshape(_out_shape(contrib, num_segments))
+    return (out, scale) if return_scale else out
 
 
 segment_sum_kernel.launches = 0

@@ -17,7 +17,8 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-@pytest.mark.parametrize("name", ["histogram_gh", "histogram_gh_sparse"])
+@pytest.mark.parametrize("name", ["histogram_gh", "histogram_gh_sparse",
+                                  "segment_sum"])
 def test_histogram_kernels_hash_their_shared_header(csrc, name):
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
                                                       "hist_fixed.cuh"]
@@ -32,10 +33,11 @@ def test_nested_headers_count_and_other_kernels_do_not_move(csrc):
     (csrc / "inner.cuh").write_text("#pragma once\n")
     (csrc / "hist_fixed.cuh").write_text(
         '#include "inner.cuh"\n' + (csrc / "hist_fixed.cuh").read_text())
+    (csrc / "other.cu").write_text("// includes no header\n")
     assert [p.name for p in _build.sources("histogram_gh")] == [
         "histogram_gh.cu", "hist_fixed.cuh", "inner.cuh"]
-    seg = _build._target("segment_sum")
-    before = _build._target("histogram_gh")
+    other = _build._target("other")
+    before = {k: _build._target(k) for k in ("histogram_gh", "segment_sum")}
     (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
-    assert _build._target("histogram_gh") != before
-    assert _build._target("segment_sum") == seg
+    assert all(_build._target(k) != t for k, t in before.items())
+    assert _build._target("other") == other

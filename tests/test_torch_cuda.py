@@ -8,8 +8,8 @@ conftest::
 Each kernel (segment sum, dense and sparse histogram) is held to its plain
 PyTorch version on the same inputs at
 atol = rtol = 1e-5 (f32 sums in another order), and to itself bit for bit
-from launch to launch.  The histogram kernels' fixed-point sums are also
-held to their error bound against float64 (``-rP`` prints the measured
+from launch to launch.  All three kernels sum int64 fixed point, and their
+sums are also held to its error bound against float64 (``-rP`` prints the measured
 errors).
 """
 import numpy as np
@@ -73,9 +73,11 @@ def test_kernel_matches_plain_and_is_bitwise_stable(cuda, name):
 
 def test_kernel_long_chunks_stay_within_rounding_of_float64(cuda):
     """A GBDT's leaf sums: millions of unsorted (grad, hess) rows into a few
-    segments, ~60k entries a chunk.  The kernel's compensated sums stay
-    within 1e-6 of the float64 sums, relative to the largest; a plain
-    running f32 sum that long drifts ~1e-4."""
+    segments.  Each value is rounded once to int64 fixed point and summed
+    exactly, so every output is within the fixed point's bound (m *
+    2^-(k+1) for m values) plus one f32 rounding of the float64 sum, and
+    within 1e-6 of the largest; a plain running f32 sum that long drifts
+    ~1e-4."""
     rng = np.random.default_rng(8)
     n = 4_000_000
     rid = rng.integers(0, 4, n).astype(np.int32)
@@ -83,10 +85,130 @@ def test_kernel_long_chunks_stay_within_rounding_of_float64(cuda):
                   1).astype(np.float32)
     got = ss.segment_sum_kernel(torch.from_numpy(gh).to(cuda),
                                 torch.from_numpy(rid).to(cuda), 4)
+    got = got.cpu().numpy()
     want = np.stack([np.bincount(rid, weights=gh[:, lane].astype(np.float64),
                                  minlength=4) for lane in (0, 1)], 1)
-    err = np.abs(got.cpu().numpy() - want).max()
-    assert err <= 1e-6 * np.abs(want).max()
+    err = np.abs(got - want)
+    bound = _fixed_point_bound(gh, np.bincount(rid, minlength=4), n, got)
+    print(f"leaf sums: max |kernel - float64| {err.max():.3e} = "
+          f"{err.max() / np.abs(want).max():.3e} of the largest; worst "
+          f"error / bound {(err / bound).max():.3f}")
+    assert (err <= bound).all()
+    assert err.max() <= 1e-6 * np.abs(want).max()
+
+
+def test_kernel_large_output_unsorted_ids(cuda):
+    """4096 rows x 16 lanes (65,536 outputs, past shared memory: the adds go
+    straight to the global int64 buffer), unsorted ids with some out of
+    range: against the plain version, and bitwise stable."""
+    rng = np.random.default_rng(21)
+    rid = rng.integers(-5, 4101, 160_000).astype(np.int32)
+    c = (0.1 * rng.standard_normal((160_000, 16))).astype(np.float32)
+    c, rid = torch.from_numpy(c).to(cuda), torch.from_numpy(rid).to(cuda)
+    assert not ss.launch_geometry(160_000, 4096, 16)["shared"]
+    a = ss.segment_sum_kernel(c, rid, 4096)
+    b = ss.segment_sum_kernel(c, rid, 4096)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, ss.segment_sum_plain(c, rid, 4096), **TOL)
+
+
+def test_kernel_lanes_past_one_launch_match_plain(cuda):
+    """More lanes than one launch takes (``_MAX_LANES``): the wrapper sums
+    them in column chunks, one launch each, and each lane's scale is its
+    own as in one launch."""
+    rng = np.random.default_rng(23)
+    lanes = ss._MAX_LANES + 5
+    rid = rng.integers(0, 7, 300).astype(np.int32)
+    c = (0.1 * rng.standard_normal((300, lanes))).astype(np.float32)
+    c, rid = torch.from_numpy(c).to(cuda), torch.from_numpy(rid).to(cuda)
+    before = ss.segment_sum_kernel.launches
+    got, scale = ss.segment_sum_kernel(c, rid, 7, return_scale=True)
+    assert ss.segment_sum_kernel.launches == before + 2
+    torch.testing.assert_close(got, ss.segment_sum_plain(c, rid, 7), **TOL)
+    assert torch.equal(scale, fixed_point_scale(lane_amax(c), 300))
+
+
+def test_kernel_one_segment_of_many_entries(cuda):
+    """A tree's root node total: 1.2M (grad, hess) rows into one segment,
+    every entry on the same id (the run folds in registers): within the
+    fixed point's bound of float64 and within TOL of the plain version."""
+    rng = np.random.default_rng(22)
+    n = 1_200_000
+    gh = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(0.2, 0.25, n)],
+                  1).astype(np.float32)
+    g = torch.from_numpy(gh).to(cuda)
+    rid = torch.zeros(n, dtype=torch.int32, device=cuda)
+    got = ss.segment_sum_kernel(g, rid, 1)
+    torch.testing.assert_close(got, ss.segment_sum_plain(g, rid, 1), **TOL)
+    got = got.cpu().numpy()
+    want = gh.astype(np.float64).sum(0)[None]
+    err = np.abs(got - want)
+    assert (err <= _fixed_point_bound(gh, np.array([n]), n, got)).all()
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_kernel_poisons_a_non_finite_lane(cuda, bad):
+    """A NaN or Inf in one lane makes that lane NaN in every output; the
+    other lanes are bitwise what they are without it."""
+    c, rid, rows = _case("served-16lanes", cuda)
+    clean = ss.segment_sum_kernel(c, rid, rows)
+    dirty = c.clone()
+    dirty[123, 5] = float(bad)
+    got = ss.segment_sum_kernel(dirty, rid, rows)
+    assert got[:, 5].isnan().all()
+    keep = torch.arange(16, device=cuda) != 5
+    assert torch.equal(got[:, keep], clean[:, keep])
+
+
+@pytest.mark.parametrize("lanes", ["large, one sign", "large, cancelling"])
+def test_kernel_values_near_the_value_limit_are_nan_or_exact(cuda, lanes):
+    """Values at the top of the f32 range, all in one segment: every
+    quantised value sits near the value limit's half, the int64 sums never
+    wrap.  One sign: within f32 rounding of the float64 sum (or Inf where
+    that sum passes f32); +v and -v in equal numbers: exactly 0."""
+    n = 1 << 20
+    gh = np.full((n, 2), 1.0e30, np.float32)
+    gh[:, 1] = 3.0e38
+    if lanes == "large, cancelling":
+        gh[1::2] *= -1
+    got = ss.segment_sum_kernel(torch.from_numpy(gh).to(cuda),
+                                torch.zeros(n, dtype=torch.int32,
+                                            device=cuda), 1).cpu().numpy()[0]
+    want = gh.astype(np.float64).sum(0)
+    assert not np.isnan(got).any()
+    if lanes == "large, cancelling":
+        assert (got == 0).all()
+    else:
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=0)
+        with np.errstate(over="ignore"):
+            assert got[1] == np.float32(want[1])  # past f32: Inf, not wrapped
+
+
+def test_kernel_is_bitwise_the_same_for_any_order(cuda):
+    c, rid, rows = _case("unsorted-out-of-range", cuda)
+    perm = torch.randperm(c.shape[0],
+                          generator=torch.Generator().manual_seed(0)).to(cuda)
+    a = ss.segment_sum_kernel(c, rid, rows)
+    b = ss.segment_sum_kernel(c[perm].contiguous(), rid[perm].contiguous(),
+                              rows)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("j", [-3, 0, 1, 7])
+@pytest.mark.parametrize("nnz", [1, 4096, 1_183_747])
+def test_kernel_scale_equals_fixed_point_scale(cuda, j, nnz):
+    """The scale the kernel finds inside its launch is
+    ``fixed_point_scale(lane_amax(c), nnz)`` bit for bit, at amax = 2^j
+    (a power of two, where a rounded log2 is most likely to part them) and
+    at amax just past it."""
+    rng = np.random.default_rng(j + 10)
+    c = rng.uniform(-1, 1, (nnz, 2)).astype(np.float32) * np.float32(2.0 ** j)
+    c[0, 0] = 2.0 ** j
+    c[-1, 1] = np.nextafter(np.float32(2.0 ** j), np.float32(np.inf))
+    ct = torch.from_numpy(c).to(cuda)
+    rid = torch.zeros(nnz, dtype=torch.int32, device=cuda)
+    _, scale = ss.segment_sum_kernel(ct, rid, 3, return_scale=True)
+    assert torch.equal(scale, fixed_point_scale(lane_amax(ct), nnz))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32])
@@ -599,7 +721,8 @@ def test_fit_batch_on_kernel_equals_fit_batch_on_plain(cuda):
     largest value: on the CPU the node totals and leaf sums are
     ``index_add``, one f32 chain over up to 20,000 near-equal hessians whose
     rounding errors line up (a leaf off by 3.4e-4 of itself, 5.8e-5 of 0.3,
-    on the H100), while the card's segment-sum kernel compensates."""
+    on the H100), while the card's segment-sum kernel sums exactly in
+    fixed point."""
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
     kw = dict(num_features=6, num_trees=3, max_depth=3, num_bins=32,
               learning_rate=0.5, missing_aware=True, histogram="pallas")

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from dmlc_core_tpu.ops.pallas_segment import segment_sum as jax_segment_sum
+from dmlc_core_tpu_torch.ops import fixed_point
 from dmlc_core_tpu_torch.ops import segment_sum as ss
 from dmlc_core_tpu_torch.ops.segment_sum import (VALID_FORCE, check_force,
                                                  segment_sum)
@@ -160,3 +161,149 @@ def test_kernel_wrapper_rejects_other_devices():
     rid = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ss.segment_sum_kernel(c, rid, 2)
+
+
+# ---- the kernel's fixed-point numerics (csrc/segment_sum.cu) -----------------
+
+def _fixed_point_segment_sum(c, rid, rows, scale=None):
+    """The CUDA kernel's arithmetic in numpy: each lane's scale
+    ``fixed_point_scale(lane_amax(c), nnz)`` (or the ``scale`` given), each
+    kept value quantised once (the f32 product by a power of two is exact;
+    ``np.rint`` rounds half to even as ``__float2ll_rn`` does), exact int64
+    sums, each output rounded once to f32; a lane with a non-finite scale,
+    or with a kept value at or past ``value_limit(nnz)``, is NaN."""
+    c2 = c.reshape(len(c), -1).astype(np.float32)
+    n = max(len(c2), 1)
+    if scale is None:
+        scale = fixed_point.fixed_point_scale(
+            fixed_point.lane_amax(torch.from_numpy(c2)), n).numpy()
+    keep = (rid >= 0) & (rid < rows)
+    with np.errstate(invalid="ignore", over="ignore"):
+        qf = np.rint(c2[keep] * scale).astype(np.float64)
+        ok = (np.isfinite(scale) & (scale > 0)
+              & (np.abs(qf) < float(fixed_point.value_limit(n))).all(0))
+    q = np.where(ok, qf, 0).astype(np.int64)
+    acc = np.zeros((rows, c2.shape[1]), np.int64)
+    np.add.at(acc, rid[keep].astype(np.int64), q)
+    out = (acc / np.where(ok, scale, 1).astype(np.float64)).astype(np.float32)
+    out[:, ~ok] = np.nan
+    return out.reshape((rows,) + c.shape[1:])
+
+
+@pytest.mark.parametrize("force", [None, "pallas"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fixed_point_emulation_matches_jax(name, force):
+    """The kernel's numerics against the JAX package on the same inputs,
+    within atol = rtol = 1e-5, and against float64 within the fixed point's
+    bound (m * 2^-(k+1) for m values) plus one f32 rounding."""
+    c, rid, rows = _case(name)
+    got = _fixed_point_segment_sum(c, rid, rows)
+    want = np.asarray(jax_segment_sum(jnp.asarray(c), jnp.asarray(rid), rows,
+                                      force=force))
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+    keep = (rid >= 0) & (rid < rows)
+    c2 = c.reshape(len(c), -1).astype(np.float64)
+    exact = np.zeros((rows, c2.shape[1]))
+    np.add.at(exact, rid[keep], c2[keep])
+    m = np.bincount(rid[keep], minlength=rows)[:, None]
+    scale = fixed_point.fixed_point_scale(
+        fixed_point.lane_amax(torch.from_numpy(c.reshape(len(c), -1))),
+        len(c))
+    bound = (m * fixed_point.error_bound(scale, 1).numpy()
+             + np.spacing(np.abs(got.reshape(exact.shape))))
+    assert (np.abs(got.reshape(exact.shape) - exact) <= bound).all()
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_fixed_point_emulation_poisons_a_non_finite_lane(bad):
+    """A NaN or Inf in one lane (even in an entry whose id is dropped, as
+    the TPU kernel's one-hot product spreads it) makes that lane NaN in
+    every output; the other lanes are bitwise what they are without it."""
+    c, rid, rows = _case("out-of-range-4lanes")
+    clean = _fixed_point_segment_sum(c, rid, rows)
+    for k in (17, int(np.flatnonzero(rid < 0)[0])):
+        dirty = c.copy()
+        dirty[k, 2] = bad
+        got = _fixed_point_segment_sum(dirty, rid, rows)
+        assert np.isnan(got[:, 2]).all()
+        np.testing.assert_array_equal(np.delete(got, 2, 1),
+                                      np.delete(clean, 2, 1))
+
+
+@pytest.mark.parametrize("under,poisoned", [(2.0 ** 20, True), (2.0, False)])
+def test_fixed_point_emulation_understated_scale_is_nan_or_exact(under,
+                                                                 poisoned):
+    """A scale made from a bound below the values (the kernel finds its own
+    amax, so it never meets this; the rule is hist_fixed.cuh's): far below,
+    a value could carry a sum past int64 and the lane is NaN; a little
+    below, the sums stay exact and within the finer scale's bound."""
+    rng = np.random.default_rng(6)
+    nnz, rows = 5000, 3
+    rid = rng.integers(0, rows, nnz).astype(np.int32)
+    c = rng.uniform(-1, 1, (nnz, 2)).astype(np.float32)
+    amax = fixed_point.lane_amax(torch.from_numpy(c))
+    low = amax.clone()
+    low[0] /= under
+    scale = fixed_point.fixed_point_scale(low, nnz).numpy()
+    got = _fixed_point_segment_sum(c, rid, rows, scale)
+    clean = _fixed_point_segment_sum(c, rid, rows)
+    np.testing.assert_array_equal(got[:, 1], clean[:, 1])
+    if poisoned:
+        assert np.isnan(got[:, 0]).all()
+        return
+    exact = np.bincount(rid, c[:, 0].astype(np.float64), minlength=rows)
+    m = np.bincount(rid, minlength=rows)
+    bound = m * 0.5 / float(scale[0]) + np.spacing(np.abs(got[:, 0]))
+    assert (np.abs(got[:, 0] - exact) <= bound).all()
+
+
+def test_fixed_point_emulation_is_bitwise_the_same_for_any_order():
+    c, rid, rows = _case("unsorted-3lanes")
+    perm = np.random.default_rng(1).permutation(len(rid))
+    np.testing.assert_array_equal(
+        _fixed_point_segment_sum(c, rid, rows),
+        _fixed_point_segment_sum(c[perm], rid[perm], rows))
+
+
+@pytest.mark.parametrize("j", [-3, 0, 1, 7])
+@pytest.mark.parametrize("nnz", [1, 4096, 1_183_747, 11_000_000])
+def test_scale_at_powers_of_two_is_exact(j, nnz):
+    """At amax = 2^j the scale is 2^(62 - ceil(log2(nnz * 2^j))) with the
+    ceiling taken exactly (frexp), where a rounded log2 would be most likely
+    to be off by one; the kernel computes its scale with the same steps and
+    is held to this function bit for bit on the card."""
+    got = float(fixed_point.fixed_point_scale(
+        torch.tensor([2.0 ** j], dtype=torch.float32), nnz)[0])
+    mant, exp = np.frexp(float(nnz) * 2.0 ** j)  # nnz * 2^j = mant * 2^exp
+    ceil_log2 = exp - 1 if mant == 0.5 else exp
+    assert got == 2.0 ** min(62 - ceil_log2, fixed_point.K_MAX)
+
+
+@pytest.mark.parametrize("nnz,rows,lanes,align,vec,shared", [
+    (11_000_000, 64, 2, 16, 2, True),     # GBDT leaf sums
+    (1_183_747, 1, 2, 16, 2, True),       # root node total
+    (16384, 256, 16, 16, 4, True),        # served FM micro-batch, L=16
+    (16384, 256, 1, 16, 1, True),         # served, L=1
+    (160_000, 4096, 16, 16, 4, False),    # served at max_batch
+    (5000, 37, 5, 16, 1, True),           # odd lanes
+    (3000, 100, 4, 8, 2, True),           # 8-byte aligned contrib
+    (100, 10, 8192, 16, 4, False),        # wide lanes
+])
+def test_launch_geometry(nnz, rows, lanes, align, vec, shared):
+    geo = ss.launch_geometry(nnz, rows, lanes, align)
+    assert (geo["vec"], geo["shared"]) == (vec, shared)
+    assert 1 <= geo["blocks"] <= ss._MAX_BLOCKS
+    assert geo["smem"] == 8 * lanes * (1 + rows * shared)
+    assert geo["smem"] <= 227 * 1024
+
+
+def test_kernel_wrapper_cpu_scale_is_fixed_point_scale():
+    c, rid, rows = _case("unsorted-3lanes")
+    out, scale = ss.segment_sum_kernel(torch.from_numpy(c),
+                                       torch.from_numpy(rid), rows,
+                                       return_scale=True)
+    assert torch.equal(out, ss.segment_sum_plain(torch.from_numpy(c),
+                                                 torch.from_numpy(rid), rows))
+    assert torch.equal(scale, fixed_point.fixed_point_scale(
+        fixed_point.lane_amax(torch.from_numpy(c)), len(c)))
