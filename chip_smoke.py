@@ -10,17 +10,25 @@ by side) and prints each kernel's atomic instructions from the SASS, holds
 each kernel against its plain PyTorch version on the card,
 serves a Criteo-width factorization machine (2^20 hashed features, 16
 factors, 39 nonzeros a row) over HTTP through the port's ``ScoringServer``
-and checks every score against a float64 numpy oracle, then trains a
+and checks every score against a float64 numpy oracle, then trains that FM
+from a 524,288-row libsvm file (written under ``build/chip_smoke/``)
+through ``DeviceStagingIter`` and ``train_step`` for two epochs, holding
+every staged batch to the host parse, the first step to float64 numpy SGD
+and the kernel route to the ``index_add`` route, with a shorter linear run
+and the segment-sum kernel timed at the training shape, then trains a
 Higgs-width histogram GBDT (11M rows x 28 features, 256 bins, 20 trees of
 depth 6) through ``GBDT.fit`` and checks its histograms (every level of
 the first tree timed beside the previous kernel, ``index_add`` and the
 bound),
-forests and predictions against float64 oracles, then trains a Bosch-width
-sparse GBDT
+forests and predictions against float64 oracles, and a sampled fit
+(subsample, colsample_bytree and colsample_bylevel 0.8: draws on the card
+equal to the CPU's bit for bit), then trains a Bosch-width sparse GBDT
 (1,183,747 rows x 968 features, ~19% present) on a CSR batch through
-``GBDT.fit_batch``, audits it against float64, cross-checks it against a
-dense fit of the densified data, and serves it from a snapshot through
-``ScoringServer``.  Any failed check raises and the script exits non-zero.
+``GBDT.fit_batch`` (and sampled), audits it against float64, cross-checks
+it against a dense fit of the densified data, scores a libsvm file of its
+first 50,000 rows through ``predict_staged``, and serves it from a
+snapshot through ``ScoringServer``.  Any failed check raises and the
+script exits non-zero.
 The last two lines of its output are the card's name and power limit, and
 one JSON object with ``"ok": true``; the line before them is the
 per-kernel JSON (times, bound, launches on each main path, error against
@@ -447,6 +455,608 @@ def phase_profile(torch, params) -> None:
               f"{e.key[:90]}")
 
 
+# ---- phase 4: training from a file (DeviceStagingIter + train_step) -------
+
+# Criteo Display Advertising rows at the served width (13 integer fields as
+# log1p counts, 26 categorical fields of value 1, hashed into 2^20 slots);
+# labels drawn from a planted FM.  Cut: 524,288 rows of Criteo Kaggle's
+# 45,840,617, for the time limit
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_NNZ_BUCKET = 524_288, 8192, 65_536
+TRAIN_EPOCHS, TRAIN_WORKERS = 2, 4
+TRAIN_SEED = 21          # the planted FM's params and the labels' draws
+XLA_STEPS = 64           # steps of the index_add route held to the kernel's
+ROUTE_TOL = 1e-5         # |kernel grad - index_add grad| / max |grad|
+STEP_TOL = 1e-5          # first update vs float64, relative to its largest
+PROFILE_STEPS = 8
+LOSS_STEPS = (0, 16, 64, 127)
+
+
+def libsvm_text(label, row_ptr, index, value) -> bytes:
+    """libsvm lines (label, then ``index:value`` pairs, values as %.9g, so
+    f32 values read back exactly) for CSR rows, assembled with numpy: every
+    row is a run of tokens from one byte table (labels, separators, index
+    and value strings), gathered in one fancy-indexing pass."""
+    uniq, inv = np.unique(value, return_inverse=True)
+    n_idx = int(index.max()) + 1 if index.size else 0
+    words = ([b"0", b"1", b" ", b":", b"\n"]
+             + [str(i).encode() for i in range(n_idx)]
+             + [(b"%.9g" % float(v)) for v in uniq])
+    lens = np.array([len(w) for w in words], np.int64)
+    offs = np.cumsum(lens) - lens
+    table = np.frombuffer(b"".join(words), np.uint8)
+    rows, nnz = len(label), len(index)
+    counts = np.diff(row_ptr).astype(np.int64)
+    first = 2 * np.arange(rows) + 4 * row_ptr[:-1].astype(np.int64)
+    tok = np.empty(2 * rows + 4 * nnz, np.int64)
+    tok[first] = (label > 0.5).astype(np.int64)
+    e_row = np.repeat(np.arange(rows), counts)
+    e_pos = (first[e_row] + 1
+             + 4 * (np.arange(nnz) - row_ptr[:-1].astype(np.int64)[e_row]))
+    tok[e_pos] = 2
+    tok[e_pos + 1] = 5 + index.astype(np.int64)
+    tok[e_pos + 2] = 3
+    tok[e_pos + 3] = 5 + n_idx + inv.reshape(-1)
+    tok[first + 1 + 4 * counts] = 4
+    seg_len = lens[tok]
+    dst = np.cumsum(seg_len) - seg_len
+    src = np.repeat(offs[tok] - dst, seg_len) + np.arange(int(seg_len.sum()))
+    return table[src].tobytes()
+
+
+def criteo_train_file(path: Path) -> dict:
+    """Write the training file (once: a file already there is reused) and
+    return the planted FM's numpy params."""
+    planted = fm_params(TRAIN_SEED)
+    if path.exists():
+        return planted
+    rng = np.random.default_rng(TRAIN_SEED)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".tmp")
+    chunk = 32_768
+    w64, v64 = planted["w"].astype(np.float64), planted["v"]
+    with open(tmp, "wb") as f:
+        for r0 in range(0, TRAIN_ROWS, chunk):
+            n = min(chunk, TRAIN_ROWS - r0)
+            idx = rng.integers(0, NUM_FEATURES, (n, NNZ_PER_ROW))
+            val = np.ones((n, NNZ_PER_ROW), np.float32)
+            val[:, :INT_FIELDS] = np.log1p(
+                rng.integers(0, 1000, (n, INT_FIELDS))).astype(np.float32)
+            x = val.astype(np.float64)
+            v = v64[idx].astype(np.float64)           # [n, 39, K]
+            vx = np.einsum("nkf,nk->nf", v, x)
+            m = (float(planted["b"]) + (w64[idx] * x).sum(1)
+                 + 0.5 * (vx ** 2 - np.einsum("nkf,nk->nf", v ** 2,
+                                              x ** 2)).sum(1))
+            y = rng.random(n) < 1.0 / (1.0 + np.exp(-m))
+            ptr = np.arange(n + 1, dtype=np.int64) * NNZ_PER_ROW
+            f.write(libsvm_text(y, ptr, idx.reshape(-1), val.reshape(-1)))
+    tmp.rename(path)
+    return planted
+
+
+def host_packed(uri: str, batch: int, bucket: int) -> list:
+    """The staged batches as the port's ``Parser`` RowBlocks packed on the
+    host by numpy: ``batch`` rows each (the last zero-padded: weight 0,
+    label 0, empty spans), nonzeros padded with zeros to a multiple of
+    ``bucket``."""
+    from dmlc_core_tpu_torch.data import Parser
+    labels, weights, offsets, index, value = [], [], [], [], []
+    base = 0
+    with Parser(uri) as parser:
+        for blk in parser:
+            labels.append(blk.label)
+            weights.append(blk.weight if blk.weight is not None
+                           else np.ones(blk.size, np.float32))
+            offsets.append(blk.offset[1:].astype(np.int64) + base)
+            base += blk.num_nonzero
+            index.append(blk.index.astype(np.int32))
+            value.append(blk.values_or_ones())
+    label, weight = np.concatenate(labels), np.concatenate(weights)
+    ptr = np.concatenate([[0]] + offsets)
+    index, value = np.concatenate(index), np.concatenate(value)
+    out = []
+    for r0 in range(0, len(label), batch):
+        r1 = min(r0 + batch, len(label))
+        e0, e1 = int(ptr[r0]), int(ptr[r1])
+        pad = -(-(e1 - e0) // bucket) * bucket - (e1 - e0)
+        rp = (ptr[r0:r1 + 1] - e0).astype(np.int32)
+        out.append({
+            "label": np.pad(label[r0:r1], (0, batch - (r1 - r0))),
+            "weight": np.pad(weight[r0:r1], (0, batch - (r1 - r0))),
+            "row_ptr": np.pad(rp, (0, batch - (r1 - r0)), mode="edge"),
+            "index": np.pad(index[e0:e1], (0, pad)),
+            "value": np.pad(value[e0:e1], (0, pad)),
+            "num_rows": r1 - r0})
+    return out
+
+
+STAGED_LEAVES = ("label", "weight", "row_ptr", "index", "value")
+
+
+def batch_mismatch(batch, want: dict):
+    """The first leaf of a staged batch (already copied to the host, as
+    numpy) that differs from the host packing bit for bit, or None."""
+    if batch["num_rows"] != want["num_rows"]:
+        return "num_rows"
+    for k in STAGED_LEAVES:
+        a, b = batch[k], want[k]
+        if a.shape != b.shape or not np.array_equal(a.view(np.int32),
+                                                    b.view(np.int32)):
+            return k
+    return None
+
+
+def fm_step_oracle(p0: dict, h: dict, lr: float) -> dict:
+    """float64 numpy SGD update of an FM on one host batch: margins, the
+    weighted logistic mean, and ``np.add.at`` gradients for w, v and b.
+    (Margins are nonzero here, away from the loss's kink.)"""
+    B = h["label"].shape[0]
+    nnz = h["index"].shape[0]
+    rid = np.minimum(np.searchsorted(h["row_ptr"], np.arange(nnz),
+                                     side="right") - 1, B - 1)
+    x, idx = h["value"].astype(np.float64), h["index"].astype(np.int64)
+    w = p0["w"].astype(np.float64)
+    b = float(p0["b"])
+    lin = np.zeros(B)
+    np.add.at(lin, rid, w[idx] * x)
+    m = b + lin
+    out = {}
+    if "v" in p0:
+        v = p0["v"].astype(np.float64)
+        K = v.shape[1]
+        vx = np.zeros((B, K))
+        np.add.at(vx, rid, v[idx] * x[:, None])
+        v2x2 = np.zeros((B, K))
+        np.add.at(v2x2, rid, v[idx] ** 2 * x[:, None] ** 2)
+        m = m + 0.5 * (vx ** 2 - v2x2).sum(1)
+    y = (h["label"] > 0.5).astype(np.float64)
+    wt = h["weight"].astype(np.float64)
+    dm = (1.0 / (1.0 + np.exp(-m)) - y) * wt / max(wt.sum(), 1.0)
+    gw = np.zeros(w.shape[0])
+    np.add.at(gw, idx, dm[rid] * x)
+    out["w"], out["b"] = -lr * gw, -lr * dm.sum()
+    if "v" in p0:
+        gv = np.zeros(v.shape)
+        np.add.at(gv, idx, dm[rid][:, None] * (x[:, None] * vx[rid]
+                                               - v[idx] * x[:, None] ** 2))
+        out["v"] = -lr * gv
+    return out
+
+
+def caught_step(model, batch) -> tuple:
+    """One ``train_step`` with each parameter's gradient caught as it
+    lands (a post-accumulate hook; the step clears it after) and the rows
+    whose margin came out exactly 0 counted: there the loss's slope jumps
+    (the port takes the JAX package's slopes at the kink, -y where the
+    smooth loss has sigmoid(0) - y).  Returns (loss, grads, those rows)."""
+    grads, zeros = {}, []
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grads.__setitem__(n, p.grad.detach().clone()))
+        for n, p in model.named_parameters()]
+    inner = model.margins
+
+    def margins(b):
+        m = inner(b)
+        zeros.append(int(((m.detach() == 0) & (b.weight > 0)).sum()))
+        return m
+
+    model.margins = margins
+    try:
+        loss = model.train_step(batch)
+    finally:
+        del model.margins
+        for h in hooks:
+            h.remove()
+    return loss, grads, zeros[0]
+
+
+def traced_step(torch, model, batch, p0: dict, want: dict) -> tuple:
+    """One ``caught_step`` held to a float64 update.  Returns (max over
+    params of |update - float64 update| / max |float64 update|, where
+    update = -learning_rate * grad as the step computes it in f32; whether
+    every p1 equals p0 - learning_rate * grad bit for bit; the same error
+    measured as p1 - p0, which also holds the f32 rounding of storing p1:
+    half an ulp of |p|, far above 1e-5 of an update at this batch size;
+    the step's loss)."""
+    loss, grads, zeros = caught_step(model, batch)
+    check(zeros == 0, f"{zeros} rows with an exactly-zero margin in the "
+          "step held to float64")
+    err = err_p = 0.0
+    exact = True
+    for k, d in want.items():
+        scale = max(float(np.abs(d).max()), 1e-30)
+        step = model.learning_rate * grads[k]
+        p1 = model.state_dict()[k]
+        exact &= torch.equal(p1, torch.as_tensor(p0[k], device=p1.device)
+                             - step)
+        err = max(err, float(np.abs(-step.double().cpu().numpy() - d).max())
+                  / scale)
+        err_p = max(err_p, float(np.abs(p1.double().cpu().numpy() - p0[k]
+                                        - d).max()) / scale)
+    return err, exact, err_p, loss
+
+
+def union_ms(intervals) -> float:
+    """Total length of a union of (start, end) intervals, in ms (us in)."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def overlap_ms(xs, ys) -> float:
+    """Length of the intersection of two interval unions, in ms."""
+    return union_ms(xs) + union_ms(ys) - union_ms(list(xs) + list(ys))
+
+
+def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
+    """Train the Criteo-width FM from a libsvm file through the port's
+    DeviceStagingIter and train_step on the segment-sum kernel; hold the
+    staged batches, the first step and the index_add route to their
+    references; a shorter linear run; the kernel at the training shape."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    from dmlc_core_tpu_torch.models import (FactorizationMachine,
+                                            SparseLinearModel,
+                                            params_from_numpy)
+    path = build_dir / f"criteo_{TRAIN_ROWS}_seed{TRAIN_SEED}.libsvm"
+    t0 = time.monotonic()
+    criteo_train_file(path)
+    t_write = time.monotonic() - t0
+    size = path.stat().st_size
+    uri = str(path)
+    t0 = time.monotonic()
+    want = host_packed(uri, TRAIN_BATCH, TRAIN_NNZ_BUCKET)
+    t_host = time.monotonic() - t0
+    steps_per_epoch = len(want)
+    check(steps_per_epoch == TRAIN_ROWS // TRAIN_BATCH,
+          f"{steps_per_epoch} batches in an epoch")
+    check(all(int(w["num_rows"]) == TRAIN_BATCH for w in want),
+          "a short batch in the training file")
+    print(f"train data: {TRAIN_ROWS} Criteo-width rows x {NNZ_PER_ROW} "
+          f"nonzeros, {size / 2**20:.1f} MiB of libsvm written in "
+          f"{t_write:.1f} s (host, numpy); Parser + numpy packing of "
+          f"{steps_per_epoch} host batches {t_host:.1f} s; "
+          f"{float(np.mean([w['label'].mean() for w in want])):.3f} positive")
+
+    kw = dict(batch_size=TRAIN_BATCH, nnz_bucket=TRAIN_NNZ_BUCKET,
+              num_workers=TRAIN_WORKERS)
+    it = DeviceStagingIter(uri, device=dev, **kw)
+    check(it.device.type == "cuda", "DeviceStagingIter is not on the card")
+    fm = FactorizationMachine(NUM_FEATURES, num_factors=NUM_FACTORS,
+                              sdot_backend="pallas", device=dev).init(0)
+    lr = fm.learning_rate
+    names = ("h2d.wait_us", "h2d.busy_us", "h2d.emit_wait_us", "h2d.batches")
+    c0 = {k: telemetry.counter_get(k) for k in names}
+    pool = ThreadPoolExecutor(1)
+    pending, losses, per_step, epoch_s = [], [], [], []
+    after64 = first = None
+    host_pin = {}
+
+    def copy_back(batch):
+        """Non-blocking copies of a staged batch's leaves into pinned host
+        buffers on the consumer's stream, and an event after them."""
+        out = {}
+        for k in STAGED_LEAVES:
+            t, slot = getattr(batch, k), (k, len(pending) % 8)
+            h = host_pin.get(slot)
+            if h is None or h.shape != t.shape:
+                h = host_pin[slot] = torch.empty(t.shape, dtype=t.dtype,
+                                                 pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out[k] = h
+        ev = torch.cuda.Event()
+        ev.record()
+        return out, ev
+
+    def compare(out, ev, num_rows, ref):
+        ev.synchronize()
+        got = {k: out[k].numpy() for k in STAGED_LEAVES}
+        got["num_rows"] = num_rows
+        return batch_mismatch(got, ref)
+
+    # the main path: counts to 0 here, read when the second epoch ends
+    ss_mod.segment_sum_kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = 0
+    for epoch in range(TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        t_ep = time.monotonic()
+        bytes0 = it.bytes_read
+        for i, batch in enumerate(it):
+            before = ss_mod.segment_sum_kernel.launches
+            if step == 0:
+                p0 = {k: v.detach().cpu().numpy().copy()
+                      for k, v in fm.state_dict().items()}
+            if step == 0:
+                first = traced_step(torch, fm, batch, p0,
+                                    fm_step_oracle(p0, want[0], lr))
+                loss = first[3]
+            else:
+                loss = fm.train_step(batch)
+            per_step.append(ss_mod.segment_sum_kernel.launches - before)
+            losses.append(loss)
+            if epoch == 0:
+                # while the next steps run: this batch, copied back, against
+                # the host packing (a pinned buffer recycled too early, or
+                # device memory reused early, shows as a difference)
+                out, ev = copy_back(batch)
+                pending.append(pool.submit(compare, out, ev, batch.num_rows,
+                                           want[i]))
+                if len(pending) >= 8:
+                    pending[-8].result()
+            step += 1
+            if step == XLA_STEPS:
+                after64 = {k: v.detach().clone()
+                           for k, v in fm.state_dict().items()}
+        torch.cuda.synchronize()
+        epoch_s.append((time.monotonic() - t_ep, it.bytes_read - bytes0,
+                        dict(it.profile)))
+    launches = ss_mod.segment_sum_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, r) for i, f in enumerate(pending) if (r := f.result())]
+    pool.shutdown()
+    d = {k: telemetry.counter_get(k) - c0[k] for k in names}
+    total_steps = TRAIN_EPOCHS * steps_per_epoch
+    check(step == total_steps, f"{step} steps, want {total_steps}")
+    print(f"train [staged batches vs host packing, epoch 1, compared while "
+          f"the steps ran]: {len(pending) - len(bad)} of {len(pending)} "
+          f"equal bit for bit" + (f"; first mismatch {bad[0]}" if bad else ""))
+    check(not bad and len(pending) == steps_per_epoch,
+          f"staged batches differ from the host packing: {bad[:3]}")
+    print(f"train [segment_sum launches]: {launches} in {step} steps, "
+          f"{sorted(set(per_step))} a step")
+    check(launches == 3 * step and set(per_step) == {3},
+          f"segment_sum launched {launches} times in {step} FM steps "
+          "(want 3 a step)")
+    print(f"train [first step vs float64 numpy SGD]: |update - float64| / "
+          f"max |float64 update| = {first[0]:.3e}, tol {STEP_TOL:.0e}; p1 = "
+          f"p0 - lr * grad bit for bit: {first[1]}; as p1 - p0 (with the f32 "
+          f"rounding of storing p1) {first[2]:.3e}")
+    check(first[0] <= STEP_TOL and first[1],
+          f"first FM step: {first[0]} from float64, applied {first[1]}")
+    loss_v = [float(x) for x in losses]
+    print("train logloss (the step's batch, before the step) at steps "
+          + ", ".join(f"{s}: {loss_v[s]:.6f}" for s in LOSS_STEPS)
+          + f"; mean over epoch 2 {np.mean(loss_v[steps_per_epoch:]):.6f}")
+    check(all(np.isfinite(loss_v)), "a non-finite training loss")
+    check(np.mean(loss_v[-16:]) < loss_v[0], "the FM's loss did not fall")
+    for e, (secs, nbytes, prof) in enumerate(epoch_s):
+        print(f"train epoch {e + 1}: {secs:.3f} s wall, "
+              f"{steps_per_epoch / secs:.1f} steps/s, "
+              f"{steps_per_epoch * TRAIN_BATCH / secs:.0f} rows/s, parse "
+              f"{nbytes / 2**20 / secs:.1f} MB/s ({nbytes} bytes read); "
+              f"profile " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                                      else f"{k} {v}"
+                                      for k, v in prof.items()))
+    print(f"train: peak device memory {peak / 2**30:.2f} GiB; h2d counters "
+          f"over both epochs: " + ", ".join(f"{k} {v}" for k, v in d.items())
+          + f"; iterator counters {it.counters}")
+
+    # (d) the index_add route: from the kernel route's params at every
+    # step, its gradients against the kernel route's; and run apart from
+    # the same init for XLA_STEPS steps, its params against the main run's
+    def new_fm(route):
+        return FactorizationMachine(NUM_FEATURES, num_factors=NUM_FACTORS,
+                                    sdot_backend=route, device=dev)
+    fm_k, fm_x = new_fm("pallas").init(0), new_fm("xla")
+    fm_apart = new_fm("xla").init(0)
+    worst, kinks, kink_rows = 0.0, [], 0
+    for i, batch in enumerate(it):
+        if i == XLA_STEPS:
+            break
+        fm_apart.train_step(batch)
+        fm_x.load_state_dict(fm_k.state_dict())
+        _, gk, zk = caught_step(fm_k, batch)
+        _, gx, zx = caught_step(fm_x, batch)
+        gap = max(float((gk[n] - gx[n]).abs().max())
+                  / max(float(gx[n].abs().max()), 1e-30) for n in gx)
+        if zk or zx:
+            kinks.append((i, zk, zx, f"{gap:.3e}"))
+            kink_rows += zk + zx
+        else:
+            worst = max(worst, gap)
+    gaps = {k: float((after64[k] - v).abs().max())
+            / max(float(after64[k].abs().max()), 1e-30)
+            for k, v in fm_apart.state_dict().items()}
+    print(f"train [kernel route vs index_add route, from the same params at "
+          f"each of {XLA_STEPS} steps]: |grad difference| / max |grad| "
+          f"{worst:.3e} (tol {ROUTE_TOL:.0e}) at the "
+          f"{XLA_STEPS - len(kinks)} steps where no margin is exactly 0; "
+          f"steps with such rows (step, kernel rows, index_add rows, gap): "
+          f"{kinks}")
+    print(f"train [the routes run apart from one init for {XLA_STEPS} "
+          f"steps]: |param difference| / max |param|: " + ", ".join(
+              f"{k} {g:.3e}" for k, g in gaps.items())
+          + " (one row at an exactly-zero margin in one route and not the "
+          "other moves that route's step by 0.5 / batch rows on that row)")
+    check(worst <= ROUTE_TOL and len(kinks) < XLA_STEPS,
+          f"kernel and index_add routes part: {worst}, kinks {kinks}")
+
+    # (h) two runs from the same init over the same batches, bitwise?
+    held = []
+    for batch in it:
+        held.append(batch)
+        if len(held) == PROFILE_STEPS:
+            break
+    runs = []
+    for _ in range(2):
+        m = FactorizationMachine(NUM_FEATURES, num_factors=NUM_FACTORS,
+                                 sdot_backend="pallas", device=dev).init(0)
+        for batch in held:
+            m.train_step(batch)
+        runs.append(m.state_dict())
+    same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+    diff = max(float((runs[0][k] - runs[1][k]).abs().max()) for k in runs[0])
+    print(f"train [two runs of {PROFILE_STEPS} steps from one init]: bitwise "
+          f"equal {same}, max |difference| {diff:.3e} (the forward sums are "
+          "the fixed-point kernel's; the gathered tables' gradient is "
+          "PyTorch's indexing backward, see the profile below)")
+    del held, runs
+
+    # (g) where 8 steady steps go: staging included
+    batches = iter(it)
+    for _ in range(3):
+        fm.train_step(next(batches))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            fm.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    batches.close()
+    dev_ev = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.time_range.elapsed_us()]
+    copies = [(e.time_range.start, e.time_range.end) for e in dev_ev
+              if "HtoD" in e.name]
+    kernels = [(e.time_range.start, e.time_range.end) for e in dev_ev
+               if "Memcpy" not in e.name and "Memset" not in e.name]
+    busy = union_ms(copies + kernels)
+    print(f"profile [{PROFILE_STEPS} FM train steps from the file, under the "
+          f"profiler]: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f}%); H2D copies {union_ms(copies):.3f}"
+          f" ms, kernels {union_ms(kernels):.3f} ms, copy time overlapping "
+          f"kernels {overlap_ms(copies, kernels):.3f} ms")
+    if not dev_ev:
+        print("  device time: not measured (no CUDA events in the trace)")
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        print(f"  {e.device_time_total / PROFILE_STEPS:9.2f} us  "
+              f"x{e.count / PROFILE_STEPS:<5.1f} {e.key[:90]}")
+
+    # the shorter linear run: one epoch, 1 launch a step, its first step
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    lin_p0 = {"w": (0.01 * rng.standard_normal(NUM_FEATURES)).astype(
+        np.float32), "b": np.float32(-0.1)}
+    lin = SparseLinearModel(NUM_FEATURES, sdot_backend="pallas", device=dev)
+    lin.load_state_dict(params_from_numpy("linear", lin_p0, dev))
+    ss_mod.segment_sum_kernel.launches = 0
+    lin_losses, lin_first = [], None
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i, batch in enumerate(it):
+        if i == 0:
+            lin_first = traced_step(torch, lin, batch, lin_p0, fm_step_oracle(
+                lin_p0, want[0], lin.learning_rate))
+            lin_losses.append(lin_first[3])
+        else:
+            lin_losses.append(lin.train_step(batch))
+    torch.cuda.synchronize()
+    t_lin = time.monotonic() - t0
+    lin_launches = ss_mod.segment_sum_kernel.launches
+    ev = lin.evaluate(it)
+    print(f"train linear: {steps_per_epoch} steps in {t_lin:.3f} s "
+          f"({steps_per_epoch / t_lin:.1f} steps/s), segment_sum launches "
+          f"{lin_launches}; first step vs float64 {lin_first[0]:.3e} "
+          f"(applied bit for bit: {lin_first[1]}; as p1 - p0 "
+          f"{lin_first[2]:.3e}); logloss "
+          f"{float(lin_losses[0]):.6f} -> {float(lin_losses[-1]):.6f}; "
+          f"evaluate {ev}")
+    check(lin_launches == steps_per_epoch,
+          f"linear: {lin_launches} launches in {steps_per_epoch} steps")
+    check(lin_first[0] <= STEP_TOL and lin_first[1],
+          f"first linear step: {lin_first}")
+    check(np.isfinite(ev["loss"]) and 0.0 <= ev["accuracy"] <= 1.0,
+          f"evaluate {ev}")
+
+    # the FM after training, over the file: its weighted logloss
+    tot = wsum = 0.0
+    with torch.no_grad():
+        for batch in it:
+            sw = float(batch.weight.sum())
+            tot += float(fm.loss(batch)) * sw
+            wsum += sw
+    print(f"train FM after {step} steps: logloss over the file "
+          f"{tot / wsum:.6f} (first batch before training {loss_v[0]:.6f})")
+
+    # staging alone: how fast the pipeline delivers batches to the card
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    bytes0 = it.bytes_read
+    n = sum(1 for _ in it)
+    torch.cuda.synchronize()
+    t_stage = time.monotonic() - t0
+    print(f"staging alone (no training): {n} batches in {t_stage:.3f} s, "
+          f"{n / t_stage:.1f} batches/s, "
+          f"{(it.bytes_read - bytes0) / 2**20 / t_stage:.1f} MB/s parsed; "
+          f"profile {it.profile}")
+    it.close()
+
+    # the segment-sum kernel at the training shape, on the trained FM's own
+    # inputs of the first batch (327,680 entries with the padding lanes)
+    batch = next(iter(DeviceStagingIter(uri, device=dev, **kw)))
+    timings = phase_train_kernel(torch, ss_mod, fm, batch)
+    return {"launches": launches, "timings": timings,
+            "steps": step}
+
+
+def phase_train_kernel(torch, ss_mod, fm, batch) -> dict:
+    """The segment-sum kernel at a training step's shapes (L=1: the linear
+    term; L=16: the two second-order sums): against its plain version and a
+    float64 sum, two launches bitwise equal, and its device time beside the
+    plain version, ``index_add`` and its byte bound."""
+    from dmlc_core_tpu_torch.ops.segment_sum import clamp_index
+    kernel, plain = ss_mod.segment_sum_kernel, ss_mod.segment_sum_plain
+    R = batch.batch_size
+    rid = batch.row_ids()
+    idx = clamp_index(batch.index, NUM_FEATURES)
+    x = batch.value
+    with torch.no_grad():
+        contrib = {1: (fm.w[idx] * x).contiguous(),
+                   NUM_FACTORS: (fm.v[idx] * x[:, None]).contiguous()}
+    out = {}
+    for lanes, c in contrib.items():
+        nnz = c.shape[0]
+        a = kernel(c, rid, R)
+        b = kernel(c, rid, R)
+        want = plain(c, rid, R)
+        f64 = torch.zeros((R,) + tuple(c.shape[1:]), dtype=torch.float64,
+                          device=c.device).index_add_(0, rid.long(),
+                                                      c.double())
+        torch.cuda.synchronize()
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"training shape L={lanes}: two launches differ")
+        err = float((a - want).abs().max())
+        tol = HIST_TOL * max(1.0, float(f64.abs().max()))
+        err_o = float((a.double() - f64).abs().max())
+        zeros = torch.zeros((R,) + tuple(c.shape[1:]), device=c.device)
+        ms, cov = device_ms(torch, lambda: kernel(c, rid, R), 100)
+        plain_ms, _ = device_ms(torch, lambda: plain(c, rid, R), 3,
+                                warmup=1)
+        lib_ms, _ = device_ms(
+            torch, lambda: torch.index_add(zeros, 0, rid, c), 100)
+        nbytes = 4 * (nnz * lanes + nnz + R * lanes)
+        byte_s, op_s = nbytes / HBM_BYTES_PER_S, nnz * lanes / F32_OPS_PER_S
+        bound_ms = max(byte_s, op_s) * 1e3
+        print(f"time [training step, L={lanes}, R={R}, nnz={nnz}]: kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, index_add "
+              f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+              f"({nbytes} bytes); |kernel - plain| {err:.3e} (tol {TOL:.0e}),"
+              f" |kernel - float64| {err_o:.3e} (tol {tol:.3e}); geometry "
+              f"{ss_mod.launch_geometry(nnz, R, lanes)}; queue covered: {cov}")
+        check(err <= TOL and err_o <= tol,
+              f"training shape L={lanes}: kernel error {err} / {err_o}")
+        out[lanes] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, max_abs_err=err, nnz=nnz,
+                          bound_by="bytes" if byte_s >= op_s
+                          else "operations")
+    return out
+
+
 # ---- phase 5: the histogram GBDT at Higgs width -------------------------------
 
 # UCI HIGGS (Baldi et al., 2014): 11,000,000 rows x 28 dense float features,
@@ -501,14 +1111,20 @@ def hist_oracle(bins: np.ndarray, rel: np.ndarray, gh: np.ndarray,
 
 def tree_inputs(torch, model, forest, bins, label):
     """Yield, tree by tree, what a logistic fit with unit weights gave its
-    tree builder: (grad, hess) [rows, 2], each row's node at every depth as
-    (rel, n_nodes), and each row's leaf, routed through the fitted forest.
-    Margins add up tree by tree as the fit adds them, so the inputs are
-    the fit's own, bit for bit."""
+    tree builder: (grad, hess) [rows, 2] (times the tree's row mask when
+    the model samples rows), each row's node at every depth as (rel,
+    n_nodes), each row's leaf, routed through the fitted forest, and the
+    features each level could split on (None: all).  Margins add up tree by
+    tree as the fit adds them, so the inputs are the fit's own, bit for
+    bit."""
     margin = forest["base"].expand(label.shape[0]).clone()
+    ones = torch.ones_like(label)
     for t in range(model.num_trees):
         g, h = model._grad_hess(margin, label)
-        gh = torch.stack([g, h], dim=-1).contiguous()
+        w_t, col_mask, col_key = model._tree_keys(t, ones)
+        gh = torch.stack([g * w_t, h * w_t], dim=-1).contiguous()
+        masks = [model._level_feature_mask(col_mask, col_key, d, None)
+                 for d in range(model.max_depth)]
         feat, thr = forest["feature"][t], forest["threshold"][t]
         node = torch.zeros(label.shape[0], dtype=torch.int64,
                            device=label.device)
@@ -519,7 +1135,7 @@ def tree_inputs(torch, model, forest, bins, label):
             b = torch.gather(bins, 1, feat[node].long()[:, None])[:, 0]
             node = 2 * node + 1 + (b.to(torch.int32) > thr[node]).long()
         leaf_rel = node - (2 ** model.max_depth - 1)
-        yield gh, levels, leaf_rel.to(torch.int32).contiguous()
+        yield gh, levels, leaf_rel.to(torch.int32).contiguous(), masks
         margin = margin + forest["leaf"][t][leaf_rel]
 
 
@@ -680,6 +1296,48 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
             torch.cuda.max_memory_allocated())
 
 
+# stochastic boosting: rows and columns drawn from jax.random's threefry
+# stream (the port's dmlc_core_tpu_torch.random), XGBoost's usual 0.8s
+SAMPLE_KW = dict(subsample=0.8, colsample_bytree=0.8, colsample_bylevel=0.8,
+                 seed=7)
+KEEP_TOL = 0.01  # |a tree's kept share of rows - subsample|
+
+
+def check_draws(torch, model, rows: int, what: str) -> list:
+    """The card's draws for every tree of ``model`` against the same draws
+    on CPU tensors, bit for bit (integer arithmetic): the row mask (as the
+    weights it leaves), the tree's column mask, every level's mask.
+    Returns each tree's share of rows kept."""
+    from dmlc_core_tpu_torch.models import GBDT
+    cpu = GBDT(num_features=model.num_features, num_trees=model.num_trees,
+               max_depth=model.max_depth, device="cpu", **SAMPLE_KW)
+    ones_d, ones_c = torch.ones(rows, device=model.device), torch.ones(rows)
+    t0 = time.monotonic()
+    shares, cols = [], []
+    for t in range(model.num_trees):
+        wd, cd, kd = model._tree_keys(t, ones_d)
+        wc, cc, kc = cpu._tree_keys(t, ones_c)
+        check(torch.equal(wd.cpu(), wc) and torch.equal(cd.cpu(), cc)
+              and torch.equal(kd.cpu(), kc),
+              f"{what} tree {t}: card draws differ from the CPU's")
+        for d in range(model.max_depth):
+            check(torch.equal(model._level_feature_mask(cd, kd, d, None)
+                              .cpu(), cpu._level_feature_mask(cc, kc, d,
+                                                              None)),
+                  f"{what} tree {t} depth {d}: level mask differs")
+        shares.append(float(wd.mean()))
+        cols.append(int(cd.sum()))
+    print(f"{what} sampled draws: {model.num_trees} trees x {rows} rows, "
+          f"row masks, column masks and {model.max_depth} level masks a tree"
+          f" equal on the card and the CPU bit for bit "
+          f"({time.monotonic() - t0:.1f} s); "
+          f"rows kept {min(shares):.4f}-{max(shares):.4f} (mean "
+          f"{np.mean(shares):.4f}), columns a tree {sorted(set(cols))}")
+    check(all(abs(x - model.subsample) <= KEEP_TOL for x in shares),
+          f"{what}: kept shares {shares}")
+    return shares
+
+
 def phase_gbdt(torch, ss_mod, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -717,7 +1375,8 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
 
     # the kernel against its plain version and a float64 oracle, on the
     # first tree's own level inputs, plus the op surface's edges
-    gh, levels, leaf_rel = next(tree_inputs(torch, model, warm, bins, label))
+    gh, levels, leaf_rel, _ = next(tree_inputs(torch, model, warm, bins,
+                                               label))
     leaf = check_leaf_sums(torch, ss_mod, gh, leaf_rel, 2 ** depth)
     max_err = 0.0
     for d in CHECK_DEPTHS:
@@ -835,6 +1494,32 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
                   and a["replay"] == 0 and a["leaf_err"] <= LEAF_TOL,
                   f"kernel fit audit: {a}")
 
+    # sampled forests: the same fit drawing rows and columns (subsample,
+    # colsample_bytree, colsample_bylevel)
+    sm = GBDT(num_features=F, device=dev, **GBDT_KW, **SAMPLE_KW)
+    sfits = [fit_timed(torch, hg, ss_mod, sm, bins, label) for _ in range(2)]
+    sforest = sfits[0][0]
+    check(all(torch.equal(sfits[1][0][k], sforest[k]) for k in sforest),
+          "two sampled fits gave different forests")
+    check(not torch.equal(sforest["feature"], forest["feature"]),
+          "the sampled forest equals the unsampled one")
+    check_draws(torch, sm, rows, "gbdt")
+    s_losses = tree_losses(torch, sm, sforest, bins, label)
+    a = split_audit(torch, hg, sm, sforest, bins, label, "pallas")
+    print(f"gbdt sampled fit ({SAMPLE_KW}): {sfits[0][1]:.3f} / "
+          f"{sfits[1][1]:.3f} s wall (unsampled {fits[0][1]:.3f}), two fits "
+          f"bitwise equal, launches histogram_gh {sfits[0][2]}, segment_sum "
+          f"{sfits[0][3]}; train logloss after 20 trees {s_losses[-1]:.6f} "
+          f"(unsampled {losses[-1]:.6f}); audit over the sampled features: "
+          f"histogram vs float64 {a['hist_err']:.3e}, {a['off_best']} of "
+          f"{a['nodes']} splits off the float64 best, {a['beyond']} beyond "
+          f"rounding, replay mismatches {a['replay']}, |leaf - float64 leaf| "
+          f"{a['leaf_err']:.3e}")
+    check(a["hist_err"] <= HIST_TOL and a["beyond"] == 0 and a["replay"] == 0
+          and a["leaf_err"] <= LEAF_TOL, f"sampled fit audit: {a}")
+    check(s_losses[-1] < s_losses[0], "the sampled fit's loss did not fall")
+    del sfits, sforest
+
     # predict against a float64 numpy routing of the same forest
     pb = bins[:PREDICT_ROWS]
     got = model.predict(forest, pb)
@@ -946,13 +1631,16 @@ def sparse_tree_inputs(torch, model, forest, ent, label):
     sparse tree builder: gh_row [rows, 2], (rel, n_nodes) at every depth
     and each row's leaf, routed by sparse routing through the fitted forest
     (the dense missing-aware route sends every row the same way), margins
-    added tree by tree as the fit adds them."""
+    added tree by tree as the fit adds them; then the tree's feature draws
+    (``col_mask``, ``col_key``; None without sampling)."""
     rows = label.shape[0]
     rid, fi, ebin, emask = ent[:4]
     margin = forest["base"].expand(rows).clone()
+    ones = torch.ones_like(label)
     for t in range(model.num_trees):
         g, h = model._grad_hess(margin, label)
-        gh = torch.stack([g, h], dim=-1).contiguous()
+        w_t, col_mask, col_key = model._tree_keys(t, ones)
+        gh = torch.stack([g * w_t, h * w_t], dim=-1).contiguous()
         feat, thr = forest["feature"][t], forest["threshold"][t]
         dflt = forest["default_right"][t]
         node = torch.zeros(rows, dtype=torch.int64, device=label.device)
@@ -964,7 +1652,8 @@ def sparse_tree_inputs(torch, model, forest, ent, label):
                                         thr[node], dflt[node], rows)
             node = 2 * node + 1 + right.to(torch.int64)
         leaf_rel = node - (2 ** model.max_depth - 1)
-        yield gh, levels, leaf_rel.to(torch.int32).contiguous()
+        yield (gh, levels, leaf_rel.to(torch.int32).contiguous(), col_mask,
+               col_key)
         margin = margin + forest["leaf"][t][leaf_rel]
 
 
@@ -1053,11 +1742,12 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
     out = dict(hist_err=0.0, leaf_err=0.0, nodes=0, off_best=0, beyond=0,
                worst=0.0, replay=0)
     scale = []
-    for t, (gh, levels, leaf_rel) in enumerate(
+    for t, (gh, levels, leaf_rel, col_mask, col_key) in enumerate(
             sparse_tree_inputs(torch, model, forest, ent, label)):
         gh_e = gh[rid_l].contiguous()
         gh64 = gh.double()
-        for rel, n in levels:
+        for depth, (rel, n) in enumerate(levels):
+            mask = model._level_feature_mask(col_mask, col_key, depth, None)
             rel_e = rel[rid_l].contiguous()
             h64 = sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B)
             node64 = torch.zeros(n, 2, dtype=torch.float64,
@@ -1078,7 +1768,8 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
                 rf, rb, rd, *_ = model._level_splits_from_hist(
                     h32, node32, torch.full((1,), -torch.inf,
                                             device=gh.device),
-                    torch.full((1,), torch.inf, device=gh.device), None)
+                    torch.full((1,), torch.inf, device=gh.device), None,
+                    col_mask, col_key, depth)
             else:
                 h32 = hg.histogram_gh(dense_bins, rel, gh, n, B,
                                       force="pallas")
@@ -1089,10 +1780,13 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
                                      - miss64).abs().max())
                 g32 = dense_missing_gains(torch, h32, lam, mcw)
                 rf, rb, rd, _ = model._pick_splits(
-                    model._collapse_dir_ties(g32), None)
+                    model._collapse_dir_ties(g32), mask)
                 big = max(big, float(miss64.abs().max()))
             out["hist_err"] = max(out["hist_err"], float(err) / big)
             g64 = missing_aware_gains(torch, h64, node64, lam, mcw)
+            if mask is not None:  # a level's candidates: its features
+                g32 = torch.where(mask[None, :, None, None], g32, -torch.inf)
+                g64 = torch.where(mask[None, :, None, None], g64, -torch.inf)
             g32, g64 = g32.reshape(n, -1), g64.reshape(n, -1)
             both = torch.isfinite(g32) & torch.isfinite(g64)
             noise = torch.where(both, (g32.double() - g64).abs(),
@@ -1163,7 +1857,10 @@ def sub_batch(torch, PaddedBatch, data, r0, r1):
                        value=data["value"][e0:e1], num_rows=r1 - r0)
 
 
-def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
+PREDICT_STAGED_ROWS, PREDICT_STAGED_BATCH = 50_000, 16_384
+
+
+def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from dmlc_core_tpu_torch.data.staging import PaddedBatch
@@ -1237,8 +1934,8 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     # version, index_add over the flattened keys and the bound; the
     # launches take the rows' amax as the fit's do
     rid_l = layout.rid.long()
-    gh, levels, leaf_rel = next(sparse_tree_inputs(torch, model, warm, ent,
-                                                   data["label"]))
+    gh, levels, leaf_rel, *_ = next(sparse_tree_inputs(
+        torch, model, warm, ent, data["label"]))
     gh_e = gh[rid_l].contiguous()
     amax = lane_amax(gh)
     node_tot = check_leaf_sums(torch, ss_mod, gh, levels[-1][0],
@@ -1342,6 +2039,39 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
     check(a["hist_err"] <= HIST_TOL and a["beyond"] == 0 and a["replay"] == 0
           and a["leaf_err"] <= LEAF_TOL, f"fit_batch audit: {a}")
 
+    # sampled forests on the same batch
+    sm = GBDT(num_features=F, missing_aware=True, device=dev, **GBDT_KW,
+              **SAMPLE_KW)
+    s_secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        s_i = sm.fit_batch(batch, binner)
+        torch.cuda.synchronize()
+        s_secs.append(time.monotonic() - t0)
+        if len(s_secs) == 1:
+            sforest = s_i
+    check(all(torch.equal(s_i[k], sforest[k]) for k in sforest),
+          "two sampled fit_batch fits gave different forests")
+    check_draws(torch, sm, R, "gbdt_sparse")
+    m = sforest["base"].expand(R).clone()
+    for i in range(trees):
+        m += sm._tree_margins_sparse_one(
+            sforest["feature"][i], sforest["threshold"][i],
+            sforest["default_right"][i], sforest["leaf"][i], *ent[:4], R)
+    s_loss = float(logistic_nll(m, label).mean())
+    a_s = sparse_split_audit(torch, sm, sforest, ent, layout, label)
+    print(f"gbdt_sparse sampled fit_batch ({SAMPLE_KW}): {s_secs[0]:.3f} / "
+          f"{s_secs[1]:.3f} s wall (unsampled {fits[0][1]:.3f}), two fits "
+          f"bitwise equal; train logloss after 20 trees {s_loss:.6f} "
+          f"(unsampled {losses[-1]:.6f})")
+    print_audit("sampled fit_batch, over the sampled features", a_s, trees)
+    check(a_s["hist_err"] <= HIST_TOL and a_s["beyond"] == 0
+          and a_s["replay"] == 0 and a_s["leaf_err"] <= LEAF_TOL,
+          f"sampled fit_batch audit: {a_s}")
+    check(s_loss < losses[0], "the sampled fit's loss did not fall")
+    del sforest, s_i, m
+
     # the dense cross-check: the same data densified with NaN for absent
     # cells, binned with the same cuts, and fit on the dense kernel
     t0 = time.monotonic()
@@ -1399,6 +2129,35 @@ def phase_gbdt_sparse(torch, ss_mod, dev) -> dict:
           f"{t_pred * 1e3:.2f} ms (host clock), max |p - float64 oracle| "
           f"{err:.3e}")
     check(err <= 1e-5, f"predict_batch error {err}")
+
+    # predict_staged: the first rows written to a libsvm file (values as
+    # %.9g), staged and scored batch by batch, against predict_batch
+    n = PREDICT_STAGED_ROWS
+    e1 = int(data["row_ptr"][n])
+    path = build_dir / f"bosch_{n}.libsvm"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(libsvm_text(
+        data["label"][:n].cpu().numpy(),
+        data["row_ptr"][:n + 1].cpu().numpy().astype(np.int64),
+        data["index"][:e1].cpu().numpy(), data["value"][:e1].cpu().numpy()))
+    model.predict_staged(forest, str(path), binner,
+                         batch_size=PREDICT_STAGED_BATCH)  # warm
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    staged = model.predict_staged(forest, str(path), binner,
+                                  batch_size=PREDICT_STAGED_BATCH)
+    t_staged = time.monotonic() - t0
+    direct = model.predict_batch(forest, sub_batch(
+        torch, PaddedBatch, data, 0, n), binner).cpu().numpy()
+    print(f"gbdt_sparse predict_staged: {n} rows from a "
+          f"{path.stat().st_size / 2**20:.1f} MiB libsvm file in "
+          f"{-(-n // PREDICT_STAGED_BATCH)} batches of {PREDICT_STAGED_BATCH}"
+          f", {t_staged:.3f} s ({n / t_staged:.0f} rows/s, host clock); "
+          f"equal to predict_batch bit for bit: "
+          f"{np.array_equal(staged.view(np.int32), direct.view(np.int32))}")
+    check(staged.shape == (n,) and np.array_equal(
+        staged.view(np.int32), direct.view(np.int32)),
+        "predict_staged differs from predict_batch")
 
     # serving the forest from a DTSNAP01 snapshot that carries its binner
     cfg = dict(num_features=F, missing_aware=True, **GBDT_KW)
@@ -1489,7 +2248,7 @@ def geometry_sweep(torch, dev) -> None:
     label = torch.from_numpy(y).to(dev)
     del x
     model = GBDT(num_features=F, device=dev, **GBDT_KW)
-    gh, levels, _ = next(tree_inputs(torch, model, model.fit(bins, label),
+    gh, levels, *_ = next(tree_inputs(torch, model, model.fit(bins, label),
                                      bins, label))
     picked, most = hg.launch_geometry, hg._SMEM_MAX // (16 * B)
 
@@ -1635,7 +2394,9 @@ def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
     f32 gains pick another split than the fit did (0 on a deterministic
     route); ``leaf_err`` is the largest |leaf - float64 leaf|, and
     ``leaf_scale`` the mean of leaf / float64 leaf, less 1, over leaves
-    past 1e-3 (above 0: the fit's steps are longer than exact sums give)."""
+    past 1e-3 (above 0: the fit's steps are longer than exact sums give).
+    A sampling model's candidates are each level's sampled features, and
+    its (grad, hess) carry the tree's row mask."""
     B, F = model.num_bins, bins.shape[1]
     lam, mcw, lr = model.lambda_, model.min_child_weight, model.learning_rate
     dev = bins.device
@@ -1643,10 +2404,10 @@ def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
     out = dict(hist_err=0.0, leaf_err=0.0, nodes=0, off_best=0, beyond=0,
                worst=0.0, replay=0)
     scale = []
-    for t, (gh, levels, leaf_rel) in enumerate(
+    for t, (gh, levels, leaf_rel, masks) in enumerate(
             tree_inputs(torch, model, forest, bins, label)):
         gh64 = gh.double()
-        for rel, n in levels:
+        for (rel, n), mask in zip(levels, masks):
             h32 = hg.histogram_gh(bins, rel, gh, n, B, force=hist_force)
             keys = ((rel.long()[:, None] * F + fidx) * B
                     + bins.long()).reshape(-1)
@@ -1658,8 +2419,12 @@ def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
             out["hist_err"] = max(out["hist_err"], float(
                 (h32.double() - h64).abs().max()
                 / max(1.0, float(h64.abs().max()))))
-            g32 = split_gains(torch, h32, lam, mcw).reshape(n, -1)
-            g64 = split_gains(torch, h64, lam, mcw).reshape(n, -1)
+            g32 = split_gains(torch, h32, lam, mcw)
+            g64 = split_gains(torch, h64, lam, mcw)
+            if mask is not None:  # a level's candidates: its features
+                g32 = torch.where(mask[None, :, None], g32, -torch.inf)
+                g64 = torch.where(mask[None, :, None], g64, -torch.inf)
+            g32, g64 = g32.reshape(n, -1), g64.reshape(n, -1)
             both = torch.isfinite(g32) & torch.isfinite(g64)
             noise = torch.where(both, (g32.double() - g64).abs(),
                                 0.0).amax(1)
@@ -1770,12 +2535,15 @@ def main(argv) -> int:
         geometry_sweep(torch, torch.device("cuda"))
         return 0
 
+    dev = torch.device("cuda")
+    build_dir = REPO / "build" / "chip_smoke"
     params_a, params_b = fm_params(1), fm_params(2)
-    kern = phase_kernel(torch, ss_mod, params_a, torch.device("cuda"))
+    kern = phase_kernel(torch, ss_mod, params_a, dev)
     served = phase_serving(torch, ss_mod, params_a, params_b, "cuda")
     phase_profile(torch, params_a)
-    gbdt = phase_gbdt(torch, ss_mod, torch.device("cuda"))
-    sparse = phase_gbdt_sparse(torch, ss_mod, torch.device("cuda"))
+    train = phase_training(torch, ss_mod, dev, build_dir)
+    gbdt = phase_gbdt(torch, ss_mod, dev)
+    sparse = phase_gbdt_sparse(torch, ss_mod, dev, build_dir)
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
     node, root = sparse["node_totals"], sparse["root_totals"]
@@ -1813,7 +2581,17 @@ def main(argv) -> int:
         "launches": root["launches"],
         "max_abs_err": root["max_abs_err"],
         **{k: root[k] for k in keys},
-    }, {
+    }] + [{
+        **segment_sum,
+        "shape": f"FM training step, {TRAIN_BATCH} rows x {NNZ_PER_ROW} "
+                 f"nonzeros ({train['timings'][lanes]['nnz']} entries with "
+                 f"the padding lanes), L={lanes}; launches: the training "
+                 f"run's ({train['steps']} steps, one L=1 and two "
+                 f"L={NUM_FACTORS} a step)",
+        "launches": train["launches"],
+        "max_abs_err": train["timings"][lanes]["max_abs_err"],
+        **{k: train["timings"][lanes][k] for k in keys},
+    } for lanes in (1, NUM_FACTORS)] + [{
         "name": "histogram_gh",
         "route": "cuda",
         "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh.cu",

@@ -3,7 +3,9 @@
 The C++ runtime under ``cpp/`` depends on no framework; both Python
 packages bind the same library through its C API
 (``cpp/include/dmlctpu/c_api.h``).  This loader declares only the
-functions the port calls (telemetry and fault injection).
+functions the port calls: telemetry, the stall watchdog and time-series
+sampler, fault injection, the row parser (``data.rowblock``) and the
+staged batcher (``data.staging``).
 
 Resolution order for the library path:
   1. ``$DMLCTPU_LIBRARY_PATH``
@@ -32,6 +34,47 @@ _LIB_LOCK = threading.Lock()
 
 class NativeError(RuntimeError):
     """Error raised by the native dmlctpu runtime."""
+
+
+class RowBlockC(ctypes.Structure):
+    """Mirror of DmlcTpuRowBlockC (cpp/include/dmlctpu/c_api.h)."""
+
+    _fields_ = [
+        ("size", ctypes.c_uint64),
+        ("offset", ctypes.POINTER(ctypes.c_uint64)),
+        ("label", ctypes.POINTER(ctypes.c_float)),
+        ("weight", ctypes.POINTER(ctypes.c_float)),
+        ("qid", ctypes.POINTER(ctypes.c_uint64)),
+        ("field", ctypes.POINTER(ctypes.c_uint64)),
+        ("index", ctypes.POINTER(ctypes.c_uint64)),
+        ("value", ctypes.POINTER(ctypes.c_float)),
+    ]
+
+
+class StagedBatchOwnedC(ctypes.Structure):
+    """Mirror of DmlcTpuStagedBatchOwnedC: one packed batch in one owned
+    arena, each leaf at a 64-byte-aligned offset."""
+
+    _fields_ = [
+        ("num_rows", ctypes.c_uint32),
+        ("batch_size", ctypes.c_uint64),
+        ("nnz_pad", ctypes.c_uint64),
+        ("max_index", ctypes.c_int64),
+        ("batch", ctypes.c_void_p),
+        ("arena", ctypes.c_void_p),
+        ("arena_bytes", ctypes.c_uint64),
+        ("label_off", ctypes.c_uint64),
+        ("weight_off", ctypes.c_uint64),
+        ("row_ptr_off", ctypes.c_uint64),
+        ("index_off", ctypes.c_uint64),
+        ("value_off", ctypes.c_uint64),
+        ("field_off", ctypes.c_uint64),
+        ("qid_off", ctypes.c_uint64),
+        ("lineage", ctypes.c_int64),
+    ]
+
+
+NO_FIELD = (1 << 64) - 1  # field_off / qid_off when the batch lacks the lane
 
 
 def _lock_handle():
@@ -97,6 +140,9 @@ def _declare(L: ctypes.CDLL) -> None:
     c_char_pp = ctypes.POINTER(ctypes.c_char_p)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
+    intp = ctypes.POINTER(ctypes.c_int)
+    vpp = ctypes.POINTER(ctypes.c_void_p)
+    handle, u64, cstr = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p
     sigs = {
         "DmlcTpuGetLastError": ([], ctypes.c_char_p),
         "DmlcTpuTelemetrySnapshotJson": ([c_char_pp], ctypes.c_int),
@@ -114,6 +160,37 @@ def _declare(L: ctypes.CDLL) -> None:
         "DmlcTpuFaultDisarm": ([], ctypes.c_int),
         "DmlcTpuFaultFire": ([ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)],
                              ctypes.c_int),
+        "DmlcTpuWatchdogStart": ([ctypes.c_int64, ctypes.c_int64,
+                                  ctypes.c_int, cstr], ctypes.c_int),
+        "DmlcTpuWatchdogStop": ([], ctypes.c_int),
+        "DmlcTpuWatchdogRunning": ([intp], ctypes.c_int),
+        "DmlcTpuWatchdogStallCount": ([i64p], ctypes.c_int),
+        "DmlcTpuTimeseriesStart": ([ctypes.c_int64] * 4, ctypes.c_int),
+        "DmlcTpuTimeseriesStop": ([], ctypes.c_int),
+        "DmlcTpuTimeseriesActive": ([intp], ctypes.c_int),
+        # the row parser (data.rowblock.Parser)
+        "DmlcTpuParserCreateEx": ([cstr, ctypes.c_uint, ctypes.c_uint, cstr,
+                                   ctypes.c_int, ctypes.c_int, u64, vpp],
+                                  ctypes.c_int),
+        "DmlcTpuParserNext": ([handle, ctypes.POINTER(RowBlockC)],
+                              ctypes.c_int),
+        "DmlcTpuParserBeforeFirst": ([handle], ctypes.c_int),
+        "DmlcTpuParserBytesRead": ([handle], ctypes.c_int64),
+        "DmlcTpuParserFree": ([handle], None),
+        # the staged batcher (data.staging.DeviceStagingIter)
+        "DmlcTpuStagedBatcherCreateEx": ([cstr, ctypes.c_uint, ctypes.c_uint,
+                                          cstr, u64, u64, u64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, u64, vpp],
+                                         ctypes.c_int),
+        "DmlcTpuStagedBatcherNextOwned": (
+            [handle, ctypes.POINTER(StagedBatchOwnedC)], ctypes.c_int),
+        "DmlcTpuStagedBatcherBeforeFirst": ([handle], ctypes.c_int),
+        "DmlcTpuStagedBatcherBytesRead": ([handle], ctypes.c_int64),
+        "DmlcTpuStagedBatcherSetPoolKnobs": ([handle, ctypes.c_int, u64, u64,
+                                              intp], ctypes.c_int),
+        "DmlcTpuStagedBatcherFree": ([handle], None),
+        "DmlcTpuStagedBatchFree": ([handle], None),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(L, name)

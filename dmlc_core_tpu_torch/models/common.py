@@ -1,4 +1,5 @@
-"""Shared loss and predict pieces of the margins-based model families."""
+"""Shared loss, predict and SGD pieces of the margins-based model
+families."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,10 +17,17 @@ PARAM_KEYS = {"linear": ("b", "w"), "fm": ("b", "v", "w")}
 def logistic_nll(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """Per-row binary cross-entropy from margins, overflow-stable.
 
-    Accepts labels in {0,1} or {-1,1} (anything > 0.5 is positive)."""
+    Accepts labels in {0,1} or {-1,1} (anything > 0.5 is positive).
+    The kinks at ``m == 0`` take JAX's slopes under autograd, so a
+    gradient there is the JAX package's: ``maximum`` splits its slope
+    (1/2, as ``torch.maximum`` does; ``clamp`` would give 1) and ``|m|``
+    takes +1 (``abs`` would give 0).  The gradient at a zero margin is
+    then ``-y``, where the smooth loss has ``sigmoid(0) - y``; the port
+    follows the reference.  The values are ``abs``'s and ``clamp``'s."""
     y = (label > 0.5).to(margin.dtype)
-    return (torch.clamp(margin, min=0) - margin * y
-            + torch.log1p(torch.exp(-torch.abs(margin))))
+    a = torch.where(margin >= 0, margin, -margin)
+    return (torch.maximum(margin, torch.zeros_like(margin)) - margin * y
+            + torch.log1p(torch.exp(-a)))
 
 
 #: a GBDT forest's arrays and their dtypes (``GBDT.init()``'s keys)
@@ -68,11 +76,12 @@ def params_from_numpy(family: str, params_np: dict,
 
 
 class SGDModelMixin:
-    """loss / predict shared by the margins-based families.
+    """loss / predict / train_step shared by the margins-based families.
 
     Subclasses are ``nn.Module``s that provide ``margins(batch)`` plus
-    attributes ``objective`` ("logistic"/"squared") and ``l2``, and may
-    override ``_l2_terms()`` (default: just ``self.w``)."""
+    attributes ``objective`` ("logistic"/"squared"), ``l2`` and
+    ``learning_rate``, and may override ``_l2_terms()`` (default: just
+    ``self.w``)."""
 
     def _l2_terms(self) -> tuple:
         return (self.w,)
@@ -95,6 +104,23 @@ class SGDModelMixin:
     def predict(self, batch: PaddedBatch) -> torch.Tensor:
         m = self.margins(batch)
         return torch.sigmoid(m) if self.objective == "logistic" else m
+
+    def train_step(self, batch: PaddedBatch) -> torch.Tensor:
+        """One SGD step on the module's parameters, in place: the loss's
+        gradient by autograd, then ``p -= learning_rate * p.grad`` under
+        ``no_grad``; the grads are cleared after.  Returns the loss before
+        the step (detached).  The JAX package's functional ``train_step``
+        returns ``(new_params, loss)``; here the module is the params.
+        With ``sdot_backend="pallas"`` on the card the forward sums run on
+        the segment-sum kernel (3 launches an FM step, 1 a linear one) and
+        their gradient is its gather."""
+        loss = self.loss(batch)
+        loss.backward()
+        with torch.no_grad():
+            for p in self.parameters():
+                p -= self.learning_rate * p.grad
+                p.grad = None
+        return loss.detach()
 
     def predict_bucketed(self, batch: PaddedBatch, row_bucket=None,
                          nnz_bucket=None) -> torch.Tensor:

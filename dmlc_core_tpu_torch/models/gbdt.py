@@ -19,11 +19,13 @@ inputs.
 * trees are fixed-depth complete binary heaps in flat arrays, so a forest is
   a dict of tensors with the JAX package's keys, shapes and dtypes.
 
+Sampling below 1.0 (``subsample``, ``colsample_bytree``,
+``colsample_bylevel``) draws from :mod:`..random`, ``jax.random``'s threefry
+stream bit for bit, so a sampled forest is the JAX package's.
+
 Not ported yet: ``fit_streamed`` and pre-binned ``BinnedBatch`` input
-(ROADMAP A5), ``predict_staged`` (A3), the multi-device histogram route
-(``histogram_mesh``, A6), and sampling below 1.0 (``subsample``,
-``colsample_bytree``, ``colsample_bylevel``), whose draws come from
-``jax.random``'s threefry stream (A10).
+(ROADMAP A5), and the multi-device histogram route (``histogram_mesh``,
+A6).
 """
 from __future__ import annotations
 
@@ -38,11 +40,13 @@ import torch
 
 from .. import telemetry
 from .._device import resolve_device
-from ..data.staging import bucket_pow2, pad_batch_to_bucket
+from ..data.staging import (DeviceStagingIter, bucket_pow2,
+                            pad_batch_to_bucket)
 from ..ops.histogram import histogram_gh
 from ..ops.histogram_sparse import (entry_gh, histogram_gh_sparse,
                                     sparse_hist_layout)
 from ..ops.segment_sum import clamp_index, segment_sum
+from ..random import PRNGKey, bernoulli, fold_in, permutation, uniform
 from .common import logistic_nll
 
 
@@ -398,17 +402,38 @@ def _softmax_ce(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     return logz - picked
 
 
+_SCAN_BLOCK = 16  # XLA's CPU cumsum: the block its two-level scan takes
+
+
 def _cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Prefix sum with every partial sum rounded to f32, as the JAX
-    package's ``jnp.cumsum`` adds.  torch's CPU cumsum carries f32 sums in
-    double, which moves split gains by an ulp against the reference; its
-    CUDA cumsum already adds in f32."""
+    """Prefix sum along ``dim`` in f32.  On the CPU it adds in the order of
+    the JAX package's jitted ``jnp.cumsum`` there, bit for bit: XLA scans
+    blocks of 16 in sequence, scans the block totals by the same rule
+    (recursively), then adds each block's carry to its in-block prefixes.
+    (torch's CPU cumsum carries f32 sums in double, and a plain running
+    sum parts from XLA's past 17 values; either moves split gains by an
+    ulp.)  On CUDA it is ``torch.cumsum``, in f32 in the card's own
+    order."""
     if x.device.type != "cpu":
         return torch.cumsum(x, dim)
-    parts = list(x.unbind(dim))
-    for i in range(1, len(parts)):
-        parts[i] = parts[i - 1] + parts[i]
-    return torch.stack(parts, dim)
+    x = x.movedim(dim, -1)
+    n, k = x.shape[-1], _SCAN_BLOCK
+    if n <= k:
+        parts = list(x.unbind(-1))
+        for i in range(1, n):
+            parts[i] = parts[i - 1] + parts[i]
+        out = torch.stack(parts, -1) if parts else x
+        return out.movedim(-1, dim)
+    nb = -(-n // k)
+    cols = list(torch.nn.functional.pad(x, (0, nb * k - n))
+                .reshape(*x.shape[:-1], nb, k).unbind(-1))
+    for i in range(1, k):
+        cols[i] = cols[i - 1] + cols[i]
+    inblock = torch.stack(cols, -1)                 # [..., nb, k]
+    carry = _cumsum_f32(inblock[..., -1], -1)       # [..., nb]
+    out = torch.cat([inblock[..., :1, :],
+                     carry[..., :-1, None] + inblock[..., 1:, :]], -2)
+    return out.reshape(*x.shape[:-1], nb * k)[..., :n].movedim(-1, dim)
 
 
 def _host(x) -> np.ndarray:
@@ -416,10 +441,6 @@ def _host(x) -> np.ndarray:
 
 
 # ---- the model ----------------------------------------------------------------
-
-_SAMPLING_TODO = ("draws from jax.random's threefry stream, which the port "
-                  "does not reproduce yet (ROADMAP A10); only 1.0 is "
-                  "supported")
 
 
 class GBDT:
@@ -433,10 +454,12 @@ class GBDT:
     ``base_score``, ``scale_pos_weight`` and ``histogram`` ("auto", "xla",
     "pallas"; the ``DMLCTPU_GBDT_HISTOGRAM`` environment variable sets it
     when the argument is "auto").  ``device`` is where the forest is built:
-    the card unless the caller passes ``device="cpu"``.  ``subsample``,
-    ``colsample_bytree`` and ``colsample_bylevel`` must be 1.0 and
-    ``histogram_mesh`` None (not ported yet: they raise), and ``seed``,
-    which only seeds that sampling, is accepted and unused.
+    the card unless the caller passes ``device="cpu"``.  ``subsample`` /
+    ``colsample_bytree`` in (0, 1] draw a per-tree Bernoulli row mask
+    (folded into the weights) and feature subset, ``colsample_bylevel`` a
+    fresh subset of that per depth, all from ``jax.random``'s stream under
+    ``seed`` (:mod:`..random`), so they equal the JAX package's draws bit
+    for bit.  ``histogram_mesh`` must be None (not ported yet: it raises).
 
     The forest is a dict of tensors on that device::
 
@@ -484,8 +507,6 @@ class GBDT:
                            ("colsample_bylevel", colsample_bylevel)):
             if not 0.0 < frac <= 1.0:
                 raise ValueError(f"{name} must be in (0, 1]")
-            if frac < 1.0:
-                raise NotImplementedError(f"{name}={frac} {_SAMPLING_TODO}")
         if gamma < 0:
             raise ValueError("gamma must be >= 0")
         if histogram_mesh is not None:
@@ -504,6 +525,10 @@ class GBDT:
         self.objective = objective
         self.missing_aware = missing_aware
         self.num_class = num_class
+        self.subsample = subsample
+        self.colsample_bytree = colsample_bytree
+        self.colsample_bylevel = colsample_bylevel
+        self.seed = seed
         if monotone_constraints is not None:
             raw = np.asarray(monotone_constraints)
             # validate before casting: int32 truncation would silently
@@ -681,16 +706,19 @@ class GBDT:
         return torch.stack([torch.where(prefer0, best, g0), g1], dim=3)
 
     def _pick_splits(self, gain: torch.Tensor,
-                     node_mask: Optional[torch.Tensor]):
+                     col_mask: Optional[torch.Tensor]):
         """Flat argmax over a [nodes, F, B, n_dir] gain array plus null-split
-        encoding.  ``node_mask`` [nodes, F] (interaction constraints), when
-        given, disables features per node.  Returns (split_f, split_b,
-        split_d, split_gain) with nulls encoded as (0, num_bins, 0, 0.0)."""
+        encoding.  ``col_mask``, when given, disables features: [F]
+        (colsample_bytree / bylevel) or [nodes, F] (per-node interaction
+        constraints).  Returns (split_f, split_b, split_d, split_gain) with
+        nulls encoded as (0, num_bins, 0, 0.0)."""
         n_nodes = gain.shape[0]
         B = self.num_bins
         n_dir = gain.shape[3]
-        if node_mask is not None:
-            gain = torch.where(node_mask[:, :, None, None], gain, -torch.inf)
+        if col_mask is not None:
+            mask = (col_mask[None, :, None, None] if col_mask.dim() == 1
+                    else col_mask[:, :, None, None])
+            gain = torch.where(mask, gain, -torch.inf)
         flat = gain.reshape(n_nodes, -1)
         # torch.argmax, like jnp.argmax, returns the first maximum
         best_flat = torch.argmax(flat, dim=1)
@@ -793,7 +821,7 @@ class GBDT:
                early_stopping_rounds: int = 0,
                grad_hess=None, eval_loss_fn=None) -> dict:
         """Boosting driver: base prior, tree loop, early stopping, stacking.
-        ``build_tree(grad, hess)`` returns `_build_tree`'s
+        ``build_tree(grad, hess, col_mask, col_key)`` returns `_build_tree`'s
         7-tuple; ``eval_margin(f, t, d, leaf)`` gives one tree's margins on
         the held-out set.  With early stopping the forest is truncated at
         the best round and null-padded to its static shapes."""
@@ -813,7 +841,9 @@ class GBDT:
         eval_loss_fn = eval_loss_fn or self._objective_loss
         for t_idx in range(self.num_trees):
             g, h = grad_hess(margin, label)
-            f, t, d, sg, sc, leaf, leaf_rel = build_tree(g * w, h * w)
+            w_t, col_mask, ck = self._tree_keys(t_idx, w)
+            f, t, d, sg, sc, leaf, leaf_rel = build_tree(g * w_t, h * w_t,
+                                                         col_mask, ck)
             margin = margin + leaf[leaf_rel]
             feats.append(f)
             thrs.append(t)
@@ -875,7 +905,9 @@ class GBDT:
             for k in range(K):
                 g = p[:, k] - onehot[:, k]
                 h = torch.clamp(p[:, k] * (1.0 - p[:, k]), min=1e-16)
-                f, t, d, sg, sc, leaf, leaf_rel = build_tree(g * w, h * w)
+                w_t, col_mask, ck = self._tree_keys(r * K + k, w)
+                f, t, d, sg, sc, leaf, leaf_rel = build_tree(
+                    g * w_t, h * w_t, col_mask, ck)
                 margin[:, k] += leaf[leaf_rel]
                 feats.append(f)
                 thrs.append(t)
@@ -954,15 +986,61 @@ class GBDT:
         hi2 = torch.stack([hi_l, hi_r], dim=1).reshape(-1)
         return lo2, hi2
 
-    def _level_feature_mask(self, active) -> Optional[torch.Tensor]:
-        """The features each node of a level may split on: the union of its
-        active interaction groups ([nodes, F]), or None when there are no
-        interaction constraints.  (The JAX package also intersects a
-        sampled feature subset here; sampling is not ported.)"""
+    def _level_feature_mask(self, col_mask, col_key, depth: int,
+                            active) -> Optional[torch.Tensor]:
+        """The features a level may split on: the tree's ``col_mask`` [F]
+        (None: all), intersected with a fresh ``colsample_bylevel`` draw
+        from ``fold_in(col_key, depth)`` (sampled WITHIN the tree's subset,
+        so it never goes empty), and with each node's active interaction
+        groups.  Returns [F], [nodes, F], or None when nothing is masked."""
+        eff = col_mask
+        if self.colsample_bylevel < 1.0:
+            F = self.num_features
+            k_tree = (max(1, int(round(self.colsample_bytree * F)))
+                      if self.colsample_bytree < 1.0 else F)
+            k_level = max(1, int(round(self.colsample_bylevel * k_tree)))
+            u = uniform(fold_in(col_key, depth), (F,), self.device)
+            scores = u if col_mask is None else torch.where(
+                col_mask, u, torch.inf)
+            thresh = torch.sort(scores).values[k_level - 1]
+            eff = scores <= thresh
         if active is None:
-            return None
-        return (active.to(torch.float32)
-                @ self._interaction_groups.to(torch.float32)) > 0
+            return eff
+        allowed = (active.to(torch.float32)
+                   @ self._interaction_groups.to(torch.float32)) > 0
+        return allowed if eff is None else allowed & eff[None, :]
+
+    def _tree_sampling(self, root_key, t_idx: int, w: torch.Tensor):
+        """Per-tree stochastic-GBM draws, shared by every boosting driver: a
+        Bernoulli row mask folded into the weights (routing still sees all
+        rows) and a feature subset [F] (None: all features).  Derived from
+        (seed, tree index) only; the keys stay on the host and the draws
+        land on the model's device."""
+        w_t, col_mask = w, None
+        if self.subsample < 1.0:
+            kr = fold_in(root_key, 2 * t_idx)
+            w_t = w * bernoulli(kr, self.subsample, tuple(w.shape),
+                                self.device).to(torch.float32)
+        if self.colsample_bytree < 1.0:
+            kc = fold_in(root_key, 2 * t_idx + 1)
+            F = self.num_features
+            k_cols = max(1, int(round(self.colsample_bytree * F)))
+            sel = permutation(kc, F, self.device)[:k_cols]
+            col_mask = torch.zeros(F, dtype=torch.bool, device=self.device)
+            col_mask[sel] = True
+        return w_t, col_mask
+
+    def _tree_keys(self, t_idx: int, w: torch.Tensor):
+        """(weights, col_mask, col_key) of tree ``t_idx``: its draws under
+        ``PRNGKey(seed)``, and the key its levels fold their depth into
+        (``fold_in(root, 1_000_000 + t_idx)``), as the JAX package's
+        drivers take them.  Without sampling nothing is drawn."""
+        if min(self.subsample, self.colsample_bytree,
+               self.colsample_bylevel) == 1.0:
+            return w, None, None
+        root = PRNGKey(self.seed, device="cpu")
+        w_t, col_mask = self._tree_sampling(root, t_idx, w)
+        return w_t, col_mask, fold_in(root, 1_000_000 + t_idx)
 
     def _next_active(self, active, split_f, split_b):
         """Propagate interaction-constraint group sets to the children: a
@@ -1008,13 +1086,14 @@ class GBDT:
 
     @torch.no_grad()
     def _build_tree(self, bins: torch.Tensor, grad: torch.Tensor,
-                    hess: torch.Tensor):
+                    hess: torch.Tensor, col_mask=None, col_key=None):
         """One tree from per-row (grad, hess), level by level.
 
         bins: u8 (or i32) [rows, features]; grad/hess: f32 [rows]
-        (weight-scaled, padding rows carry 0 mass).  Returns (feature,
-        threshold, default_right, split_gain, split_cover, leaf, leaf_rel)
-        where leaf_rel is each row's final leaf index."""
+        (weight-scaled, padding rows carry 0 mass); ``col_mask`` /
+        ``col_key``: the tree's feature draws (`_tree_keys`).  Returns
+        (feature, threshold, default_right, split_gain, split_cover, leaf,
+        leaf_rel) where leaf_rel is each row's final leaf index."""
         B = self.num_bins
         rows = bins.shape[0]
         dev = bins.device
@@ -1062,7 +1141,8 @@ class GBDT:
                 wl, wr = self._dir_child_weights(dirs, g_tot, h_tot)
                 gain = self._apply_monotone(gain, wl, wr, lo, hi)
             gain = self._collapse_dir_ties(gain)
-            node_mask = self._level_feature_mask(active)
+            node_mask = self._level_feature_mask(col_mask, col_key, depth,
+                                                 active)
             split_f, split_b, split_d, split_g = self._pick_splits(gain,
                                                                    node_mask)
             if mono:
@@ -1119,7 +1199,8 @@ class GBDT:
     # ---- the sparse (COO-entry) path ----------------------------------------
 
     def _level_splits_from_hist(self, hist: torch.Tensor,
-                                gh_node: torch.Tensor, lo, hi, active):
+                                gh_node: torch.Tensor, lo, hi, active,
+                                col_mask=None, col_key=None, depth: int = 0):
         """Split finding for one level from its present-entry [n_nodes, F,
         B, 2] histogram and [n_nodes, 2] node totals: each (node, feature)'s
         missing mass is the node total minus its present sum; dir 0 sends
@@ -1151,7 +1232,7 @@ class GBDT:
             gain = self._apply_monotone(gain, wl, wr, lo, hi)
         gain = self._collapse_dir_ties(gain)
         split_f, split_b, split_d, split_g = self._pick_splits(
-            gain, self._level_feature_mask(active))
+            gain, self._level_feature_mask(col_mask, col_key, depth, active))
         if mono:
             lo, hi = self._child_bounds(split_f, split_b, split_d,
                                         wl, wr, lo, hi)
@@ -1169,7 +1250,8 @@ class GBDT:
 
     @torch.no_grad()
     def _build_tree_sparse(self, entries, grad: torch.Tensor,
-                           hess: torch.Tensor, layout=None):
+                           hess: torch.Tensor, col_mask=None, col_key=None,
+                           layout=None):
         """One tree from COO entries, O(nnz) histogram work a level.
 
         Present entries add their row's (grad, hess) into [nodes, features,
@@ -1215,7 +1297,7 @@ class GBDT:
                                   force=self._leaf_impl(grad))
             (split_f, split_b, split_d, split_g,
              lo, hi, active) = self._level_splits_from_hist(
-                hist, gh_node, lo, hi, active)
+                hist, gh_node, lo, hi, active, col_mask, col_key, depth)
             features.append(split_f)
             thresholds.append(split_b)
             defaults.append(split_d)
@@ -1305,8 +1387,8 @@ class GBDT:
             eval_margin = (lambda f, t, d, leaf:
                            self._tree_margins(f, t, d, leaf, eval_bins))
 
-        def build(g, h):
-            return self._build_tree(bins, g, h)
+        def build(g, h, col_mask, col_key):
+            return self._build_tree(bins, g, h, col_mask, col_key)
 
         if self.objective == "rank:pairwise":
             grad_hess, eval_loss_fn = self._rank_fns(
@@ -1386,8 +1468,9 @@ class GBDT:
                                f, t, d, leaf, ev[0], ev[1], ev[2], ev[3],
                                ev_rows))
 
-        def build(g, h):
-            return self._build_tree_sparse(entries, g, h, layout=layout)
+        def build(g, h, col_mask, col_key):
+            return self._build_tree_sparse(entries, g, h, col_mask, col_key,
+                                           layout=layout)
 
         if self.objective == "rank:pairwise":
             grad_hess, eval_loss_fn = self._rank_fns(
@@ -1466,6 +1549,46 @@ class GBDT:
         the serving engine's route for a gbdt snapshot."""
         padded = pad_batch_to_bucket(batch, row_bucket, nnz_bucket)
         return self.predict_batch(params, padded, binner)[:batch.batch_size]
+
+    def predict_staged(self, params: dict, uri: str,
+                       binner: QuantileBinner, batch_size: int = 65536,
+                       **staging_kwargs) -> np.ndarray:
+        """Streaming inference over a whole dataset file: stage sparse
+        batches onto the model's device (``DeviceStagingIter``), score each
+        with ``predict_batch``, and return the real rows' predictions in
+        file order as numpy.  Staging kwargs (part/num_parts, format,
+        nnz_bucket, ...) pass through, except ``sharding`` and a
+        multi-process run: padding would interleave across shards, and
+        this surface slices each batch to its ``num_rows``."""
+        if staging_kwargs.get("sharding") is not None:
+            raise ValueError(
+                "predict_staged is a single-host, unsharded surface "
+                "(tail-only padding assumption); stage with "
+                "DeviceStagingIter and score with predict_batch, keeping "
+                "rows where batch.weight > 0")
+        if (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise ValueError(
+                "predict_staged in a multi-process run would interleave "
+                "padding across processes; use DeviceStagingIter + "
+                "predict_batch per batch instead")
+        staging_kwargs.setdefault("device", self.device)
+        it = DeviceStagingIter(uri, batch_size=batch_size, **staging_kwargs)
+        outs = []
+        try:
+            for batch in it:
+                pred = self.predict_batch(params, batch, binner)
+                # padding is tail-only: slice by the real-row count (a
+                # weight > 0 filter would drop zero-weighted file rows)
+                outs.append(pred[:batch.num_rows].cpu().numpy())
+        finally:
+            it.close()
+        if not outs:
+            shape = ((0, self.num_class) if self.objective == "softmax"
+                     else (0,))
+            return np.zeros(shape, np.float32)
+        return np.concatenate(outs)
 
     def _bins(self, bins) -> torch.Tensor:
         """Codes on the model's device, uint8 or int32 as the kernel reads

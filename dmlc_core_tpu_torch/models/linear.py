@@ -39,3 +39,23 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
         """Per-row scores w.x + b."""
         return csr_matvec(self.w, batch.index, batch.value, batch.row_ids(),
                           batch.batch_size, force=self.sdot_backend) + self.b
+
+    @torch.no_grad()
+    def evaluate(self, batches) -> dict:
+        """Weighted loss (and accuracy, for the logistic objective) over an
+        iterable of batches, reduced on the host as the JAX package's."""
+        total_w = total_loss = correct = 0.0
+        for batch in batches:
+            m = self.margins(batch)
+            w = batch.weight
+            sum_w = float(torch.sum(w))
+            total_w += sum_w
+            total_loss += float(self.loss(batch)) * sum_w
+            if self.objective == "logistic":
+                y = (batch.label > 0.5).to(torch.float32)
+                pred = (m > 0).to(torch.float32)
+                correct += float(torch.sum((pred == y) * w))
+        out = {"loss": total_loss / max(total_w, 1.0)}
+        if self.objective == "logistic":
+            out["accuracy"] = correct / max(total_w, 1.0)
+        return out

@@ -20,12 +20,11 @@ import torch
 
 from .. import telemetry
 from .._device import resolve_device
-from ..data.staging import PaddedBatch, bucket_pow2, to_device_async
+from ..data.staging import (F32_LEAVES, PaddedBatch, bucket_pow2,
+                            to_device_async)
 
 #: one scoring request row: (indices, values[, ...])
 Request = Sequence
-
-_F32_LEAVES = ("label", "weight", "value")  # the rest are int32
 
 
 class _Arena:
@@ -45,7 +44,7 @@ class _Arena:
         for name, n in sizes:
             self.spans[name] = (off, n)
             view = flat[off:off + n]
-            if name in _F32_LEAVES:
+            if name in F32_LEAVES:
                 view = view.view(np.float32)
             setattr(self, name, view)  # numpy view the packer writes
             off += n
@@ -56,7 +55,7 @@ class _Arena:
         out = {}
         for name, (off, n) in self.spans.items():
             t = dev_buf[off:off + n]
-            out[name] = t.view(torch.float32) if name in _F32_LEAVES else t
+            out[name] = t.view(torch.float32) if name in F32_LEAVES else t
         return out
 
 

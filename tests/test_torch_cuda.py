@@ -793,3 +793,162 @@ def test_gbdt_engine_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(gpu.score(it_gpu.pack(reqs)[0]),
                                    cpu.score(it_cpu.pack(reqs)[0]),
                                    rtol=2e-5, atol=2e-5)
+
+
+# ---- staging a file onto the card, training, sampling ---------------------------
+
+def _libsvm(tmp_path, rows=5000, F=1000, seed=0):
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(rows):
+        n = int(rng.integers(1, 40))
+        idx = np.sort(rng.choice(F, n, replace=False))
+        val = rng.standard_normal(n).astype(np.float32)
+        lines.append(f"{int(rng.integers(0, 2))} " + " ".join(
+            f"{i}:{v:.9g}" for i, v in zip(idx, val)))
+    path = tmp_path / "stage.libsvm"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def _host_packed(uri, batch_size, nnz_bucket):
+    """The batches the CPU iterator packs (the same native batcher), as
+    numpy."""
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    return [{k: getattr(b, k).numpy().copy() for k in
+             ("label", "weight", "row_ptr", "index", "value")}
+            for b in DeviceStagingIter(uri, batch_size=batch_size,
+                                       nnz_bucket=nnz_bucket, device="cpu")]
+
+
+def test_staged_batches_survive_a_slow_consumer(cuda, tmp_path):
+    """Every batch staged onto the card equals the host packing, bit for
+    bit, while the consumer holds batches, launches work on them and
+    sleeps: a pinned buffer written again before its copy left, or device
+    memory handed out again early, would show as a changed batch."""
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    uri = _libsvm(tmp_path)
+    want = _host_packed(uri, 128, 1024)
+    it = DeviceStagingIter(uri, batch_size=128, nnz_bucket=1024,
+                           num_workers=2, prefetch_depth=2)
+    held = []
+    for i, b in enumerate(it):
+        assert b.value.device.type == "cuda" and isinstance(b.num_rows, int)
+        # work on the consumer's stream, then a slow host
+        torch.cuda._sleep(2_000_000)
+        held.append((b, (b.value * 2).sum()))
+        if i % 3 == 0:
+            import time
+            time.sleep(0.02)
+    assert len(held) == len(want) == 40
+    for (b, _), w in zip(held, want):
+        for k, v in w.items():
+            np.testing.assert_array_equal(getattr(b, k).cpu().numpy(), v)
+    assert all(buf is None or buf.is_pinned() for buf in it._ring.bufs)
+
+
+def test_staging_iter_defaults_to_the_card(cuda, tmp_path):
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    it = DeviceStagingIter(_libsvm(tmp_path, rows=300))
+    assert it.device.type == "cuda"
+    batches = list(it)
+    assert all(b.index.device.type == "cuda" for b in batches)
+    assert sum(b.num_rows for b in batches) == 300
+
+
+def test_fm_train_step_on_card_matches_float64(cuda, tmp_path):
+    """One FM step on the kernel route: 3 segment-sum launches, and its
+    update (-learning_rate * grad, the gradient caught as it lands) within
+    1e-5 of a float64 numpy oracle relative to its largest entry, applied
+    to the params bit for bit.  (Measured as p1 - p0 it would also hold
+    the f32 rounding of storing p1, half an ulp of |p|.)"""
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    from dmlc_core_tpu_torch.models import (FactorizationMachine,
+                                            params_from_numpy)
+    F, K = 1000, 8
+    rng = np.random.default_rng(5)
+    p0 = {"w": (0.05 * rng.standard_normal(F)).astype(np.float32),
+          "v": (0.05 * rng.standard_normal((F, K))).astype(np.float32),
+          "b": np.float32(-0.2)}
+    fm = FactorizationMachine(F, num_factors=K, sdot_backend="pallas",
+                              learning_rate=0.05, device=cuda)
+    fm.load_state_dict(params_from_numpy("fm", p0, cuda))
+    batch = next(iter(DeviceStagingIter(_libsvm(tmp_path, rows=2000, F=F),
+                                        batch_size=512, nnz_bucket=4096)))
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grads.__setitem__(n, p.grad.detach().clone()))
+        for n, p in fm.named_parameters()]
+    before = ss.segment_sum_kernel.launches
+    fm.train_step(batch)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert ss.segment_sum_kernel.launches - before == 3
+    # float64 oracle: margins, weighted logistic mean, np.add.at grads
+    h = {k: getattr(batch, k).cpu().numpy() for k in
+         ("label", "weight", "row_ptr", "index", "value")}
+    rid = np.searchsorted(h["row_ptr"], np.arange(h["index"].size),
+                          side="right") - 1
+    rid = np.minimum(rid, 511)
+    x, idx = h["value"].astype(np.float64), h["index"]
+    w, v, b = (p0["w"].astype(np.float64), p0["v"].astype(np.float64),
+               float(p0["b"]))
+    vx = np.zeros((512, K))
+    np.add.at(vx, rid, v[idx] * x[:, None])
+    v2x2 = np.zeros((512, K))
+    np.add.at(v2x2, rid, v[idx] ** 2 * x[:, None] ** 2)
+    lin = np.zeros(512)
+    np.add.at(lin, rid, w[idx] * x)
+    m = b + lin + 0.5 * (vx ** 2 - v2x2).sum(1)
+    y = (h["label"] > 0.5).astype(np.float64)
+    sw = max(h["weight"].sum(), 1.0)
+    dm = (1 / (1 + np.exp(-m)) - y) * h["weight"] / sw
+    gw = np.zeros(F)
+    np.add.at(gw, idx, dm[rid] * x)
+    gv = np.zeros((F, K))
+    np.add.at(gv, idx, dm[rid][:, None] * (x[:, None] * vx[rid]
+                                           - v[idx] * x[:, None] ** 2))
+    want = {"w": -0.05 * gw, "v": -0.05 * gv, "b": -0.05 * dm.sum()}
+    for k, d in want.items():
+        step = 0.05 * grads[k]
+        assert torch.equal(fm.state_dict()[k],
+                           torch.as_tensor(p0[k], device=cuda) - step), k
+        got = -step.double().cpu().numpy()
+        err = np.abs(got - d).max() / max(np.abs(d).max(), 1e-30)
+        print(f"train_step {k}: |update - float64| / max {err:.2e}")
+        assert err <= 1e-5, k
+
+
+def test_threefry_draws_on_card_equal_cpu(cuda):
+    from dmlc_core_tpu_torch import random as tr
+    for seed in (0, 2014, 2 ** 31 + 3):
+        host = tr.fold_in(tr.PRNGKey(seed, device="cpu"), 7)
+        card = tr.fold_in(tr.PRNGKey(seed, device=cuda), 7)
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), host)
+        for key in (host, card):
+            assert torch.equal(tr.bits(key, (3, 1000), cuda).cpu(),
+                               tr.bits(host, (3, 1000)))
+            assert torch.equal(tr.bernoulli(key, 0.8, (5000,), cuda).cpu(),
+                               tr.bernoulli(host, 0.8, (5000,)))
+            u = tr.uniform(key, (999,), cuda).cpu()
+            assert torch.equal(u.view(torch.int32),
+                               tr.uniform(host, (999,)).view(torch.int32))
+            for n in (28, 968, 2 ** 16):
+                assert torch.equal(tr.permutation(key, n, cuda).cpu(),
+                                   tr.permutation(host, n))
+
+
+def test_sampled_forest_draws_on_card_equal_cpu(cuda):
+    kw = dict(num_features=28, subsample=0.8, colsample_bytree=0.8,
+              colsample_bylevel=0.8, seed=9)
+    w = torch.rand(10_000, generator=torch.Generator().manual_seed(1))
+    card, host = GBDT(device=cuda, **kw), GBDT(device="cpu", **kw)
+    for t in range(5):
+        cw, cm, ck = card._tree_keys(t, w.to(cuda))
+        hw, hm, hk = host._tree_keys(t, w)
+        assert torch.equal(cw.cpu(), hw) and torch.equal(cm.cpu(), hm)
+        for d in range(6):
+            assert torch.equal(card._level_feature_mask(cm, ck, d, None).cpu(),
+                               host._level_feature_mask(hm, hk, d, None))

@@ -395,14 +395,6 @@ def test_forest_from_numpy_keeps_dtypes():
 
 # ---- what the port refuses, and its backend routing ---------------------------
 
-@pytest.mark.parametrize("kw", [dict(subsample=0.5),
-                                dict(colsample_bytree=0.7),
-                                dict(colsample_bylevel=0.5)])
-def test_sampling_below_one_raises(kw):
-    with pytest.raises(NotImplementedError, match="threefry.*ROADMAP A10"):
-        GBDT(num_features=4, device="cpu", **kw)
-
-
 def test_histogram_mesh_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         GBDT(num_features=4, histogram_mesh=object(), device="cpu")

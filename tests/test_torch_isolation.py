@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, "\n".join(bad)
 
 
-def _entry_points():
+def _entry_points(tmp_path):
+    from dmlc_core_tpu_torch import random as prng
+    from dmlc_core_tpu_torch.data import DeviceStagingIter, Parser
     from dmlc_core_tpu_torch.models import (GBDT, FactorizationMachine,
                                             QuantileBinner, SparseLinearModel)
     from dmlc_core_tpu_torch.serving import (MicroBatchQueue, ScoringEngine,
@@ -54,7 +56,20 @@ def _entry_points():
         binner=QuantileBinner(num_bins=4, missing_aware=True,
                               device="cpu").fit_sparse([0, 0], [1.0, 2.0],
                                                        1))
+    data = tmp_path / "rows.libsvm"
+    data.write_text("1 0:0.5 2:1.5\n0 1:2\n")
+    fields = tmp_path / "rows.libfm"
+    fields.write_text("1 0:0:0.5 1:2:1.5\n")
+    with Parser(str(data)) as parser:  # the host parse needs no device
+        assert sum(block.size for block in parser) == 2
     return {
+        "DeviceStagingIter": lambda: DeviceStagingIter(str(data)),
+        "DeviceStagingIter (libfm fields)": lambda: DeviceStagingIter(
+            f"{fields}?format=libfm", with_field=True),
+        "GBDT.predict_staged": lambda: GBDT(
+            num_features=3, missing_aware=True).predict_staged(
+            cpu.init(), str(data), None),
+        "random.PRNGKey": lambda: prng.PRNGKey(0),
         "SparseLinearModel": lambda: SparseLinearModel(4),
         "FactorizationMachine": lambda: FactorizationMachine(4),
         "ScoringEngine": lambda: ScoringEngine.from_snapshot_bytes(snap),
@@ -72,14 +87,18 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["SparseLinearModel", "FactorizationMachine",
+@pytest.mark.parametrize("name", ["DeviceStagingIter",
+                                  "DeviceStagingIter (libfm fields)",
+                                  "GBDT.predict_staged", "random.PRNGKey",
+                                  "SparseLinearModel", "FactorizationMachine",
                                   "ScoringEngine", "ScoringIterator",
                                   "MicroBatchQueue", "ScoringServer", "GBDT",
                                   "QuantileBinner.transform",
                                   "QuantileBinner.transform_entries",
                                   "ScoringEngine (gbdt)"])
-def test_default_device_raises_without_cuda(name):
+def test_default_device_raises_without_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
+    entry = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _entry_points()[name]()
+        entry()
