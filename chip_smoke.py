@@ -27,8 +27,20 @@ equal to the CPU's bit for bit), then trains a Bosch-width sparse GBDT
 ``GBDT.fit_batch`` (and sampled), audits it against float64, cross-checks
 it against a dense fit of the densified data, scores a libsvm file of its
 first 50,000 rows through ``predict_staged``, and serves it from a
-snapshot through ``ScoringServer``.  Any failed check raises and the
-script exits non-zero.
+snapshot through ``ScoringServer``.  It also trains a Criteo-width
+field-aware FM (2^20 features, 39 fields, 4 factors) from a
+262,144-row libffm file through ``DeviceStagingIter(with_field=True)`` (the
+field lane held to the host parse, one segment-sum launch a step, the first
+update to float64) and served through ``ScoringServer(with_field=True)``
+against a float64 pairwise oracle; the first 262,144 Bosch rows written to
+libsvm, staged into the binned epoch cache by ``BinnedStagingIter`` and fit
+out of core by ``GBDT.fit_streamed`` (its forest equal to ``fit_batch``'s
+and to the text replay's bit for bit, every level audited against
+float64); an ImageNet-sized RecordIO file staged by ``RecordStagingIter``
+with 1 and 4 workers, every record held to ``RecordIOReader``'s; and the
+FM and the forest checkpointed and loaded back bit for bit (the FFM's
+factor table, one record past the native 2^29-byte limit, raises its
+error).  Any failed check raises and the script exits non-zero.
 The last two lines of its output are the card's name and power limit, and
 one JSON object with ``"ok": true``; the line before them is the
 per-kernel JSON (times, bound, launches on each main path, error against
@@ -351,8 +363,11 @@ def fm_oracle(params: dict, rows: list) -> np.ndarray:
 
 
 def post_score(url: str, rows: list) -> tuple:
-    body = json.dumps({"rows": [{"index": i, "value": v}
-                                for i, v in rows]}).encode()
+    """POST request rows ((index, value) or (index, value, field)) to
+    ``/score``: (the response, the host clock's ms)."""
+    body = json.dumps({"rows": [
+        dict(index=r[0], value=r[1], **({"field": r[2]} if len(r) > 2
+                                        else {})) for r in rows]}).encode()
     req = urllib.request.Request(url + "/score", data=body, method="POST",
                                  headers={"Content-Type": "application/json"})
     t0 = time.monotonic()
@@ -471,76 +486,106 @@ PROFILE_STEPS = 8
 LOSS_STEPS = (0, 16, 64, 127)
 
 
-def libsvm_text(label, row_ptr, index, value) -> bytes:
-    """libsvm lines (label, then ``index:value`` pairs, values as %.9g, so
-    f32 values read back exactly) for CSR rows, assembled with numpy: every
-    row is a run of tokens from one byte table (labels, separators, index
-    and value strings), gathered in one fancy-indexing pass."""
+def libsvm_text(label, row_ptr, index, value, field=None,
+                shortest: bool = False) -> bytes:
+    """libsvm lines (label, then ``index:value`` pairs), or libffm lines
+    (``field:index:value`` triples) when ``field`` is given, for CSR rows,
+    assembled with numpy: every row is a run of tokens from one byte table
+    (labels, separators, index and value strings), gathered in one
+    fancy-indexing pass.  Values are written as %.9g, or with
+    ``shortest`` as the shortest decimal that reads back as the same f32;
+    either way f32 values read back exactly."""
     uniq, inv = np.unique(value, return_inverse=True)
     n_idx = int(index.max()) + 1 if index.size else 0
+    if field is not None and field.size:
+        n_idx = max(n_idx, int(field.max()) + 1)
+    fmt = ((lambda v: np.format_float_positional(
+        np.float32(v), unique=True, trim="-").encode()) if shortest
+        else (lambda v: b"%.9g" % float(v)))
     words = ([b"0", b"1", b" ", b":", b"\n"]
              + [str(i).encode() for i in range(n_idx)]
-             + [(b"%.9g" % float(v)) for v in uniq])
+             + [fmt(v) for v in uniq])
     lens = np.array([len(w) for w in words], np.int64)
     offs = np.cumsum(lens) - lens
     table = np.frombuffer(b"".join(words), np.uint8)
     rows, nnz = len(label), len(index)
+    per = 4 if field is None else 6  # tokens an entry
     counts = np.diff(row_ptr).astype(np.int64)
-    first = 2 * np.arange(rows) + 4 * row_ptr[:-1].astype(np.int64)
-    tok = np.empty(2 * rows + 4 * nnz, np.int64)
+    first = 2 * np.arange(rows) + per * row_ptr[:-1].astype(np.int64)
+    tok = np.empty(2 * rows + per * nnz, np.int64)
     tok[first] = (label > 0.5).astype(np.int64)
     e_row = np.repeat(np.arange(rows), counts)
     e_pos = (first[e_row] + 1
-             + 4 * (np.arange(nnz) - row_ptr[:-1].astype(np.int64)[e_row]))
+             + per * (np.arange(nnz) - row_ptr[:-1].astype(np.int64)[e_row]))
     tok[e_pos] = 2
+    if field is not None:
+        tok[e_pos + 1] = 5 + field.astype(np.int64)
+        tok[e_pos + 2] = 3
+        e_pos = e_pos + 2
     tok[e_pos + 1] = 5 + index.astype(np.int64)
     tok[e_pos + 2] = 3
     tok[e_pos + 3] = 5 + n_idx + inv.reshape(-1)
-    tok[first + 1 + 4 * counts] = 4
+    tok[first + 1 + per * counts] = 4
     seg_len = lens[tok]
     dst = np.cumsum(seg_len) - seg_len
     src = np.repeat(offs[tok] - dst, seg_len) + np.arange(int(seg_len.sum()))
     return table[src].tobytes()
 
 
-def criteo_train_file(path: Path) -> dict:
-    """Write the training file (once: a file already there is reused) and
-    return the planted FM's numpy params."""
+def criteo_planted_chunks(rows: int, chunk: int = 32_768):
+    """Criteo-width training rows with labels drawn from the planted FM
+    (``fm_params(TRAIN_SEED)``), ``chunk`` rows at a time: (labels, idx
+    [n, 39], values [n, 39]).  The same seed gives the same rows for any
+    ``rows``, so a shorter file holds the first rows of a longer one."""
     planted = fm_params(TRAIN_SEED)
-    if path.exists():
-        return planted
     rng = np.random.default_rng(TRAIN_SEED)
+    w64, v64 = planted["w"].astype(np.float64), planted["v"]
+    for r0 in range(0, rows, chunk):
+        n = min(chunk, rows - r0)
+        idx = rng.integers(0, NUM_FEATURES, (n, NNZ_PER_ROW))
+        val = np.ones((n, NNZ_PER_ROW), np.float32)
+        val[:, :INT_FIELDS] = np.log1p(
+            rng.integers(0, 1000, (n, INT_FIELDS))).astype(np.float32)
+        x = val.astype(np.float64)
+        v = v64[idx].astype(np.float64)           # [n, 39, K]
+        vx = np.einsum("nkf,nk->nf", v, x)
+        m = (float(planted["b"]) + (w64[idx] * x).sum(1)
+             + 0.5 * (vx ** 2 - np.einsum("nkf,nk->nf", v ** 2,
+                                          x ** 2)).sum(1))
+        y = rng.random(n) < 1.0 / (1.0 + np.exp(-m))
+        yield y, idx, val
+
+
+def criteo_train_file(path: Path, rows: int = 0,
+                      with_field: bool = False) -> None:
+    """Write the training file once (a file already there is reused):
+    ``rows`` planted Criteo-width rows as libsvm, or as libffm with each
+    entry's field id 0..38 (its position in the row, as libffm's Criteo
+    runs number the 13 integer and 26 categorical fields)."""
+    if path.exists():
+        return
+    rows = rows or TRAIN_ROWS
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".tmp")
-    chunk = 32_768
-    w64, v64 = planted["w"].astype(np.float64), planted["v"]
     with open(tmp, "wb") as f:
-        for r0 in range(0, TRAIN_ROWS, chunk):
-            n = min(chunk, TRAIN_ROWS - r0)
-            idx = rng.integers(0, NUM_FEATURES, (n, NNZ_PER_ROW))
-            val = np.ones((n, NNZ_PER_ROW), np.float32)
-            val[:, :INT_FIELDS] = np.log1p(
-                rng.integers(0, 1000, (n, INT_FIELDS))).astype(np.float32)
-            x = val.astype(np.float64)
-            v = v64[idx].astype(np.float64)           # [n, 39, K]
-            vx = np.einsum("nkf,nk->nf", v, x)
-            m = (float(planted["b"]) + (w64[idx] * x).sum(1)
-                 + 0.5 * (vx ** 2 - np.einsum("nkf,nk->nf", v ** 2,
-                                              x ** 2)).sum(1))
-            y = rng.random(n) < 1.0 / (1.0 + np.exp(-m))
+        for y, idx, val in criteo_planted_chunks(rows):
+            n = len(y)
             ptr = np.arange(n + 1, dtype=np.int64) * NNZ_PER_ROW
-            f.write(libsvm_text(y, ptr, idx.reshape(-1), val.reshape(-1)))
+            fld = (np.tile(np.arange(NNZ_PER_ROW), n) if with_field
+                   else None)
+            f.write(libsvm_text(y, ptr, idx.reshape(-1), val.reshape(-1),
+                                field=fld))
     tmp.rename(path)
-    return planted
 
 
-def host_packed(uri: str, batch: int, bucket: int) -> list:
+def host_packed(uri: str, batch: int, bucket: int,
+                with_field: bool = False) -> list:
     """The staged batches as the port's ``Parser`` RowBlocks packed on the
     host by numpy: ``batch`` rows each (the last zero-padded: weight 0,
     label 0, empty spans), nonzeros padded with zeros to a multiple of
-    ``bucket``."""
+    ``bucket``; with ``with_field``, the libffm field lane too."""
     from dmlc_core_tpu_torch.data import Parser
-    labels, weights, offsets, index, value = [], [], [], [], []
+    labels, weights, offsets, index, value, field = [], [], [], [], [], []
     base = 0
     with Parser(uri) as parser:
         for blk in parser:
@@ -551,9 +596,12 @@ def host_packed(uri: str, batch: int, bucket: int) -> list:
             base += blk.num_nonzero
             index.append(blk.index.astype(np.int32))
             value.append(blk.values_or_ones())
+            if with_field:
+                field.append(blk.field.astype(np.int32))
     label, weight = np.concatenate(labels), np.concatenate(weights)
     ptr = np.concatenate([[0]] + offsets)
     index, value = np.concatenate(index), np.concatenate(value)
+    field = np.concatenate(field) if with_field else None
     out = []
     for r0 in range(0, len(label), batch):
         r1 = min(r0 + batch, len(label))
@@ -567,23 +615,52 @@ def host_packed(uri: str, batch: int, bucket: int) -> list:
             "index": np.pad(index[e0:e1], (0, pad)),
             "value": np.pad(value[e0:e1], (0, pad)),
             "num_rows": r1 - r0})
+        if with_field:
+            out[-1]["field"] = np.pad(field[e0:e1], (0, pad))
     return out
 
 
 STAGED_LEAVES = ("label", "weight", "row_ptr", "index", "value")
 
 
-def batch_mismatch(batch, want: dict):
+def batch_mismatch(batch, want: dict, leaves=STAGED_LEAVES):
     """The first leaf of a staged batch (already copied to the host, as
     numpy) that differs from the host packing bit for bit, or None."""
     if batch["num_rows"] != want["num_rows"]:
         return "num_rows"
-    for k in STAGED_LEAVES:
+    for k in leaves:
         a, b = batch[k], want[k]
         if a.shape != b.shape or not np.array_equal(a.view(np.int32),
                                                     b.view(np.int32)):
             return k
     return None
+
+
+def copy_back(torch, batch, host_pin: dict, slot: int,
+              leaves=STAGED_LEAVES) -> tuple:
+    """Non-blocking copies of a staged batch's leaves into pinned host
+    buffers (``host_pin``, recycled by ``slot``) on the consumer's stream,
+    and an event after them."""
+    out = {}
+    for k in leaves:
+        t = getattr(batch, k)
+        h = host_pin.get((k, slot))
+        if h is None or h.shape != t.shape:
+            h = host_pin[(k, slot)] = torch.empty(t.shape, dtype=t.dtype,
+                                                  pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out[k] = h
+    ev = torch.cuda.Event()
+    ev.record()
+    return out, ev
+
+
+def compare_back(out, ev, num_rows, ref, leaves=STAGED_LEAVES):
+    """``batch_mismatch`` of a ``copy_back`` once its copies are done."""
+    ev.synchronize()
+    got = {k: out[k].numpy() for k in leaves}
+    got["num_rows"] = num_rows
+    return batch_mismatch(got, ref, leaves)
 
 
 def fm_step_oracle(p0: dict, h: dict, lr: float) -> dict:
@@ -694,14 +771,51 @@ def overlap_ms(xs, ys) -> float:
     return union_ms(xs) + union_ms(ys) - union_ms(list(xs) + list(ys))
 
 
+def profile_train_steps(torch, model, it, what: str) -> None:
+    """Where ``PROFILE_STEPS`` steady training steps from the iterator go on
+    the card, staging included: wall, device busy share, the H2D copies
+    and their overlap with kernels, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = iter(it)
+    for _ in range(3):
+        model.train_step(next(batches))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            model.train_step(next(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    batches.close()
+    dev_ev = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and e.time_range.elapsed_us()]
+    copies = [(e.time_range.start, e.time_range.end) for e in dev_ev
+              if "HtoD" in e.name]
+    kernels = [(e.time_range.start, e.time_range.end) for e in dev_ev
+               if "Memcpy" not in e.name and "Memset" not in e.name]
+    busy = union_ms(copies + kernels)
+    print(f"profile [{PROFILE_STEPS} {what} train steps from the file, under "
+          f"the profiler]: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f}%); H2D copies {union_ms(copies):.3f}"
+          f" ms, kernels {union_ms(kernels):.3f} ms, copy time overlapping "
+          f"kernels {overlap_ms(copies, kernels):.3f} ms")
+    if not dev_ev:
+        print("  device time: not measured (no CUDA events in the trace)")
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        print(f"  {e.device_time_total / PROFILE_STEPS:9.2f} us  "
+              f"x{e.count / PROFILE_STEPS:<5.1f} {e.key[:90]}")
+
+
 def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
     """Train the Criteo-width FM from a libsvm file through the port's
     DeviceStagingIter and train_step on the segment-sum kernel; hold the
     staged batches, the first step and the index_add route to their
     references; a shorter linear run; the kernel at the training shape."""
     from concurrent.futures import ThreadPoolExecutor
-
-    from torch.profiler import ProfilerActivity, profile
 
     from dmlc_core_tpu_torch import telemetry
     from dmlc_core_tpu_torch.data import DeviceStagingIter
@@ -742,28 +856,6 @@ def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
     after64 = first = None
     host_pin = {}
 
-    def copy_back(batch):
-        """Non-blocking copies of a staged batch's leaves into pinned host
-        buffers on the consumer's stream, and an event after them."""
-        out = {}
-        for k in STAGED_LEAVES:
-            t, slot = getattr(batch, k), (k, len(pending) % 8)
-            h = host_pin.get(slot)
-            if h is None or h.shape != t.shape:
-                h = host_pin[slot] = torch.empty(t.shape, dtype=t.dtype,
-                                                 pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            out[k] = h
-        ev = torch.cuda.Event()
-        ev.record()
-        return out, ev
-
-    def compare(out, ev, num_rows, ref):
-        ev.synchronize()
-        got = {k: out[k].numpy() for k in STAGED_LEAVES}
-        got["num_rows"] = num_rows
-        return batch_mismatch(got, ref)
-
     # the main path: counts to 0 here, read when the second epoch ends
     ss_mod.segment_sum_kernel.launches = 0
     torch.cuda.synchronize()
@@ -790,9 +882,9 @@ def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
                 # while the next steps run: this batch, copied back, against
                 # the host packing (a pinned buffer recycled too early, or
                 # device memory reused early, shows as a difference)
-                out, ev = copy_back(batch)
-                pending.append(pool.submit(compare, out, ev, batch.num_rows,
-                                           want[i]))
+                out, ev = copy_back(torch, batch, host_pin, len(pending) % 8)
+                pending.append(pool.submit(compare_back, out, ev,
+                                           batch.num_rows, want[i]))
                 if len(pending) >= 8:
                     pending[-8].result()
             step += 1
@@ -905,38 +997,7 @@ def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
     del held, runs
 
     # (g) where 8 steady steps go: staging included
-    batches = iter(it)
-    for _ in range(3):
-        fm.train_step(next(batches))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(PROFILE_STEPS):
-            fm.train_step(next(batches))
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    batches.close()
-    dev_ev = [e for e in prof.events()
-              if e.device_type.name == "CUDA" and e.time_range.elapsed_us()]
-    copies = [(e.time_range.start, e.time_range.end) for e in dev_ev
-              if "HtoD" in e.name]
-    kernels = [(e.time_range.start, e.time_range.end) for e in dev_ev
-               if "Memcpy" not in e.name and "Memset" not in e.name]
-    busy = union_ms(copies + kernels)
-    print(f"profile [{PROFILE_STEPS} FM train steps from the file, under the "
-          f"profiler]: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall_ms:.1f}%); H2D copies {union_ms(copies):.3f}"
-          f" ms, kernels {union_ms(kernels):.3f} ms, copy time overlapping "
-          f"kernels {overlap_ms(copies, kernels):.3f} ms")
-    if not dev_ev:
-        print("  device time: not measured (no CUDA events in the trace)")
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type.name == "CUDA"]
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
-        print(f"  {e.device_time_total / PROFILE_STEPS:9.2f} us  "
-              f"x{e.count / PROFILE_STEPS:<5.1f} {e.key[:90]}")
+    profile_train_steps(torch, fm, it, "FM")
 
     # the shorter linear run: one epoch, 1 launch a step, its first step
     rng = np.random.default_rng(TRAIN_SEED + 1)
@@ -1001,14 +1062,15 @@ def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
     batch = next(iter(DeviceStagingIter(uri, device=dev, **kw)))
     timings = phase_train_kernel(torch, ss_mod, fm, batch)
     return {"launches": launches, "timings": timings,
-            "steps": step}
+            "steps": step, "model": fm}
 
 
-def phase_train_kernel(torch, ss_mod, fm, batch) -> dict:
+def phase_train_kernel(torch, ss_mod, fm, batch,
+                       lanes_of=(1, NUM_FACTORS)) -> dict:
     """The segment-sum kernel at a training step's shapes (L=1: the linear
-    term; L=16: the two second-order sums): against its plain version and a
-    float64 sum, two launches bitwise equal, and its device time beside the
-    plain version, ``index_add`` and its byte bound."""
+    term; L=16: an FM's two second-order sums): against its plain version
+    and a float64 sum, two launches bitwise equal, and its device time
+    beside the plain version, ``index_add`` and its byte bound."""
     from dmlc_core_tpu_torch.ops.segment_sum import clamp_index
     kernel, plain = ss_mod.segment_sum_kernel, ss_mod.segment_sum_plain
     R = batch.batch_size
@@ -1016,8 +1078,9 @@ def phase_train_kernel(torch, ss_mod, fm, batch) -> dict:
     idx = clamp_index(batch.index, NUM_FEATURES)
     x = batch.value
     with torch.no_grad():
-        contrib = {1: (fm.w[idx] * x).contiguous(),
-                   NUM_FACTORS: (fm.v[idx] * x[:, None]).contiguous()}
+        contrib = {1: (fm.w[idx] * x).contiguous()}
+        if NUM_FACTORS in lanes_of:
+            contrib[NUM_FACTORS] = (fm.v[idx] * x[:, None]).contiguous()
     out = {}
     for lanes, c in contrib.items():
         nnz = c.shape[0]
@@ -1055,6 +1118,296 @@ def phase_train_kernel(torch, ss_mod, fm, batch) -> dict:
                           bound_by="bytes" if byte_s >= op_s
                           else "operations")
     return out
+
+
+# ---- phase 4b: the field-aware FM from a libffm file, then served ---------
+
+# The served FM's Criteo-width rows with each entry's field id 0..38 (the 13
+# integer and 26 categorical fields), as libffm's Criteo runs give them, and
+# the FFM at that paper's Criteo settings (Juan et al., RecSys 2016): k = 4,
+# eta = 0.2, lambda = 2e-5.  Cut: rows, 262,144 of Criteo Kaggle's
+# 45,840,617, for the time limit
+FFM_ROWS, FFM_FIELDS, FFM_FACTORS = 262_144, NNZ_PER_ROW, 4
+FFM_LR, FFM_L2 = 0.2, 2e-5
+FFM_LEAVES = STAGED_LEAVES + ("field",)
+FFM_CFG = {"num_features": NUM_FEATURES, "num_fields": FFM_FIELDS,
+           "num_factors": FFM_FACTORS, "sdot_backend": "pallas"}
+
+
+def ffm_step_oracle(p0: dict, h: dict, lr: float, l2: float) -> dict:
+    """float64 numpy SGD update of an FFM on one host batch: margins by the
+    field-grouped sums S[r, a, b] (entries of field a of row r times their
+    factor rows toward field b), the weighted logistic mean, and the
+    gradients of w, v (the cross term meets S[r, b, a], the self pair
+    subtracts x^2 v[f, fl]) and b, plus l2 on w and v, by ``bincount``."""
+    B = h["label"].shape[0]
+    nnz = h["index"].shape[0]
+    rid = np.minimum(np.searchsorted(h["row_ptr"], np.arange(nnz),
+                                     side="right") - 1, B - 1)
+    x, idx = h["value"].astype(np.float64), h["index"].astype(np.int64)
+    w, v = p0["w"].astype(np.float64), p0["v"].astype(np.float64)
+    F, A, K = v.shape
+    fld = np.clip(h["field"].astype(np.int64), 0, A - 1)
+    lane = np.arange(A * K)
+    src = rid * A + fld                        # (row, source field)
+    ve = v[idx].reshape(nnz, A * K) * x[:, None]
+    S = np.bincount((src[:, None] * (A * K) + lane).ravel(), ve.ravel(),
+                    minlength=B * A * A * K).reshape(B, A, A, K)
+    del ve
+    vs = v[idx, fld]                           # [nnz, K]
+    m = (float(p0["b"]) + np.bincount(rid, w[idx] * x, minlength=B)
+         + 0.5 * (np.einsum("rabk,rbak->r", S, S)
+                  - np.bincount(rid, x ** 2 * (vs ** 2).sum(1),
+                                minlength=B)))
+    y = (h["label"] > 0.5).astype(np.float64)
+    wt = h["weight"].astype(np.float64)
+    dm = (1.0 / (1.0 + np.exp(-m)) - y) * wt / max(wt.sum(), 1.0)
+    G = S.transpose(0, 2, 1, 3).reshape(B * A, A * K)  # S[r, b, a] at (r, a)
+    del S
+    gv = np.bincount((idx[:, None] * (A * K) + lane).ravel(),
+                     (G[src] * (dm[rid] * x)[:, None]).ravel(),
+                     minlength=F * A * K)
+    gv -= np.bincount(((idx * A + fld)[:, None] * K + np.arange(K)).ravel(),
+                      ((dm[rid] * x ** 2)[:, None] * vs).ravel(),
+                      minlength=F * A * K)
+    gw = np.bincount(idx, dm[rid] * x, minlength=F) + l2 * w
+    return {"w": -lr * gw, "v": -lr * (gv.reshape(F, A, K) + l2 * v),
+            "b": np.asarray(-lr * dm.sum())}
+
+
+def ffm_rows(rng, n: int) -> list:
+    """``n`` Criteo-shaped request rows with their libffm fields (entry j of
+    a row is field j)."""
+    fields = list(range(NNZ_PER_ROW))
+    return [(i, v, fields) for i, v in criteo_rows(rng, n)]
+
+
+def ffm_pairwise64(params: dict, rows: list) -> np.ndarray:
+    """float64 FFM probabilities of request rows by the explicit pairwise
+    sum over entry pairs i < j of <v[f_i, fl_j], v[f_j, fl_i]> x_i x_j
+    (tests/test_models.py's oracle), row by row."""
+    w, v = params["w"].astype(np.float64), params["v"]
+    out = []
+    for idx, val, fld in rows:
+        x = np.asarray(val, np.float64)
+        vv = v[np.asarray(idx)][:, np.asarray(fld)].astype(np.float64)
+        pair = np.einsum("ijk,jik->ij", vv, vv) * np.outer(x, x)
+        m = (float(params["b"]) + (w[np.asarray(idx)] * x).sum()
+             + np.triu(pair, 1).sum())
+        out.append(1.0 / (1.0 + np.exp(-m)))
+    return np.asarray(out)
+
+
+def segment_timing(torch, ss_mod, c, rid, R: int, what: str,
+                   iters: int = 200) -> dict:
+    """The segment-sum kernel on one input: against its plain version, two
+    launches bitwise equal, and its device time beside the plain version,
+    ``index_add`` and its byte bound."""
+    kernel, plain = ss_mod.segment_sum_kernel, ss_mod.segment_sum_plain
+    a, b = kernel(c, rid, R), kernel(c, rid, R)
+    want = plain(c, rid, R)
+    torch.cuda.synchronize()
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          f"{what}: two launches differ")
+    err = float((a - want).abs().max())
+    check(err <= TOL, f"{what}: kernel vs plain {err} > {TOL}")
+    lanes = 1 if c.dim() == 1 else c.shape[1]
+    nnz = c.shape[0]
+    zeros = torch.zeros((R,) + tuple(c.shape[1:]), device=c.device)
+    ms, cov = device_ms(torch, lambda: kernel(c, rid, R), iters)
+    plain_ms, _ = device_ms(torch, lambda: plain(c, rid, R), 5, warmup=1)
+    lib_ms, _ = device_ms(torch, lambda: torch.index_add(zeros, 0, rid, c),
+                          iters)
+    nbytes = 4 * (nnz * lanes + nnz + R * lanes)
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, nnz * lanes / F32_OPS_PER_S
+    bound_ms = max(byte_s, op_s) * 1e3
+    print(f"time [{what}, L={lanes}, R={R}, nnz={nnz}]: kernel "
+          f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, index_add "
+          f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({nbytes} "
+          f"bytes); |kernel - plain| {err:.3e} (tol {TOL:.0e}); queue "
+          f"covered: {cov}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, max_abs_err=err, nnz=nnz,
+                bound_by="bytes" if byte_s >= op_s else "operations")
+
+
+def phase_ffm(torch, ss_mod, dev, build_dir: Path) -> dict:
+    """Train the Criteo-width FFM from a libffm file through
+    DeviceStagingIter(with_field=True) and train_step: every staged batch
+    of epoch 1, the field lane included, against the host parse; one
+    segment-sum launch a step (the linear term; the field-pair sums are
+    index_add); the first update against float64; steps/s, rows/s, peak
+    memory, a profile of 8 steps; the kernel at the step's shape."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    from dmlc_core_tpu_torch.models import FieldAwareFactorizationMachine
+    path = build_dir / f"criteo_{FFM_ROWS}_seed{TRAIN_SEED}.libffm"
+    t0 = time.monotonic()
+    criteo_train_file(path, FFM_ROWS, with_field=True)
+    t_write = time.monotonic() - t0
+    uri = f"{path}?format=libfm"
+    t0 = time.monotonic()
+    want = host_packed(uri, TRAIN_BATCH, TRAIN_NNZ_BUCKET, with_field=True)
+    t_host = time.monotonic() - t0
+    steps_per_epoch = len(want)
+    check(steps_per_epoch == FFM_ROWS // TRAIN_BATCH
+          and all(int(w["num_rows"]) == TRAIN_BATCH for w in want),
+          f"{steps_per_epoch} batches in the FFM epoch")
+    check(all(np.array_equal(w["field"][:TRAIN_BATCH * NNZ_PER_ROW],
+                             np.tile(np.arange(NNZ_PER_ROW), TRAIN_BATCH))
+              for w in want), "the parsed field lane is not 0..38 a row")
+    print(f"ffm data: {FFM_ROWS} Criteo-width rows x {NNZ_PER_ROW} "
+          f"field:index:value triples, {path.stat().st_size / 2**20:.1f} MiB"
+          f" of libffm written in {t_write:.1f} s (host, numpy); Parser + "
+          f"numpy packing {t_host:.1f} s")
+    kw = dict(batch_size=TRAIN_BATCH, nnz_bucket=TRAIN_NNZ_BUCKET,
+              num_workers=TRAIN_WORKERS, with_field=True)
+    it = DeviceStagingIter(uri, device=dev, **kw)
+    ffm = FieldAwareFactorizationMachine(
+        NUM_FEATURES, FFM_FIELDS, num_factors=FFM_FACTORS,
+        learning_rate=FFM_LR, l2=FFM_L2, sdot_backend="pallas",
+        device=dev).init(0)
+    pool = ThreadPoolExecutor(1)
+    pending, losses, per_step, epoch_s, host_pin = [], [], [], [], {}
+    first = None
+    # the main path: counts to 0 here, read when the second epoch ends
+    ss_mod.segment_sum_kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = 0
+    for epoch in range(TRAIN_EPOCHS):
+        torch.cuda.synchronize()
+        t_ep = time.monotonic()
+        bytes0 = it.bytes_read
+        for i, batch in enumerate(it):
+            before = ss_mod.segment_sum_kernel.launches
+            if step == 0:
+                p0 = {k: v.detach().cpu().numpy().copy()
+                      for k, v in ffm.state_dict().items()}
+                first = traced_step(torch, ffm, batch, p0, ffm_step_oracle(
+                    p0, want[0], FFM_LR, FFM_L2))
+                loss = first[3]
+                del p0
+            else:
+                loss = ffm.train_step(batch)
+            per_step.append(ss_mod.segment_sum_kernel.launches - before)
+            losses.append(loss)
+            if epoch == 0:
+                out, ev = copy_back(torch, batch, host_pin, len(pending) % 8,
+                                    FFM_LEAVES)
+                pending.append(pool.submit(compare_back, out, ev,
+                                           batch.num_rows, want[i],
+                                           FFM_LEAVES))
+                if len(pending) >= 8:
+                    pending[-8].result()
+            step += 1
+        torch.cuda.synchronize()
+        epoch_s.append((time.monotonic() - t_ep, it.bytes_read - bytes0))
+    launches = ss_mod.segment_sum_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, r) for i, f in enumerate(pending) if (r := f.result())]
+    pool.shutdown()
+    print(f"ffm [staged batches vs host packing, field lane included, epoch "
+          f"1]: {len(pending) - len(bad)} of {len(pending)} equal bit for "
+          f"bit" + (f"; first mismatch {bad[0]}" if bad else ""))
+    check(not bad and len(pending) == steps_per_epoch,
+          f"FFM staged batches differ from the host packing: {bad[:3]}")
+    print(f"ffm [segment_sum launches]: {launches} in {step} steps, "
+          f"{sorted(set(per_step))} a step")
+    check(launches == step and set(per_step) == {1},
+          f"segment_sum launched {launches} times in {step} FFM steps "
+          "(want 1 a step)")
+    print(f"ffm [first step vs float64 numpy SGD]: |update - float64| / max "
+          f"|float64 update| = {first[0]:.3e}, tol {STEP_TOL:.0e}; p1 = p0 - "
+          f"lr * grad bit for bit: {first[1]}; as p1 - p0 {first[2]:.3e}")
+    check(first[0] <= STEP_TOL and first[1],
+          f"first FFM step: {first[0]} from float64, applied {first[1]}")
+    loss_v = [float(x) for x in losses]
+    at = (0, steps_per_epoch // 2, steps_per_epoch, step - 1)
+    print("ffm logloss (the step's batch, before the step) at steps "
+          + ", ".join(f"{s}: {loss_v[s]:.6f}" for s in at))
+    check(all(np.isfinite(loss_v)) and np.mean(loss_v[-8:]) < loss_v[0],
+          "the FFM's loss did not fall")
+    for e, (secs, nbytes) in enumerate(epoch_s):
+        print(f"ffm epoch {e + 1}: {secs:.3f} s wall, "
+              f"{steps_per_epoch / secs:.1f} steps/s, "
+              f"{steps_per_epoch * TRAIN_BATCH / secs:.0f} rows/s, parse "
+              f"{nbytes / 2**20 / secs:.1f} MB/s ({nbytes} bytes read)")
+    print(f"ffm: peak device memory {peak / 2**30:.2f} GiB (params "
+          f"{sum(p.numel() for p in ffm.parameters()) * 4 / 2**30:.2f} GiB)")
+    profile_train_steps(torch, ffm, it, "FFM")
+    it.close()
+    batch = next(iter(DeviceStagingIter(uri, device=dev, **kw)))
+    timings = phase_train_kernel(torch, ss_mod, ffm, batch, lanes_of=(1,))
+    return {"launches": launches, "steps": step, "timings": timings,
+            "model": ffm}
+
+
+def phase_ffm_serving(torch, ss_mod, ffm, dev) -> dict:
+    """The trained FFM from a DTSNAP01 snapshot packed by the port, served
+    by ScoringServer(with_field=True): /score bodies carry "field"; every
+    score against the float64 pairwise oracle; one segment-sum launch a
+    micro-batch; p50/p99 per request size; the kernel at a served
+    micro-batch's shape."""
+    from dmlc_core_tpu_torch.ops.segment_sum import clamp_index
+    from dmlc_core_tpu_torch.serving import (ScoringIterator, ScoringServer,
+                                             pack_snapshot, push_snapshot,
+                                             snapshot_digest)
+    params = {k: v.detach().cpu().numpy() for k, v in
+              ffm.state_dict().items()}
+    t0 = time.monotonic()
+    snap = pack_snapshot("ffm", FFM_CFG, params, seq=1)
+    t_pack = time.monotonic() - t0
+    digest = snapshot_digest(snap)  # a sha256 of 628 MiB: once
+    rng = np.random.default_rng(13)
+    lat = {n: [] for n in REQUEST_ROWS}
+    worst = 0.0
+    with ScoringServer(with_field=True, device=dev) as srv:
+        url = f"http://127.0.0.1:{srv.http_port}"
+        # the main path: counts go to 0 here and are read when it ends
+        ss_mod.segment_sum_kernel.launches = 0
+        batches0 = srv.queue.batches
+        t0 = time.monotonic()
+        rep = push_snapshot("127.0.0.1", srv.port, snap, seq=1, timeout=300)
+        t_push = time.monotonic() - t0
+        check(rep.get("ok") and rep["digest"] == digest,
+              f"push of the ffm snapshot: {rep}")
+        for n in REQUEST_ROWS:
+            for _ in range(LATENCY_REPEATS):
+                rows = ffm_rows(rng, n)
+                doc, ms = post_score(url, rows)
+                check(doc["model"] == digest,
+                      "served model is not the ffm snapshot")
+                got = np.asarray(doc["scores"], np.float64)
+                check(got.shape == (n,) and np.isfinite(got).all(),
+                      f"{n}-row ffm response shape/finiteness")
+                err = float(np.abs(got - ffm_pairwise64(params, rows)).max())
+                check(err <= TOL, f"{n}-row ffm score err {err} > {TOL}")
+                worst = max(worst, err)
+                lat[n].append(ms)
+        launches = ss_mod.segment_sum_kernel.launches
+        batches = srv.queue.batches - batches0
+    print(f"ffm serving: snapshot {len(snap) / 2**20:.1f} MiB packed in "
+          f"{t_pack:.2f} s, pushed and swapped in {t_push:.2f} s; {batches} "
+          f"micro-batches, {launches} segment_sum launches; max |score - "
+          f"float64 pairwise oracle| {worst:.3e}")
+    check(batches > 0 and launches == batches,
+          f"segment_sum launched {launches} times for {batches} ffm "
+          "micro-batches (want 1 each)")
+    for n in REQUEST_ROWS:
+        print(f"ffm /score {n:>3} rows: p50 {np.percentile(lat[n], 50):.3f} "
+              f"ms, p99 {np.percentile(lat[n], 99):.3f} ms ({len(lat[n])} "
+              "requests, host clock)")
+    it = ScoringIterator(max_batch=4096, with_field=True, device=dev)
+    batch, _ = it.pack(ffm_rows(np.random.default_rng(7), 256))
+    rid = batch.row_ids()
+    with torch.no_grad():
+        c = (ffm.w[clamp_index(batch.index, NUM_FEATURES)]
+             * batch.value).contiguous()
+    timing = segment_timing(torch, ss_mod, c, rid, batch.batch_size,
+                            "served FFM micro-batch")
+    return {"launches": launches, "batches": batches, "timing": timing}
 
 
 # ---- phase 5: the histogram GBDT at Higgs width -------------------------------
@@ -2222,7 +2575,355 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
     return {"launches": fits[0][2], "max_abs_err": max_err, "nnz": nnz,
             "bound_by": per_level[0]["bound_by"], **mean,
             "node_totals": {**node_tot, "launches": fits[0][3]},
-            "root_totals": {**root_tot, "launches": fits[0][3]}}
+            "root_totals": {**root_tot, "launches": fits[0][3]},
+            "data": data, "binner": binner, "forest": forest}
+
+
+# ---- phase 7: the Bosch-width GBDT out of core (fit_streamed) ------------
+
+# The first 2^18 rows of the Bosch-width data above, written once to libsvm
+# (values as the shortest decimal that reads back as the same f32), staged
+# into the binned epoch cache, and fit by fit_streamed with the model of the
+# fit_batch phase.  Cut: rows, 262,144 of 1,183,747, for the time limit
+STREAM_ROWS, STREAM_BATCH, STREAM_BUCKET = 1 << 18, 32_768, 1 << 16
+STREAM_WORKERS = 8  # parse threads of the text replays
+STREAM_CHUNK = 16_384  # rows a libsvm_text call writes
+
+
+def streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
+                           label) -> dict:
+    """The sparse kernel at the streamed fit's shape, on the first tree's
+    own levels: against its plain version and float64, and its time
+    beside the plain version, ``index_add`` over the flattened keys and
+    the bound (means over depths 0-5); the segment-sum kernel at the node
+    totals of depth 5."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.fixed_point import lane_amax
+    F, B = model.num_features, model.num_bins
+    nnz = layout.nnz_live
+    rid_l = layout.rid.long()
+    gh, levels, *_ = next(sparse_tree_inputs(torch, model, forest, ent,
+                                             label))
+    gh_e = gh[rid_l].contiguous()
+    amax = lane_amax(gh)
+    node = check_leaf_sums(torch, ss_mod, gh, levels[-1][0], levels[-1][1],
+                           what="streamed node totals (depth 5)")
+    max_err, per_level = 0.0, []
+    for d, (rel, n) in enumerate(levels):
+        rel_e = rel[rid_l].contiguous()
+        ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_kernel(
+            layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
+            layout=layout, gh_amax=amax), 20)
+        plain_ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_plain(
+            layout.gkey, rel_e, gh_e, layout.starts, n, F, B), 1, warmup=1)
+        gk = layout.gkey.long()
+        keys = (rel_e.long() * F + gk // layout.nb) * B + gk % layout.nb
+        del gk
+        zeros = torch.zeros(n * F * B, 2, device=gh.device)
+        lib_ms, _ = device_ms(
+            torch, lambda: torch.index_add(zeros, 0, keys, gh_e), 3,
+            warmup=1)
+        del keys, zeros
+        oracle = sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B)
+        err, _ = check_sparse_hist(torch, hs, f"streamed depth {d}",
+                                   layout.gkey, rel_e, gh_e, layout.starts,
+                                   n, F, B, oracle)
+        max_err = max(max_err, err)
+        del oracle
+        nbytes = 16 * nnz + 8 * n * F * B
+        byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
+        per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=max(byte_s, op_s) * 1e3,
+                              bound_by="bytes" if byte_s >= op_s
+                              else "operations"))
+        print(f"time [streamed sparse histogram, depth {d}, {n} nodes]: "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, index_add "
+              f"{lib_ms:.3f} ms, bound {per_level[-1]['bound_ms']:.4f} ms "
+              f"({nbytes} bytes)")
+    mean = {k: float(np.mean([lv[k] for lv in per_level]))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"hist": {"max_abs_err": max_err, "nnz": nnz,
+                     "bound_by": per_level[0]["bound_by"], **mean},
+            "node_totals": node}
+
+
+def phase_streamed(torch, ss_mod, dev, build_dir: Path, data, binner) -> dict:
+    """The Bosch-width GBDT out of core: the first 2^18 rows written to
+    libsvm, the binned epoch cache built by BinnedStagingIter (and a
+    second open a hit), a cache epoch against a text epoch, fit_streamed
+    over a callable replaying the cache (the main path: 120 sparse-
+    histogram and 140 segment-sum launches), its forest against fit_batch
+    on the same rows resident and against fit_streamed over the text file,
+    bit for bit, and the float64 audit of every level."""
+    import os
+
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.data import (BinnedStagingIter,
+                                          DeviceStagingIter, PaddedBatch)
+    from dmlc_core_tpu_torch.models import GBDT
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    R, F = STREAM_ROWS, BOSCH_FEATURES
+    depth, trees = GBDT_KW["max_depth"], GBDT_KW["num_trees"]
+    host = {k: data[k][:R + (k == "row_ptr")].cpu().numpy()
+            for k in ("label", "row_ptr")}
+    e1 = int(host["row_ptr"][R])
+    index = data["index"][:e1].cpu().numpy()
+    value = data["value"][:e1].cpu().numpy()
+    path = build_dir / f"bosch_{R}.libsvm"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    with open(path, "wb") as f:
+        for r0 in range(0, R, STREAM_CHUNK):
+            r1 = min(r0 + STREAM_CHUNK, R)
+            e0, e = int(host["row_ptr"][r0]), int(host["row_ptr"][r1])
+            f.write(libsvm_text(
+                host["label"][r0:r1],
+                host["row_ptr"][r0:r1 + 1].astype(np.int64) - e0,
+                index[e0:e], value[e0:e], shortest=True))
+    t_write = time.monotonic() - t0
+    size = path.stat().st_size
+    uri = str(path)
+    kw = dict(batch_size=STREAM_BATCH, nnz_bucket=STREAM_BUCKET)
+    first = next(iter(DeviceStagingIter(uri, device=dev, **kw)))
+    n0 = int(first.row_ptr[first.num_rows])
+    check(torch.equal(first.value[:n0].view(torch.int32),
+                      data["value"][:n0].view(torch.int32))
+          and torch.equal(first.index[:n0], data["index"][:n0]),
+          "the libsvm text does not read back as the card's values")
+    print(f"streamed data: the first {R} Bosch-width rows, {e1} entries, "
+          f"{size / 2**20:.1f} MiB of libsvm written in {t_write:.1f} s "
+          "(host, numpy); values read back bit for bit")
+
+    cache = str(build_dir / f"bosch_{R}.bincache")
+    if os.path.exists(cache):
+        os.remove(cache)
+    names = ("cache.rebuilds", "cache.build_failed", "cache.hit_bytes",
+             "cache.build_bytes")
+    c0 = {k: telemetry.counter_get(k) for k in names}
+    it = BinnedStagingIter(uri, binner, cache=cache, device=dev, **kw)
+    t0 = time.monotonic()
+    it.ensure_cache()
+    t_build = time.monotonic() - t0
+    c1 = {k: telemetry.counter_get(k) for k in names}
+    d1 = {k: c1[k] - c0[k] for k in names}
+    print(f"streamed cache build: {t_build:.2f} s, {os.path.getsize(cache)}"
+          f" cache bytes ({os.path.getsize(cache) / size:.3f} of the text), "
+          f"{it.meta['virtual_parts']} virtual parts; counters {d1}")
+    check(not it.served_from_text and d1["cache.rebuilds"] == 0
+          and d1["cache.build_failed"] == 0 and d1["cache.build_bytes"] > 0,
+          f"the cache build: counters {d1}, text fallback "
+          f"{it.served_from_text}")
+    hit = BinnedStagingIter(uri, binner, cache=cache, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rows_hit = sum(b.num_rows for b in hit)
+    torch.cuda.synchronize()
+    t_hit = time.monotonic() - t0
+    d2 = {k: telemetry.counter_get(k) - c1[k] for k in names}
+    check(rows_hit == R and not hit.served_from_text
+          and d2["cache.rebuilds"] == 0 and d2["cache.hit_bytes"] > 0
+          and d2["cache.build_bytes"] == 0,
+          f"the second open is no cache hit: {rows_hit} rows, {d2}")
+    text = DeviceStagingIter(uri, num_workers=STREAM_WORKERS, device=dev,
+                             **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rows_text = sum(b.num_rows for b in text)
+    torch.cuda.synchronize()
+    t_text = time.monotonic() - t0
+    text.close()
+    print(f"streamed epochs: cache hit {t_hit:.3f} s ({R / t_hit:.0f} "
+          f"rows/s; counters {d2}), text parse with {STREAM_WORKERS} workers"
+          f" {t_text:.3f} s ({rows_text / t_text:.0f} rows/s)")
+
+    model = GBDT(num_features=F, missing_aware=True, device=dev, **GBDT_KW)
+    passes, streamed = [0], [0]
+
+    def replay_cache():
+        passes[0] += 1
+        for b in hit:
+            streamed[0] += sum(t.numel() * t.element_size() for t in (
+                b.label, b.weight, b.row_ptr, b.index, b.ebin, b.emask))
+            yield b
+
+    # the main path: counts to 0 here, read when the fit returns
+    hs.histogram_gh_sparse_kernel.launches = 0
+    ss_mod.segment_sum_kernel.launches = 0
+    hg.histogram_gh_kernel.launches = 0
+    c2 = {k: telemetry.counter_get(k) for k in names}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    forest = model.fit_streamed(replay_cache, binner)
+    torch.cuda.synchronize()
+    t_fit = time.monotonic() - t0
+    h_l = hs.histogram_gh_sparse_kernel.launches
+    s_l = ss_mod.segment_sum_kernel.launches
+    d_l = hg.histogram_gh_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    d3 = {k: telemetry.counter_get(k) - c2[k] for k in names}
+    print(f"streamed fit_streamed (cache): {t_fit:.3f} s wall, "
+          f"{R * trees / t_fit:.0f} row_trees_s, {passes[0]} passes, "
+          f"{streamed[0] / 2**30:.2f} GiB streamed to the card; launches: "
+          f"histogram_gh_sparse {h_l}, segment_sum {s_l}, histogram_gh "
+          f"{d_l}; peak device memory {peak / 2**30:.2f} GiB; counters {d3}")
+    check(h_l == trees * depth and s_l == trees * (depth + 1) and d_l == 0,
+          f"fit_streamed launches: {h_l} sparse histograms (want "
+          f"{trees * depth}), {s_l} segment sums (want "
+          f"{trees * (depth + 1)}), {d_l} dense histograms")
+    check(passes[0] == 1 + trees * depth and d3["cache.rebuilds"] == 0
+          and d3["cache.hit_bytes"] > 0, f"fit_streamed read {passes[0]} "
+          f"passes (want {1 + trees * depth}); counters {d3}")
+
+    sb = sub_batch(torch, PaddedBatch, data, 0, R)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    resident = model.fit_batch(sb, binner)
+    torch.cuda.synchronize()
+    t_res = time.monotonic() - t0
+    same_r = all(torch.equal(forest[k], resident[k]) for k in resident)
+    t0 = time.monotonic()
+    from_text = model.fit_streamed(uri, binner, staging_options=dict(
+        num_workers=STREAM_WORKERS, **kw))
+    torch.cuda.synchronize()
+    t_txt = time.monotonic() - t0
+    same_t = all(torch.equal(forest[k], from_text[k]) for k in from_text)
+    print(f"streamed forests: equal bit for bit to fit_batch on the same "
+          f"rows resident ({t_res:.3f} s): {same_r}; to fit_streamed over "
+          f"the text file ({t_txt:.3f} s, {STREAM_WORKERS} parse workers): "
+          f"{same_t}")
+    check(same_r and same_t, "the streamed forest differs from fit_batch's "
+          "or from the text replay's")
+    ent = model._sparse_entries(*model._entry_bins(sb, binner))
+    layout = hs.sparse_hist_layout(*ent, F, GBDT_KW["num_bins"])
+    a = sparse_split_audit(torch, model, forest, ent, layout, sb.label)
+    print_audit("fit_streamed from the cache", a, trees)
+    check(a["hist_err"] <= HIST_TOL and a["beyond"] == 0 and a["replay"] == 0
+          and a["leaf_err"] <= LEAF_TOL, f"fit_streamed audit: {a}")
+    kern = streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
+                                  sb.label)
+    return {"launches": h_l, "seg_launches": s_l, **kern}
+
+
+# ---- phase 8: RecordIO staging ----------------------------------------------
+
+# ImageNet-like records: lengths drawn around 110 KiB, the mean JPEG of
+# MXNet's im2rec ImageNet-1k .rec; one record in 16 carries the RecordIO
+# magic word at 4-aligned offsets, which the writer splits and the reader
+# joins again
+REC_COUNT, REC_MEAN = 4096, 110 * 1024
+REC_RECORDS_CAP, REC_BYTES_CAP = 256, 32 << 20
+REC_WORKERS = (1, 4)
+RECORDIO_MAGIC = np.uint32(0xCED7230A).tobytes()
+
+
+def record_file(path: Path) -> int:
+    """Write the RecordIO file once (numpy-seeded payloads); returns how
+    many payloads carry the magic word."""
+    from dmlc_core_tpu_torch.io import RecordIOWriter
+    rng = np.random.default_rng(1000)
+    lens = np.clip(rng.lognormal(np.log(REC_MEAN), 0.35, REC_COUNT),
+                   1024, 1 << 20).astype(np.int64)
+    with_magic = 0
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with RecordIOWriter(str(path)) as w:
+        for i, n in enumerate(lens):
+            p = bytearray(rng.bytes(int(n)))
+            if i % 16 == 0:
+                for off in (0, 4 * (int(n) // 8), 4 * (int(n) // 4 - 1)):
+                    p[off:off + 4] = RECORDIO_MAGIC
+                with_magic += 1
+            w.write(bytes(p))
+    return with_magic
+
+
+def phase_records(torch, dev, build_dir: Path) -> None:
+    """RecordStagingIter over an ImageNet-sized RecordIO file with 1 and 4
+    workers: every staged record against RecordIOReader's, and MB/s."""
+    from dmlc_core_tpu_torch.data import RecordStagingIter
+    from dmlc_core_tpu_torch.io import RecordIOReader
+    path = build_dir / f"records_{REC_COUNT}.rec"
+    t0 = time.monotonic()
+    with_magic = record_file(path)
+    t_write = time.monotonic() - t0
+    with RecordIOReader(str(path)) as reader:
+        want = list(reader)
+    total = sum(len(r) for r in want)
+    check(len(want) == REC_COUNT, f"{len(want)} records read back")
+    print(f"records: {REC_COUNT} records, {total / 2**20:.1f} MiB of "
+          f"payload ({path.stat().st_size / 2**20:.1f} MiB of RecordIO, "
+          f"{with_magic} payloads with the magic word at 4-aligned offsets),"
+          f" written in {t_write:.1f} s")
+    for nw in REC_WORKERS:
+        it = RecordStagingIter(str(path), records_cap=REC_RECORDS_CAP,
+                               bytes_cap=REC_BYTES_CAP, num_workers=nw,
+                               device=dev)
+        check(it.device.type == "cuda", "RecordStagingIter is not on the card")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        staged = sum(b.num_records for b in it)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        k = 0
+        for b in it:
+            raw = b.bytes.cpu().numpy()
+            offs = b.offsets.cpu().numpy()
+            for j in range(b.num_records):
+                check(k < REC_COUNT and raw[offs[j]:offs[j + 1]].tobytes()
+                      == want[k], f"staged record {k} ({nw} workers) "
+                      "differs from RecordIOReader's")
+                k += 1
+        it.close()
+        check(staged == REC_COUNT and k == REC_COUNT,
+              f"{nw} workers staged {staged} / {k} records")
+        print(f"records [RecordStagingIter, {nw} worker(s), records_cap "
+              f"{REC_RECORDS_CAP}, bytes_cap {REC_BYTES_CAP >> 20} MiB]: "
+              f"{it.batches_staged // 2} batches an epoch, {secs:.3f} s, "
+              f"{total / 2**20 / secs:.1f} MB/s of payload to the card; "
+              f"every record equal to RecordIOReader's")
+
+
+# ---- phase 9: checkpoints ---------------------------------------------------
+
+def phase_checkpoints(torch, dev, build_dir: Path, fm, ffm, forest) -> None:
+    """Save and load the trained FM and the Bosch forest from the card
+    through the port's checkpoint module (RecordIO): bit for bit back on
+    the card, seconds and MB/s; the FFM's factor table is one record past
+    the native writer's 2^29-byte limit and raises its error."""
+    from dmlc_core_tpu_torch import checkpoint
+    from dmlc_core_tpu_torch._native import NativeError
+    for name, tree in (("Criteo-width FM", fm.state_dict()),
+                       ("Bosch forest", forest)):
+        path = str(build_dir / f"{name.split()[0].lower()}.ckpt")
+        nbytes = sum(t.numel() * t.element_size() for t in tree.values())
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n = checkpoint.save(tree, path)
+        t_save = time.monotonic() - t0
+        t0 = time.monotonic()
+        back = checkpoint.load(path, like=tree, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        same = all(back[k].device == tree[k].device
+                   and back[k].dtype == tree[k].dtype
+                   and torch.equal(back[k], tree[k]) for k in tree)
+        print(f"checkpoint [{name}]: {n} leaves, {nbytes / 2**20:.1f} MiB; "
+              f"save {t_save:.3f} s ({nbytes / 2**20 / t_save:.0f} MB/s), "
+              f"load to the card {t_load:.3f} s "
+              f"({nbytes / 2**20 / t_load:.0f} MB/s); bit for bit on the "
+              f"card: {same}")
+        check(same, f"{name}: the checkpoint did not load back bit for bit")
+    v_bytes = ffm.v.numel() * ffm.v.element_size()
+    err = None
+    try:
+        checkpoint.save(ffm.state_dict(), str(build_dir / "ffm.ckpt"))
+    except NativeError as e:
+        err = str(e)
+    print(f"checkpoint [Criteo-width FFM]: the {v_bytes}-byte factor table "
+          f"is one record; the native writer refuses it: {err!r}")
+    check(err is not None and "2^29" in err,
+          f"the FFM checkpoint did not raise the native limit: {err!r}")
 
 
 # ---- --geometry-sweep: the dense kernel's launch geometry -------------------
@@ -2542,8 +3243,15 @@ def main(argv) -> int:
     served = phase_serving(torch, ss_mod, params_a, params_b, "cuda")
     phase_profile(torch, params_a)
     train = phase_training(torch, ss_mod, dev, build_dir)
+    ffm = phase_ffm(torch, ss_mod, dev, build_dir)
+    ffm_served = phase_ffm_serving(torch, ss_mod, ffm["model"], dev)
     gbdt = phase_gbdt(torch, ss_mod, dev)
     sparse = phase_gbdt_sparse(torch, ss_mod, dev, build_dir)
+    streamed = phase_streamed(torch, ss_mod, dev, build_dir,
+                              sparse.pop("data"), sparse["binner"])
+    phase_records(torch, dev, build_dir)
+    phase_checkpoints(torch, dev, build_dir, train["model"], ffm["model"],
+                      sparse["forest"])
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
     node, root = sparse["node_totals"], sparse["root_totals"]
@@ -2592,6 +3300,32 @@ def main(argv) -> int:
         "max_abs_err": train["timings"][lanes]["max_abs_err"],
         **{k: train["timings"][lanes][k] for k in keys},
     } for lanes in (1, NUM_FACTORS)] + [{
+        **segment_sum,
+        "shape": f"FFM training step, linear term, {TRAIN_BATCH} rows x "
+                 f"{NNZ_PER_ROW} nonzeros ({ffm['timings'][1]['nnz']} "
+                 f"entries with the padding lanes), L=1; launches: the FFM "
+                 f"run's ({ffm['steps']} steps, one a step)",
+        "launches": ffm["launches"],
+        "max_abs_err": ffm["timings"][1]["max_abs_err"],
+        **{k: ffm["timings"][1][k] for k in keys},
+    }, {
+        **segment_sum,
+        "shape": f"served FFM micro-batch, 256 rows, L=1 "
+                 f"({ffm_served['timing']['nnz']} entries); launches: the "
+                 f"FFM serving run's ({ffm_served['batches']} micro-batches,"
+                 f" one each)",
+        "launches": ffm_served["launches"],
+        "max_abs_err": ffm_served["timing"]["max_abs_err"],
+        **{k: ffm_served["timing"][k] for k in keys},
+    }, {
+        **segment_sum,
+        "shape": f"fit_streamed node totals, {STREAM_ROWS} rows x L=2 into "
+                 "32 nodes; launches: a fit_streamed's node totals (6 a "
+                 "tree) and leaf sums (1 a tree)",
+        "launches": streamed["seg_launches"],
+        "max_abs_err": streamed["node_totals"]["max_abs_err"],
+        **{k: streamed["node_totals"][k] for k in keys},
+    }] + [{
         "name": "histogram_gh",
         "route": "cuda",
         "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh.cu",
@@ -2612,6 +3346,17 @@ def main(argv) -> int:
                  "of depths 0-5",
         "launches": sparse["launches"],
         **{k: sparse[k] for k in ("max_abs_err", *keys)},
+    }, {
+        "name": "histogram_gh_sparse",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh_sparse.cu",
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:466",
+        "shape": f"Bosch width out of core, {STREAM_ROWS} rows, "
+                 f"{streamed['hist']['nnz']} entries x 256 bins, mean of "
+                 "depths 0-5; launches: a fit_streamed over the binned "
+                 "epoch cache",
+        "launches": streamed["launches"],
+        **{k: streamed["hist"][k] for k in ("max_abs_err", *keys)},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,22 @@ The C++ runtime under ``cpp/`` depends on no framework; both Python
 packages bind the same library through its C API
 (``cpp/include/dmlctpu/c_api.h``).  This loader declares only the
 functions the port calls: telemetry, the stall watchdog and time-series
-sampler, fault injection, the row parser (``data.rowblock``) and the
-staged batcher (``data.staging``).
+sampler, fault injection, the row parser (``data.rowblock``), the staged
+and record batchers (``data.staging``), the input split, RecordIO, streams
+and file system calls (``io``), and the binned epoch cache with its block
+codec and arena pool (``data.binned_cache``).
 
 Resolution order for the library path:
   1. ``$DMLCTPU_LIBRARY_PATH``
   2. ``<repo>/build/libdmlctpu.so``
 If absent, it is built on first use with cmake+ninja, or with one direct
-``g++`` invocation where those are missing.  Nothing is loaded or built at
-import time: the first :func:`lib` call does it.
+``g++`` invocation where those are missing, in either case by the C++
+compiler on ``PATH``, whatever ``$CXX`` names: the library is loaded into
+this interpreter, whose C++ runtime is the system's, and a library built
+by another toolchain (a ``$CXX`` with its own runtime) crashes the process
+on its first native exception instead of raising ``NativeError``.
+Nothing is loaded or built at import time: the first :func:`lib` call
+does it.
 """
 from __future__ import annotations
 
@@ -74,6 +81,20 @@ class StagedBatchOwnedC(ctypes.Structure):
     ]
 
 
+class RecordBatchC(ctypes.Structure):
+    """Mirror of DmlcTpuRecordBatchC: a borrowed view of one packed record
+    batch, valid until the next ``DmlcTpuRecordBatcherNext``."""
+
+    _fields_ = [
+        ("num_records", ctypes.c_uint32),
+        ("records_cap", ctypes.c_uint64),
+        ("bytes_cap", ctypes.c_uint64),
+        ("bytes_used", ctypes.c_uint64),
+        ("bytes", ctypes.POINTER(ctypes.c_char)),
+        ("offsets", ctypes.POINTER(ctypes.c_int32)),
+    ]
+
+
 NO_FIELD = (1 << 64) - 1  # field_off / qid_off when the batch lacks the lane
 
 
@@ -92,12 +113,18 @@ def _run(cmd) -> None:
                            f"rc={proc.returncode}):\n{proc.stderr[-2000:]}")
 
 
-def _build_direct() -> None:
-    """cmake-less build: one compiler invocation over every .cc."""
+def _cxx() -> str:
+    """The C++ compiler on ``PATH`` (see the module docstring)."""
     cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
     if cxx is None:
-        raise RuntimeError("native build failed: no cmake and no C++ "
-                           "compiler (g++/c++/clang++) on PATH")
+        raise RuntimeError("native build failed: no C++ compiler "
+                           "(g++/c++/clang++) on PATH")
+    return cxx
+
+
+def _build_direct() -> None:
+    """cmake-less build: one compiler invocation over every .cc."""
+    cxx = _cxx()
     sources = sorted(
         str(p) for sub in ("cpp/src", "cpp/src/io", "cpp/src/data")
         for p in (REPO_ROOT / sub).glob("*.cc"))
@@ -116,7 +143,8 @@ def build() -> Path:
             _build_direct()
         else:
             _run(["cmake", "-B", str(BUILD_DIR), "-G", "Ninja",
-                  "-DCMAKE_BUILD_TYPE=Release"])
+                  "-DCMAKE_BUILD_TYPE=Release",
+                  f"-DCMAKE_CXX_COMPILER={_cxx()}"])
             _run(["ninja", "-C", str(BUILD_DIR), "dmlctpu"])
     return _SO
 
@@ -142,6 +170,8 @@ def _declare(L: ctypes.CDLL) -> None:
     u64p = ctypes.POINTER(ctypes.c_uint64)
     intp = ctypes.POINTER(ctypes.c_int)
     vpp = ctypes.POINTER(ctypes.c_void_p)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     handle, u64, cstr = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p
     sigs = {
         "DmlcTpuGetLastError": ([], ctypes.c_char_p),
@@ -191,6 +221,76 @@ def _declare(L: ctypes.CDLL) -> None:
                                               intp], ctypes.c_int),
         "DmlcTpuStagedBatcherFree": ([handle], None),
         "DmlcTpuStagedBatchFree": ([handle], None),
+        # the record batcher (data.staging.RecordStagingIter)
+        "DmlcTpuRecordBatcherCreateEx": ([cstr, ctypes.c_uint, ctypes.c_uint,
+                                          u64, u64, ctypes.c_int, vpp],
+                                         ctypes.c_int),
+        "DmlcTpuRecordBatcherNext": ([handle, ctypes.POINTER(RecordBatchC)],
+                                     ctypes.c_int),
+        "DmlcTpuRecordBatcherBeforeFirst": ([handle], ctypes.c_int),
+        "DmlcTpuRecordBatcherBytesRead": ([handle], ctypes.c_int64),
+        "DmlcTpuRecordBatcherFree": ([handle], None),
+        # the input split, RecordIO, streams and file systems (io)
+        "DmlcTpuInputSplitCreate": ([cstr, cstr, ctypes.c_uint, ctypes.c_uint,
+                                     cstr, ctypes.c_int, ctypes.c_int, u64,
+                                     vpp], ctypes.c_int),
+        "DmlcTpuInputSplitNextRecord": ([handle, vpp, u64p], ctypes.c_int),
+        "DmlcTpuInputSplitNextChunk": ([handle, vpp, u64p], ctypes.c_int),
+        "DmlcTpuInputSplitBeforeFirst": ([handle], ctypes.c_int),
+        "DmlcTpuInputSplitResetPartition": ([handle, ctypes.c_uint,
+                                             ctypes.c_uint], ctypes.c_int),
+        "DmlcTpuInputSplitTotalSize": ([handle], ctypes.c_int64),
+        "DmlcTpuInputSplitFree": ([handle], None),
+        "DmlcTpuRecordIOWriterCreate": ([cstr, vpp], ctypes.c_int),
+        "DmlcTpuRecordIOWriterWrite": ([handle, cstr, u64], ctypes.c_int),
+        "DmlcTpuRecordIOWriterClose": ([handle], ctypes.c_int),
+        "DmlcTpuRecordIOWriterFree": ([handle], None),
+        "DmlcTpuRecordIOReaderCreateEx": ([cstr, ctypes.c_int, vpp],
+                                          ctypes.c_int),
+        "DmlcTpuRecordIOReaderNext": ([handle, vpp, u64p], ctypes.c_int),
+        "DmlcTpuRecordIOReaderCorruptSkipped": ([handle], ctypes.c_int64),
+        "DmlcTpuRecordIOReaderFree": ([handle], None),
+        "DmlcTpuStreamCreate": ([cstr, cstr, vpp], ctypes.c_int),
+        "DmlcTpuSeekStreamCreate": ([cstr, vpp], ctypes.c_int),
+        "DmlcTpuStreamRead": ([handle, handle, u64], ctypes.c_int64),
+        "DmlcTpuStreamWrite": ([handle, cstr, u64], ctypes.c_int),
+        "DmlcTpuStreamSeek": ([handle, u64], ctypes.c_int),
+        "DmlcTpuStreamTell": ([handle], ctypes.c_int64),
+        "DmlcTpuStreamClose": ([handle], ctypes.c_int),
+        "DmlcTpuStreamFree": ([handle], None),
+        "DmlcTpuFsListDirectory": ([cstr, ctypes.c_int, c_char_pp],
+                                   ctypes.c_int),
+        "DmlcTpuFsPathInfo": ([cstr, c_char_pp], ctypes.c_int),
+        # the binned epoch cache (data.binned_cache)
+        "DmlcTpuBinnedCacheWriterCreate": ([cstr, cstr, vpp], ctypes.c_int),
+        "DmlcTpuBinnedCacheWriterSetCuts": ([handle, f32p, u64, u64],
+                                            ctypes.c_int),
+        "DmlcTpuBinnedCacheWriterSetCodec": ([handle, ctypes.c_int],
+                                             ctypes.c_int),
+        "DmlcTpuBinnedCacheWriterWriteRaw": (
+            [handle, ctypes.c_uint32, ctypes.c_uint32, u64, u64, f32p, f32p,
+             i32p, i32p, f32p, i32p], ctypes.c_int),
+        "DmlcTpuBinnedCacheWriterClose": ([handle], ctypes.c_int),
+        "DmlcTpuBinnedCacheWriterFree": ([handle], None),
+        "DmlcTpuBinnedCacheReaderCreate": ([cstr, ctypes.c_int, vpp],
+                                           ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderValid": ([handle, intp], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderMissing": ([handle, intp], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderError": ([handle, c_char_pp], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderMetaJson": ([handle, c_char_pp],
+                                             ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderPartMapJson": ([handle, c_char_pp],
+                                                ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderNextBlockView": ([handle, vpp, u64p, intp],
+                                                  ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderTakeArena": ([handle, vpp], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderSeekTo": ([handle, u64], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderFree": ([handle], None),
+        "DmlcTpuBinnedBlockDecode": ([handle, u64, vpp, u64p], ctypes.c_int),
+        "DmlcTpuBlockCodecEnabled": ([], ctypes.c_int),
+        "DmlcTpuBlockCodecFromName": ([cstr], ctypes.c_int),
+        "DmlcTpuCacheArenaAcquire": ([u64, vpp], ctypes.c_int),
+        "DmlcTpuCacheArenaRelease": ([handle], ctypes.c_int),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(L, name)

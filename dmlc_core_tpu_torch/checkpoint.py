@@ -1,0 +1,164 @@
+"""Checkpoint and resume over the native stream substrate.
+
+The port of ``dmlc_core_tpu.checkpoint``.  A pytree (nested ``dict`` /
+``list`` / ``tuple`` of tensors, numpy arrays or scalars; a module's
+``state_dict()`` works) is written as a RecordIO container through the
+native ``RecordIOWriter``: one record of JSON metadata, then one record of
+raw bytes per leaf, so ``save(params, "s3://...")`` works against every
+registered file system backend.
+
+The file is the JAX package's, byte for byte, for the same arrays: leaves
+are taken in JAX's flatten order (a mapping's keys sorted, whatever order
+they were inserted in; a ``state_dict()`` lists its parameters in
+registration order), and the metadata holds the same JSON, ``treedef``
+written in ``jax.tree``'s spelling (``PyTreeDef({'b': *, 'v': *, 'w':
+*})``).  A checkpoint written by either package loads in the other.
+
+``bfloat16`` leaves are written as their 2-byte words and read back as
+``torch.bfloat16`` without ``ml_dtypes``.  The native RecordIO writer
+refuses a record of 2^29 bytes or more, so a single leaf that large cannot
+be checkpointed (neither package splits leaves).
+
+Multi-process checkpoints (the JAX package's allgather and writer sync)
+are not ported: with ``torch.distributed`` initialised over more than one
+process, ``save`` and ``load`` raise.
+"""
+from __future__ import annotations
+
+import json
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .io import RecordIOReader, RecordIOWriter
+
+_FORMAT_VERSION = 1
+
+
+def _single_process(what: str) -> None:
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            f"checkpoint.{what} in a multi-process run (the allgather of "
+            "sharded leaves and the writer's status sync) is not ported "
+            "yet: ROADMAP A6")
+
+
+def _flatten(tree: Any, leaves: list) -> str:
+    """Append ``tree``'s leaves to ``leaves`` in ``jax.tree.flatten``'s
+    order and return its treedef in ``str(treedef)``'s spelling (without
+    the ``PyTreeDef(...)`` wrapper)."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, Mapping):
+        parts = [f"{k!r}: {_flatten(tree[k], leaves)}" for k in sorted(tree)]
+        return "{" + ", ".join(parts) + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_flatten(x, leaves) for x in tree) + "]"
+    if isinstance(tree, tuple):
+        parts = [_flatten(x, leaves) for x in tree]
+        return "(" + ", ".join(parts) + ("," if len(parts) == 1 else "") + ")"
+    leaves.append(tree)
+    return "*"
+
+
+def _unflatten(like: Any, arrays) -> Any:
+    """``like``'s structure with its leaves taken from the ``arrays``
+    iterator in flatten order (a mapping keeps ``like``'s key order and
+    type)."""
+    if like is None:
+        return None
+    if isinstance(like, Mapping):
+        got = {k: _unflatten(like[k], arrays) for k in sorted(like)}
+        return type(like)((k, got[k]) for k in like) \
+            if isinstance(like, dict) else got
+    if isinstance(like, list):
+        return [_unflatten(x, arrays) for x in like]
+    if isinstance(like, tuple):
+        return tuple(_unflatten(x, arrays) for x in like)
+    return next(arrays)
+
+
+def _leaf_bytes(leaf) -> tuple:
+    """(dtype name as the JAX package writes it, shape, raw bytes)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        name = str(t.dtype).removeprefix("torch.")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)  # numpy has no bfloat16: the raw words
+        return name, list(t.shape), t.numpy().tobytes()
+    a = np.ascontiguousarray(np.asarray(leaf))
+    return str(a.dtype), list(a.shape), a.tobytes()
+
+
+def _leaf_from_bytes(spec: dict, payload: bytes):
+    """A numpy array, or a CPU tensor for a dtype numpy has no type of its
+    own for (``ml_dtypes`` names such as ``bfloat16``: numpy knows them
+    only as opaque ``V`` types, and only once ``ml_dtypes`` is imported)."""
+    name, shape = spec["dtype"], spec["shape"]
+    try:
+        dt = np.dtype(name)
+    except TypeError:
+        dt = None
+    if dt is None or dt.kind == "V":
+        tdt = getattr(torch, name, None)
+        if not isinstance(tdt, torch.dtype):
+            raise ValueError(f"checkpoint leaf of unknown dtype {name!r}")
+        return torch.frombuffer(bytearray(payload), dtype=tdt).reshape(shape)
+    return np.frombuffer(payload, dtype=dt).reshape(shape).copy()
+
+
+def save(pytree: Any, uri: str) -> int:
+    """Write a pytree checkpoint to ``uri``; returns the number of leaves.
+    Tensors on the card are copied to the host first."""
+    _single_process("save")
+    leaves: list = []
+    treedef = f"PyTreeDef({_flatten(pytree, leaves)})"
+    host = [_leaf_bytes(x) for x in leaves]
+    meta = {
+        "version": _FORMAT_VERSION,
+        "treedef": treedef,
+        "leaves": [{"dtype": name, "shape": shape}
+                   for name, shape, _ in host],
+    }
+    with RecordIOWriter(uri) as writer:
+        writer.write(json.dumps(meta).encode())
+        for _, _, raw in host:
+            writer.write(raw)
+    return len(host)
+
+
+def load(uri: str, like: Any = None, device="cuda"):
+    """Read a checkpoint.
+
+    Without ``like``: the flat list of leaves in flatten order (numpy
+    arrays; a ``bfloat16`` leaf is a CPU ``torch.bfloat16`` tensor) plus
+    the metadata dict (its ``treedef`` is informational).  With ``like``
+    (an example pytree, such as a ``state_dict()``): its structure with
+    every leaf a tensor on ``device`` (the card unless the caller asks for
+    the CPU), in the dtype the file holds."""
+    _single_process("load")
+    with RecordIOReader(uri) as reader:
+        records = iter(reader)
+        meta = json.loads(next(records).decode())
+        if meta.get("version") != _FORMAT_VERSION:
+            raise ValueError(
+                f"unsupported checkpoint version {meta.get('version')}")
+        arrays = [_leaf_from_bytes(spec, payload)
+                  for spec, payload in zip(meta["leaves"], records)]
+    if len(arrays) != len(meta["leaves"]):
+        raise ValueError("checkpoint truncated: leaf count mismatch")
+    if like is None:
+        return arrays, meta
+    dev = resolve_device(device)
+    template: list = []
+    _flatten(like, template)
+    if len(template) != len(arrays):
+        raise ValueError(f"checkpoint has {len(arrays)} leaves, template "
+                         f"has {len(template)}")
+    tensors = (torch.as_tensor(a).to(dev) for a in arrays)
+    return _unflatten(like, tensors)

@@ -1,9 +1,11 @@
-"""Static-shape sparse batches, their pow-2 bucket geometry, and
-``DeviceStagingIter``, which stages a dataset file onto the card.
+"""Static-shape sparse batches, their pow-2 bucket geometry,
+``DeviceStagingIter``, which stages a dataset file onto the card, and
+``RecordStagingIter``, which stages a RecordIO file's raw records.
 
-The port of ``PaddedBatch``, ``bucket_pow2``, ``pad_batch_to_bucket`` and
-single-host ``DeviceStagingIter`` from ``dmlc_core_tpu.data.staging``,
-over torch tensors.
+The port of ``PaddedBatch``, ``bucket_pow2``, ``pad_batch_to_bucket``,
+single-host ``DeviceStagingIter``, ``RecordBatch`` and single-host
+``RecordStagingIter`` from ``dmlc_core_tpu.data.staging``, over torch
+tensors.
 
 ``DeviceStagingIter`` runs the same pipeline as the JAX package's:
 
@@ -22,6 +24,13 @@ over torch tensors.
   allocator would otherwise hand the side stream's memory out again
   early); a pinned buffer is written again only after its copy's event
   has completed.
+
+``RecordStagingIter`` runs the same ring over the native RecordBatcher
+(``cpp/src/data/record_batcher.h``): a batch is the offsets and the
+concatenated payloads of up to ``records_cap`` records, zero-padded to
+``bytes_cap`` bytes, in one pinned buffer and one copy.  ``num_workers >
+1`` reads virtual parts of the file on a pool of threads, one native
+cursor each.
 
 On the CPU the stager copies the leaves into a fresh tensor and the batch
 owns it.
@@ -46,7 +55,7 @@ import torch.nn.functional as F
 
 from .. import telemetry
 from .._device import resolve_device
-from .._native import NO_FIELD, StagedBatchOwnedC, check, lib
+from .._native import NO_FIELD, RecordBatchC, StagedBatchOwnedC, check, lib
 
 LOGGER = logging.getLogger("dmlc_core_tpu_torch.staging")
 
@@ -222,6 +231,60 @@ def _staged_iter(produce, prefetch: int, depth_gauge: Optional[str] = None):
                            error[0])
 
 
+def _device_feed(device: torch.device, host_iter, stage, prof=None):
+    """The stager half of a staging pipeline: a thread takes host batches
+    from ``host_iter`` and calls ``stage(w) -> (batch, CUDA event or
+    None)``, which issues the copy on the iterator's stream; the consumer
+    gets each batch after its stream waited on the event, every tensor of
+    the batch recorded on that stream (the caching allocator would hand
+    the side stream's memory out again early otherwise).  ``prof``, when
+    given, accumulates host_wait_s / stage_s / emit_wait_s / batches."""
+    prof = {} if prof is None else prof
+    for k in ("host_wait_s", "stage_s", "emit_wait_s"):
+        prof.setdefault(k, 0.0)
+    prof.setdefault("batches", 0)
+
+    def produce_device(emit):
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        try:
+            it = iter(host_iter)
+            while True:
+                t0 = time.monotonic()
+                w = next(it, None)
+                t1 = time.monotonic()
+                prof["host_wait_s"] += t1 - t0
+                if w is None:
+                    return
+                item = stage(w)
+                del w  # the host arena goes back to its pool
+                t2 = time.monotonic()
+                prof["stage_s"] += t2 - t1
+                ok = emit(item)
+                t3 = time.monotonic()
+                prof["emit_wait_s"] += t3 - t2
+                prof["batches"] += 1
+                telemetry.counter_add("h2d.wait_us", int((t1 - t0) * 1e6))
+                telemetry.counter_add("h2d.busy_us", int((t2 - t1) * 1e6))
+                telemetry.counter_add("h2d.emit_wait_us",
+                                      int((t3 - t2) * 1e6))
+                telemetry.counter_add("h2d.batches", 1)
+                if not ok:
+                    return
+        finally:
+            host_iter.close()
+
+    for batch, event in _staged_iter(produce_device, 2,
+                                     depth_gauge="h2d.queue_depth"):
+        if event is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(event)
+            for t in vars(batch).values():
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(consumer)
+        yield batch
+
+
 def _autotune_armed() -> bool:
     """``DMLCTPU_AUTOTUNE`` as the JAX package's autotuner reads it."""
     return os.environ.get("DMLCTPU_AUTOTUNE", "0").lower() in (
@@ -270,9 +333,15 @@ class DeviceStagingIter:
     ``num_rows`` is a Python int.  Each batch carries its lineage id
     (``telemetry.lineage``).
 
+    With ``bin_cache=`` (a cache path, or True for ``<uri>.bincache``) and
+    ``binner=`` (a ``QuantileBinner``), epochs yield pre-binned
+    ``BinnedBatch``es served from the binned epoch cache
+    (``binned_cache.BinnedStagingIter``, built on first use) instead of
+    parsing text.
+
     Not ported yet, and refused: ``sharding=`` and multi-process assembly
-    (ROADMAP A6), ``bin_cache=`` (A5) and ``autotune`` (A12, including
-    ``DMLCTPU_AUTOTUNE`` arming it).
+    (ROADMAP A6) and ``autotune`` (A12, including ``DMLCTPU_AUTOTUNE``
+    arming it).
     """
 
     def __init__(self, uri: str, batch_size: int = 4096,
@@ -294,15 +363,12 @@ class DeviceStagingIter:
             raise NotImplementedError(
                 "DeviceStagingIter(sharding=...) (multi-device and "
                 "multi-process staging) is not ported yet: ROADMAP A6")
-        if bin_cache is not None:
-            raise NotImplementedError(
-                "DeviceStagingIter(bin_cache=...) (the binned epoch cache) "
-                "is not ported yet: ROADMAP A5")
+        if bin_cache is not None and binner is None:
+            raise ValueError("bin_cache= needs binner= (a QuantileBinner)")
         if autotune or (autotune is None and _autotune_armed()):
             raise NotImplementedError(
                 "DeviceStagingIter autotune (autotune=True or "
                 "DMLCTPU_AUTOTUNE) is not ported yet: ROADMAP A12")
-        del binner, bin_cache_codec  # only the bin cache reads them
         self._lib = lib()
         self._handle = ctypes.c_void_p()
         check(self._lib.DmlcTpuStagedBatcherCreateEx(
@@ -310,7 +376,17 @@ class DeviceStagingIter:
             batch_size, nnz_bucket, nnz_max, int(with_field), int(with_qid),
             int(num_workers), int(reorder), int(buffer_mb) << 20,
             ctypes.byref(self._handle)))
+        self._uri = uri
+        self._part = part
+        self._num_parts = num_parts
+        self._format = format
         self._batch_size = batch_size
+        self._nnz_bucket = nnz_bucket
+        self._nnz_max = nnz_max
+        self._bin_cache = bin_cache
+        self._binner = binner
+        self._bin_cache_codec = bin_cache_codec
+        self._binned = None  # the BinnedStagingIter, made on first use
         self._prefetch = max(prefetch_depth if prefetch_depth is not None
                              else prefetch, 1)
         self._num_workers = max(int(num_workers), 1)
@@ -502,9 +578,30 @@ class DeviceStagingIter:
         """Yield batches on the device; parse/pack (native) and the staging
         copy (a background thread) run ahead of the consumer.  The epoch
         runs under the env-configured stall watchdog and time-series
-        sampler."""
+        sampler.  With ``bin_cache=`` set, yields ``BinnedBatch``es from
+        the binned epoch cache instead."""
+        if self._bin_cache is not None:
+            yield from self._binned_delegate()
+            return
         with _observability_scope():
             yield from self._iter_epoch()
+
+    def _binned_delegate(self):
+        """Every epoch from the binned epoch cache, through one
+        ``BinnedStagingIter`` over the same file and settings (its first
+        epoch builds the cache)."""
+        if self._binned is None:
+            from .binned_cache import BinnedStagingIter
+            cache = None if self._bin_cache is True else self._bin_cache
+            self._binned = BinnedStagingIter(
+                self._uri, self._binner, cache=cache,
+                batch_size=self._batch_size, nnz_bucket=self._nnz_bucket,
+                nnz_max=self._nnz_max, part=self._part,
+                num_parts=self._num_parts, format=self._format,
+                prefetch_depth=self._prefetch, with_qid=self._with_qid,
+                buffer_mb=self._buffer_mb, codec=self._bin_cache_codec,
+                device=self._device)
+        yield from self._binned
 
     def _iter_epoch(self) -> Iterator[PaddedBatch]:
         self._epoch_t0 = time.monotonic()
@@ -538,43 +635,382 @@ class DeviceStagingIter:
         host_iter = _staged_iter(produce_host, self._prefetch,
                                  depth_gauge="pack.queue_depth")
 
-        def produce_device(emit):
-            if self._device.type == "cuda":
-                torch.cuda.set_device(self._device)
-            try:
-                it = iter(host_iter)
-                while True:
-                    t0 = time.monotonic()
-                    w = next(it, None)
-                    t1 = time.monotonic()
-                    prof["host_wait_s"] += t1 - t0
-                    if w is None:
+        yield from _device_feed(self._device, host_iter, self._stage, prof)
+
+
+# ---- RecordStagingIter ------------------------------------------------------
+
+def _parallel_parts_iter(open_part, num_virtual: int, num_workers: int,
+                         reorder: bool, max_buffered: int):
+    """A pool of ``num_workers`` threads over ``num_virtual`` parts, for
+    cursors that exist only per part (the RecordBatcher).
+
+    ``open_part(j)`` yields the items of virtual part ``j``; workers claim
+    parts from a shared cursor and buffer their items per part.
+    reorder=True yields strictly in part order (the part being drained may
+    always buffer, so the in-order drain never stalls the pool);
+    reorder=False yields in arrival order.  Worker exceptions re-raise in
+    the consumer; closing the generator stops the workers."""
+    cond = threading.Condition()
+    parts: dict = {}
+    done: set = set()
+    state = {"next_claim": 0, "emit": 0, "buffered": 0, "stop": False,
+             "error": None}
+
+    def worker():
+        try:
+            while True:
+                with cond:
+                    if (state["stop"] or state["error"] is not None
+                            or state["next_claim"] >= num_virtual):
                         return
-                    item = self._stage(w)
-                    del w
-                    t2 = time.monotonic()
-                    prof["stage_s"] += t2 - t1
-                    ok = emit(item)
-                    t3 = time.monotonic()
-                    prof["emit_wait_s"] += t3 - t2
-                    prof["batches"] += 1
-                    telemetry.counter_add("h2d.wait_us", int((t1 - t0) * 1e6))
-                    telemetry.counter_add("h2d.busy_us", int((t2 - t1) * 1e6))
-                    telemetry.counter_add("h2d.emit_wait_us",
-                                          int((t3 - t2) * 1e6))
-                    telemetry.counter_add("h2d.batches", 1)
-                    if not ok:
+                    j = state["next_claim"]
+                    state["next_claim"] += 1
+                    parts.setdefault(j, [])
+                    cond.notify_all()
+                it = open_part(j)
+                try:
+                    for item in it:
+                        with cond:
+                            while not (state["stop"]
+                                       or state["error"] is not None
+                                       or state["buffered"] < max_buffered
+                                       or (reorder and j == state["emit"])):
+                                cond.wait()
+                            if state["stop"] or state["error"] is not None:
+                                return
+                            parts[j].append(item)
+                            state["buffered"] += 1
+                            cond.notify_all()
+                finally:
+                    it.close()
+                with cond:
+                    done.add(j)
+                    cond.notify_all()
+        except BaseException as e:  # relayed to the consumer
+            with cond:
+                if state["error"] is None:
+                    state["error"] = e
+                cond.notify_all()
+
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(max(num_workers, 1))]
+    for t in threads:
+        t.start()
+    try:
+        while True:
+            with cond:
+                while True:
+                    if state["error"] is not None:
+                        raise state["error"]
+                    if reorder:
+                        j = state["emit"]
+                        if j >= num_virtual:
+                            return
+                        q = parts.get(j)
+                        if q:
+                            item = q.pop(0)
+                            state["buffered"] -= 1
+                            cond.notify_all()
+                            break
+                        if q is not None and j in done:
+                            del parts[j]
+                            done.discard(j)
+                            state["emit"] += 1
+                            # a worker parked on the full-buffer wait may
+                            # have just become the emit part: wake it
+                            cond.notify_all()
+                            continue
+                    else:
+                        got = next((j for j, q in parts.items() if q), None)
+                        if got is not None:
+                            item = parts[got].pop(0)
+                            state["buffered"] -= 1
+                            cond.notify_all()
+                            break
+                        drained = [j for j in parts if j in done]
+                        for j in drained:
+                            del parts[j]
+                            done.discard(j)
+                        if drained:
+                            cond.notify_all()
+                        if state["next_claim"] >= num_virtual and not parts:
+                            return
+                    cond.wait()
+            yield item
+    finally:
+        with cond:
+            state["stop"] = True
+            cond.notify_all()
+        for t in threads:
+            t.join(timeout=10.0)
+
+
+def _pick_virtual_parts(total_bytes: int, num_parts: int,
+                        target_bytes: int = 8 << 20,
+                        lo: int = 8, hi: int = 1024) -> int:
+    """Virtual part count for a Python-level worker pool, the native
+    ShardedParser's formula: a function of the file's size and
+    ``num_parts`` only, never of the worker count, so every worker count
+    covers the file exactly once."""
+    per_part = total_bytes // max(num_parts, 1)
+    return int(min(max((per_part + target_bytes - 1) // target_bytes, lo),
+                   hi))
+
+
+def source_total_bytes(uri: str, split_type: str = "text") -> int:
+    """Bytes of the whole file set a dataset URI names (its input split's
+    total size)."""
+    L = lib()
+    h = ctypes.c_void_p()
+    check(L.DmlcTpuInputSplitCreate(uri.split("#", 1)[0].encode(), b"", 0, 1,
+                                    split_type.encode(), 0, 0, 0,
+                                    ctypes.byref(h)))
+    try:
+        return int(L.DmlcTpuInputSplitTotalSize(h))
+    finally:
+        L.DmlcTpuInputSplitFree(h)
+
+
+@dataclass
+class RecordBatch:
+    """Static-shape packed RecordIO batch on the device.
+
+    ``bytes`` is the concatenated payloads of the batch's records,
+    zero-padded to ``bytes_cap``; record k spans
+    ``bytes[offsets[k]:offsets[k + 1]]`` (a payload the writer split at a
+    magic word comes back whole).  Padding records have empty spans;
+    :meth:`record_mask` marks the real ones.  ``num_records`` is a Python
+    int; ``blocks`` is 1 (a multi-process batch, one block a process, is
+    not ported: ROADMAP A6)."""
+
+    bytes: torch.Tensor              # u8 [bytes_cap]
+    offsets: torch.Tensor            # i32 [records_cap + 1]
+    num_records: int
+    block_num_records: torch.Tensor  # i32 [blocks]
+    blocks: int = 1
+
+    @property
+    def records_cap(self) -> int:
+        return self.offsets.shape[0] // self.blocks - 1
+
+    def spans(self):
+        """(starts, ends) i32 of shape [blocks * records_cap]: record k
+        spans bytes[starts[k]:ends[k]]."""
+        per = self.offsets.reshape(self.blocks, self.records_cap + 1)
+        return per[:, :-1].reshape(-1), per[:, 1:].reshape(-1)
+
+    def record_mask(self) -> torch.Tensor:
+        """bool [blocks * records_cap]: True on real (non-padding) lanes."""
+        lane = torch.arange(self.records_cap, dtype=torch.int32,
+                            device=self.offsets.device)
+        return (lane[None, :]
+                < self.block_num_records[:, None]).reshape(-1)
+
+
+class RecordStagingIter:
+    """Stage a RecordIO file onto ``device`` as fixed-shape packed byte
+    batches (``RecordBatch``), a few batches ahead of the consumer.
+
+    The parameters are the JAX package's: ``uri`` (the same URI sugar and
+    sharding as ``InputSplit``; ``part``/``num_parts``), ``records_cap``
+    (records a batch), ``bytes_cap`` (bytes a batch), ``num_workers`` (> 1:
+    a pool of per-virtual-part native cursors; ``reorder=True`` keeps
+    record order, though batches near a part's end may be packed
+    differently from one worker's: compare the record streams),
+    ``prefetch``/``prefetch_depth`` and ``recover`` (skip corrupt spans,
+    counted in ``record.corrupt_skipped``), plus ``device`` (the card
+    unless the caller asks for the CPU).
+
+    Not ported yet, and refused: ``sharding=`` and
+    ``host_batches_coordinated`` (ROADMAP A6), ``autotune`` (A12, including
+    ``DMLCTPU_AUTOTUNE`` arming it).
+    """
+
+    def __init__(self, uri: str, records_cap: int = 4096,
+                 bytes_cap: int = 1 << 22, part: int = 0, num_parts: int = 1,
+                 sharding=None, prefetch: int = 2, num_workers: int = 1,
+                 reorder: bool = True, prefetch_depth: Optional[int] = None,
+                 recover: bool = False, autotune: Optional[bool] = None,
+                 device="cuda"):
+        self._device = resolve_device(device)
+        if self._device.type == "cuda" and self._device.index is None:
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        if sharding is not None:
+            raise NotImplementedError(
+                "RecordStagingIter(sharding=...) (multi-device and "
+                "multi-process staging) is not ported yet: ROADMAP A6")
+        if autotune or (autotune is None and _autotune_armed()):
+            raise NotImplementedError(
+                "RecordStagingIter autotune (autotune=True or "
+                "DMLCTPU_AUTOTUNE) is not ported yet: ROADMAP A12")
+        self._lib = lib()
+        self._handle = ctypes.c_void_p()
+        self._recover = bool(recover)
+        check(self._lib.DmlcTpuRecordBatcherCreateEx(
+            uri.encode(), part, num_parts, records_cap, bytes_cap,
+            int(self._recover), ctypes.byref(self._handle)))
+        self._uri = uri
+        self._part = part
+        self._num_parts = num_parts
+        self._prefetch = max(prefetch_depth if prefetch_depth is not None
+                             else prefetch, 1)
+        self._records_cap = int(records_cap)
+        self._bytes_cap = int(bytes_cap)
+        self._num_workers = max(int(num_workers), 1)
+        self._reorder = reorder
+        self._virtual_parts = 0  # resolved on the first parallel epoch
+        # every native RecordBatcher (the main cursor and each part's)
+        # counts its reads into the process-wide "record.bytes" counter
+        self._bytes_base = telemetry.counter_get("record.bytes")
+        self._lock = threading.Lock()  # one native cursor per handle
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._ring = None  # the pinned buffers, made on the first epoch
+        self.batches_staged = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def bytes_read(self) -> int:
+        """Bytes read since construction, counted process-wide (other
+        RecordStagingIters in the process count too)."""
+        return telemetry.counter_get("record.bytes") - self._bytes_base
+
+    def close(self) -> None:
+        # serialize with the producer thread, which holds the cursor lock
+        if not self._lock.acquire(timeout=30.0):
+            LOGGER.warning("RecordStagingIter.close: producer still busy; "
+                           "leaking native handle")
+            return
+        try:
+            handle, self._handle = self._handle, ctypes.c_void_p()
+            if handle:
+                try:
+                    self._lib.DmlcTpuRecordBatcherFree(handle)
+                except (AttributeError, TypeError):
+                    pass  # interpreter shutdown already tore down ctypes
+        finally:
+            self._lock.release()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter teardown: module globals may be gone
+            pass
+
+    @staticmethod
+    def _wrap_host(c: RecordBatchC) -> dict:
+        """Host copies of one packed batch (the native buffers are borrowed
+        until the next Next call): the used payload bytes and the
+        offsets."""
+        used = int(c.bytes_used)
+        return {
+            "bytes": np.frombuffer(ctypes.string_at(c.bytes, used),
+                                   dtype=np.uint8),
+            "offsets": np.ctypeslib.as_array(
+                c.offsets, shape=(int(c.records_cap) + 1,)).copy(),
+            "num_records": int(c.num_records),
+        }
+
+    def _resolve_virtual_parts(self) -> int:
+        if self._virtual_parts == 0:
+            self._virtual_parts = _pick_virtual_parts(
+                source_total_bytes(self._uri, "recordio"), self._num_parts)
+        return self._virtual_parts
+
+    def _open_part(self, j: int):
+        """Virtual part ``j`` of this worker's share, on a pool thread,
+        through a native cursor of its own."""
+        V = self._resolve_virtual_parts()
+        h = ctypes.c_void_p()
+        check(self._lib.DmlcTpuRecordBatcherCreateEx(
+            self._uri.encode(), self._part * V + j, self._num_parts * V,
+            self._records_cap, self._bytes_cap, int(self._recover),
+            ctypes.byref(h)))
+        try:
+            c = RecordBatchC()
+            while check(self._lib.DmlcTpuRecordBatcherNext(
+                    h, ctypes.byref(c))) == 1:
+                yield self._wrap_host(c)
+        finally:
+            self._lib.DmlcTpuRecordBatcherFree(h)
+
+    def host_batches_coordinated(self, *args, **kwargs):
+        raise NotImplementedError(
+            "RecordStagingIter.host_batches_coordinated (tracker-coordinated "
+            "shard ownership) is not ported yet: ROADMAP A6")
+
+    def _produce_host(self, emit) -> None:
+        """Drive the native read and pack, emitting host batch dicts."""
+        if self._num_workers > 1:
+            it = _parallel_parts_iter(
+                self._open_part, self._resolve_virtual_parts(),
+                self._num_workers, self._reorder,
+                max_buffered=self._prefetch + self._num_workers)
+            try:
+                for w in it:
+                    if not emit(w):
                         return
             finally:
-                host_iter.close()
+                it.close()
+            return
+        with self._lock:
+            check(self._lib.DmlcTpuRecordBatcherBeforeFirst(self._handle))
+            c = RecordBatchC()
+            while check(self._lib.DmlcTpuRecordBatcherNext(
+                    self._handle, ctypes.byref(c))) == 1:
+                if not emit(self._wrap_host(c)):
+                    return
 
-        for batch, event in _staged_iter(produce_device, 2,
-                                         depth_gauge="h2d.queue_depth"):
-            if event is not None:
-                consumer = torch.cuda.current_stream(self._device)
-                consumer.wait_event(event)
-                for k in _LEAVES:
-                    t = getattr(batch, k)
-                    if t is not None:
-                        t.record_stream(consumer)
-            yield batch
+    def _stage(self, w: dict):
+        """One host batch -> (RecordBatch on the device, the copy's CUDA
+        event or None).  The offsets, the record count and the payload
+        bytes (zero-padded to ``bytes_cap``) go into one host buffer, then
+        to the device in one copy on the iterator's stream."""
+        with telemetry.span("h2d.stage_records"):
+            R, nb = self._records_cap, self._bytes_cap
+            words = R + 2 + (nb + 3) // 4
+            cuda = self._device.type == "cuda"
+            if cuda:
+                slot, host = self._ring.take(words)
+            else:
+                host = torch.empty(words, dtype=torch.int32)
+            flat = host.numpy()
+            flat[:R + 1] = w["offsets"]
+            flat[R + 1] = w["num_records"]
+            raw = flat[R + 2:words].view(np.uint8)
+            used = w["bytes"].shape[0]
+            raw[:used] = w["bytes"]
+            raw[used:] = 0
+            event = None
+            if cuda:
+                with torch.cuda.stream(self._stream):
+                    dev = host[:words].to(self._device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                self._ring.events[slot] = event
+            else:
+                dev = host
+            batch = RecordBatch(
+                bytes=dev[R + 2:words].view(torch.uint8)[:nb],
+                offsets=dev[:R + 1], num_records=int(w["num_records"]),
+                block_num_records=dev[R + 1:R + 2])
+            self.batches_staged += 1
+            return batch, event
+
+    def __iter__(self) -> Iterator[RecordBatch]:
+        """Yield batches on the device; the native read and pack and the
+        staging copy run ahead of the consumer on background threads."""
+        with _observability_scope():
+            yield from self._iter_epoch()
+
+    def _iter_epoch(self) -> Iterator[RecordBatch]:
+        if self._device.type == "cuda" and self._ring is None:
+            self._ring = _PinnedRing(self._prefetch + 2)
+        host_iter = _staged_iter(self._produce_host, self._prefetch,
+                                 depth_gauge="record.queue_depth")
+
+        yield from _device_feed(self._device, host_iter, self._stage)

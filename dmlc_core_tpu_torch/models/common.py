@@ -11,7 +11,8 @@ from ..ops.sparse import padded_row_mean
 
 #: each family's parameter names (the flat dict the JAX package's
 #: ``init()`` returns and its snapshots carry)
-PARAM_KEYS = {"linear": ("b", "w"), "fm": ("b", "v", "w")}
+PARAM_KEYS = {"linear": ("b", "w"), "fm": ("b", "v", "w"),
+              "ffm": ("b", "v", "w")}
 
 
 def logistic_nll(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -58,7 +59,8 @@ def forest_from_numpy(forest_np: dict, device) -> dict:
 def params_from_numpy(family: str, params_np: dict,
                       device) -> dict:
     """The JAX package's flat param dict as numpy arrays (``{"w": [F],
-    "b": []}`` for linear, plus ``"v": [F, K]`` for fm) -> the port's
+    "b": []}`` for linear, plus ``"v": [F, K]`` for fm or ``[F, fields,
+    K]`` for ffm) -> the port's
     module state on ``device``, ready for ``load_state_dict``.  The arrays
     are copied; a 0-d ``b`` stays 0-d.  ``"gbdt"`` is a forest, and goes
     to :func:`forest_from_numpy`."""

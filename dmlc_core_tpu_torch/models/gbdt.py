@@ -11,11 +11,15 @@ inputs.
   bins]`` (grad, hess) histogram (``ops.histogram.histogram_gh``: the
   hand-written CUDA kernel on the card), finds splits with a cumsum and a
   flat argmax over it, and routes rows to the children with a gather;
-* sparse path (``fit_batch``, on a CSR ``PaddedBatch``, no densify): each
-  level's histogram comes from the present entries only
-  (``ops.histogram_sparse``: a hand-written CUDA kernel over a once-a-fit
-  feature-sorted layout), absent cells count as missing, and rows route by
-  a segment-max over their entries;
+* sparse path (``fit_batch``, on a CSR ``PaddedBatch`` or a pre-binned
+  ``BinnedBatch`` from the epoch cache, no densify): each level's histogram
+  comes from the present entries only (``ops.histogram_sparse``: a
+  hand-written CUDA kernel over a once-a-fit feature-sorted layout), absent
+  cells count as missing, and rows route by a segment-max over their
+  entries;
+* out of core (``fit_streamed``): the same trees from a replayable stream
+  of batches (a file, the binned epoch cache, a sequence), with only the
+  rows' state and the sorted layout resident;
 * trees are fixed-depth complete binary heaps in flat arrays, so a forest is
   a dict of tensors with the JAX package's keys, shapes and dtypes.
 
@@ -23,9 +27,8 @@ Sampling below 1.0 (``subsample``, ``colsample_bytree``,
 ``colsample_bylevel``) draws from :mod:`..random`, ``jax.random``'s threefry
 stream bit for bit, so a sampled forest is the JAX package's.
 
-Not ported yet: ``fit_streamed`` and pre-binned ``BinnedBatch`` input
-(ROADMAP A5), and the multi-device histogram route (``histogram_mesh``,
-A6).
+Not ported yet: the multi-device histogram route (``histogram_mesh``,
+ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -1420,11 +1423,22 @@ class GBDT:
 
     def _entry_bins(self, batch, binner: QuantileBinner):
         """(row_id, findex, ebin, emask) of a staged batch on the model's
-        device, the bins from ``binner.transform_entries``."""
+        device.  A pre-binned ``BinnedBatch`` (the binned epoch cache)
+        brings its ``ebin``/``emask``, after its ``cuts_digest`` is checked
+        against the binner's (mixing bin vocabularies would train a wrong
+        forest); a ``PaddedBatch``'s bins come from
+        ``binner.transform_entries``."""
         if hasattr(batch, "ebin"):
-            raise NotImplementedError(
-                "pre-binned BinnedBatch input (the binned epoch cache) is not "
-                "ported yet: ROADMAP A5")
+            digest = getattr(batch, "cuts_digest", "")
+            if digest and binner.cuts is not None \
+                    and digest != binner.cuts_digest():
+                raise ValueError(
+                    f"pre-binned batch was built under cuts {digest} but "
+                    f"the binner holds {binner.cuts_digest()}; rebuild the "
+                    "cache or pass the matching binner")
+            return (self._t(batch.row_ids(), torch.int32),
+                    self._t(batch.index, torch.int32),
+                    self._t(batch.ebin, torch.int32), self._t(batch.emask))
         rid, fi, emask = self._entry_arrays(batch)
         ebin = binner.transform_entries(fi, batch.value)
         return (self._t(rid, torch.int32), self._t(fi, torch.int32),
@@ -1486,6 +1500,201 @@ class GBDT:
         driver = (self._boost_multi if self.objective == "softmax"
                   else self._boost)
         return driver(label, w, build, eval_margin=eval_margin,
+                      eval_label=eval_label, eval_weight=eval_weight,
+                      early_stopping_rounds=early_stopping_rounds)
+
+    @torch.no_grad()
+    def fit_streamed(self, batches, binner: QuantileBinner, eval_set=None,
+                     early_stopping_rounds: int = 0,
+                     staging_options: Optional[dict] = None) -> dict:
+        """Out-of-core training: XGBoost's external-memory mode.
+
+        ``batches`` is a replayable source of staged batches
+        (``PaddedBatch`` or pre-binned ``BinnedBatch``): a dataset URI (a
+        fresh ``DeviceStagingIter`` on the model's device for each replay,
+        with ``staging_options``, e.g. ``dict(batch_size=8192,
+        num_workers=4)`` or ``dict(bin_cache=path, binner=binner)``), a
+        callable returning a fresh iterator, or a sequence.  Every replay
+        must yield the same batches in the same order.
+
+        Residency: the rows' state (label, weight, margins, node ids,
+        grad/hess, a few words a row) stays on the device; the entries are
+        streamed again for each level.  Where a level can take the sparse
+        kernel, the once-a-fit feature-sorted layout (~13 bytes an entry)
+        is resident too: pass 0 gathers the batches' entries on the device
+        and sorts them once, and each kernel level routes the rows in a
+        streamed pass of its own, then runs one kernel launch over the
+        layout.  Levels on ``index_add`` ("xla") add each batch's histogram
+        into the level's in the pass that also routes the previous level,
+        as the JAX package's do.
+
+        The trees are ``fit_batch``'s on the concatenated batches: split
+        finding is shared, and on the card the kernel levels' histograms,
+        node totals and leaf sums are exact fixed-point sums, so the
+        forests are equal bit for bit.  All of ``fit_batch``'s objectives
+        and controls apply (rank:pairwise needs batches staged with
+        ``with_qid=True``); ``eval_set`` is a resident ``PaddedBatch``.
+        Returns the forest dict."""
+        if not (self.missing_aware and binner.missing_aware):
+            raise ValueError("fit_streamed requires missing_aware=True on "
+                             "both the GBDT and the QuantileBinner")
+        if isinstance(batches, str):
+            uri = batches
+            opts = dict(staging_options or {})
+            opts.setdefault("device", self.device)
+            replay = lambda: iter(DeviceStagingIter(uri, **opts))  # noqa: E731
+        elif staging_options is not None:
+            raise ValueError("staging_options only applies when `batches` "
+                             "is a dataset URI string")
+        else:
+            replay = batches if callable(batches) else (lambda: iter(batches))
+
+        # pass 0: the rows' resident state and each batch's row offset,
+        # plus, where a level can take the kernel, the entries on the
+        # device for the once-a-fit sort
+        want_layout = self._sparse_layout_enabled()
+        labels, weights, qids, offsets = [], [], [], [0]
+        ent = ([], [], [], []) if want_layout else None
+        for b in replay():
+            if want_layout:
+                rid_b, fi_b, eb_b, em_b = self._entry_bins(b, binner)
+                ent[0].append(rid_b.to(torch.int64) + offsets[-1])
+                ent[1].append(fi_b)
+                ent[2].append(eb_b)
+                ent[3].append(em_b)
+            labels.append(self._t(b.label, torch.float32))
+            weights.append(self._t(b.weight, torch.float32))
+            if b.qid is not None:
+                qids.append(self._t(b.qid))
+            offsets.append(offsets[-1] + int(b.label.shape[0]))
+        if not labels:
+            raise ValueError("fit_streamed: the batch source is empty")
+        label, w = torch.cat(labels), torch.cat(weights)
+        qid = torch.cat(qids) if len(qids) == len(labels) else None
+        rows = int(label.shape[0])
+        F, B = self.num_features, self.num_bins
+        layout = None
+        if want_layout:
+            layout = self._sparse_fit_layout(*(torch.cat(e) for e in ent))
+            ent = None  # only the sorted layout stays resident
+
+        def stream():
+            """(row offset, the batch's cast entry arrays, its rows)."""
+            for i, b in enumerate(replay()):
+                yield (offsets[i], self._sparse_entries(
+                    *self._entry_bins(b, binner)), int(b.label.shape[0]))
+
+        def routed(node_b, prev, first_prev, e, nb):
+            pf, pb, pd = prev
+            rid, fi, ebin, emask = e
+            rel_p = (node_b - first_prev).to(torch.int64)
+            go_right = self._route_sparse(fi, ebin, emask, rid, pf[rel_p],
+                                          pb[rel_p], pd[rel_p], nb)
+            return 2 * node_b + 1 + go_right.to(torch.int32)
+
+        def route_pass(node, prev, first_prev):
+            # one streamed pass routing every row through prev's splits
+            return torch.cat([routed(node[off:off + nb], prev, first_prev,
+                                     e, nb) for off, e, nb in stream()])
+
+        def build_tree(grad, hess, col_mask, col_key):
+            gh_row = torch.stack([grad, hess], dim=-1).contiguous()
+            leaf_force = self._leaf_impl(grad)
+            # the kernel levels' entry (grad, hess) in layout order, once a
+            # tree; only the rows' node ids change by level
+            gh_e = (entry_gh(gh_row, layout=layout)
+                    if layout is not None else None)
+            node = torch.zeros(rows, dtype=torch.int32, device=self.device)
+            lo = torch.full((1,), -torch.inf, device=self.device)
+            hi = torch.full((1,), torch.inf, device=self.device)
+            active = (torch.ones(1, self._interaction_groups.shape[0],
+                                 dtype=torch.bool, device=self.device)
+                      if self._interaction_groups is not None else None)
+            features, thresholds, defaults, gains, covers = [], [], [], [], []
+            prev = None  # the previous level's (split_f, split_b, split_d)
+            for depth in range(self.max_depth):
+                first = 2 ** depth - 1
+                n_nodes = 2 ** depth
+                impl = (self._hist_impl_sparse(n_nodes)
+                        if layout is not None else "xla")
+                if impl == "pallas":
+                    if prev is not None:
+                        node = route_pass(node, prev, 2 ** (depth - 1) - 1)
+                        prev = None
+                    rel = node - first
+                    hist = self._level_histogram_sparse(layout, rel, gh_row,
+                                                        gh_e, n_nodes)
+                else:
+                    hist = torch.zeros(n_nodes, F, B, 2, device=self.device)
+                    parts = []
+                    for off, e, nb in stream():
+                        node_b = node[off:off + nb]
+                        if prev is not None:
+                            # route through the previous level's splits in
+                            # the pass that accumulates this level
+                            node_b = routed(node_b, prev,
+                                            2 ** (depth - 1) - 1, e, nb)
+                            parts.append(node_b)
+                        hist = hist + histogram_gh_sparse(
+                            *e, node_b - first, gh_row[off:off + nb],
+                            n_nodes, F, B)
+                    if prev is not None:
+                        node = torch.cat(parts)
+                        prev = None
+                    rel = node - first
+                gh_node = segment_sum(gh_row, rel, n_nodes, force=leaf_force)
+                (split_f, split_b, split_d, split_g,
+                 lo, hi, active) = self._level_splits_from_hist(
+                    hist, gh_node, lo, hi, active, col_mask, col_key, depth)
+                features.append(split_f)
+                thresholds.append(split_b)
+                defaults.append(split_d)
+                gains.append(split_g)
+                covers.append(gh_node[:, 1])
+                prev = (split_f, split_b, split_d)
+
+            # the last pass: route through the deepest splits to the leaves
+            node = route_pass(node, prev, 2 ** (self.max_depth - 1) - 1)
+            n_leaves = 2 ** self.max_depth
+            leaf_rel = node - (n_leaves - 1)
+            gh_leaf = segment_sum(gh_row, leaf_rel, n_leaves,
+                                  force=leaf_force)
+            leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
+            if self.monotone_constraints is not None:
+                leaf_w = torch.clamp(leaf_w, lo, hi)
+            leaf = self.learning_rate * leaf_w
+            return (torch.cat(features), torch.cat(thresholds),
+                    torch.cat(defaults), torch.cat(gains), torch.cat(covers),
+                    leaf, leaf_rel)
+
+        eval_margin = eval_label = eval_weight = None
+        if eval_set is not None:
+            ev = self._sparse_entries(*self._entry_bins(eval_set, binner))
+            eval_label = self._t(eval_set.label, torch.float32)
+            eval_weight = self._t(eval_set.weight, torch.float32)
+            ev_rows = eval_label.shape[0]
+            eval_margin = (lambda f, t, d, leaf:
+                           self._tree_margins_sparse_one(
+                               f, t, d, leaf, ev[0], ev[1], ev[2], ev[3],
+                               ev_rows))
+        if self.objective == "rank:pairwise":
+            if qid is None:
+                raise ValueError("rank:pairwise fit_streamed needs batches "
+                                 "staged with_qid=True")
+            grad_hess, eval_loss_fn = self._rank_fns(
+                qid, w,
+                eval_qid=(eval_set.qid if eval_set is not None else None),
+                eval_w=eval_weight, have_eval=eval_set is not None)
+            return self._boost(label, w, build_tree,
+                               eval_margin=eval_margin,
+                               eval_label=eval_label,
+                               eval_weight=eval_weight,
+                               early_stopping_rounds=early_stopping_rounds,
+                               grad_hess=grad_hess,
+                               eval_loss_fn=eval_loss_fn)
+        driver = (self._boost_multi if self.objective == "softmax"
+                  else self._boost)
+        return driver(label, w, build_tree, eval_margin=eval_margin,
                       eval_label=eval_label, eval_weight=eval_weight,
                       early_stopping_rounds=early_stopping_rounds)
 

@@ -28,13 +28,17 @@ Request = Sequence
 
 
 class _Arena:
-    """Recycled host buffer for one (rows, nnz) geometry: the leaves are
-    4-byte slices of one int32 allocation, pinned when the batches go to a
-    CUDA device."""
+    """Recycled host buffer for one (rows, nnz, with_field) geometry: the
+    leaves are 4-byte slices of one int32 allocation, pinned when the
+    batches go to a CUDA device."""
 
-    def __init__(self, rows: int, nnz: int, device: torch.device):
+    def __init__(self, rows: int, nnz: int, with_field: bool,
+                 device: torch.device):
         sizes = [("label", rows), ("weight", rows), ("row_ptr", rows + 1),
                  ("index", nnz), ("value", nnz)]
+        if with_field:
+            sizes.append(("field", nnz))
+        self.field = None
         total = sum(n for _, n in sizes)
         self.buf = torch.zeros(total, dtype=torch.int32,
                                pin_memory=device.type == "cuda")
@@ -62,11 +66,13 @@ class _Arena:
 class ScoringIterator:
     """Packs streams of sparse request rows into bucketed device batches.
 
-    ``pack(rows)`` accepts a list of ``(index, value[, ...])`` tuples (one
-    per scoring row; anything past the values, such as the libffm fields a
-    field-aware model would use, is ignored) and returns a :class:`PaddedBatch`
-    on ``device`` on the row/nnz bucket grid, plus the real row count.  Pad
-    rows carry weight 0 and empty spans, pad lanes value 0.
+    ``pack(rows)`` accepts a list of ``(index, value)`` or ``(index,
+    value, field)`` tuples (one per scoring row) and returns a
+    :class:`PaddedBatch` on ``device`` on the row/nnz bucket grid, plus the
+    real row count.  Pad rows carry weight 0 and empty spans, pad lanes
+    value 0.  With ``with_field=True`` the batch carries the libffm field
+    lane (a row without fields, or a pad lane, has field 0), as a
+    field-aware model needs; without it, fields are ignored.
 
     On the CPU the batch aliases the arena, so it is valid until the next
     ``pack()`` on this iterator (score it before packing again); on a CUDA
@@ -74,9 +80,10 @@ class ScoringIterator:
     """
 
     def __init__(self, max_batch: int = 512, min_nnz: int = 8,
-                 device="cuda"):
+                 with_field: bool = False, device="cuda"):
         self.max_batch = int(max_batch)
         self.min_nnz = int(min_nnz)
+        self.with_field = bool(with_field)
         self.device = resolve_device(device)
         self._arenas: Dict[Tuple[int, int], _Arena] = {}
         self.packs = 0
@@ -97,7 +104,8 @@ class ScoringIterator:
         key = self.geometry(len(rows), total_nnz)
         arena = self._arenas.get(key)
         if arena is None:
-            arena = self._arenas[key] = _Arena(*key, self.device)
+            arena = self._arenas[key] = _Arena(*key, self.with_field,
+                                               self.device)
             telemetry.counter_add("serve.arena_alloc", 1)
         if arena.copied is not None:
             arena.copied.synchronize()  # the previous copy has left
@@ -116,10 +124,15 @@ class ScoringIterator:
             arena.row_ptr[r] = k
             arena.index[k:k + n] = idx
             arena.value[k:k + n] = val
+            if arena.field is not None:
+                arena.field[k:k + n] = (req[2] if len(req) > 2 and
+                                        req[2] is not None else 0)
             k += n
         arena.row_ptr[len(rows):] = k
         arena.index[k:] = 0
         arena.value[k:] = 0.0
+        if arena.field is not None:
+            arena.field[k:] = 0
         dev_buf = to_device_async(arena.buf, self.device)
         if self.device.type == "cuda":
             arena.copied = torch.cuda.Event()

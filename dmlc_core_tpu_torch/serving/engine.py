@@ -79,3 +79,24 @@ class ScoringEngine:
         telemetry.counter_add("serve.score_busy_us",
                               (time.monotonic_ns() - t0) // 1000)
         return res
+
+    @property
+    def device(self) -> torch.device:
+        if self.family == "gbdt":
+            return self.model.device
+        return next(self.model.parameters()).device
+
+    def warmup(self, geometries=((1, 8),)) -> None:
+        """Score one batch of each (rows, nonzeros a row) geometry, so the
+        first live request pays no first-use cost (the kernel's build and
+        load, the allocator's first blocks).  An ``ffm`` engine's batches
+        carry the field lane."""
+        from .bucketing import ScoringIterator
+        it = ScoringIterator(max_batch=max(r for r, _ in geometries),
+                             with_field=self.family == "ffm",
+                             device=self.device)
+        for rows, nnz_per_row in geometries:
+            reqs = [(list(range(nnz_per_row)), [0.5] * nnz_per_row,
+                     [0] * nnz_per_row) for _ in range(rows)]
+            batch, _ = it.pack(reqs)
+            self.score(batch)

@@ -117,13 +117,15 @@ class MicroBatchQueue:
     ``engine_provider`` is read once per micro-batch (the hot-swap seam);
     ``submit(rows)`` returns a Future resolving to ``(scores, digest,
     seq)`` for that request's rows.  Batches are packed for ``device``,
-    which must be the engines' device.
+    which must be the engines' device, with the libffm field lane when
+    ``with_field`` (a field-aware model's engine needs it).
     """
 
     def __init__(self, engine_provider: Callable[[], object],
                  max_batch: Optional[int] = None,
                  max_delay_us: Optional[int] = None,
                  adaptive: Optional[bool] = None,
+                 with_field: bool = False,
                  tune_window_batches: int = 64,
                  device="cuda"):
         self._engine_provider = engine_provider
@@ -135,7 +137,8 @@ class MicroBatchQueue:
         if adaptive is None:
             adaptive = os.environ.get("DMLCTPU_SERVE_ADAPTIVE", "0") \
                 not in ("0", "", "false")
-        self._iter = ScoringIterator(max_batch=4096, device=device)
+        self._iter = ScoringIterator(max_batch=4096, with_field=with_field,
+                                     device=device)
         self._lock = threading.Condition()
         self._pending: deque = deque()  # (rows, future, t_enqueue_ns, ctx)
         self._pending_rows = 0

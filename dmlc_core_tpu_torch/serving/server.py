@@ -78,7 +78,9 @@ def _validate_rows(doc) -> List[Tuple[list, list, Optional[list]]]:
 
 class ScoringServer:
     """Serve scores over HTTP with hot-swapped model snapshots, scoring on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).  A server for
+    ``ffm`` snapshots takes ``with_field=True``: each ``/score`` row then
+    carries a ``"field"`` list beside ``"index"`` and ``"value"``."""
 
     def __init__(self, host: Optional[str] = None,
                  port: Optional[int] = None,
@@ -86,6 +88,7 @@ class ScoringServer:
                  max_batch: Optional[int] = None,
                  max_delay_us: Optional[int] = None,
                  adaptive: Optional[bool] = None,
+                 with_field: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         self.host = host if host is not None \
@@ -101,6 +104,7 @@ class ScoringServer:
                                      max_batch=max_batch,
                                      max_delay_us=max_delay_us,
                                      adaptive=adaptive,
+                                     with_field=with_field,
                                      device=self.device)
         # snapshot channel (0xff9a)
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)

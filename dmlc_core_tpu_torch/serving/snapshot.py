@@ -23,17 +23,15 @@ MAGIC = b"DTSNAP01"
 _U32 = struct.Struct("<I")
 
 _FAMILIES = ("linear", "fm", "ffm", "gbdt")
-_NOT_PORTED = ("ffm",)
 
 
 def family_cls(family: str):
     """The port's model class for a snapshot family."""
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family '{family}' is not yet ported to torch")
     from .. import models
     table = {"linear": models.SparseLinearModel,
-             "fm": models.FactorizationMachine, "gbdt": models.GBDT}
+             "fm": models.FactorizationMachine,
+             "ffm": models.FieldAwareFactorizationMachine,
+             "gbdt": models.GBDT}
     if family not in table:
         raise ValueError(f"unknown model family '{family}' "
                          f"(expected one of {_FAMILIES})")

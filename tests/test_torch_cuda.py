@@ -952,3 +952,130 @@ def test_sampled_forest_draws_on_card_equal_cpu(cuda):
         for d in range(6):
             assert torch.equal(card._level_feature_mask(cm, ck, d, None).cpu(),
                                host._level_feature_mask(hm, hk, d, None))
+
+
+def _libffm(tmp_path, rows=2000, F=500, A=6, seed=0):
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(rows):
+        n = int(rng.integers(1, 12))
+        idx = np.sort(rng.choice(F, n, replace=False))
+        val = rng.uniform(0.1, 2.0, n).astype(np.float32)
+        lines.append(f"{int(rng.integers(0, 2))} " + " ".join(
+            f"{int(rng.integers(0, A))}:{i}:{v:.9g}"
+            for i, v in zip(idx, val)))
+    path = tmp_path / "stage.libffm"
+    path.write_text("\n".join(lines) + "\n")
+    return f"{path}?format=libfm"
+
+
+def test_ffm_train_step_on_card_launches_once_and_matches_cpu(cuda,
+                                                              tmp_path):
+    """An FFM step on the kernel route: exactly 1 segment-sum launch (the
+    linear term; the field-pair sums are index_add), the field lane staged
+    onto the card equal to the CPU iterator's, and the step's params within
+    1e-5 (of the largest |param|) of the same step on the CPU."""
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    from dmlc_core_tpu_torch.models import (FieldAwareFactorizationMachine,
+                                            params_from_numpy)
+    F, A, K = 500, 6, 4
+    uri = _libffm(tmp_path, F=F, A=A)
+    kw = dict(batch_size=256, nnz_bucket=2048, with_field=True)
+    dev_b = next(iter(DeviceStagingIter(uri, **kw)))
+    cpu_b = next(iter(DeviceStagingIter(uri, device="cpu", **kw)))
+    assert dev_b.field.device.type == "cuda"
+    assert torch.equal(dev_b.field.cpu(), cpu_b.field)
+    rng = np.random.default_rng(3)
+    p0 = {"w": (0.1 * rng.standard_normal(F)).astype(np.float32),
+          "v": (0.1 * rng.standard_normal((F, A, K))).astype(np.float32),
+          "b": np.float32(0.1)}
+    models = []
+    for dev, batch in ((cuda, dev_b), ("cpu", cpu_b)):
+        m = FieldAwareFactorizationMachine(F, A, num_factors=K, l2=1e-4,
+                                           learning_rate=0.2,
+                                           sdot_backend="pallas", device=dev)
+        m.load_state_dict(params_from_numpy("ffm", p0, dev))
+        before = ss.segment_sum_kernel.launches
+        m.train_step(batch)
+        torch.cuda.synchronize()
+        if dev == cuda:
+            assert ss.segment_sum_kernel.launches - before == 1
+        models.append(m)
+    for k, v in models[1].state_dict().items():
+        tol = 1e-5 * float(v.abs().max())
+        torch.testing.assert_close(models[0].state_dict()[k].cpu(), v,
+                                   rtol=0, atol=tol)
+
+
+def test_record_staging_on_card_equals_the_reader(cuda, tmp_path):
+    """RecordStagingIter stages every record onto the card (payloads with
+    the magic word included) equal to RecordIOReader's, through its pinned
+    ring, with 1 and 3 workers, under a slow consumer."""
+    import time
+
+    from dmlc_core_tpu_torch.data import RecordStagingIter
+    from dmlc_core_tpu_torch.io import RecordIOReader, RecordIOWriter
+    rng = np.random.default_rng(4)
+    magic = np.uint32(0xCED7230A).tobytes()
+    path = str(tmp_path / "r.rec")
+    with RecordIOWriter(path) as w:
+        for i in range(700):
+            p = rng.bytes(int(rng.integers(0, 3000)))
+            w.write(magic + p + magic if i % 11 == 0 else p)
+    with RecordIOReader(path) as r:
+        want = list(r)
+    for nw in (1, 3):
+        it = RecordStagingIter(path, records_cap=32, bytes_cap=1 << 16,
+                               num_workers=nw, prefetch_depth=2)
+        got, held = [], []
+        for b in it:
+            assert b.bytes.device.type == "cuda"
+            torch.cuda._sleep(1_000_000)
+            held.append(b)
+            time.sleep(0.002)
+        for b in held:
+            raw, offs = b.bytes.cpu().numpy(), b.offsets.cpu().numpy()
+            got += [raw[offs[k]:offs[k + 1]].tobytes()
+                    for k in range(b.num_records)]
+        assert got == want, nw
+        assert all(buf is None or buf.is_pinned() for buf in it._ring.bufs)
+
+
+def test_streamed_forest_on_card_equals_fit_batch(cuda, tmp_path):
+    """fit_streamed from the binned epoch cache on the card: the cache
+    batches equal the CPU's, the fit launches the sparse kernel once a
+    level and the segment sum 4 times a tree (3 node totals, 1 leaf sum),
+    and its forest equals fit_batch's on the same rows resident, bit for
+    bit (exact fixed-point sums over the same layout)."""
+    from dmlc_core_tpu_torch.data import BinnedStagingIter
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    rows, F = 6000, 30
+    batch, f, vals, _ = _sparse_batch(rows, F, cuda, seed=9)
+    rp = batch.row_ptr.cpu().numpy()
+    lab = batch.label.cpu().numpy()
+    path = tmp_path / "s.libsvm"
+    path.write_text("\n".join(
+        f"{int(lab[r])} " + " ".join(f"{i}:{v:.9g}" for i, v in zip(
+            f[rp[r]:rp[r + 1]], vals[rp[r]:rp[r + 1]]))
+        for r in range(rows)) + "\n")
+    binner = QuantileBinner(num_bins=32, missing_aware=True,
+                            device=cuda).fit_sparse(f, vals, F)
+    kw = dict(batch_size=1000, nnz_bucket=4096, cache=str(tmp_path / "c"))
+    it = BinnedStagingIter(str(path), binner, **kw)
+    cpu_it = BinnedStagingIter(str(path), QuantileBinner.from_cuts(
+        binner.cuts.cpu(), 32, missing_aware=True, device="cpu"),
+        device="cpu", **kw)
+    for a, b in zip(it, cpu_it):
+        for k in ("label", "row_ptr", "index", "ebin", "emask"):
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+    model = GBDT(num_features=F, num_trees=4, max_depth=3, num_bins=32,
+                 missing_aware=True, device=cuda)
+    h0, s0 = hs.histogram_gh_sparse_kernel.launches, \
+        ss.segment_sum_kernel.launches
+    streamed = model.fit_streamed(lambda: iter(it), binner)
+    torch.cuda.synchronize()
+    assert hs.histogram_gh_sparse_kernel.launches - h0 == 4 * 3
+    assert ss.segment_sum_kernel.launches - s0 == 4 * 4
+    resident = model.fit_batch(batch, binner)
+    for k in resident:
+        assert torch.equal(streamed[k], resident[k]), k

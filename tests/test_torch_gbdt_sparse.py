@@ -36,6 +36,7 @@ from dmlc_core_tpu.models.gbdt import QuantileBinner as JaxBinner
 from dmlc_core_tpu.ops.sparse import \
     csr_to_dense_missing as jax_csr_to_dense_missing
 from dmlc_core_tpu_torch import telemetry
+from dmlc_core_tpu_torch.data.binned_cache import BinnedBatch
 from dmlc_core_tpu_torch.data.staging import PaddedBatch
 from dmlc_core_tpu_torch.models import GBDT, QuantileBinner, forest_from_numpy
 from dmlc_core_tpu_torch.ops.sparse import csr_to_dense_missing
@@ -421,12 +422,13 @@ def test_not_ported_options_raise():
                                       device="cpu")
     model = GBDT(missing_aware=True, device="cpu", **model_kw)
 
-    class BinnedBatch(PaddedBatch):
-        ebin = None
-
-    binned = BinnedBatch(**{k: getattr(tb, k) for k in (
-        "label", "weight", "row_ptr", "index", "value", "num_rows")})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    # pre-binned batches are taken, but not under another binner's cuts
+    binned = BinnedBatch(
+        label=tb.label, weight=tb.weight, row_ptr=tb.row_ptr,
+        index=tb.index, ebin=binner.transform_entries(
+            tb.index, tb.value).to(torch.uint8),
+        emask=tb.value != 0, num_rows=tb.num_rows, cuts_digest="0" * 16)
+    with pytest.raises(ValueError, match="cuts"):
         model.fit_batch(binned, binner)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         GBDT(num_features=4, histogram_mesh=object(), device="cpu")

@@ -5,6 +5,7 @@ quietly running on the CPU."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,6 +30,12 @@ def _imported_roots(tree):
 def test_port_imports_no_jax_and_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 15
+    # the framework-free modules the port keeps its own copies of, and the
+    # slice-7 modules, are among those checked
+    names = {p.relative_to(REPO).as_posix() for p in sources}
+    assert {"dmlc_core_tpu_torch/io.py", "dmlc_core_tpu_torch/checkpoint.py",
+            "dmlc_core_tpu_torch/models/ffm.py",
+            "dmlc_core_tpu_torch/data/binned_cache.py"} <= names
     bad = []
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -39,9 +46,14 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def _entry_points(tmp_path):
+    from dmlc_core_tpu_torch import checkpoint
     from dmlc_core_tpu_torch import random as prng
-    from dmlc_core_tpu_torch.data import DeviceStagingIter, Parser
+    from dmlc_core_tpu_torch.data import (BinnedStagingIter,
+                                          DeviceStagingIter, Parser,
+                                          RecordStagingIter)
+    from dmlc_core_tpu_torch.io import RecordIOWriter
     from dmlc_core_tpu_torch.models import (GBDT, FactorizationMachine,
+                                            FieldAwareFactorizationMachine,
                                             QuantileBinner, SparseLinearModel)
     from dmlc_core_tpu_torch.serving import (MicroBatchQueue, ScoringEngine,
                                              ScoringIterator, ScoringServer,
@@ -60,6 +72,11 @@ def _entry_points(tmp_path):
     data.write_text("1 0:0.5 2:1.5\n0 1:2\n")
     fields = tmp_path / "rows.libfm"
     fields.write_text("1 0:0:0.5 1:2:1.5\n")
+    records = tmp_path / "rows.rec"
+    with RecordIOWriter(str(records)) as writer:
+        writer.write(b"a record")
+    ckpt = tmp_path / "lin.ckpt"
+    checkpoint.save({"w": np.zeros(4, np.float32)}, str(ckpt))
     with Parser(str(data)) as parser:  # the host parse needs no device
         assert sum(block.size for block in parser) == 2
     return {
@@ -84,6 +101,14 @@ def _entry_points(tmp_path):
             [0, 0], [1.0, 2.0], 1).transform_entries([0], [1.5]),
         "ScoringEngine (gbdt)": lambda: ScoringEngine.from_snapshot_bytes(
             gbdt_snap),
+        "FieldAwareFactorizationMachine": lambda:
+            FieldAwareFactorizationMachine(4, 2),
+        "RecordStagingIter": lambda: RecordStagingIter(str(records)),
+        "BinnedStagingIter": lambda: BinnedStagingIter(
+            str(data), QuantileBinner(num_bins=4, missing_aware=True,
+                                      device="cpu")),
+        "checkpoint.load (like=)": lambda: checkpoint.load(
+            str(ckpt), like={"w": 0}),
     }
 
 
@@ -95,7 +120,10 @@ def _entry_points(tmp_path):
                                   "MicroBatchQueue", "ScoringServer", "GBDT",
                                   "QuantileBinner.transform",
                                   "QuantileBinner.transform_entries",
-                                  "ScoringEngine (gbdt)"])
+                                  "ScoringEngine (gbdt)",
+                                  "FieldAwareFactorizationMachine",
+                                  "RecordStagingIter", "BinnedStagingIter",
+                                  "checkpoint.load (like=)"])
 def test_default_device_raises_without_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -108,8 +108,10 @@ def test_snapshot_rejects_torn_and_unported():
         unpack_snapshot(snap[:-4])
     with pytest.raises(ValueError, match="magic"):
         unpack_snapshot(b"NOTSNAP0" + snap[8:])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pack_snapshot("ffm", {"num_features": F}, {"w": np.zeros(F)})
+    with pytest.raises(ValueError, match="ffm params need keys"):
+        ScoringEngine.from_snapshot_bytes(pack_snapshot(
+            "ffm", {"num_features": F, "num_fields": 2},
+            {"w": np.zeros(F, np.float32)}), device="cpu")
     gbdt = _gbdt_snapshot()
     with pytest.raises(ValueError, match="ends inside the binner"):
         unpack_snapshot(gbdt[:-4])
@@ -405,12 +407,13 @@ def test_torn_push_rejected_and_hot_swap_changes_digest():
         assert doc_b["model"] == snapshot_digest(snap_b)
         assert doc_b["seq"] == 2 and srv._engine.seq == 2
         assert doc_b["scores"] != doc["scores"]
-        # an unported family is rejected and B keeps serving
+        # a snapshot that cannot build its model (an ffm without its
+        # factor table) is rejected and B keeps serving
         bad = jax_pack("ffm", {"num_features": F, "num_fields": 2,
                                "num_factors": 2},
                        {"w": np.zeros(F, np.float32)})
         rep = push_snapshot("127.0.0.1", srv.port, bad, seq=3)
-        assert not rep["ok"] and "not yet ported" in rep["error"]
+        assert not rep["ok"] and "ffm params need keys" in rep["error"]
         assert _score_http(url, rows)["model"] == snapshot_digest(snap_b)
 
 

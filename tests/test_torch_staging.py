@@ -283,8 +283,7 @@ def test_profile_counters_knobs_and_h2d_metrics(libsvm_file):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sharding=object()), "A6"), (dict(bin_cache=True), "A5"),
-    (dict(autotune=True), "A12")])
+    (dict(sharding=object()), "A6"), (dict(autotune=True), "A12")])
 def test_unported_options_raise(libsvm_file, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         DeviceStagingIter(libsvm_file, device="cpu", **kw)
