@@ -40,7 +40,19 @@ float64); an ImageNet-sized RecordIO file staged by ``RecordStagingIter``
 with 1 and 4 workers, every record held to ``RecordIOReader``'s; and the
 FM and the forest checkpointed and loaded back bit for bit (the FFM's
 factor table, one record past the native 2^29-byte limit, raises its
-error).  Any failed check raises and the script exits non-zero.
+error).  Then the observability phase trains one epoch of the FM through
+an autotuned ``DeviceStagingIter`` (a window of 8 batches; every batch held
+to the host parse while the tuner moves the native pool's knobs; its
+decision log, knob paths and stall table beside an untuned epoch), stages
+the RecordIO file under the tuner, holds the HBM gauges to
+``torch.cuda``, stalls a staging epoch under a 1 s watchdog (a flight
+record naming the stage, served at ``/flight``) and reads ``/trace``,
+``/snapshot``, ``/timeseries`` and ``/autotune`` off the FM
+``ScoringServer``; and the job phase runs the port's tracker over two
+local ranks on the one card (rendezvous, ``init_from_env(backend="gloo")``,
+an FM epoch over each rank's half of the file, an all-reduced row count,
+metric pushes) and holds the tracker's job snapshot, trace and time series
+to both ranks.  Any failed check raises and the script exits non-zero.
 The last two lines of its output are the card's name and power limit, and
 one JSON object with ``"ok": true``; the line before them is the
 per-kernel JSON (times, bound, launches on each main path, error against
@@ -1062,7 +1074,7 @@ def phase_training(torch, ss_mod, dev, build_dir: Path) -> dict:
     batch = next(iter(DeviceStagingIter(uri, device=dev, **kw)))
     timings = phase_train_kernel(torch, ss_mod, fm, batch)
     return {"launches": launches, "timings": timings,
-            "steps": step, "model": fm}
+            "steps": step, "model": fm, "uri": uri, "want": want}
 
 
 def phase_train_kernel(torch, ss_mod, fm, batch,
@@ -2926,6 +2938,388 @@ def phase_checkpoints(torch, dev, build_dir: Path, fm, ffm, forest) -> None:
           f"the FFM checkpoint did not raise the native limit: {err!r}")
 
 
+# ---- phase 10: observability and the tuner (slice 8) ------------------------
+
+OBS_WINDOW = 8        # DMLCTPU_AUTOTUNE_WINDOW: batches a tuner window
+OBS_STALL_S = 3.0     # the consumer's sleep on one batch (watchdog at 1 s)
+OBS_ENV = {"DMLCTPU_AUTOTUNE_WINDOW": str(OBS_WINDOW),
+           "DMLCTPU_TIMESERIES": "1", "DMLCTPU_TS_TICK_MS": "100"}
+
+
+def fm_epoch(torch, ss_mod, fm, it, want=None) -> dict:
+    """One epoch of FM train steps over ``it``; with ``want`` (the host
+    packing) every staged batch is copied back and compared on a host
+    thread while the next steps run.  Returns the steps, rows, wall
+    seconds, launches a step and the first mismatches."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(1) if want is not None else None
+    pending, per_step, host_pin = [], [], {}
+    rows = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i, batch in enumerate(it):
+        before = ss_mod.segment_sum_kernel.launches
+        fm.train_step(batch)
+        per_step.append(ss_mod.segment_sum_kernel.launches - before)
+        rows += batch.num_rows
+        if pool is not None:
+            out, ev = copy_back(torch, batch, host_pin, len(pending) % 8)
+            pending.append(pool.submit(compare_back, out, ev,
+                                       batch.num_rows, want[i]))
+            if len(pending) >= 8:
+                pending[-8].result()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    bad = []
+    if pool is not None:
+        bad = [(i, r) for i, f in enumerate(pending) if (r := f.result())]
+        pool.shutdown()
+    return {"steps": len(per_step), "rows": rows, "secs": secs,
+            "per_step": sorted(set(per_step)), "bad": bad,
+            "compared": len(pending)}
+
+
+def phase_observability(torch, ss_mod, dev, build_dir: Path, uri: str,
+                        want: list, params) -> dict:
+    """(a) one epoch of the Criteo-width FM through an autotuned
+    DeviceStagingIter (a window of 8 batches), every batch held to the host
+    parse while the tuner moves knobs, 3 launches a step, its decision log,
+    knob paths and stall table, beside an untuned epoch; (b) the RecordIO
+    file through an autotuned RecordStagingIter, every record held to the
+    reader's; (c) the HBM gauges against torch.cuda; (d) a watchdog stall
+    and its flight record at /flight; (e) /trace, /snapshot, /timeseries
+    and /autotune of the FM ScoringServer."""
+    import os
+
+    from dmlc_core_tpu_torch import autotune, telemetry, telemetry_http
+    from dmlc_core_tpu_torch.data import DeviceStagingIter, RecordStagingIter
+    from dmlc_core_tpu_torch.io import RecordIOReader
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.serving import (ScoringServer, pack_snapshot,
+                                             push_snapshot)
+    t_phase = time.monotonic()
+    os.environ.update(OBS_ENV)
+    kw = dict(batch_size=TRAIN_BATCH, nnz_bucket=TRAIN_NNZ_BUCKET,
+              num_workers=TRAIN_WORKERS, device=dev)
+
+    def new_fm():
+        return FactorizationMachine(NUM_FEATURES, num_factors=NUM_FACTORS,
+                                    sdot_backend="pallas", device=dev).init(0)
+
+    # (a) the untuned epoch, then the tuned one (the main path: counts to 0
+    # just before it, read just after); both copy every batch back and
+    # compare it, so their rows/s pay the same
+    plain_it = DeviceStagingIter(uri, autotune=False, **kw)
+    plain = fm_epoch(torch, ss_mod, new_fm(), plain_it, want)
+    plain_it.close()
+    check(plain["compared"] == len(want) and not plain["bad"],
+          f"untuned batches differ from the host parse: {plain['bad'][:3]}")
+    telemetry.trace_start()
+    it = DeviceStagingIter(uri, autotune=True, **kw)
+    fm = new_fm()
+    log0 = len(autotune.decision_log())
+    ss_mod.segment_sum_kernel.launches = 0
+    with telemetry.window() as w:
+        tuned = fm_epoch(torch, ss_mod, fm, it, want)
+    launches = ss_mod.segment_sum_kernel.launches
+    tuner = it._tuner
+    decisions = autotune.decision_log()[log0:]
+    it.close()
+    check(tuned["compared"] == len(want) and not tuned["bad"],
+          f"autotuned batches differ from the host parse: "
+          f"{tuned['bad'][:3]} ({tuned['compared']} compared)")
+    check(launches == 3 * tuned["steps"] and tuned["per_step"] == [3],
+          f"autotuned epoch: {launches} launches in {tuned['steps']} steps")
+    check(tuner is not None and tuner.windows >= len(want) // OBS_WINDOW
+          and decisions, f"the tuner did not decide: {tuner and tuner.summary()}")
+    print(f"observability [autotuned FM epoch, window {OBS_WINDOW}]: "
+          f"{tuned['compared']} of {len(want)} staged batches equal to the "
+          f"host parse bit for bit; {launches} segment_sum launches in "
+          f"{tuned['steps']} steps ({tuned['per_step']} a step)")
+    for d in decisions:
+        print(f"  autotune {d['boundary']} {d['window']}: {d['action']}"
+              + (f" {d['knob']} {d['frm']} -> {d['to']}" if "knob" in d
+                 else "") + f", {d['mb_s']} MB/s, bound {d['bound_stage']}"
+              + (f", settled {d['settled']}" if "settled" in d else ""))
+    paths = {}
+    for d in decisions:
+        for rec in ([d["settled"]] if "settled" in d else []) + (
+                [d] if "knob" in d else []):
+            if rec["action"] in ("step", "revert"):
+                paths.setdefault(rec["knob"], [rec["frm"]]).append(rec["to"])
+    print("  knob paths: " + ("; ".join(
+        f"{k} " + " -> ".join(map(str, v)) for k, v in paths.items())
+        or "none moved") + f"; final knobs {tuner.summary()['knobs']}")
+    print("  stall attribution of the tuned epoch (bound stage "
+          f"{w.bound_stage}):\n    " + telemetry.format_stall_table(
+              w.attribution).replace("\n", "\n    "))
+    for name, e in (("untuned", plain), ("tuned", tuned)):
+        print(f"  {name} epoch (every batch compared): {e['steps']} steps "
+              f"in {e['secs']:.3f} s, {e['steps'] / e['secs']:.1f} steps/s, "
+              f"{e['rows'] / e['secs']:.0f} rows/s")
+
+    # (b) the RecordIO file through an autotuned RecordStagingIter
+    path = build_dir / f"records_{REC_COUNT}.rec"
+    rit = RecordStagingIter(str(path), records_cap=REC_RECORDS_CAP,
+                            bytes_cap=REC_BYTES_CAP, autotune=True,
+                            device=dev)
+    k = 0
+    t0 = time.monotonic()
+    with RecordIOReader(str(path)) as reader:
+        ref = iter(reader)
+        for b in rit:
+            raw, offs = b.bytes.cpu().numpy(), b.offsets.cpu().numpy()
+            for j in range(b.num_records):
+                check(raw[offs[j]:offs[j + 1]].tobytes() == next(ref),
+                      f"autotuned staged record {k} differs from the "
+                      "reader's")
+                k += 1
+        check(next(ref, None) is None, "the reader has records left")
+    secs = time.monotonic() - t0
+    check(k == REC_COUNT and rit._tuner is not None,
+          f"autotuned RecordStagingIter staged {k} records")
+    print(f"observability [autotuned RecordStagingIter]: {k} of {REC_COUNT} "
+          f"records equal to RecordIOReader's in {secs:.3f} s (with the "
+          f"copies back); tuner {rit._tuner.summary()}")
+    rit.close()
+
+    # (c) the HBM gauges
+    torch.cuda.synchronize()
+    pub = telemetry.resource_sample()
+    in_use, limit = (torch.cuda.memory_allocated(),
+                     torch.cuda.mem_get_info()[1])
+    print(f"observability [resource_sample]: {pub}; "
+          f"torch.cuda.memory_allocated {in_use}, total memory {limit}")
+    check(pub == {"resource.hbm_bytes_in_use": in_use,
+                  "resource.hbm_bytes_limit": limit}
+          and telemetry.gauge_get("resource.hbm_bytes_in_use") == in_use,
+          f"HBM gauges {pub} vs {in_use}, {limit}")
+
+    # (d) a watchdog stall: the consumer sleeps on one batch
+    os.environ["DMLCTPU_WATCHDOG_DEADLINE_S"] = "1"
+    stalls0 = telemetry.watchdog_stall_count()
+    try:
+        with telemetry.capture_logs(min_severity=2) as logs:
+            sit = DeviceStagingIter(uri, **kw)
+            n = 0
+            for i, b in enumerate(sit):
+                n += 1
+                if i == 1:
+                    time.sleep(OBS_STALL_S)
+            sit.close()
+    finally:
+        del os.environ["DMLCTPU_WATCHDOG_DEADLINE_S"]
+    rec = telemetry.last_flight_record()
+    with telemetry_http.serve() as srv:
+        with urllib.request.urlopen(srv.url + "/flight", timeout=30) as r:
+            served = json.loads(r.read())
+    stage = (rec or {}).get("stalled_stage")
+    print(f"observability [watchdog, deadline 1 s, a {OBS_STALL_S:.0f} s "
+          f"sleep on batch 2 of {n}]: {telemetry.watchdog_stall_count() - stalls0}"
+          f" stall(s), flight record stalled stage {stage!r}, "
+          f"reason {(rec or {}).get('reason')!r}; log: "
+          f"{logs[0][2][:160] if logs else None!r}")
+    check(telemetry.watchdog_stall_count() > stalls0 and rec and stage,
+          f"no flight record named a stalled stage: {rec and rec.keys()}")
+    check(served.get("stalled_stage") == stage
+          and served.get("stall_count") == rec.get("stall_count"),
+          "/flight did not return the stall's flight record")
+
+    # (e) the endpoints of the FM ScoringServer
+    cfg = {"num_features": NUM_FEATURES, "num_factors": NUM_FACTORS,
+           "sdot_backend": "pallas"}
+    rng = np.random.default_rng(12)
+    with ScoringServer(device=dev) as server:
+        url = f"http://127.0.0.1:{server.http_port}"
+        rep = push_snapshot("127.0.0.1", server.port,
+                            pack_snapshot("fm", cfg, params, seq=1), seq=1)
+        check(rep.get("ok"), f"snapshot push: {rep}")
+        telemetry.trace_start()
+        for n_rows in (1, 7, 64):
+            rows = criteo_rows(rng, n_rows)
+            doc, _ = post_score(url, rows)
+            err = float(np.abs(np.asarray(doc["scores"], np.float64)
+                               - fm_oracle(params, rows)).max())
+            check(err <= TOL, f"/score error {err}")
+        with urllib.request.urlopen(url + "/trace", timeout=30) as r:
+            text = r.read().decode()
+        names = {e["name"] for e in json.loads(text)["traceEvents"]}
+        got = {}
+        for p in ("/snapshot", "/timeseries", "/autotune"):
+            with urllib.request.urlopen(url + p, timeout=30) as r:
+                got[p] = (r.status, r.headers["Content-Type"],
+                          json.loads(r.read()))
+    telemetry.trace_stop()
+    serve_spans = sorted(n for n in names if n.startswith("serve."))
+    print(f"observability [ScoringServer endpoints]: /trace {len(text)} "
+          f"bytes, valid by json_validate: {telemetry.json_validate(text)}, "
+          f"serve spans {serve_spans}; " + ", ".join(
+              f"{p} {s} {t}" for p, (s, t, _) in got.items())
+          + f"; /timeseries holds {len(got['/timeseries'][2]['series'])} "
+          f"series; /autotune {len(got['/autotune'][2]['decisions'])} "
+          "decisions")
+    check(telemetry.json_validate(text)
+          and {"serve.request", "serve.device"} <= set(serve_spans),
+          f"/trace: valid {telemetry.json_validate(text)}, {serve_spans}")
+    check(all(s == 200 and t == "application/json"
+              for s, t, _ in got.values())
+          and got["/autotune"][2]["decisions"], f"endpoints: {got}")
+    for key in OBS_ENV:
+        del os.environ[key]
+    secs = time.monotonic() - t_phase
+    print(f"observability: phase {secs:.1f} s")
+    return {"launches": launches, "steps": tuned["steps"], "secs": secs}
+
+
+# ---- phase 11: a 2-rank job on the one card (slice 8) -----------------------
+
+JOB_WORKER = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from dmlc_core_tpu_torch import parallel, telemetry
+from dmlc_core_tpu_torch.data import DeviceStagingIter
+from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.ops import segment_sum as ss_mod
+from dmlc_core_tpu_torch.tracker import WorkerClient, metrics
+
+uri, out, batch, bucket, nf, k = sys.argv[2], sys.argv[3], *map(int, sys.argv[4:8])
+client = WorkerClient().start(world_size=int(os.environ["DMLC_NUM_WORKER"]))
+# two ranks share one card: NCCL refuses that, gloo does not
+info = parallel.init_from_env(backend="gloo")
+dev = torch.device("cuda", 0)
+telemetry.trace_start()
+with telemetry.timeseries_from_env():  # held until the final push
+    it = DeviceStagingIter(uri, batch_size=batch, nnz_bucket=bucket,
+                           num_workers=2, part=info.task_id,
+                           num_parts=info.num_workers, device=dev)
+    fm = FactorizationMachine(nf, num_factors=k, sdot_backend="pallas",
+                              device=dev).init(0)
+    ss_mod.segment_sum_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rows = steps = 0
+    for b in it:
+        fm.train_step(b)
+        rows += b.num_rows
+        steps += 1
+        if steps == 1:  # the process's first step: its warm-up
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+    torch.cuda.synchronize()
+    secs, first = time.monotonic() - t0, t1 - t0
+    launches = ss_mod.segment_sum_kernel.launches
+    it.close()
+    total = torch.tensor([rows], dtype=torch.int64)
+    dist.all_reduce(total)
+    telemetry.trace_stop()
+    # a probe push, then the final one: the clock offset the first
+    # measures rides the second
+    metrics.ensure_pusher().push()
+    metrics.stop_pusher(final_push=True)
+dist.destroy_process_group()
+client.shutdown()
+with open(out, "w") as f:
+    json.dump({"task_id": info.task_id, "rabit_rank": client.rank,
+               "rows": rows, "total": int(total), "steps": steps,
+               "secs": secs, "first": first, "launches": launches}, f)
+"""
+JOB_RANKS = 2
+JOB_TIMEOUT_S = 180
+
+
+def phase_job(torch, dev, build_dir: Path, uri: str) -> dict:
+    """The port's tracker runs a 2-rank local job on the one card: each rank
+    rendezvouses (WorkerClient), joins a gloo process group from the DMLC_*
+    contract (init_from_env), trains the FM over its half of the training
+    file with the trace and time series on, all-reduces its row count,
+    pushes its telemetry and shuts down; the tracker's job views hold both
+    ranks."""
+    import os
+
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.tracker import submit
+    t_job = time.monotonic()
+    t_start = telemetry.now_us()
+    procs, outs = [], []
+
+    def spawn(num_workers, num_servers, envs):
+        # the local backend's contract (tracker/launchers/local.py)
+        for rank in range(num_workers):
+            out = build_dir / f"job_rank{rank}.json"
+            out.unlink(missing_ok=True)
+            outs.append(out)
+            env = dict(os.environ, **{k: str(v) for k, v in envs.items()},
+                       DMLC_ROLE="worker", DMLC_TASK_ID=str(rank),
+                       DMLC_JOB_CLUSTER="local", DMLCTPU_TIMESERIES="1",
+                       DMLCTPU_TS_TICK_MS="100")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", JOB_WORKER, str(REPO), uri, str(out),
+                 str(TRAIN_BATCH), str(TRAIN_NNZ_BUCKET), str(NUM_FEATURES),
+                 str(NUM_FACTORS)], env=env))
+
+    tracker = submit(JOB_RANKS, 0, spawn, host_ip="127.0.0.1")
+    try:
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        while tracker.alive():
+            failed = [p.returncode for p in procs
+                      if p.poll() not in (None, 0)]
+            check(not failed, f"a job rank failed: {failed}")
+            check(time.monotonic() < deadline, "the job timed out")
+            time.sleep(0.1)
+        for p in procs:
+            check(p.wait(timeout=60) == 0, f"a rank exited {p.returncode}")
+        wall = time.monotonic() - t_job
+        t_end = telemetry.now_us()
+        snap = tracker.job_snapshot()
+        trace = tracker.job_trace()
+        series = tracker.metrics.job_timeseries()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        tracker.stop()
+    ranks = [json.loads(o.read_text()) for o in outs]
+    for r in ranks:
+        rest = r["secs"] - r["first"]
+        print(f"job rank {r['task_id']} (rabit rank {r['rabit_rank']}): "
+              f"{r['steps']} FM steps, {r['rows']} rows in {r['secs']:.3f} s "
+              f"({r['steps'] / r['secs']:.1f} steps/s); the first step "
+              f"{r['first']:.3f} s (the process's warm-up), the other "
+              f"{r['steps'] - 1} at {(r['steps'] - 1) / rest:.1f} steps/s; "
+              f"{r['launches']} segment_sum launches; all-reduced rows "
+              f"{r['total']}")
+        check(r["total"] == TRAIN_ROWS,
+              f"rank {r['task_id']}: all-reduced {r['total']} rows")
+        check(r["launches"] == 3 * r["steps"],
+              f"rank {r['task_id']}: {r['launches']} launches in "
+              f"{r['steps']} steps")
+    check(sum(r["rows"] for r in ranks) == TRAIN_ROWS, "ranks' rows")
+    pids = {e["pid"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    od = trace["otherData"]
+    spans = [e for e in trace["traceEvents"]
+             if e.get("ph") == "X" and e["pid"] in (0, 1)]
+    inside = all(t_start <= e["ts"] <= t_end for e in spans)
+    fleet = snap["fleet"]["counters"]
+    print(f"job: {JOB_RANKS} ranks, wall {wall:.1f} s (tracker up to "
+          f"every rank's exit); job_snapshot hosts {sorted(snap['hosts'])}, "
+          f"fleet h2d.batches {fleet.get('h2d.batches')}; job_trace pids "
+          f"{sorted(pids)}, spans per rank {od['spans_per_host']}, clock "
+          f"offsets {od['offsets_us']} us, every rank span inside the "
+          f"tracker's window: {inside}; job_timeseries hosts "
+          f"{sorted(series['hosts'])} ({series['num_hosts']})")
+    check(sorted(snap["hosts"]) == [0, 1] and snap["num_hosts"] == 2,
+          f"job_snapshot hosts {sorted(snap['hosts'])}")
+    check({0, 1} <= pids and set(od["offsets_us"]) >= {"0", "1"} and inside,
+          f"job_trace: pids {pids}, offsets {od['offsets_us']}, inside "
+          f"{inside}")
+    check(sorted(series["hosts"]) == ["0", "1"],
+          f"job_timeseries hosts {sorted(series['hosts'])}")
+    return {"launches": sum(r["launches"] for r in ranks),
+            "steps": sum(r["steps"] for r in ranks), "wall": wall}
+
+
 # ---- --geometry-sweep: the dense kernel's launch geometry -------------------
 
 SWEEP_GROUPS = (1, 3, 7, 14, 28)        # features a block takes
@@ -3252,6 +3646,9 @@ def main(argv) -> int:
     phase_records(torch, dev, build_dir)
     phase_checkpoints(torch, dev, build_dir, train["model"], ffm["model"],
                       sparse["forest"])
+    obs = phase_observability(torch, ss_mod, dev, build_dir, train["uri"],
+                              train.pop("want"), params_a)
+    job = phase_job(torch, dev, build_dir, train["uri"])
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
     node, root = sparse["node_totals"], sparse["root_totals"]
@@ -3294,9 +3691,11 @@ def main(argv) -> int:
         "shape": f"FM training step, {TRAIN_BATCH} rows x {NNZ_PER_ROW} "
                  f"nonzeros ({train['timings'][lanes]['nnz']} entries with "
                  f"the padding lanes), L={lanes}; launches: the training "
-                 f"run's ({train['steps']} steps, one L=1 and two "
-                 f"L={NUM_FACTORS} a step)",
-        "launches": train["launches"],
+                 f"run's ({train['steps']} steps), the autotuned epoch's "
+                 f"({obs['steps']} steps) and the 2-rank job's "
+                 f"({job['steps']} steps), one L=1 and two L={NUM_FACTORS} "
+                 "a step",
+        "launches": train["launches"] + obs["launches"] + job["launches"],
         "max_abs_err": train["timings"][lanes]["max_abs_err"],
         **{k: train["timings"][lanes][k] for k in keys},
     } for lanes in (1, NUM_FACTORS)] + [{

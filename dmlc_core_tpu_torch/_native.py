@@ -3,7 +3,8 @@
 The C++ runtime under ``cpp/`` depends on no framework; both Python
 packages bind the same library through its C API
 (``cpp/include/dmlctpu/c_api.h``).  This loader declares only the
-functions the port calls: telemetry, the stall watchdog and time-series
+functions the port calls: telemetry (the registry, the trace buffer,
+flight records, the log sink), the stall watchdog and time-series
 sampler, fault injection, the row parser (``data.rowblock``), the staged
 and record batchers (``data.staging``), the input split, RecordIO, streams
 and file system calls (``io``), and the binned epoch cache with its block
@@ -94,6 +95,10 @@ class RecordBatchC(ctypes.Structure):
         ("offsets", ctypes.POINTER(ctypes.c_int32)),
     ]
 
+
+#: the native log sink's signature: (severity, where, message)
+LOG_CALLBACK_TYPE = ctypes.CFUNCTYPE(
+    None, ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p)
 
 NO_FIELD = (1 << 64) - 1  # field_off / qid_off when the batch lacks the lane
 
@@ -198,6 +203,26 @@ def _declare(L: ctypes.CDLL) -> None:
         "DmlcTpuTimeseriesStart": ([ctypes.c_int64] * 4, ctypes.c_int),
         "DmlcTpuTimeseriesStop": ([], ctypes.c_int),
         "DmlcTpuTimeseriesActive": ([intp], ctypes.c_int),
+        # the rest of the telemetry surface (telemetry, faultinject)
+        "DmlcTpuTelemetryEnabled": ([intp], ctypes.c_int),
+        "DmlcTpuTelemetryReset": ([], ctypes.c_int),
+        "DmlcTpuTelemetryGaugeAdd": ([ctypes.c_char_p, ctypes.c_int64],
+                                     ctypes.c_int),
+        "DmlcTpuTelemetryGaugeGet": ([ctypes.c_char_p, i64p], ctypes.c_int),
+        "DmlcTpuTelemetryTraceStart": ([], ctypes.c_int),
+        "DmlcTpuTelemetryTraceStop": ([], ctypes.c_int),
+        "DmlcTpuTelemetryTraceDumpJson": ([c_char_pp], ctypes.c_int),
+        "DmlcTpuJsonValidate": ([cstr, intp], ctypes.c_int),
+        "DmlcTpuFlightRecordJson": ([cstr, c_char_pp], ctypes.c_int),
+        "DmlcTpuWatchdogLastRecordJson": ([c_char_pp], ctypes.c_int),
+        "DmlcTpuTimeseriesSample": ([], ctypes.c_int),
+        "DmlcTpuTimeseriesJson": ([c_char_pp], ctypes.c_int),
+        "DmlcTpuTimeseriesTailJson": ([ctypes.c_int, c_char_pp],
+                                      ctypes.c_int),
+        "DmlcTpuLogSetCallback": ([LOG_CALLBACK_TYPE], ctypes.c_int),
+        "DmlcTpuFaultCompiledIn": ([intp], ctypes.c_int),
+        "DmlcTpuFaultSnapshotJson": ([c_char_pp], ctypes.c_int),
+        "DmlcTpuFaultInjectedTotal": ([i64p], ctypes.c_int),
         # the row parser (data.rowblock.Parser)
         "DmlcTpuParserCreateEx": ([cstr, ctypes.c_uint, ctypes.c_uint, cstr,
                                    ctypes.c_int, ctypes.c_int, u64, vpp],
@@ -315,3 +340,32 @@ def check(status: int) -> int:
         msg = lib().DmlcTpuGetLastError()
         raise NativeError((msg or b"").decode(errors="replace"))
     return status
+
+
+# Keeps the installed ctypes callback alive: native threads call it long
+# after set_log_callback returns, and collecting the CFUNCTYPE wrapper
+# while the native side holds its address is a use-after-free.
+_log_callback_keepalive = None
+
+
+def set_log_callback(fn) -> None:
+    """Install ``fn(severity, where, message)`` as the process-wide native
+    log sink (replacing the stderr sink), or restore stderr with ``None``.
+    Called from native threads; a sink that raises is ignored."""
+    global _log_callback_keepalive
+    if fn is None:
+        check(lib().DmlcTpuLogSetCallback(
+            ctypes.cast(None, LOG_CALLBACK_TYPE)))
+        _log_callback_keepalive = None
+        return
+
+    def _trampoline(severity, where, message):
+        try:
+            fn(int(severity), (where or b"").decode(errors="replace"),
+               (message or b"").decode(errors="replace"))
+        except Exception:
+            pass  # a raising sink must never take down a native worker
+
+    cb = LOG_CALLBACK_TYPE(_trampoline)
+    check(lib().DmlcTpuLogSetCallback(cb))
+    _log_callback_keepalive = cb  # replace after install: the old may be live

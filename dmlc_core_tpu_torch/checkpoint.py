@@ -45,7 +45,7 @@ def _single_process(what: str) -> None:
         raise NotImplementedError(
             f"checkpoint.{what} in a multi-process run (the allgather of "
             "sharded leaves and the writer's status sync) is not ported "
-            "yet: ROADMAP A6")
+            "yet: ROADMAP A6b")
 
 
 def _flatten(tree: Any, leaves: list) -> str:

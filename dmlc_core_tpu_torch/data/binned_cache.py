@@ -45,12 +45,13 @@ from typing import Iterator, Optional, Union
 import numpy as np
 import torch
 
+from .. import autotune as _autotune
 from .. import telemetry
 from .._device import resolve_device
 from .._native import NativeError, StagedBatchOwnedC, check, lib
-from .staging import (DeviceStagingIter, _autotune_armed, _device_feed,
-                      _observability_scope, _pick_virtual_parts, _PinnedRing,
-                      _staged_iter, source_total_bytes)
+from .staging import (DeviceStagingIter, _device_feed, _pick_virtual_parts,
+                      _PinnedRing, _staged_iter, _tuned_epoch,
+                      source_total_bytes)
 
 LOGGER = logging.getLogger("dmlc_core_tpu_torch.binned_cache")
 
@@ -767,9 +768,14 @@ class BinnedStagingIter:
     cache's cuts into the binner (digest-checked), so a fresh process skips
     the sketch.
 
+    ``autotune=True`` (or ``DMLCTPU_AUTOTUNE`` when None) attaches the
+    tuner; a cache epoch has no parse stage, so it moves
+    ``prefetch_depth`` only, from the next epoch.  (The JAX package's
+    ``BinnedStagingIter`` takes no ``autotune`` argument and never arms
+    its tuner hook.)
+
     Not ported yet, and refused: ``sharding=`` and
-    ``host_blocks_coordinated`` (ROADMAP A6), ``autotune`` (A12, including
-    ``DMLCTPU_AUTOTUNE`` arming it).
+    ``host_blocks_coordinated`` (ROADMAP A6b).
     """
 
     def __init__(self, uri: str, binner, cache: Optional[str] = None,
@@ -786,11 +792,10 @@ class BinnedStagingIter:
         if sharding is not None:
             raise NotImplementedError(
                 "BinnedStagingIter(sharding=...) (multi-device staging) is "
-                "not ported yet: ROADMAP A6")
-        if autotune or (autotune is None and _autotune_armed()):
-            raise NotImplementedError(
-                "BinnedStagingIter autotune (autotune=True or "
-                "DMLCTPU_AUTOTUNE) is not ported yet: ROADMAP A12")
+                "not ported yet: ROADMAP A6b")
+        self._autotune = bool(_autotune.armed() if autotune is None
+                              else autotune)
+        self._tuner = None  # the AutoTuner, attached on the first epoch
         self._uri = uri
         self._binner = binner
         self._cache_path = cache or uri.split("#", 1)[0] + ".bincache"
@@ -930,7 +935,7 @@ class BinnedStagingIter:
     def host_blocks_coordinated(self, *args, **kwargs):
         raise NotImplementedError(
             "BinnedStagingIter.host_blocks_coordinated (tracker-coordinated "
-            "shard ownership) is not ported yet: ROADMAP A6")
+            "shard ownership) is not ported yet: ROADMAP A6b")
 
     def _produce_host(self, emit) -> None:
         pad_bin = int(self._meta.get("pad_bin", 1))
@@ -1076,9 +1081,20 @@ class BinnedStagingIter:
             self.batches_staged += 1
             return batch, event
 
+    @property
+    def knobs(self) -> dict:
+        return {"prefetch_depth": self._prefetch}
+
+    def set_knobs(self, prefetch_depth: Optional[int] = None,
+                  **_ignored) -> dict:
+        """Retune the prefetch depth from the next epoch; the parse-side
+        knobs are accepted and ignored (a cache epoch parses nothing)."""
+        if prefetch_depth is not None:
+            self._prefetch = max(int(prefetch_depth), 1)
+        return dict(self.knobs, pool_live=False)
+
     def __iter__(self) -> Iterator[BinnedBatch]:
-        with _observability_scope():
-            yield from self._iter_epoch()
+        yield from _tuned_epoch(self, self._iter_epoch)
 
     def _iter_epoch(self) -> Iterator[BinnedBatch]:
         with self._lock:

@@ -41,7 +41,6 @@ import contextlib
 import ctypes
 import dataclasses
 import logging
-import os
 import queue
 import threading
 import time
@@ -53,8 +52,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import autotune as _autotune
 from .. import telemetry
 from .._device import resolve_device
+from ..tracker import metrics as _tracker_metrics
 from .._native import NO_FIELD, RecordBatchC, StagedBatchOwnedC, check, lib
 
 LOGGER = logging.getLogger("dmlc_core_tpu_torch.staging")
@@ -153,15 +154,31 @@ def to_device_async(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 # ---- DeviceStagingIter ------------------------------------------------------
 
 def _observability_scope():
-    """Arm the env-configured time-series sampler and stall watchdog for an
-    epoch (no-ops without ``DMLCTPU_TIMESERIES`` /
-    ``DMLCTPU_WATCHDOG_DEADLINE_S``).  The JAX package also starts the
-    tracker's metrics pusher here; that comes with the tracker (ROADMAP
-    A6), and the JAX package runs without it too."""
+    """Start the tracker's metrics pusher (once a process) and arm the
+    env-configured time-series sampler and stall watchdog for an epoch:
+    no-ops without ``DMLC_TRACKER_METRICS_PORT``, ``DMLCTPU_TIMESERIES``
+    and ``DMLCTPU_WATCHDOG_DEADLINE_S``.  A worker launched under a tracker
+    then reports without touching user code."""
+    _tracker_metrics.ensure_pusher()
     scope = contextlib.ExitStack()
     scope.enter_context(telemetry.timeseries_from_env())
     scope.enter_context(telemetry.watchdog_from_env())
     return scope
+
+
+def _tuned_epoch(it, epoch):
+    """One epoch of ``epoch()``'s batches under the observability scope and,
+    when ``it`` is armed, its autotuner: the epoch is one measured window
+    (and, with a window size, each run of that many batches one more)."""
+    with _observability_scope():
+        tuner = _autotune.maybe_attach(it)
+        if tuner is None:
+            yield from epoch()
+            return
+        with tuner.epoch():
+            for batch in epoch():
+                yield batch
+                tuner.on_batch()
 
 
 def _staged_iter(produce, prefetch: int, depth_gauge: Optional[str] = None):
@@ -285,12 +302,6 @@ def _device_feed(device: torch.device, host_iter, stage, prof=None):
         yield batch
 
 
-def _autotune_armed() -> bool:
-    """``DMLCTPU_AUTOTUNE`` as the JAX package's autotuner reads it."""
-    return os.environ.get("DMLCTPU_AUTOTUNE", "0").lower() in (
-        "1", "true", "yes", "on")
-
-
 # the staged leaves in their order in a host buffer; all are 4 bytes a value
 _LEAVES = ("label", "weight", "row_ptr", "index", "value", "field", "qid")
 F32_LEAVES = ("label", "weight", "value")  # the rest are int32
@@ -339,9 +350,14 @@ class DeviceStagingIter:
     (``binned_cache.BinnedStagingIter``, built on first use) instead of
     parsing text.
 
+    ``autotune=True`` (or ``DMLCTPU_AUTOTUNE`` when ``autotune`` is None)
+    attaches the stall-attribution tuner (``dmlc_core_tpu_torch.autotune``),
+    which moves :attr:`knobs` through :meth:`set_knobs` between batches;
+    the native pool keeps the stream, so every batch stays an untuned
+    epoch's.
+
     Not ported yet, and refused: ``sharding=`` and multi-process assembly
-    (ROADMAP A6) and ``autotune`` (A12, including ``DMLCTPU_AUTOTUNE``
-    arming it).
+    (ROADMAP A6b).
     """
 
     def __init__(self, uri: str, batch_size: int = 4096,
@@ -362,19 +378,23 @@ class DeviceStagingIter:
         if sharding is not None:
             raise NotImplementedError(
                 "DeviceStagingIter(sharding=...) (multi-device and "
-                "multi-process staging) is not ported yet: ROADMAP A6")
+                "multi-process staging) is not ported yet: ROADMAP A6b")
         if bin_cache is not None and binner is None:
             raise ValueError("bin_cache= needs binner= (a QuantileBinner)")
-        if autotune or (autotune is None and _autotune_armed()):
-            raise NotImplementedError(
-                "DeviceStagingIter autotune (autotune=True or "
-                "DMLCTPU_AUTOTUNE) is not ported yet: ROADMAP A12")
+        self._autotune = bool(_autotune.armed() if autotune is None
+                              else autotune)
+        self._tuner = None  # the AutoTuner, attached on the first epoch
+        nw = int(num_workers)
+        if self._autotune and nw <= 1:
+            # a one-worker pool emits the single reader's stream and stays
+            # retunable; a negative count forces the pool
+            nw = -1
         self._lib = lib()
         self._handle = ctypes.c_void_p()
         check(self._lib.DmlcTpuStagedBatcherCreateEx(
             uri.encode(), part, num_parts, format.encode(),
             batch_size, nnz_bucket, nnz_max, int(with_field), int(with_qid),
-            int(num_workers), int(reorder), int(buffer_mb) << 20,
+            nw, int(reorder), int(buffer_mb) << 20,
             ctypes.byref(self._handle)))
         self._uri = uri
         self._part = part
@@ -578,13 +598,12 @@ class DeviceStagingIter:
         """Yield batches on the device; parse/pack (native) and the staging
         copy (a background thread) run ahead of the consumer.  The epoch
         runs under the env-configured stall watchdog and time-series
-        sampler.  With ``bin_cache=`` set, yields ``BinnedBatch``es from
-        the binned epoch cache instead."""
+        sampler, and the tuner when armed.  With ``bin_cache=`` set,
+        yields ``BinnedBatch``es from the binned epoch cache instead."""
         if self._bin_cache is not None:
             yield from self._binned_delegate()
             return
-        with _observability_scope():
-            yield from self._iter_epoch()
+        yield from _tuned_epoch(self, self._iter_epoch)
 
     def _binned_delegate(self):
         """Every epoch from the binned epoch cache, through one
@@ -782,7 +801,7 @@ class RecordBatch:
     magic word comes back whole).  Padding records have empty spans;
     :meth:`record_mask` marks the real ones.  ``num_records`` is a Python
     int; ``blocks`` is 1 (a multi-process batch, one block a process, is
-    not ported: ROADMAP A6)."""
+    not ported: ROADMAP A6b)."""
 
     bytes: torch.Tensor              # u8 [bytes_cap]
     offsets: torch.Tensor            # i32 [records_cap + 1]
@@ -818,13 +837,14 @@ class RecordStagingIter:
     a pool of per-virtual-part native cursors; ``reorder=True`` keeps
     record order, though batches near a part's end may be packed
     differently from one worker's: compare the record streams),
-    ``prefetch``/``prefetch_depth`` and ``recover`` (skip corrupt spans,
-    counted in ``record.corrupt_skipped``), plus ``device`` (the card
-    unless the caller asks for the CPU).
+    ``prefetch``/``prefetch_depth``, ``recover`` (skip corrupt spans,
+    counted in ``record.corrupt_skipped``) and ``autotune`` (the tuner,
+    armed by ``DMLCTPU_AUTOTUNE`` when None; it moves ``num_workers`` and
+    ``prefetch_depth``, both from the next epoch), plus ``device`` (the
+    card unless the caller asks for the CPU).
 
     Not ported yet, and refused: ``sharding=`` and
-    ``host_batches_coordinated`` (ROADMAP A6), ``autotune`` (A12, including
-    ``DMLCTPU_AUTOTUNE`` arming it).
+    ``host_batches_coordinated`` (ROADMAP A6b).
     """
 
     def __init__(self, uri: str, records_cap: int = 4096,
@@ -839,11 +859,10 @@ class RecordStagingIter:
         if sharding is not None:
             raise NotImplementedError(
                 "RecordStagingIter(sharding=...) (multi-device and "
-                "multi-process staging) is not ported yet: ROADMAP A6")
-        if autotune or (autotune is None and _autotune_armed()):
-            raise NotImplementedError(
-                "RecordStagingIter autotune (autotune=True or "
-                "DMLCTPU_AUTOTUNE) is not ported yet: ROADMAP A12")
+                "multi-process staging) is not ported yet: ROADMAP A6b")
+        self._autotune = bool(_autotune.armed() if autotune is None
+                              else autotune)
+        self._tuner = None  # the AutoTuner, attached on the first epoch
         self._lib = lib()
         self._handle = ctypes.c_void_p()
         self._recover = bool(recover)
@@ -941,7 +960,7 @@ class RecordStagingIter:
     def host_batches_coordinated(self, *args, **kwargs):
         raise NotImplementedError(
             "RecordStagingIter.host_batches_coordinated (tracker-coordinated "
-            "shard ownership) is not ported yet: ROADMAP A6")
+            "shard ownership) is not ported yet: ROADMAP A6b")
 
     def _produce_host(self, emit) -> None:
         """Drive the native read and pack, emitting host batch dicts."""
@@ -1001,11 +1020,30 @@ class RecordStagingIter:
             self.batches_staged += 1
             return batch, event
 
+    @property
+    def knobs(self) -> dict:
+        """Current pipeline knobs (the tuner's view of this iterator)."""
+        return {"num_workers": self._num_workers,
+                "prefetch_depth": self._prefetch}
+
+    def set_knobs(self, num_workers: Optional[int] = None,
+                  prefetch_depth: Optional[int] = None,
+                  **_ignored) -> dict:
+        """Retune the pipeline from the next epoch (the part pool and the
+        staging queues are built per epoch).  The parse-side knobs
+        (``buffer_mb``, ``chunk_bytes``) are accepted and ignored, so one
+        tuner policy drives every iterator.  ``pool_live`` is False: no
+        native pool moves at once."""
+        if num_workers is not None:
+            self._num_workers = max(int(num_workers), 1)
+        if prefetch_depth is not None:
+            self._prefetch = max(int(prefetch_depth), 1)
+        return dict(self.knobs, pool_live=False)
+
     def __iter__(self) -> Iterator[RecordBatch]:
         """Yield batches on the device; the native read and pack and the
         staging copy run ahead of the consumer on background threads."""
-        with _observability_scope():
-            yield from self._iter_epoch()
+        yield from _tuned_epoch(self, self._iter_epoch)
 
     def _iter_epoch(self) -> Iterator[RecordBatch]:
         if self._device.type == "cuda" and self._ring is None:

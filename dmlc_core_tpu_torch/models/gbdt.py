@@ -28,7 +28,7 @@ Sampling below 1.0 (``subsample``, ``colsample_bytree``,
 stream bit for bit, so a sampled forest is the JAX package's.
 
 Not ported yet: the multi-device histogram route (``histogram_mesh``,
-ROADMAP A6).
+ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -515,7 +515,7 @@ class GBDT:
         if histogram_mesh is not None:
             raise NotImplementedError(
                 "histogram_mesh (the multi-device histogram route) is not "
-                "ported yet: ROADMAP A6")
+                "ported yet: ROADMAP A6b")
         self.device = resolve_device(device)
         self.num_features = num_features
         self.num_trees = num_trees

@@ -105,7 +105,7 @@ def sparse_hist_layout(row_id, findex, ebin, emask, num_features: int,
     if num_shards != 1:
         raise NotImplementedError(
             "a sharded sparse layout (num_shards > 1, the multi-device "
-            "histogram route) is not ported yet: ROADMAP A6")
+            "histogram route) is not ported yet: ROADMAP A6b")
     fi = _tensor(findex).to(torch.int64)
     eb = _tensor(ebin).to(torch.int64).to(fi.device)
     em = _tensor(emask).to(torch.bool).to(fi.device)

@@ -308,11 +308,12 @@ def test_unported_options_raise(data, monkeypatch):
         _iter(data, _binner(), sharding=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         _iter(data, _binner()).host_blocks_coordinated(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _iter(data, _binner(), autotune=True)
+    # autotune is ported: autotune=True and DMLCTPU_AUTOTUNE arm the tuner
+    assert _iter(data, _binner(), autotune=True)._autotune
     monkeypatch.setenv("DMLCTPU_AUTOTUNE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _iter(data, _binner())
+    assert _iter(data, _binner())._autotune
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        _iter(data, _binner(), sharding=object())
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BinnedStagingIter(data, _binner(), autotune=False)

@@ -1079,3 +1079,56 @@ def test_streamed_forest_on_card_equals_fit_batch(cuda, tmp_path):
     resident = model.fit_batch(batch, binner)
     for k in resident:
         assert torch.equal(streamed[k], resident[k]), k
+
+
+def test_resource_sample_publishes_the_card_memory(cuda):
+    """resource.hbm_bytes_in_use is torch.cuda.memory_allocated at the
+    call, resource.hbm_bytes_limit the card's total memory."""
+    from dmlc_core_tpu_torch import telemetry
+    keep = torch.empty(1 << 20, device=cuda)
+    got = telemetry.resource_sample()
+    assert got == {
+        "resource.hbm_bytes_in_use": torch.cuda.memory_allocated(cuda),
+        "resource.hbm_bytes_limit": torch.cuda.mem_get_info(cuda)[1]}
+    assert got["resource.hbm_bytes_in_use"] >= keep.numel() * 4
+    gauges = telemetry.snapshot()["gauges"]
+    for name, value in got.items():
+        assert gauges[name] == value
+
+
+def test_autotuned_epochs_on_card_equal_an_untuned_epoch(cuda, tmp_path,
+                                                         monkeypatch):
+    """The tuner moves the native pool's knobs every 2 batches (its noise
+    floors off); every batch on the card equals an untuned epoch's."""
+    from dmlc_core_tpu_torch import autotune
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    monkeypatch.setattr(autotune, "_MIN_WINDOW_BYTES", 0)
+    monkeypatch.setattr(autotune, "_MIN_WINDOW_WALL_S", 0.0)
+    monkeypatch.setenv("DMLCTPU_AUTOTUNE_WINDOW", "2")
+    uri = _libsvm(tmp_path)
+    kw = dict(batch_size=128, nnz_bucket=1024, buffer_mb=1)
+    want = [{k: getattr(b, k).cpu() for k in ("label", "row_ptr", "index",
+                                               "value")}
+            for b in DeviceStagingIter(uri, autotune=False, **kw)]
+    it = DeviceStagingIter(uri, autotune=True, **kw)
+    for _ in range(2):
+        got = list(it)
+        assert len(got) == len(want)
+        for b, w in zip(got, want):
+            assert b.value.device.type == "cuda"
+            for k, v in w.items():
+                assert torch.equal(getattr(b, k).cpu(), v), k
+    assert it._tuner.steps > 0
+
+
+def test_init_from_env_with_one_worker_is_a_no_op_on_the_card(
+        cuda, monkeypatch):
+    import torch.distributed as dist
+
+    from dmlc_core_tpu_torch import parallel
+    for k in ("DMLC_TASK_ID", "DMLC_TRACKER_URI", "DMLC_TRACKER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("DMLC_NUM_WORKER", "1")
+    info = parallel.init_from_env()  # the default device: the card
+    assert info.num_workers == 1 and info.task_id == 0
+    assert not dist.is_initialized()

@@ -1,8 +1,11 @@
 """The port stands alone: no module of dmlc_core_tpu_torch (and not
-chip_smoke.py) imports JAX or the JAX package, and its entry points run on
-the card unless asked for the CPU — without a card they raise instead of
-quietly running on the CPU."""
+chip_smoke.py) imports JAX or the JAX package, none names a module of the
+JAX package in a string it could run (a subprocess's ``-m`` argument, an
+``import_module`` name), and its entry points run on the card unless asked
+for the CPU — without a card they raise instead of quietly running on the
+CPU."""
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -35,7 +38,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = {p.relative_to(REPO).as_posix() for p in sources}
     assert {"dmlc_core_tpu_torch/io.py", "dmlc_core_tpu_torch/checkpoint.py",
             "dmlc_core_tpu_torch/models/ffm.py",
-            "dmlc_core_tpu_torch/data/binned_cache.py"} <= names
+            "dmlc_core_tpu_torch/data/binned_cache.py",
+            "dmlc_core_tpu_torch/autotune.py",
+            "dmlc_core_tpu_torch/tracker/metrics.py",
+            "dmlc_core_tpu_torch/tracker/submit.py",
+            "dmlc_core_tpu_torch/parallel/bootstrap.py"} <= names
     bad = []
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -45,8 +52,41 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, "\n".join(bad)
 
 
+def _docstrings(tree):
+    """The docstring nodes of a module and of its classes and functions
+    (documentation may name the JAX module a port module copies)."""
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                yield first.value
+
+
+JAX_MODULE = re.compile(r"\bdmlc_core_tpu\.")
+
+
+def test_no_string_names_a_jax_package_module():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        docs = {id(node) for node in _docstrings(tree)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs
+                    and JAX_MODULE.search(node.value)):
+                bad.append(f"{path.relative_to(REPO)}:{node.lineno} "
+                           f"{node.value[:60]!r}")
+    assert not bad, "\n".join(bad)
+    # the check sees such a string where it would run
+    probe = ast.parse('subprocess.Popen(["-m", "dmlc_core_tpu.x.server"])')
+    assert any(JAX_MODULE.search(n.value) for n in ast.walk(probe)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str))
+
+
 def _entry_points(tmp_path):
-    from dmlc_core_tpu_torch import checkpoint
+    from dmlc_core_tpu_torch import checkpoint, parallel
     from dmlc_core_tpu_torch import random as prng
     from dmlc_core_tpu_torch.data import (BinnedStagingIter,
                                           DeviceStagingIter, Parser,
@@ -109,6 +149,7 @@ def _entry_points(tmp_path):
                                       device="cpu")),
         "checkpoint.load (like=)": lambda: checkpoint.load(
             str(ckpt), like={"w": 0}),
+        "parallel.init_from_env": parallel.init_from_env,
     }
 
 
@@ -123,7 +164,8 @@ def _entry_points(tmp_path):
                                   "ScoringEngine (gbdt)",
                                   "FieldAwareFactorizationMachine",
                                   "RecordStagingIter", "BinnedStagingIter",
-                                  "checkpoint.load (like=)"])
+                                  "checkpoint.load (like=)",
+                                  "parallel.init_from_env"])
 def test_default_device_raises_without_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

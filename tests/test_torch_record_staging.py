@@ -127,11 +127,12 @@ def test_unported_options_raise(recordio_file, monkeypatch):
         RecordStagingIter(uri, sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         RecordStagingIter(uri, device="cpu").host_batches_coordinated(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        RecordStagingIter(uri, autotune=True, device="cpu")
+    # autotune is ported: autotune=True and DMLCTPU_AUTOTUNE arm the tuner
+    assert RecordStagingIter(uri, autotune=True, device="cpu")._autotune
     monkeypatch.setenv("DMLCTPU_AUTOTUNE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        RecordStagingIter(uri, device="cpu")
+    assert RecordStagingIter(uri, device="cpu")._autotune
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        RecordStagingIter(uri, sharding=object(), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             RecordStagingIter(uri, autotune=False)

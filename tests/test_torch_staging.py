@@ -283,21 +283,27 @@ def test_profile_counters_knobs_and_h2d_metrics(libsvm_file):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sharding=object()), "A6"), (dict(autotune=True), "A12")])
+    (dict(sharding=object()), "A6"),
+    (dict(sharding=object(), autotune=True), "A6")])
 def test_unported_options_raise(libsvm_file, kw, item):
+    # sharding= is refused with or without the tuner (autotune itself is
+    # ported: tests/test_torch_autotune.py)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         DeviceStagingIter(libsvm_file, device="cpu", **kw)
 
 
 def test_autotune_env_raises_instead_of_being_ignored(libsvm_file,
                                                       monkeypatch):
+    # DMLCTPU_AUTOTUNE is not ignored: it arms the tuner, which attaches on
+    # the first epoch
     monkeypatch.setenv("DMLCTPU_AUTOTUNE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        DeviceStagingIter(libsvm_file, device="cpu")
+    it = DeviceStagingIter(libsvm_file, device="cpu")
+    assert len(list(it)) == 1 and it._tuner is not None
+    assert it._tuner.epochs == 1
     # an explicit autotune=False wins over the environment, as in the JAX
     # package
-    assert len(list(DeviceStagingIter(libsvm_file, device="cpu",
-                                      autotune=False))) == 1
+    off = DeviceStagingIter(libsvm_file, device="cpu", autotune=False)
+    assert len(list(off)) == 1 and off._tuner is None
 
 
 def test_batches_feed_the_jax_packages_consumers_unchanged(libsvm_file):
