@@ -81,6 +81,7 @@ its readings and no result line.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import subprocess
@@ -591,15 +592,17 @@ def criteo_train_file(path: Path, rows: int = 0,
 
 
 def host_packed(uri: str, batch: int, bucket: int,
-                with_field: bool = False) -> list:
+                with_field: bool = False, part: int = 0,
+                num_parts: int = 1) -> list:
     """The staged batches as the port's ``Parser`` RowBlocks packed on the
     host by numpy: ``batch`` rows each (the last zero-padded: weight 0,
     label 0, empty spans), nonzeros padded with zeros to a multiple of
-    ``bucket``; with ``with_field``, the libffm field lane too."""
+    ``bucket``; with ``with_field``, the libffm field lane too; ``part`` of
+    ``num_parts`` of the file."""
     from dmlc_core_tpu_torch.data import Parser
     labels, weights, offsets, index, value, field = [], [], [], [], [], []
     base = 0
-    with Parser(uri) as parser:
+    with Parser(uri, part=part, num_parts=num_parts) as parser:
         for blk in parser:
             labels.append(blk.label)
             weights.append(blk.weight if blk.weight is not None
@@ -1927,7 +1930,9 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"launches": fits[0][2], "max_abs_err": max_err,
             "bound_by": per_level[0]["bound_by"], **mean,
-            "leaf": {**leaf, "launches": fits[0][3]}}
+            "leaf": {**leaf, "launches": fits[0][3]},
+            "bins": bins, "label": label, "forest": forest,
+            "fit_s": fits[0][1]}
 
 
 # ---- phase 6: the sparse GBDT (fit_batch) at Bosch width ---------------------
@@ -2588,7 +2593,8 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
             "bound_by": per_level[0]["bound_by"], **mean,
             "node_totals": {**node_tot, "launches": fits[0][3]},
             "root_totals": {**root_tot, "launches": fits[0][3]},
-            "data": data, "binner": binner, "forest": forest}
+            "data": data, "binner": binner, "forest": forest,
+            "fit_s": fits[0][1]}
 
 
 # ---- phase 7: the Bosch-width GBDT out of core (fit_streamed) ------------
@@ -2815,7 +2821,8 @@ def phase_streamed(torch, ss_mod, dev, build_dir: Path, data, binner) -> dict:
           and a["leaf_err"] <= LEAF_TOL, f"fit_streamed audit: {a}")
     kern = streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
                                   sb.label)
-    return {"launches": h_l, "seg_launches": s_l, **kern}
+    return {"launches": h_l, "seg_launches": s_l, "forest": forest,
+            "fit_s": t_fit, **kern}
 
 
 # ---- phase 8: RecordIO staging ----------------------------------------------
@@ -3320,6 +3327,680 @@ def phase_job(torch, dev, build_dir: Path, uri: str) -> dict:
             "steps": sum(r["steps"] for r in ranks), "wall": wall}
 
 
+# ---- the mesh phase: the multi-process data plane ---------------------------
+
+# Row-sharded fits and data-parallel steps over torch.distributed: each rank
+# a process on the one card (gloo: NCCL refuses two ranks on one device),
+# joined through the port's tracker as the job phase's ranks are.  Cut: 2
+# and 4 ranks share one card here, so every collective is gloo through host
+# memory; NCCL across cards is not measured.
+MESH_TIMEOUT_S = 900
+MESH_CHUNKS = 4  # DMLCTPU_MESH_OVERLAP_CHUNKS of the 4-rank job
+MESH_BENCH_MIB = (0.25, 16.0)
+MESH_FITS = {"dense": "Higgs-width fit", "sparse": "Bosch-width fit_batch",
+             "streamed": "Bosch-width fit_streamed"}
+MESH_REPLACES = {"segment_sum": 67, "histogram_gh": 168,
+                 "histogram_gh_sparse": 466}
+
+
+def _timed_plan(torch, plan, log: dict):
+    """Wrap the plan's collectives: host-blocking ms (the call through the
+    result's wait) into ``log["collective_ms"]``, each all-reduce's route
+    into ``log["strategies"]``; the first reduction of
+    more than 1M values is kept in ``log["big"]`` (a data-parallel step's
+    flat gradient)."""
+    log.setdefault("collective_ms", 0.0)
+    log.setdefault("collectives", 0)
+    log.setdefault("strategies", set())
+    orig_async, orig_gather = plan.allreduce_async, plan.all_gather
+
+    class Timed:
+        def __init__(self, work, t0, x):
+            self.work, self.t0, self.x = work, t0, x
+
+        def wait(self):
+            out = self.work.wait()
+            if out.is_cuda:
+                torch.cuda.current_stream().synchronize()
+            log["collective_ms"] += (time.monotonic() - self.t0) * 1e3
+            log["collectives"] += 1
+            if self.x.numel() > (1 << 20) and "big" not in log:
+                log["big"] = out.detach().cpu().clone()
+            return out
+
+    def allreduce_async(x, op="sum", strategy=None):
+        log["strategies"].add(strategy or plan.strategy_for(
+            x.numel() * x.element_size()))
+        t0 = time.monotonic()
+        return Timed(orig_async(x, op, strategy), t0, x)
+
+    def all_gather(x):
+        t0 = time.monotonic()
+        out = orig_gather(x)
+        log["collective_ms"] += (time.monotonic() - t0) * 1e3
+        return out
+
+    plan.allreduce_async, plan.all_gather = allreduce_async, all_gather
+
+
+def _event_timed(torch, mod, name: str, log: dict) -> None:
+    """Sum the device ms of every ``mod.name`` launch (CUDA events around
+    it on the current stream) into ``log[name]``, read at :func:`_events_ms`
+    time."""
+    fn = getattr(mod, name)
+    log.setdefault("events", []).append(name)
+    log.setdefault(name, [])
+
+    def timed(*a, **k):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*a, **k)
+        e1.record()
+        log[name].append((e0, e1))
+        return out
+
+    setattr(mod, name, timed)
+
+
+def _events_ms(torch, log: dict) -> float:
+    torch.cuda.synchronize()
+    ms = 0.0
+    for name in log.get("events", []):
+        ms += sum(a.elapsed_time(b) for a, b in log[name])
+        log[name] = []
+    return ms
+
+
+def mesh_worker(argv) -> int:
+    """One rank of the mesh phase's job (``chip_smoke.py --mesh-rank WORK
+    JOB``): joins the tracker and a gloo process group from the DMLC_*
+    contract, fits the Higgs-width forest on its contiguous rows, the
+    Bosch-width one by fit_batch and by fit_streamed, and in the 2-rank job
+    trains the FM data-parallel from its part of the training file,
+    checkpoints it and benches the collectives; writes its readings and
+    forests under WORK."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from dmlc_core_tpu_torch import checkpoint, parallel
+    from dmlc_core_tpu_torch.data import DeviceStagingIter, PaddedBatch
+    from dmlc_core_tpu_torch.models import (GBDT, FactorizationMachine,
+                                            QuantileBinner)
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops import segment_sum as ss_mod
+    from dmlc_core_tpu_torch.tracker import WorkerClient
+
+    work, job = Path(argv[0]), argv[1]
+    client = WorkerClient().start(world_size=int(os.environ["DMLC_NUM_WORKER"]))
+    info = parallel.init_from_env(backend="gloo")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    plan = parallel.MeshPlan.build()
+    log: dict = {}
+    _timed_plan(torch, plan, log)
+    _event_timed(torch, hg, "histogram_gh_accumulate", log)
+    _event_timed(torch, hs, "histogram_gh_sparse_accumulate", log)
+    _event_timed(torch, ss_mod, "segment_sum_accumulate", log)
+    out = {"rank": rank, "n": n, "task_id": info.task_id,
+           "plan": plan.describe()}
+
+    def fit(what, run, levels_of, hook):
+        """A timed fit with the launch counts set to 0 just before it and
+        read just after, its first tree's reduced histograms kept."""
+        levels = []
+        orig = getattr(levels_of, hook)
+
+        def keep(*a):
+            h = orig(*a)
+            if len(levels) < GBDT_KW["max_depth"]:
+                levels.append(h.cpu().numpy())
+            return h
+
+        setattr(levels_of, hook, keep)
+        for kern in (hg.histogram_gh_kernel, hs.histogram_gh_sparse_kernel,
+                     ss_mod.segment_sum_kernel):
+            kern.launches = 0
+        _events_ms(torch, log)
+        log["collective_ms"], log["collectives"] = 0.0, 0
+        log["strategies"] = set()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.monotonic()
+        forest = run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        setattr(levels_of, hook, orig)
+        np.savez(work / f"{what}_{job}_rank{rank}.npz",
+                 **{k: v.cpu().numpy() for k, v in forest.items()},
+                 **{f"level{d}": h for d, h in enumerate(levels)})
+        out[what] = {
+            "secs": wall, "kernel_ms": _events_ms(torch, log),
+            "collective_ms": log["collective_ms"],
+            "collectives": log["collectives"],
+            "strategies": sorted(log["strategies"]),
+            "histogram_gh": hg.histogram_gh_kernel.launches,
+            "histogram_gh_sparse": hs.histogram_gh_sparse_kernel.launches,
+            "segment_sum": ss_mod.segment_sum_kernel.launches}
+
+    # (a) the Higgs-width dense fit on this rank's contiguous rows
+    bins_all = np.load(work / "higgs_bins.npy", mmap_mode="r")
+    label_all = np.load(work / "higgs_label.npy", mmap_mode="r")
+    rows = bins_all.shape[0]
+    lo, hi = rows * rank // n, rows * (rank + 1) // n
+    bins = torch.from_numpy(np.array(bins_all[lo:hi])).to(dev)
+    label = torch.from_numpy(np.array(label_all[lo:hi])).to(dev)
+    del bins_all, label_all
+    model = GBDT(num_features=HIGGS_FEATURES, device=dev, histogram_mesh=plan,
+                 **GBDT_KW)
+    fit("dense", lambda: model.fit(bins, label), model, "_level_histogram")
+    del bins, label
+
+    # (b) the Bosch-width sparse fit_batch on this rank's contiguous rows
+    data = bosch_like(torch, dev)
+    lo, hi = BOSCH_ROWS * rank // n, BOSCH_ROWS * (rank + 1) // n
+    rp = data["row_ptr"]
+    e0, e1 = int(rp[lo]), int(rp[hi])
+    batch = PaddedBatch(label=data["label"][lo:hi].contiguous(),
+                        weight=torch.ones(hi - lo, device=dev),
+                        row_ptr=(rp[lo:hi + 1] - e0).contiguous(),
+                        index=data["index"][e0:e1].contiguous(),
+                        value=data["value"][e0:e1].contiguous(),
+                        num_rows=hi - lo)
+    binner = QuantileBinner.from_cuts(np.load(work / "bosch_cuts.npy"),
+                                      GBDT_KW["num_bins"],
+                                      missing_aware=True, device=dev)
+    smodel = GBDT(num_features=BOSCH_FEATURES, missing_aware=True,
+                  device=dev, histogram_mesh=plan, **GBDT_KW)
+    fit("sparse", lambda: smodel.fit_batch(batch, binner), smodel,
+        "_level_histogram_sparse")
+    del batch
+
+    # (b2) fit_streamed over this rank's share of the streamed phase's
+    # rows, replayed in STREAM_BATCH-row batches
+    lo, hi = STREAM_ROWS * rank // n, STREAM_ROWS * (rank + 1) // n
+    parts = [sub_batch(torch, PaddedBatch, data, a, min(a + STREAM_BATCH, hi))
+             for a in range(lo, hi, STREAM_BATCH)]
+    del data
+    fit("streamed", lambda: smodel.fit_streamed(parts, binner), smodel,
+        "_level_histogram_sparse")
+    del parts
+
+    if job == "pair":
+        # (c) the FM, data-parallel, one epoch of this rank's part
+        uri = (work / "uri.txt").read_text()
+        nnz_max = TRAIN_BATCH * NNZ_PER_ROW
+        want = host_packed(uri, TRAIN_BATCH, nnz_max, part=rank,
+                           num_parts=n)
+        it = DeviceStagingIter(uri, batch_size=TRAIN_BATCH,
+                               nnz_bucket=TRAIN_NNZ_BUCKET, nnz_max=nnz_max,
+                               num_workers=2, part=rank, num_parts=n,
+                               sharding=plan, device=dev)
+        fm = FactorizationMachine(NUM_FEATURES, num_factors=NUM_FACTORS,
+                                  sdot_backend="pallas", device=dev).init(0)
+        ss_mod.segment_sum_kernel.launches = 0
+        log["collective_ms"], log["collectives"] = 0.0, 0
+        log.pop("big", None)  # the first step's flat gradient is kept
+        steps = padding = mismatched = 0
+        first = None
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.monotonic()
+        for b in it:
+            if steps < len(want):
+                got = {k: getattr(b, k).cpu().numpy() for k in STAGED_LEAVES}
+                got["num_rows"] = b.num_rows
+                mismatched += batch_mismatch(got, want[steps]) is not None
+            else:
+                padding += 1
+            loss = fm.train_step(b)
+            steps += 1
+            if steps == 1:
+                torch.cuda.synchronize()
+                first = time.monotonic() - t0
+                torch.save(log.pop("big"), work / f"fm_grad_rank{rank}.pt")
+                out["fm_first_loss"] = float(loss)
+                out["fm_first_global_rows"] = b.global_num_rows
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        it.close()
+        flat = torch.cat([p.detach().reshape(-1) for p in fm.parameters()])
+        out["fm"] = {
+            "steps": steps, "local_batches": len(want), "padding": padding,
+            "rows": sum(int(w["num_rows"]) for w in want),
+            "mismatched": mismatched, "secs": secs, "first": first,
+            "launches": ss_mod.segment_sum_kernel.launches,
+            "collective_ms": log["collective_ms"],
+            "digest": hashlib.sha256(flat.cpu().numpy().tobytes())
+            .hexdigest()}
+        # (d) the checkpoint from both ranks, loaded back on both
+        path = work / "fm_two_rank.ckpt"
+        out["ckpt_leaves"] = checkpoint.save(fm.state_dict(), str(path))
+        back = checkpoint.load(str(path), like=fm.state_dict(), device=dev)
+        out["ckpt_loaded"] = all(torch.equal(back[k], v)
+                                 for k, v in fm.state_dict().items())
+        # (e) the collectives over the 2-rank gloo group
+        out["bench"] = (
+            [parallel.collective_bench(None, op, mib, 5, 2)
+             for op in ("allreduce", "allgather", "reducescatter",
+                        "ppermute") for mib in MESH_BENCH_MIB]
+            + [parallel.plan_allreduce_bench(plan, s, mib, 5, 2)
+               for s in ("flat", "hier") for mib in MESH_BENCH_MIB])
+    dist.destroy_process_group()
+    client.shutdown()
+    (work / f"{job}_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def run_mesh_job(work: Path, job: str, ranks: int, env: dict) -> list:
+    """The tracker's local job of ``ranks`` mesh workers; their readings."""
+    import os
+
+    from dmlc_core_tpu_torch.tracker import submit
+    procs = []
+
+    def spawn(num_workers, num_servers, envs):
+        for rank in range(num_workers):
+            (work / f"{job}_rank{rank}.json").unlink(missing_ok=True)
+            e = dict(os.environ, **{k: str(v) for k, v in envs.items()},
+                     **env, DMLC_ROLE="worker", DMLC_TASK_ID=str(rank),
+                     DMLC_JOB_CLUSTER="local")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--mesh-rank",
+                 str(work), job], env=e))
+
+    t0 = time.monotonic()
+    tracker = submit(ranks, 0, spawn, host_ip="127.0.0.1")
+    try:
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while tracker.alive():
+            failed = [p.returncode for p in procs
+                      if p.poll() not in (None, 0)]
+            check(not failed, f"a {job} rank failed: {failed}")
+            check(time.monotonic() < deadline, f"the {job} job timed out")
+            time.sleep(0.2)
+        for p in procs:
+            check(p.wait(timeout=120) == 0, f"a {job} rank exited "
+                  f"{p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        tracker.stop()
+    out = [json.loads((work / f"{job}_rank{r}.json").read_text())
+           for r in range(ranks)]
+    print(f"mesh {job}: {ranks} ranks, wall {time.monotonic() - t0:.1f} s "
+          f"(processes up to exit); plan {out[0]['plan']}")
+    return out
+
+
+def _forests(work: Path, what: str, job: str, ranks: int) -> list:
+    return [dict(np.load(work / f"{what}_{job}_rank{r}.npz"))
+            for r in range(ranks)]
+
+
+def _same(a: dict, b: dict, keys=None) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in (keys or a))
+
+
+def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
+               sparse: dict, sparse_data: dict, streamed: dict,
+               train: dict) -> dict:
+    """The multi-process data plane on the card: the Higgs-width fit on 2
+    ranks (flat) and 4 ranks (DMLCTPU_MESH_HOSTS=2, the hier route, and
+    DMLCTPU_MESH_OVERLAP_CHUNKS=4), the Bosch-width fit_batch and the
+    streamed phase's fit_streamed on both, held to the one-process kernels
+    (each rank's first-tree histograms bit for bit, forests equal on every
+    rank and across the jobs, splits equal to the one-process forest); the
+    FM trained data-parallel from the training file (staged batches vs the
+    host parse, the first reduced gradient vs the one-process gradient of
+    the global batch, replicas bitwise equal), its 2-rank checkpoint
+    against a one-process save; collective benches over gloo and over a
+    1-rank NCCL group; each kernel's accumulate half at the ranks' shapes
+    against its plain version."""
+    import torch.distributed as dist
+
+    from dmlc_core_tpu_torch import checkpoint, parallel
+    from dmlc_core_tpu_torch.data import PaddedBatch
+    from dmlc_core_tpu_torch.models import (GBDT, FactorizationMachine,
+                                            logistic_nll)
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.fixed_point import (dequantize_plain,
+                                                     fixed_point_scale,
+                                                     lane_amax, value_limit)
+    from dmlc_core_tpu_torch.ops.sparse import padded_row_mean
+
+    work = build_dir / "mesh"
+    work.mkdir(parents=True, exist_ok=True)
+    bins, label, forest1 = gbdt["bins"], gbdt["label"], gbdt["forest"]
+    t0 = time.monotonic()
+    np.save(work / "higgs_bins.npy", bins.cpu().numpy())
+    np.save(work / "higgs_label.npy", label.cpu().numpy())
+    np.save(work / "bosch_cuts.npy", sparse["binner"].cuts.cpu().numpy())
+    (work / "uri.txt").write_text(train["uri"])
+    print(f"mesh inputs: Higgs codes and labels written for the ranks in "
+          f"{time.monotonic() - t0:.1f} s")
+    pair = run_mesh_job(work, "pair", 2, {})
+    quad = run_mesh_job(work, "quad", 4, {
+        "DMLCTPU_MESH_HOSTS": "2", "DMLCTPU_MESH_COLLECTIVE": "hier",
+        "DMLCTPU_MESH_OVERLAP_CHUNKS": str(MESH_CHUNKS)})
+    check(pair[0]["plan"]["hosts"] == 1 and pair[0]["plan"]["collective"]
+          == "auto", f"2-rank plan {pair[0]['plan']}")
+    check(quad[0]["plan"]["hosts"] == 2 and quad[0]["plan"]["collective"]
+          == "hier" and quad[0]["plan"]["overlap_chunks"] == MESH_CHUNKS,
+          f"4-rank plan {quad[0]['plan']}")
+    jobs = {"pair": pair, "quad": quad}
+    depth, trees = GBDT_KW["max_depth"], GBDT_KW["num_trees"]
+    readings = {}
+    for what, one in (("dense", forest1), ("sparse", sparse["forest"]),
+                      ("streamed", streamed["forest"])):
+        fp, fq = _forests(work, what, "pair", 2), _forests(work, what,
+                                                           "quad", 4)
+        keys = list(one)
+        # the route each all-reduce took: "auto" on the 1-D plan is flat
+        for job, route in (("pair", ["flat"]), ("quad", ["hier"])):
+            for r in jobs[job]:
+                check(r[what]["strategies"] == route, f"{what} {job} rank "
+                      f"{r['rank']}: all-reduce routes "
+                      f"{r[what]['strategies']}, want {route}")
+        check(all(_same(f, fp[0], keys) for f in fp[1:] + fq),
+              f"{what}: the ranks' forests differ (2 ranks flat vs 4 ranks "
+              "hier + overlap, or between ranks)")
+        split_keys = ("feature", "threshold", "default_right")
+        check(_same(fp[0], {k: v.cpu().numpy() for k, v in one.items()},
+                    split_keys),
+              f"{what}: splits differ from the one-process forest")
+        leaf1 = one["leaf"].cpu().numpy()
+        rel = float(np.max(np.abs(fp[0]["leaf"] - leaf1))
+                    / np.max(np.abs(leaf1)))
+        bitwise = _same(fp[0], {k: v.cpu().numpy() for k, v in one.items()},
+                        keys)
+        base_eq = bool(np.array_equal(fp[0]["base"],
+                                      one["base"].cpu().numpy()))
+        check(rel <= 1e-6, f"{what}: leaves {rel:.3e} relative from the "
+              "one-process forest")
+        kind = "histogram_gh" if what == "dense" else "histogram_gh_sparse"
+        want_s = trees + 1 if what == "dense" else trees * (depth + 1) + 1
+        for job, res, n in (("pair", pair, 2), ("quad", quad, 4)):
+            for r in res:
+                got = r[what]
+                want_h = trees * depth * (MESH_CHUNKS if job == "quad"
+                                          and what == "dense" else 1)
+                check(got[kind] == want_h and got["segment_sum"] == want_s,
+                      f"{what} {job} rank {r['rank']}: {got[kind]} {kind} "
+                      f"and {got['segment_sum']} segment_sum launches, want "
+                      f"{want_h} and {want_s}")
+            mean = {k: float(np.mean([r[what][k] for r in res]))
+                    for k in ("secs", "kernel_ms", "collective_ms")}
+            readings[(what, job)] = mean
+            r0 = res[0][what]
+            one_s = {"dense": gbdt["fit_s"], "sparse": sparse["fit_s"],
+                     "streamed": streamed["fit_s"]}[what]
+            print(f"mesh {what} fit, {n} ranks ({job}, "
+                  f"{'+'.join(r0['strategies'])} all-reduces): wall "
+                  f"{mean['secs']:.2f} s a rank (one-process kernel fit "
+                  f"{one_s:.2f} s), kernels "
+                  f"{mean['kernel_ms']:.0f} ms (accumulate launches, device),"
+                  f" collectives {mean['collective_ms']:.0f} ms "
+                  f"({r0['collectives']} a rank; host-blocking, gloo through"
+                  f" host memory), the rest (host, routing, split finding) "
+                  f"{mean['secs'] * 1e3 - mean['kernel_ms'] - mean['collective_ms']:.0f}"
+                  f" ms; launches a rank: {r0['histogram_gh']} histogram_gh,"
+                  f" {r0['histogram_gh_sparse']} histogram_gh_sparse, "
+                  f"{r0['segment_sum']} segment_sum")
+        print(f"mesh {what}: forests equal on every rank, 2 ranks flat = 4 "
+              f"ranks hier + overlap bit for bit; splits equal to the "
+              f"one-process forest; leaves {rel:.2e} relative from it "
+              f"(bitwise: {bitwise}; base margin equal: {base_eq})")
+
+    # every level of the first tree: the reduced histograms against the
+    # one-process kernels on the same level inputs (the inputs routed
+    # through the sharded forest)
+    ref = GBDT(num_features=HIGGS_FEATURES, device=dev, **GBDT_KW)
+    fp = _forests(work, "dense", "pair", 2)[0]
+    gh, levels, leaf_rel, _ = next(tree_inputs(
+        torch, ref, {k: torch.from_numpy(v).to(dev) for k, v in fp.items()},
+        bins, label))
+    for d, (rel_d, n_nodes) in enumerate(levels):
+        h1 = hg.histogram_gh_kernel(bins, rel_d, gh, n_nodes,
+                                    GBDT_KW["num_bins"]).cpu().numpy()
+        for job, ranks in (("pair", 2), ("quad", 4)):
+            for r in range(ranks):
+                got = np.load(work / f"dense_{job}_rank{r}.npz")[f"level{d}"]
+                check(np.array_equal(got, h1), f"dense depth {d}, {job} "
+                      f"rank {r}: reduced histogram != the one-process "
+                      "kernel's")
+    sp_model = GBDT(num_features=BOSCH_FEATURES, missing_aware=True,
+                    device=dev, **GBDT_KW)
+    for what, n_rows in (("streamed", STREAM_ROWS), ("sparse", BOSCH_ROWS)):
+        batch_all = sub_batch(torch, PaddedBatch, sparse_data, 0, n_rows)
+        ent = sp_model._sparse_entries(*sp_model._entry_bins(
+            batch_all, sparse["binner"]))
+        layout = hs.sparse_hist_layout(*ent[:4], BOSCH_FEATURES,
+                                       GBDT_KW["num_bins"])
+        fs = _forests(work, what, "pair", 2)[0]
+        gh_s, levels_s, _, _, _ = next(sparse_tree_inputs(
+            torch, sp_model, {k: torch.from_numpy(v).to(dev)
+                              for k, v in fs.items()}, ent, batch_all.label))
+        gh_e = hs.entry_gh(gh_s, layout=layout)
+        for d, (rel_d, n_nodes) in enumerate(levels_s):
+            h1 = hs.histogram_gh_sparse_kernel(
+                layout.gkey, rel_d[layout.rid].contiguous(), gh_e,
+                layout.starts, n_nodes, BOSCH_FEATURES, GBDT_KW["num_bins"],
+                layout=layout, gh_amax=lane_amax(gh_s)).cpu().numpy()
+            for job, ranks in (("pair", 2), ("quad", 4)):
+                for r in range(ranks):
+                    got = np.load(work / f"{what}_{job}_rank{r}.npz")[
+                        f"level{d}"]
+                    check(np.array_equal(got, h1), f"{what} depth {d}, "
+                          f"{job} rank {r}: reduced histogram != the "
+                          "one-process kernel's")
+        del batch_all, ent, gh_e
+    print("mesh: every level of the first tree, dense, sparse and "
+          "streamed, on 2 and 4 ranks: the reduced histogram equals the "
+          "one-process kernel's on the same level inputs bit for bit")
+
+    # (c) the data-parallel FM
+    fms = [r["fm"] for r in pair]
+    for r, f in zip(pair, fms):
+        check(f["mismatched"] == 0, f"FM rank {r['rank']}: "
+              f"{f['mismatched']} staged batches differ from the host parse")
+        check(f["launches"] == 3 * f["steps"], f"FM rank {r['rank']}: "
+              f"{f['launches']} launches in {f['steps']} steps")
+    check(fms[0]["steps"] == fms[1]["steps"], "FM ranks' step counts differ")
+    check(fms[0]["digest"] == fms[1]["digest"],
+          "FM replicas differ after the epoch")
+    check(sum(f["rows"] for f in fms) == TRAIN_ROWS, "FM: the parts' rows")
+    uri = train["uri"]
+    nnz_max = TRAIN_BATCH * NNZ_PER_ROW
+    firsts = [host_packed(uri, TRAIN_BATCH, nnz_max, part=p, num_parts=2)[0]
+              for p in (0, 1)]
+    g = {k: np.concatenate([firsts[0][k], firsts[1][k]])
+         for k in ("label", "weight", "index", "value")}
+    g["row_ptr"] = np.concatenate([firsts[0]["row_ptr"][:-1],
+                                   firsts[1]["row_ptr"]
+                                   + len(firsts[0]["index"])])
+    gb = PaddedBatch(num_rows=2 * TRAIN_BATCH, **{
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        for k, v in g.items()})
+    fm1 = FactorizationMachine(NUM_FEATURES, num_factors=NUM_FACTORS,
+                               sdot_backend="pallas", device=dev).init(0)
+    loss = padded_row_mean(logistic_nll(fm1.margins(gb), gb.label),
+                           gb.weight)
+    grads = torch.autograd.grad(loss, list(fm1.parameters()))
+    want = torch.cat([x.reshape(-1) for x in grads]).cpu()
+    for p in (0, 1):
+        got = torch.load(work / f"fm_grad_rank{p}.pt")[:-1]
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-5 * scale, f"FM rank {p}: the first reduced "
+              f"gradient {err:.3e} from the one-process one (largest "
+              f"{scale:.3e})")
+    print(f"mesh FM: {fms[0]['steps']} data-parallel steps a rank "
+          f"({fms[0]['local_batches']} and {fms[1]['local_batches']} local "
+          f"batches, {fms[0]['padding']} and {fms[1]['padding']} all-padding"
+          f"), every staged batch equal to its part's host parse, "
+          f"{fms[0]['steps'] / fms[0]['secs']:.2f} steps/s a rank after "
+          f"{fms[0]['first']:.2f} s for the first; all-reduce of the "
+          f"{sum(p.numel() for p in fm1.parameters()) * 4 / 2**20:.0f} MiB "
+          f"gradient {fms[0]['collective_ms'] / fms[0]['steps']:.1f} ms a "
+          f"step (gloo through host memory); first reduced gradient within "
+          f"{err:.2e} of the one-process gradient of the global batch "
+          f"(largest {scale:.2e}); replicas bitwise equal; 3 launches a "
+          f"step")
+
+    # (d) the 2-rank checkpoint against a one-process save of its values
+    path = work / "fm_two_rank.ckpt"
+    check([r["ckpt_leaves"] for r in pair] == [3, 0] and all(
+        r["ckpt_loaded"] for r in pair), "2-rank checkpoint: leaves written "
+          "or loaded back")
+    back = checkpoint.load(str(path), like=fm1.state_dict(), device=dev)
+    flat = torch.cat([back[k].reshape(-1) for k in ("w", "v", "b")])
+    digest = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+    check(digest == fms[0]["digest"], "2-rank checkpoint: not the ranks' "
+          "params")
+    one_path = work / "fm_one_process.ckpt"
+    checkpoint.save(back, str(one_path))
+    check(path.read_bytes() == one_path.read_bytes(),
+          "2-rank checkpoint differs from a one-process save")
+    print(f"mesh checkpoint: the 2-rank save ({path.stat().st_size} bytes) "
+          f"equals a one-process save byte for byte; loaded back on both "
+          f"ranks")
+
+    # (e) collectives: gloo over the 2 ranks, NCCL over a 1-rank group
+    for b in pair[0]["bench"]:
+        print(f"mesh bench [gloo, 2 ranks, one card, through host memory] "
+              f"{b['op']}{' ' + b['strategy'] if 'strategy' in b else ''} "
+              f"{b['bytes'] / 2**20:.2f} MiB: {b['seconds_per_iter'] * 1e3:.3f}"
+              f" ms, algbw {b['algo_gbps']:.3f} GB/s, busbw "
+              f"{b['bus_gbps']:.3f} GB/s")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for op in ("allreduce", "allgather", "reducescatter"):
+            b = parallel.collective_bench(None, op, 16.0, 5, 2)
+            print(f"mesh bench [NCCL, 1 rank] {op} {b['bytes'] / 2**20:.2f}"
+                  f" MiB: {b['seconds_per_iter'] * 1e3:.3f} ms (a 1-rank "
+                  f"group moves nothing between cards)")
+    finally:
+        dist.destroy_process_group()
+
+    # each kernel's accumulate half at the ranks' shapes (2-rank and 4-rank
+    # shares; the 4-rank job's dense levels in 7-feature chunks): against
+    # its plain version (int64 accumulators equal, and the dequantized
+    # sums), times, bound, library call
+    def held(name, share, acc, plain, deq, lib, nbytes, iters, jobs_of,
+             **extra):
+        a, p = acc(), plain()
+        check(torch.equal(a, p), f"{name} accumulate at {share} != plain")
+        got, want = deq(a), dequantize_plain(p, scale_of[name], 2)
+        check(bool(torch.isfinite(got).all()), f"{name} at {share}: "
+              "non-finite sums")
+        ms, _ = device_ms(torch, acc, iters)
+        plain_ms, _ = device_ms(torch, plain, 2, warmup=1)
+        lib_ms, _ = device_ms(torch, lib, 5, warmup=1)
+        launches = sum(r[what][name] for job, whats in jobs_of
+                       for r in jobs[job] for what in whats)
+        of = "; ".join(f"every rank of the {len(jobs[job])}-rank job's "
+                       + " and ".join(MESH_FITS[w] for w in whats)
+                       for job, whats in jobs_of)
+        out = dict(name=name, share=share, of=of, launches=launches,
+                   max_abs_err=float((got.reshape(-1) - want).abs().max()),
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   **extra)
+        print(f"mesh {name} accumulate at {share}: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+              f"{out['bound_ms']:.4f} ms; int64 accumulators equal to the "
+              f"plain version's, dequantized sums {out['max_abs_err']:.3e} "
+              f"apart; launches {launches}")
+        return out
+
+    kern = []
+    rows, B = bins.shape[0], GBDT_KW["num_bins"]
+    rel5, n5 = levels[depth - 1]
+    scale_of = {"histogram_gh": fixed_point_scale(lane_amax(gh), rows)}
+    qmax = value_limit(rows)
+    for n, f1, job in ((2, HIGGS_FEATURES, "pair"),
+                       (4, HIGGS_FEATURES // MESH_CHUNKS, "quad")):
+        r1 = rows // n
+        b_h = bins[:r1, :f1].contiguous()
+        r_h, g_h = rel5[:r1].contiguous(), gh[:r1].contiguous()
+        sc = scale_of["histogram_gh"]
+        kern.append(held(
+            "histogram_gh", f"a {n}-rank share ({r1} Higgs rows x {f1} "
+            f"features at depth 5)",
+            lambda: hg.histogram_gh_accumulate(b_h, r_h, g_h, n5, B, sc,
+                                               qmax),
+            lambda: hg.histogram_gh_accumulate_plain(b_h, r_h, g_h, n5, B,
+                                                     sc, qmax),
+            lambda a, f1=f1: hg.histogram_gh_dequantize(a, sc, (n5, f1, B,
+                                                                2)),
+            lambda: hg._histogram_gh_xla(b_h, r_h, g_h, n5, B),
+            r1 * f1 + 12 * r1 + 16 * n5 * f1 * B, 10,
+            [(job, ("dense",))]))
+    rel_s, n_s = levels_s[depth - 1]
+    n_max = int(hs.feature_counts(layout).max())
+    scale_of["histogram_gh_sparse"] = fixed_point_scale(lane_amax(gh_s),
+                                                        n_max)
+    s_qmax = value_limit(n_max)
+    for rs, share, job_of in (
+            (BOSCH_ROWS // 2, "a 2-rank share", [("pair", ("sparse",))]),
+            (BOSCH_ROWS // 4, "a 4-rank share", [("quad", ("sparse",))]),
+            (STREAM_ROWS // 2, "a 2-rank share of the streamed rows",
+             [("pair", ("streamed",)), ("quad", ("streamed",))])):
+        sub = sub_batch(torch, PaddedBatch, sparse_data, 0, rs)
+        ent_h = sp_model._sparse_entries(*sp_model._entry_bins(
+            sub, sparse["binner"]))
+        lay_h = hs.sparse_hist_layout(*ent_h[:4], BOSCH_FEATURES, B)
+        ge_h = hs.entry_gh(gh_s[:rs], layout=lay_h)
+        re_h = rel_s[:rs][lay_h.rid].contiguous()
+        sc = scale_of["histogram_gh_sparse"]
+        keys = ((re_h.long() * BOSCH_FEATURES) * B + lay_h.gkey.long()
+                ).clamp(0, n_s * BOSCH_FEATURES * B - 1)
+        zeros = torch.zeros(n_s * BOSCH_FEATURES * B, 2, device=dev)
+        nnz_h = lay_h.nnz_live
+        kern.append(held(
+            "histogram_gh_sparse", f"{share} ({rs} rows, {nnz_h} Bosch "
+            "entries at depth 5)",
+            lambda: hs.histogram_gh_sparse_accumulate(lay_h, re_h, ge_h, n_s,
+                                                      sc, s_qmax),
+            lambda: hs.histogram_gh_sparse_accumulate_plain(
+                lay_h.gkey, re_h, ge_h, lay_h.starts, n_s, BOSCH_FEATURES, B,
+                sc, s_qmax),
+            lambda a: hs.histogram_gh_sparse_dequantize(
+                a, sc, (n_s, BOSCH_FEATURES, B, 2)),
+            lambda: torch.index_add(zeros, 0, keys, ge_h),
+            16 * nnz_h + 16 * n_s * BOSCH_FEATURES * B, 10, job_of,
+            nnz=nnz_h))
+        del sub, ent_h, lay_h, ge_h, re_h, keys, zeros
+    n_leaves = 2 ** depth
+    scale_of["segment_sum"] = fixed_point_scale(lane_amax(gh), rows)
+    for n, job in ((2, "pair"), (4, "quad")):
+        r1 = rows // n
+        lr, g2 = leaf_rel[:r1].contiguous(), gh[:r1].contiguous()
+        sc = scale_of["segment_sum"]
+        z = torch.zeros(n_leaves, 2, device=dev)
+        idx = lr.long()
+        kern.append(held(
+            "segment_sum", f"a {n}-rank share ({r1} rows x L=2 into "
+            f"{n_leaves} leaves)",
+            lambda: ss_mod.segment_sum_accumulate(g2, lr, n_leaves, sc, qmax),
+            lambda: ss_mod.segment_sum_accumulate_plain(g2, lr, n_leaves, sc,
+                                                        qmax),
+            lambda a: ss_mod.segment_sum_dequantize(a, sc, n_leaves, 2),
+            lambda: torch.index_add(z, 0, idx, g2),
+            12 * r1 + 16 * n_leaves, 20,
+            [(job, ("dense", "sparse", "streamed"))]))
+    return {"kern": kern, "fm_launches": sum(f["launches"] for f in fms),
+            "fm_steps": sum(f["steps"] for f in fms), "readings": readings}
+
+
 # ---- --geometry-sweep: the dense kernel's launch geometry -------------------
 
 SWEEP_GROUPS = (1, 3, 7, 14, 28)        # features a block takes
@@ -3606,6 +4287,8 @@ def label_study(torch, dev) -> None:
 
 def main(argv) -> int:
     import torch
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_worker(argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3641,14 +4324,17 @@ def main(argv) -> int:
     ffm_served = phase_ffm_serving(torch, ss_mod, ffm["model"], dev)
     gbdt = phase_gbdt(torch, ss_mod, dev)
     sparse = phase_gbdt_sparse(torch, ss_mod, dev, build_dir)
-    streamed = phase_streamed(torch, ss_mod, dev, build_dir,
-                              sparse.pop("data"), sparse["binner"])
+    sparse_data = sparse.pop("data")
+    streamed = phase_streamed(torch, ss_mod, dev, build_dir, sparse_data,
+                              sparse["binner"])
     phase_records(torch, dev, build_dir)
     phase_checkpoints(torch, dev, build_dir, train["model"], ffm["model"],
                       sparse["forest"])
     obs = phase_observability(torch, ss_mod, dev, build_dir, train["uri"],
                               train.pop("want"), params_a)
     job = phase_job(torch, dev, build_dir, train["uri"])
+    mesh = phase_mesh(torch, ss_mod, dev, build_dir, gbdt, sparse,
+                      sparse_data, streamed, train)
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
     node, root = sparse["node_totals"], sparse["root_totals"]
@@ -3692,10 +4378,12 @@ def main(argv) -> int:
                  f"nonzeros ({train['timings'][lanes]['nnz']} entries with "
                  f"the padding lanes), L={lanes}; launches: the training "
                  f"run's ({train['steps']} steps), the autotuned epoch's "
-                 f"({obs['steps']} steps) and the 2-rank job's "
-                 f"({job['steps']} steps), one L=1 and two L={NUM_FACTORS} "
-                 "a step",
-        "launches": train["launches"] + obs["launches"] + job["launches"],
+                 f"({obs['steps']} steps), the 2-rank job's "
+                 f"({job['steps']} steps) and the mesh phase's "
+                 f"data-parallel epoch ({mesh['fm_steps']} steps over 2 "
+                 f"ranks), one L=1 and two L={NUM_FACTORS} a step",
+        "launches": (train["launches"] + obs["launches"] + job["launches"]
+                     + mesh["fm_launches"]),
         "max_abs_err": train["timings"][lanes]["max_abs_err"],
         **{k: train["timings"][lanes][k] for k in keys},
     } for lanes in (1, NUM_FACTORS)] + [{
@@ -3756,7 +4444,17 @@ def main(argv) -> int:
                  "epoch cache",
         "launches": streamed["launches"],
         **{k: streamed["hist"][k] for k in ("max_abs_err", *keys)},
-    }]}))
+    }] + [{
+        "name": k["name"],
+        "route": "cuda",
+        "source": f"dmlc_core_tpu_torch/ops/csrc/{k['name']}.cu",
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:"
+                    f"{MESH_REPLACES[k['name']]}",
+        "shape": f"mesh phase: the accumulate half at {k['share']}; "
+                 f"launches: {k['of']}",
+        "launches": k["launches"],
+        **{key: k[key] for key in ("max_abs_err", *keys)},
+    } for k in mesh["kern"]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,13 @@ written in ``jax.tree``'s spelling (``PyTreeDef({'b': *, 'v': *, 'w':
 refuses a record of 2^29 bytes or more, so a single leaf that large cannot
 be checkpointed (neither package splits leaves).
 
-Multi-process checkpoints (the JAX package's allgather and writer sync)
-are not ported: with ``torch.distributed`` initialised over more than one
-process, ``save`` and ``load`` raise.
+Multi-process runs (``torch.distributed`` over more than one process):
+every process calls ``save`` in the same order.  A leaf sharded over a
+``DeviceMesh`` (a ``DTensor``) is gathered to its global value on every
+process (a collective); process 0 writes the file, which is byte for byte
+the one-process file of the same values; then every process syncs on the
+write's outcome, so a failed write raises on all of them.  ``load`` reads
+the file on every process.
 """
 from __future__ import annotations
 
@@ -34,18 +38,30 @@ import torch
 
 from ._device import resolve_device
 from .io import RecordIOReader, RecordIOWriter
+from .parallel.mesh import world
 
 _FORMAT_VERSION = 1
 
 
-def _single_process(what: str) -> None:
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f"checkpoint.{what} in a multi-process run (the allgather of "
-            "sharded leaves and the writer's status sync) is not ported "
-            "yet: ROADMAP A6b")
+def _global_value(leaf):
+    """A ``DTensor`` leaf's global value (a collective); other leaves as
+    they are."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:  # older torch
+        from torch.distributed._tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _sync_write(ok: bool) -> bool:
+    """Every process learns whether the writer's write succeeded (one
+    all-reduce of a flag, on the card for NCCL)."""
+    dist = torch.distributed
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    flag = torch.tensor([1 if ok else 0], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, dist.ReduceOp.MIN)
+    return bool(flag.item())
 
 
 def _flatten(tree: Any, leaves: list) -> str:
@@ -113,23 +129,37 @@ def _leaf_from_bytes(spec: dict, payload: bytes):
 
 
 def save(pytree: Any, uri: str) -> int:
-    """Write a pytree checkpoint to ``uri``; returns the number of leaves.
-    Tensors on the card are copied to the host first."""
-    _single_process("save")
+    """Write a pytree checkpoint to ``uri``; returns the number of leaves
+    (0 on a process that does not write).  Tensors on the card are copied
+    to the host first.  In a multi-process run see the module
+    docstring."""
+    rank, nprocs = world()
     leaves: list = []
     treedef = f"PyTreeDef({_flatten(pytree, leaves)})"
-    host = [_leaf_bytes(x) for x in leaves]
-    meta = {
-        "version": _FORMAT_VERSION,
-        "treedef": treedef,
-        "leaves": [{"dtype": name, "shape": shape}
-                   for name, shape, _ in host],
-    }
-    with RecordIOWriter(uri) as writer:
-        writer.write(json.dumps(meta).encode())
-        for _, _, raw in host:
-            writer.write(raw)
-    return len(host)
+    leaves = [_global_value(x) for x in leaves]
+    write_err = None
+    if rank == 0:
+        try:
+            host = [_leaf_bytes(x) for x in leaves]
+            meta = {
+                "version": _FORMAT_VERSION,
+                "treedef": treedef,
+                "leaves": [{"dtype": name, "shape": shape}
+                           for name, shape, _ in host],
+            }
+            with RecordIOWriter(uri) as writer:
+                writer.write(json.dumps(meta).encode())
+                for _, _, raw in host:
+                    writer.write(raw)
+        except Exception as e:  # noqa: BLE001  re-raised after the sync
+            write_err = e
+    if nprocs > 1 and not _sync_write(write_err is None) \
+            and write_err is None:
+        raise RuntimeError(
+            f"checkpoint write failed on the writer process: {uri}")
+    if write_err is not None:
+        raise write_err
+    return len(leaves) if rank == 0 else 0
 
 
 def load(uri: str, like: Any = None, device="cuda"):
@@ -141,7 +171,6 @@ def load(uri: str, like: Any = None, device="cuda"):
     (an example pytree, such as a ``state_dict()``): its structure with
     every leaf a tensor on ``device`` (the card unless the caller asks for
     the CPU), in the dtype the file holds."""
-    _single_process("load")
     with RecordIOReader(uri) as reader:
         records = iter(reader)
         meta = json.loads(next(records).decode())

@@ -49,7 +49,9 @@ from .. import autotune as _autotune
 from .. import telemetry
 from .._device import resolve_device
 from .._native import NativeError, StagedBatchOwnedC, check, lib
-from .staging import (DeviceStagingIter, _device_feed, _pick_virtual_parts,
+from ..tracker import metrics as _tracker_metrics
+from .staging import (DeviceStagingIter, _consume, _device_feed,
+                      _pick_virtual_parts, multiprocess_rounds, staging_plan,
                       _PinnedRing, _staged_iter, _tuned_epoch,
                       source_total_bytes)
 
@@ -436,6 +438,10 @@ class BinnedBatch:
     num_rows: int
     qid: Optional[torch.Tensor] = None  # i32 [batch]
     cuts_digest: str = ""
+    # a process's batch of a multi-process epoch (as PaddedBatch's)
+    plan: Optional[object] = None
+    global_num_rows: Optional[int] = None
+    global_row_ptr: Optional[torch.Tensor] = None
 
     @property
     def batch_size(self) -> int:
@@ -774,8 +780,11 @@ class BinnedStagingIter:
     ``BinnedStagingIter`` takes no ``autotune`` argument and never arms
     its tuner hook.)
 
-    Not ported yet, and refused: ``sharding=`` and
-    ``host_blocks_coordinated`` (ROADMAP A6b).
+    ``sharding=`` in a job of more than one process serves this
+    process's ``part`` of the cache and coordinates every batch with the
+    other processes, as ``DeviceStagingIter`` does (it needs ``nnz_max``);
+    :meth:`host_blocks_coordinated` serves cache blocks under the tracker's
+    shard ownership.
     """
 
     def __init__(self, uri: str, binner, cache: Optional[str] = None,
@@ -789,10 +798,7 @@ class BinnedStagingIter:
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             self._device = torch.device("cuda", torch.cuda.current_device())
-        if sharding is not None:
-            raise NotImplementedError(
-                "BinnedStagingIter(sharding=...) (multi-device staging) is "
-                "not ported yet: ROADMAP A6b")
+        self._plan = staging_plan(sharding)
         self._autotune = bool(_autotune.armed() if autotune is None
                               else autotune)
         self._tuner = None  # the AutoTuner, attached on the first epoch
@@ -932,10 +938,39 @@ class BinnedStagingIter:
         V = int(self._meta["virtual_parts"])
         return list(range(self._part * V, (self._part + 1) * V))
 
-    def host_blocks_coordinated(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BinnedStagingIter.host_blocks_coordinated (tracker-coordinated "
-            "shard ownership) is not ported yet: ROADMAP A6b")
+    def _open_global_part(self, g: int) -> Iterator[dict]:
+        """One GLOBAL virtual part's unpacked blocks through a cache cursor
+        of its own (what a shard handed off by the tracker reads)."""
+        ent = self._part_map.get(int(g))
+        if ent is None:
+            return
+        r = _NativeReader(self._cache_path, self._recover)
+        try:
+            r.seek_to(int(ent["offset"]))
+            for _ in range(int(ent["records"])):
+                buf = r.next_block_view()
+                if buf is None:
+                    break
+                yield unpack_block(buf)
+        finally:
+            r.close()
+
+    def host_blocks_coordinated(self, epoch: int = 0, client=None,
+                                steal: bool = True) -> Iterator[dict]:
+        """Unpacked cache blocks under tracker-coordinated shard ownership
+        (claim and steal through the shard board), as
+        ``RecordStagingIter.host_batches_coordinated`` on the cache's read
+        path.  Builds or opens the cache first."""
+        if self._meta is None:
+            self.ensure_cache()
+        if self._fallback_text:
+            raise RuntimeError("bin cache unavailable (build failed); "
+                               "coordinated cache reads need a cache")
+        if client is None:
+            client = _tracker_metrics.shard_client_from_env(rank=self._part)
+        yield from _tracker_metrics.coordinated_parts(
+            int(epoch), self._my_parts(), self._open_global_part, client,
+            steal=steal)
 
     def _produce_host(self, emit) -> None:
         pad_bin = int(self._meta.get("pad_bin", 1))
@@ -1109,4 +1144,45 @@ class BinnedStagingIter:
         host_iter = _staged_iter(produce, self._prefetch,
                                  depth_gauge="cache.queue_depth")
 
+        if self._plan is not None:
+            yield from self._iter_multiprocess(host_iter)
+            return
         yield from _device_feed(self._device, host_iter, self._stage, prof)
+
+    def _iter_multiprocess(self, host_iter) -> Iterator[BinnedBatch]:
+        """A multi-process epoch, coordinated batch by batch as
+        ``DeviceStagingIter``'s (``[status, num_rows, row_ptr]`` on the
+        consumer thread)."""
+        if self._nnz_max == 0:
+            raise ValueError(
+                "multi-process staging needs fixed shapes: pass nnz_max=... "
+                "so every process contributes identically-shaped shards")
+        B, nnz, plan = self._batch_size, self._nnz_max, self._plan
+        nprocs = plan.num_shards
+
+        def pack(local, out):
+            out[0] = local["num_rows"]
+            out[1:] = local["row_ptr"]
+
+        for local, gathered in multiprocess_rounds(host_iter, B + 2, pack,
+                                                   plan):
+            shifts = np.arange(nprocs, dtype=np.int64) * nnz
+            shifted = gathered[:, 2:] + shifts[:, None]
+            global_rp = np.concatenate(
+                [shifted[:, :-1].reshape(-1),
+                 [np.int64(nnz) * nprocs]]).astype(np.int32)
+            if local is None:  # out of rows: padding rows and lanes
+                pad_bin = int(self._meta.get("pad_bin", 1)) if self._meta \
+                    else 1
+                z32 = lambda k: np.zeros(k, np.int32)  # noqa: E731
+                local = {"num_rows": 0, "label": z32(B), "weight": z32(B),
+                         "row_ptr": z32(B + 1), "index": z32(nnz),
+                         "qid": z32(B) if self._with_qid else None,
+                         "ebin": np.full(nnz, pad_bin, np.uint8),
+                         "emask": np.zeros(nnz, np.bool_)}
+            batch = _consume(self._device, *self._stage(local))
+            batch.plan = plan
+            batch.global_num_rows = int(gathered[:, 1].sum())
+            batch.global_row_ptr = torch.from_numpy(global_rp).to(
+                self._device)
+            yield batch

@@ -3,9 +3,21 @@
 ``RecordStagingIter``, which stages a RecordIO file's raw records.
 
 The port of ``PaddedBatch``, ``bucket_pow2``, ``pad_batch_to_bucket``,
-single-host ``DeviceStagingIter``, ``RecordBatch`` and single-host
-``RecordStagingIter`` from ``dmlc_core_tpu.data.staging``, over torch
-tensors.
+``DeviceStagingIter``, ``RecordBatch`` and ``RecordStagingIter`` from
+``dmlc_core_tpu.data.staging``, over torch tensors.
+
+Multi-process staging (``sharding=`` a ``parallel.MeshPlan``, a row
+sharding or a ``DeviceMesh``, in a ``torch.distributed`` job of more than
+one process): each process stages its own part of the file
+(``part``/``num_parts``) and yields its own local batches, and every batch
+is coordinated by one tiny host all-gather on a gloo group, on the
+consumer thread (never a prefetch thread: collectives must run in program
+order on every process), which carries the global facts the JAX package
+keeps in its global arrays: the total rows, the global row pointer and
+the global ``max_index``.  A process that runs out of rows keeps sending
+all-padding batches until every process is done, so batch counts match
+and every row is delivered exactly once; a process whose parse fails
+sends status -1 and its peers raise instead of hanging.
 
 ``DeviceStagingIter`` runs the same pipeline as the JAX package's:
 
@@ -79,6 +91,14 @@ class PaddedBatch:
     num_rows: int
     field: Optional[torch.Tensor] = None  # i32 [nnz_pad] (libfm)
     qid: Optional[torch.Tensor] = None    # i32 [batch] query ids (ranking)
+    # a process's batch of a multi-process epoch (None otherwise): the
+    # plan its rows are sharded over, the rows of every process together,
+    # and the global CSR row pointer (i32 [processes * batch + 1]: each
+    # process's rows shifted into its fixed nnz_max segment of the
+    # processes' concatenated entries, as the JAX package's global batch)
+    plan: Optional[object] = None
+    global_num_rows: Optional[int] = None
+    global_row_ptr: Optional[torch.Tensor] = None
 
     @property
     def batch_size(self) -> int:
@@ -293,13 +313,78 @@ def _device_feed(device: torch.device, host_iter, stage, prof=None):
 
     for batch, event in _staged_iter(produce_device, 2,
                                      depth_gauge="h2d.queue_depth"):
-        if event is not None:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(event)
-            for t in vars(batch).values():
-                if isinstance(t, torch.Tensor):
-                    t.record_stream(consumer)
-        yield batch
+        yield _consume(device, batch, event)
+
+
+def _consume(device: torch.device, batch, event):
+    """``batch`` ready for the consumer: its stream waits on the copy's
+    ``event``, and every tensor of the batch is recorded on that stream
+    (the caching allocator would hand the side stream's memory out again
+    early otherwise)."""
+    if event is not None:
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(event)
+        for t in vars(batch).values():
+            if isinstance(t, torch.Tensor):
+                t.record_stream(consumer)
+    return batch
+
+
+def staging_plan(sharding):
+    """The ``parallel.MeshPlan`` of a ``sharding=`` argument when it shards
+    rows over more than one process, else None (one process stages as
+    without one)."""
+    if sharding is None:
+        return None
+    from ..parallel.meshplan import MeshPlan
+    plan = MeshPlan.from_spec(sharding)
+    return plan if plan.num_shards > 1 else None
+
+
+def multiprocess_rounds(host_iter, payload_len: int, pack, plan):
+    """Coordinate one epoch of multi-process staging: yield (local,
+    gathered) per global batch, where ``local`` is this process's host
+    batch (None once it is exhausted) and ``gathered`` the int64
+    [processes, payload_len + 1] all-gather of every process's ``[status,
+    payload...]``.
+
+    Status 1 = has data (``pack(local, out)`` fills the payload), 0 =
+    exhausted (it keeps taking part, so collective counts stay matched),
+    -1 = this process's producer failed (its peers raise instead of
+    waiting in their next collective; it re-raises its own error).  Ends
+    when every process reports exhausted.  Runs on the consumer thread:
+    collectives issued from a prefetch thread would race the consumer's
+    own (the order of collectives must be the same on every process)."""
+    local_end = False
+    try:
+        while True:
+            local, local_err = None, None
+            if not local_end:
+                try:
+                    local = next(host_iter, None)
+                    local_end = local is None
+                except Exception as e:  # the parse failed on this process
+                    local_err, local_end = e, True
+            packed = np.zeros(payload_len + 1, np.int64)
+            if local_err is not None:
+                packed[0] = -1
+            elif local is not None:
+                packed[0] = 1
+                pack(local, packed[1:])
+            gathered = plan.all_gather(torch.from_numpy(packed)).numpy()
+            if local_err is not None:
+                raise local_err
+            failed = np.nonzero(gathered[:, 0] < 0)[0]
+            if failed.size:
+                raise RuntimeError(
+                    "multi-process staging failed on process(es) "
+                    f"{failed.tolist()}; aborting the epoch on every "
+                    "process")
+            if gathered[:, 0].sum() == 0:
+                return  # every process is done; collective counts matched
+            yield local, gathered
+    finally:
+        host_iter.close()
 
 
 # the staged leaves in their order in a host buffer; all are 4 bytes a value
@@ -356,8 +441,12 @@ class DeviceStagingIter:
     the native pool keeps the stream, so every batch stays an untuned
     epoch's.
 
-    Not ported yet, and refused: ``sharding=`` and multi-process assembly
-    (ROADMAP A6b).
+    ``sharding=`` (a ``parallel.MeshPlan``, ``parallel.data_sharding(mesh)``
+    or a ``DeviceMesh``) in a job of more than one process stages this
+    process's ``part`` and coordinates every batch with the other
+    processes (see the module docstring); it needs ``nnz_max`` (fixed
+    shapes) and the same ``batch_size`` on every process.  Its batches
+    carry ``plan``, ``global_num_rows`` and ``global_row_ptr``.
     """
 
     def __init__(self, uri: str, batch_size: int = 4096,
@@ -375,10 +464,7 @@ class DeviceStagingIter:
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             self._device = torch.device("cuda", torch.cuda.current_device())
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceStagingIter(sharding=...) (multi-device and "
-                "multi-process staging) is not ported yet: ROADMAP A6b")
+        self._plan = staging_plan(sharding)
         if bin_cache is not None and binner is None:
             raise ValueError("bin_cache= needs binner= (a QuantileBinner)")
         self._autotune = bool(_autotune.armed() if autotune is None
@@ -617,9 +703,9 @@ class DeviceStagingIter:
                 batch_size=self._batch_size, nnz_bucket=self._nnz_bucket,
                 nnz_max=self._nnz_max, part=self._part,
                 num_parts=self._num_parts, format=self._format,
-                prefetch_depth=self._prefetch, with_qid=self._with_qid,
-                buffer_mb=self._buffer_mb, codec=self._bin_cache_codec,
-                device=self._device)
+                sharding=self._plan, prefetch_depth=self._prefetch,
+                with_qid=self._with_qid, buffer_mb=self._buffer_mb,
+                codec=self._bin_cache_codec, device=self._device)
         yield from self._binned
 
     def _iter_epoch(self) -> Iterator[PaddedBatch]:
@@ -654,7 +740,62 @@ class DeviceStagingIter:
         host_iter = _staged_iter(produce_host, self._prefetch,
                                  depth_gauge="pack.queue_depth")
 
+        if self._plan is not None:
+            yield from self._iter_multiprocess(host_iter)
+            return
         yield from _device_feed(self._device, host_iter, self._stage, prof)
+
+    def _iter_multiprocess(self, host_iter) -> Iterator[PaddedBatch]:
+        """A multi-process epoch: the pack thread parses this process's
+        part; here, on the consumer thread, each batch's coordination
+        all-gather of ``[status, num_rows, max_index, row_ptr]`` and its
+        staging run in program order."""
+        if self._nnz_max == 0:
+            raise ValueError(
+                "multi-process staging needs fixed shapes: pass nnz_max=... "
+                "so every process contributes identically-shaped shards")
+        B, nnz, plan = self._batch_size, self._nnz_max, self._plan
+        nprocs = plan.num_shards
+
+        def pack(local, out):
+            out[0] = local["num_rows"]
+            out[1] = local["max_index"]
+            out[2:] = local["row_ptr"]
+
+        for local, gathered in multiprocess_rounds(host_iter, B + 3, pack,
+                                                   plan):
+            # the JAX package's global CSR: each process's row boundaries
+            # shifted into its fixed nnz_max segment of the concatenated
+            # entries
+            shifts = np.arange(nprocs, dtype=np.int64) * nnz
+            shifted = gathered[:, 3:] + shifts[:, None]
+            global_rp = np.concatenate(
+                [shifted[:, :-1].reshape(-1),
+                 [np.int64(nnz) * nprocs]]).astype(np.int32)
+            has_data = gathered[:, 0] == 1
+            self._max_index = max(
+                self._max_index, int(gathered[has_data, 2].max(initial=-1)))
+            if local is None:
+                local = self._padding_batch()
+            batch = _consume(self._device, *self._stage(local))
+            batch.plan = plan
+            batch.global_num_rows = int(gathered[:, 1].sum())
+            batch.global_row_ptr = torch.from_numpy(global_rp).to(
+                self._device)
+            yield batch
+
+    def _padding_batch(self) -> dict:
+        """The host batch of a process that is out of rows: ``batch_size``
+        padding rows (weight 0, empty spans) and ``nnz_max`` zero lanes."""
+        B, nnz = self._batch_size, self._nnz_max
+        zeros = lambda k: np.zeros(k, np.int32)  # noqa: E731
+        return {"label": zeros(B), "weight": zeros(B),
+                "row_ptr": zeros(B + 1), "index": zeros(nnz),
+                "value": zeros(nnz),
+                "field": zeros(nnz) if self._with_field else None,
+                "qid": zeros(B) if self._with_qid else None,
+                "num_rows": 0, "max_index": -1, "lineage": -1,
+                "release": lambda: None}
 
 
 # ---- RecordStagingIter ------------------------------------------------------
@@ -800,14 +941,21 @@ class RecordBatch:
     ``bytes[offsets[k]:offsets[k + 1]]`` (a payload the writer split at a
     magic word comes back whole).  Padding records have empty spans;
     :meth:`record_mask` marks the real ones.  ``num_records`` is a Python
-    int; ``blocks`` is 1 (a multi-process batch, one block a process, is
-    not ported: ROADMAP A6b)."""
+    int; ``blocks`` is 1.  A process's batch of a multi-process epoch holds
+    its own block and carries the global facts of the JAX package's
+    global batch (one block a process): ``global_offsets`` (i32
+    [processes * (records_cap + 1)], each block's offsets shifted by
+    ``bytes_cap`` times its process), ``global_block_num_records`` (i32
+    [processes]) and ``global_num_records``."""
 
     bytes: torch.Tensor              # u8 [bytes_cap]
     offsets: torch.Tensor            # i32 [records_cap + 1]
     num_records: int
     block_num_records: torch.Tensor  # i32 [blocks]
     blocks: int = 1
+    global_offsets: Optional[torch.Tensor] = None
+    global_block_num_records: Optional[torch.Tensor] = None
+    global_num_records: Optional[int] = None
 
     @property
     def records_cap(self) -> int:
@@ -843,8 +991,10 @@ class RecordStagingIter:
     ``prefetch_depth``, both from the next epoch), plus ``device`` (the
     card unless the caller asks for the CPU).
 
-    Not ported yet, and refused: ``sharding=`` and
-    ``host_batches_coordinated`` (ROADMAP A6b).
+    ``sharding=`` in a job of more than one process stages this
+    process's ``part`` and coordinates every batch with the other
+    processes, as ``DeviceStagingIter`` does; :meth:`host_batches_coordinated`
+    serves host batches under the tracker's shard ownership.
     """
 
     def __init__(self, uri: str, records_cap: int = 4096,
@@ -856,10 +1006,7 @@ class RecordStagingIter:
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             self._device = torch.device("cuda", torch.cuda.current_device())
-        if sharding is not None:
-            raise NotImplementedError(
-                "RecordStagingIter(sharding=...) (multi-device and "
-                "multi-process staging) is not ported yet: ROADMAP A6b")
+        self._plan = staging_plan(sharding)
         self._autotune = bool(_autotune.armed() if autotune is None
                               else autotune)
         self._tuner = None  # the AutoTuner, attached on the first epoch
@@ -944,9 +1091,15 @@ class RecordStagingIter:
         """Virtual part ``j`` of this worker's share, on a pool thread,
         through a native cursor of its own."""
         V = self._resolve_virtual_parts()
+        yield from self._open_global_part(self._part * V + j)
+
+    def _open_global_part(self, g: int):
+        """GLOBAL virtual part ``g`` of the file (any worker's), through a
+        native cursor of its own."""
+        V = self._resolve_virtual_parts()
         h = ctypes.c_void_p()
         check(self._lib.DmlcTpuRecordBatcherCreateEx(
-            self._uri.encode(), self._part * V + j, self._num_parts * V,
+            self._uri.encode(), int(g), self._num_parts * V,
             self._records_cap, self._bytes_cap, int(self._recover),
             ctypes.byref(h)))
         try:
@@ -957,10 +1110,23 @@ class RecordStagingIter:
         finally:
             self._lib.DmlcTpuRecordBatcherFree(h)
 
-    def host_batches_coordinated(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RecordStagingIter.host_batches_coordinated (tracker-coordinated "
-            "shard ownership) is not ported yet: ROADMAP A6b")
+    def host_batches_coordinated(self, epoch: int = 0, client=None,
+                                 steal: bool = True) -> Iterator[dict]:
+        """Host batches under tracker-coordinated shard ownership.
+
+        Registers this worker's virtual parts on the tracker's shard board,
+        claims each before reading it and, once its own list is drained,
+        steals pending parts from hosts the tracker flagged, keeping the
+        job's exactly-once visitation
+        (``tracker.metrics.coordinated_parts``).  ``client`` defaults to
+        the env contract (``DMLC_TRACKER_METRICS_PORT``); without a tracker
+        this is plain in-order part iteration."""
+        V = self._resolve_virtual_parts()
+        if client is None:
+            client = _tracker_metrics.shard_client_from_env(rank=self._part)
+        shards = list(range(self._part * V, (self._part + 1) * V))
+        yield from _tracker_metrics.coordinated_parts(
+            int(epoch), shards, self._open_global_part, client, steal=steal)
 
     def _produce_host(self, emit) -> None:
         """Drive the native read and pack, emitting host batch dicts."""
@@ -1051,4 +1217,39 @@ class RecordStagingIter:
         host_iter = _staged_iter(self._produce_host, self._prefetch,
                                  depth_gauge="record.queue_depth")
 
+        if self._plan is not None:
+            yield from self._iter_multiprocess(host_iter)
+            return
         yield from _device_feed(self._device, host_iter, self._stage)
+
+    def _iter_multiprocess(self, host_iter) -> Iterator[RecordBatch]:
+        """A multi-process epoch: each process stages its own block; the
+        blocks' exact offsets ride the coordination all-gather."""
+        plan, R, cap_b = self._plan, self._records_cap, self._bytes_cap
+        nprocs = plan.num_shards
+        if nprocs * cap_b > np.iinfo(np.int32).max:
+            raise ValueError(
+                f"global byte offsets overflow int32: {nprocs} processes x "
+                f"bytes_cap={cap_b}; lower bytes_cap below "
+                f"{np.iinfo(np.int32).max // nprocs}")
+
+        def pack(local, out):
+            out[0] = local["num_records"]
+            out[1:] = local["offsets"]
+
+        for local, gathered in multiprocess_rounds(host_iter, R + 2, pack,
+                                                   plan):
+            shifts = np.arange(nprocs, dtype=np.int64) * cap_b
+            global_offs = (gathered[:, 2:] + shifts[:, None]).reshape(-1)
+            counts = gathered[:, 1].astype(np.int32)
+            if local is None:  # out of records: an empty block
+                local = {"bytes": np.zeros(0, np.uint8),
+                         "offsets": np.zeros(R + 1, np.int32),
+                         "num_records": 0}
+            batch = _consume(self._device, *self._stage(local))
+            batch.global_offsets = torch.from_numpy(
+                global_offs.astype(np.int32)).to(self._device)
+            batch.global_block_num_records = torch.from_numpy(counts).to(
+                self._device)
+            batch.global_num_records = int(counts.sum())
+            yield batch

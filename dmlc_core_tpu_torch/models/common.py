@@ -91,16 +91,26 @@ class SGDModelMixin:
     def forward(self, batch: PaddedBatch) -> torch.Tensor:
         return self.margins(batch)
 
-    def loss(self, batch: PaddedBatch) -> torch.Tensor:
+    def _per_row(self, batch: PaddedBatch) -> torch.Tensor:
         m = self.margins(batch)
         if self.objective == "logistic":
-            per_row = logistic_nll(m, batch.label)
-        else:
-            per_row = 0.5 * (m - batch.label) ** 2
-        data_loss = padded_row_mean(per_row, batch.weight)
+            return logistic_nll(m, batch.label)
+        return 0.5 * (m - batch.label) ** 2
+
+    def _l2_loss(self) -> torch.Tensor:
+        return 0.5 * self.l2 * sum(torch.sum(t ** 2)
+                                   for t in self._l2_terms())
+
+    def loss(self, batch: PaddedBatch) -> torch.Tensor:
+        """Weighted mean loss over the batch's rows (padding rows weigh 0),
+        plus the l2 term.  A process's batch of a multi-process epoch
+        (``batch.plan`` set) gives the loss over every process's rows."""
+        if batch.plan is not None:
+            with torch.no_grad():
+                return self._sharded_loss_and_step(batch, step=False)
+        data_loss = padded_row_mean(self._per_row(batch), batch.weight)
         if self.l2 > 0.0:
-            data_loss = data_loss + 0.5 * self.l2 * sum(
-                torch.sum(t ** 2) for t in self._l2_terms())
+            data_loss = data_loss + self._l2_loss()
         return data_loss
 
     def predict(self, batch: PaddedBatch) -> torch.Tensor:
@@ -115,13 +125,60 @@ class SGDModelMixin:
         returns ``(new_params, loss)``; here the module is the params.
         With ``sdot_backend="pallas"`` on the card the forward sums run on
         the segment-sum kernel (3 launches an FM step, 1 a linear one) and
-        their gradient is its gather."""
+        their gradient is its gather.
+
+        A process's batch of a multi-process epoch (``batch.plan`` set, from
+        ``DeviceStagingIter(sharding=...)``) takes a data-parallel step:
+        the loss is normalised by the weight of every process's rows, each
+        process's gradient is all-reduced by the plan in one flat buffer,
+        and every process applies the same update, so the replicas stay
+        equal and N processes' step is one step over their concatenated
+        batches."""
+        if batch.plan is not None:
+            return self._sharded_loss_and_step(batch, step=True)
         loss = self.loss(batch)
         loss.backward()
         with torch.no_grad():
             for p in self.parameters():
                 p -= self.learning_rate * p.grad
                 p.grad = None
+        return loss.detach()
+
+    def _sharded_loss_and_step(self, batch: PaddedBatch,
+                               step: bool) -> torch.Tensor:
+        """The global loss of a sharded batch and, with ``step``, the
+        data-parallel SGD step: one tiny all-reduce of the weight sum (the
+        global ``padded_row_mean``'s denominator), this process's share of
+        the data loss and its gradient by autograd, then one all-reduce of
+        [every parameter's gradient, the loss numerator] flattened into
+        one buffer; the l2 term's gradient ``l2 * p`` is added after the
+        reduction, once."""
+        plan = batch.plan
+        params = list(self.parameters())
+        total_w = torch.clamp(plan.allreduce(
+            torch.sum(batch.weight).reshape(1)), min=1.0)
+        if not step:
+            num = torch.sum(self._per_row(batch) * batch.weight)
+            loss = plan.allreduce(num.reshape(1))[0] / total_w[0]
+            return loss + self._l2_loss() if self.l2 > 0.0 else loss
+        with torch.enable_grad():
+            num = torch.sum(self._per_row(batch) * batch.weight)
+            grads = torch.autograd.grad(num / total_w[0], params)
+        flat = plan.allreduce(torch.cat([g.reshape(-1) for g in grads]
+                                        + [num.detach().reshape(1)]))
+        loss = flat[-1] / total_w[0]
+        if self.l2 > 0.0:
+            loss = loss + self._l2_loss().detach()
+        if step:
+            l2_ids = {id(t) for t in self._l2_terms()}
+            with torch.no_grad():
+                off = 0
+                for p in params:
+                    g = flat[off:off + p.numel()].view_as(p)
+                    off += p.numel()
+                    if self.l2 > 0.0 and id(p) in l2_ids:
+                        g = g + self.l2 * p
+                    p -= self.learning_rate * g
         return loss.detach()
 
     def predict_bucketed(self, batch: PaddedBatch, row_bucket=None,

@@ -27,8 +27,18 @@ Sampling below 1.0 (``subsample``, ``colsample_bytree``,
 ``colsample_bylevel``) draws from :mod:`..random`, ``jax.random``'s threefry
 stream bit for bit, so a sampled forest is the JAX package's.
 
-Not ported yet: the multi-device histogram route (``histogram_mesh``,
-ROADMAP A6b).
+Row-sharded fits (``histogram_mesh=``, a ``parallel.MeshPlan``, a
+``DeviceMesh`` or the ``(mesh, axis)`` tuple): every process of the plan
+calls ``fit`` / ``fit_batch`` / ``fit_streamed`` with its own rows, and
+every cross-row sum of the fit goes through the plan.  The kernel levels'
+histograms, the node totals, the leaf sums and the base margin's, priors'
+and eval losses' sums ride the kernels' int64 fixed point: each process
+accumulates its rows at one shared scale, the accumulators are all-reduced
+exactly, and one dequantize rounds them, so those sums are the same bits
+whatever the process count or the plan's strategy, and equal to the
+one-process kernels' over all rows.  ``index_add`` levels reduce their f32
+histograms through the plan.  The forest comes out replicated, equal on
+every process.
 """
 from __future__ import annotations
 
@@ -45,10 +55,13 @@ from .. import telemetry
 from .._device import resolve_device
 from ..data.staging import (DeviceStagingIter, bucket_pow2,
                             pad_batch_to_bucket)
-from ..ops.histogram import histogram_gh
-from ..ops.histogram_sparse import (entry_gh, histogram_gh_sparse,
+from ..ops.histogram import histogram_gh, histogram_gh_sharded
+from ..ops.histogram_sparse import (entry_gh, feature_counts,
+                                    histogram_gh_sparse,
+                                    histogram_gh_sparse_sharded,
                                     sparse_hist_layout)
-from ..ops.segment_sum import clamp_index, segment_sum
+from ..ops.segment_sum import clamp_index, segment_sum, segment_sum_sharded
+from ..parallel.meshplan import MeshPlan
 from ..random import PRNGKey, bernoulli, fold_in, permutation, uniform
 from .common import logistic_nll
 
@@ -462,7 +475,10 @@ class GBDT:
     (folded into the weights) and feature subset, ``colsample_bylevel`` a
     fresh subset of that per depth, all from ``jax.random``'s stream under
     ``seed`` (:mod:`..random`), so they equal the JAX package's draws bit
-    for bit.  ``histogram_mesh`` must be None (not ported yet: it raises).
+    for bit.  ``histogram_mesh`` (a ``parallel.MeshPlan``, a ``DeviceMesh``
+    or the ``(mesh, axis)`` tuple) shards the fit's rows over the plan's
+    processes (see the module docstring); each process passes its own rows
+    and gets the same forest.
 
     The forest is a dict of tensors on that device::
 
@@ -512,10 +528,10 @@ class GBDT:
                 raise ValueError(f"{name} must be in (0, 1]")
         if gamma < 0:
             raise ValueError("gamma must be >= 0")
-        if histogram_mesh is not None:
-            raise NotImplementedError(
-                "histogram_mesh (the multi-device histogram route) is not "
-                "ported yet: ROADMAP A6b")
+        self.mesh_plan = MeshPlan.from_spec(histogram_mesh)
+        # (this process's first global row, the global rows) during a
+        # sharded fit; sampling draws over the global rows
+        self._row_slice = None
         self.device = resolve_device(device)
         self.num_features = num_features
         self.num_trees = num_trees
@@ -611,10 +627,39 @@ class GBDT:
 
     def _level_histogram(self, bins: torch.Tensor, rel: torch.Tensor,
                          gh: torch.Tensor, n_nodes: int) -> torch.Tensor:
-        """Per-level [nodes, F, bins, 2] histogram with backend routing
-        (the single-device route of the JAX package)."""
-        return histogram_gh(bins, rel, gh, n_nodes, self.num_bins,
-                            force=self._hist_impl(n_nodes))
+        """Per-level [nodes, F, bins, 2] histogram with backend routing.
+        With a mesh plan, over every process's rows
+        (``histogram_gh_sharded``: exact on kernel levels), in
+        ``overlap_chunks`` feature chunks whose all-reduces overlap the
+        next chunk's histogram; ``mesh.overlap_occupancy`` is set to the
+        structural overlap (K - 1) / K in permille."""
+        impl = self._hist_impl(n_nodes)
+        plan = self.mesh_plan
+        if plan is None:
+            return histogram_gh(bins, rel, gh, n_nodes, self.num_bins,
+                                force=impl)
+        K = min(plan.overlap_chunks, self.num_features)
+        telemetry.gauge_set("mesh.overlap_occupancy", (K - 1) * 1000 // K)
+        return histogram_gh_sharded(bins, rel, gh, n_nodes, self.num_bins,
+                                    plan, chunks=K, force=impl).to(gh.dtype)
+
+    def _seg_sum(self, gh: torch.Tensor, ids: torch.Tensor,
+                 n: int) -> torch.Tensor:
+        """Node totals and leaf sums: [n, 2] sums of ``gh`` by ``ids``.  With
+        a mesh plan over every process's rows on the exact fixed-point
+        route (``segment_sum_sharded``); else the segment-sum kernel on the
+        card and ``index_add`` on the CPU (`_leaf_impl`)."""
+        if self.mesh_plan is not None:
+            return segment_sum_sharded(gh, ids, n, self.mesh_plan)
+        return segment_sum(gh, ids, n, force=self._leaf_impl(gh))
+
+    def _row_sums(self, x: torch.Tensor) -> torch.Tensor:
+        """[L] column sums of ``x`` [rows, L] over every process's rows, on
+        the exact fixed-point route (one segment), so every process gets
+        the same bits whatever the plan's strategy.  Only under a plan."""
+        zeros = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+        return segment_sum_sharded(x.to(torch.float32), zeros, 1,
+                                   self.mesh_plan)[0]
 
     # the sparse kernel's node cap for "auto", as the JAX package sets it:
     # its shared-memory node tiles grow with n_nodes like the dense one's
@@ -661,10 +706,21 @@ class GBDT:
         """Sparse per-level [nodes, F, bins, 2] on the kernel (the
         single-device route of the JAX package): ``gh_e`` is gathered once a
         tree by the caller (`entry_gh`); only the entries' node ids change
-        by level."""
+        by level.  With a mesh plan, over every process's entries
+        (``histogram_gh_sparse_sharded``, exact)."""
+        if self.mesh_plan is not None:
+            return histogram_gh_sparse_sharded(layout, rel, gh_row, gh_e,
+                                               n_nodes, self.mesh_plan,
+                                               feature_counts(layout))
         return histogram_gh_sparse(None, None, None, None, rel, gh_row,
                                    n_nodes, self.num_features, self.num_bins,
                                    force="pallas", layout=layout, gh_e=gh_e)
+
+    def _start_fit(self, rows: int) -> None:
+        """Under a mesh plan: this process's first global row and the
+        global rows, for the sampling draws (a collective)."""
+        self._row_slice = (None if self.mesh_plan is None
+                           else self.mesh_plan.row_offsets(rows))
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
@@ -748,6 +804,16 @@ class GBDT:
             per = _softmax_ce(margin, label)
         else:
             per = 0.5 * (margin - label) ** 2
+        if self.mesh_plan is not None:
+            # over every process's rows: the exact sums of (per * w, w)
+            w = (torch.ones_like(per) if weight is None
+                 else weight.to(torch.float32))
+            if per.dim() == 2:
+                per = per.reshape(-1)
+            tot = self._row_sums(torch.stack([per * w, w], dim=1))
+            if weight is None:
+                return tot[0] / tot[1]
+            return tot[0] / torch.clamp(tot[1], min=1e-12)
         if weight is None:
             return torch.mean(per)
         w = weight.to(torch.float32)
@@ -781,6 +847,9 @@ class GBDT:
                       else weight.to(torch.float32))
                 _, _, loss, npairs = _pairwise_terms(
                     margin, label, eval_qid_t, ew, ev_group - 1)
+                if self.mesh_plan is not None:  # every process's pairs
+                    loss, npairs = self._row_sums(torch.stack(
+                        [loss, npairs.to(torch.float32)])[None])
                 return loss / torch.clamp(npairs, min=1)
 
         return grad_hess, eval_loss_fn
@@ -811,13 +880,22 @@ class GBDT:
                 bs = torch.clamp(bs, 1e-6, 1 - 1e-6)
                 return torch.log(bs / (1 - bs))
             return bs
-        sum_w = torch.clamp(torch.sum(w), min=1e-12)
+        if self.objective == "logistic":
+            num = torch.where(label > 0.5, w, 0.0)
+        else:
+            num = label * w
+        if self.mesh_plan is not None:
+            # over every process's rows, on the exact route
+            tot = self._row_sums(torch.stack([w, num], dim=1))
+            sum_w, sum_num = torch.clamp(tot[0], min=1e-12), tot[1]
+        else:
+            sum_w, sum_num = torch.clamp(torch.sum(w), min=1e-12), \
+                torch.sum(num)
         if self.objective == "logistic":
             # base margin from the weighted prior, clamped away from 0/1
-            p = torch.clamp(torch.sum(torch.where(label > 0.5, w, 0.0))
-                            / sum_w, 1e-6, 1 - 1e-6)
+            p = torch.clamp(sum_num / sum_w, 1e-6, 1 - 1e-6)
             return torch.log(p / (1 - p))
-        return torch.sum(label * w) / sum_w
+        return sum_num / sum_w
 
     def _boost(self, label: torch.Tensor, w: torch.Tensor, build_tree,
                eval_margin=None, eval_label=None, eval_weight=None,
@@ -881,19 +959,29 @@ class GBDT:
         params = self.init()
         label = label.to(torch.int32)
         lo, hi = int(label.min()), int(label.max())
+        if self.mesh_plan is not None:  # every process checks every label
+            neg_lo, hi = self.mesh_plan.allreduce(torch.tensor([-lo, hi]),
+                                                  "max").tolist()
+            lo = -neg_lo
         if lo < 0 or hi >= K:
             # out-of-range classes would silently train a corrupted forest
             raise ValueError(f"softmax labels must be integers in [0, {K}); "
                              f"got range [{lo}, {hi}]")
-        sum_w = torch.clamp(torch.sum(w), min=1e-12)
         onehot = torch.nn.functional.one_hot(label.to(torch.int64), K).to(
             torch.float32)
         if self.base_score is not None:
             params["base"] = self._t(np.broadcast_to(
                 np.asarray(self.base_score, np.float32), (K,)).copy())
         else:
-            prior = torch.clamp(torch.sum(onehot * w[:, None], dim=0) / sum_w,
-                                1e-6, 1.0)
+            if self.mesh_plan is not None:
+                # every process's rows, on the exact route
+                tot = self._row_sums(torch.cat([onehot * w[:, None],
+                                                w[:, None]], dim=1))
+                class_w, sum_w = tot[:K], torch.clamp(tot[K], min=1e-12)
+            else:
+                sum_w = torch.clamp(torch.sum(w), min=1e-12)
+                class_w = torch.sum(onehot * w[:, None], dim=0)
+            prior = torch.clamp(class_w / sum_w, 1e-6, 1.0)
             params["base"] = torch.log(prior)
 
         margin = params["base"].expand(label.shape[0], K).clone()
@@ -1022,8 +1110,16 @@ class GBDT:
         w_t, col_mask = w, None
         if self.subsample < 1.0:
             kr = fold_in(root_key, 2 * t_idx)
-            w_t = w * bernoulli(kr, self.subsample, tuple(w.shape),
-                                self.device).to(torch.float32)
+            if self._row_slice is None:
+                keep = bernoulli(kr, self.subsample, tuple(w.shape),
+                                 self.device)
+            else:
+                # a sharded fit: this process's slice of the one global
+                # draw, at its global row offset
+                off, total = self._row_slice
+                keep = bernoulli(kr, self.subsample, (total,),
+                                 self.device)[off:off + w.shape[0]]
+            w_t = w * keep.to(torch.float32)
         if self.colsample_bytree < 1.0:
             kc = fold_in(root_key, 2 * t_idx + 1)
             F = self.num_features
@@ -1172,8 +1268,7 @@ class GBDT:
         # node's propagated bounds first under monotone constraints)
         n_leaves = 2 ** self.max_depth
         leaf_rel = node - (n_leaves - 1)
-        gh_leaf = segment_sum(gh, leaf_rel, n_leaves,
-                              force=self._leaf_impl(grad))
+        gh_leaf = self._seg_sum(gh, leaf_rel, n_leaves)
         leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
         if mono:
             leaf_w = torch.clamp(leaf_w, lo, hi)
@@ -1296,8 +1391,9 @@ class GBDT:
             else:                                      # bin 0 is empty
                 hist = histogram_gh_sparse(rid, fi, ebin, emask, rel, gh_row,
                                            n_nodes, F, B, gh_e=gh_e[impl])
-            gh_node = segment_sum(gh_row, rel, n_nodes,
-                                  force=self._leaf_impl(grad))
+                if self.mesh_plan is not None:
+                    hist = self.mesh_plan.allreduce(hist)
+            gh_node = self._seg_sum(gh_row, rel, n_nodes)
             (split_f, split_b, split_d, split_g,
              lo, hi, active) = self._level_splits_from_hist(
                 hist, gh_node, lo, hi, active, col_mask, col_key, depth)
@@ -1314,8 +1410,7 @@ class GBDT:
 
         n_leaves = 2 ** self.max_depth
         leaf_rel = node - (n_leaves - 1)
-        gh_leaf = segment_sum(gh_row, leaf_rel, n_leaves,
-                              force=self._leaf_impl(grad))
+        gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
         leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
         if mono:
             leaf_w = torch.clamp(leaf_w, lo, hi)
@@ -1381,6 +1476,7 @@ class GBDT:
         label = self._t(label, torch.float32)
         w = (torch.ones_like(label) if weight is None
              else self._t(weight, torch.float32))
+        self._start_fit(int(label.shape[0]))
         eval_margin = eval_label = eval_weight = None
         if eval_set is not None:
             eval_bins = self._bins(eval_set[0])
@@ -1467,6 +1563,7 @@ class GBDT:
         w = self._t(batch.weight if weight is None else weight,
                     torch.float32)
         row_id, findex, ebin, emask = self._entry_bins(batch, binner)
+        self._start_fit(int(label.shape[0]))
         # the same for every tree: the cast entry arrays and (for the
         # kernel) the feature-sorted layout, built once
         entries = self._sparse_entries(row_id, findex, ebin, emask)
@@ -1551,7 +1648,9 @@ class GBDT:
 
         # pass 0: the rows' resident state and each batch's row offset,
         # plus, where a level can take the kernel, the entries on the
-        # device for the once-a-fit sort
+        # device for the once-a-fit sort (under a mesh, of this process's
+        # rows: its kernel levels take the exact sharded route, as
+        # fit_batch's do)
         want_layout = self._sparse_layout_enabled()
         labels, weights, qids, offsets = [], [], [], [0]
         ent = ([], [], [], []) if want_layout else None
@@ -1570,6 +1669,7 @@ class GBDT:
         if not labels:
             raise ValueError("fit_streamed: the batch source is empty")
         label, w = torch.cat(labels), torch.cat(weights)
+        self._start_fit(int(label.shape[0]))
         qid = torch.cat(qids) if len(qids) == len(labels) else None
         rows = int(label.shape[0])
         F, B = self.num_features, self.num_bins
@@ -1599,7 +1699,6 @@ class GBDT:
 
         def build_tree(grad, hess, col_mask, col_key):
             gh_row = torch.stack([grad, hess], dim=-1).contiguous()
-            leaf_force = self._leaf_impl(grad)
             # the kernel levels' entry (grad, hess) in layout order, once a
             # tree; only the rows' node ids change by level
             gh_e = (entry_gh(gh_row, layout=layout)
@@ -1642,7 +1741,9 @@ class GBDT:
                         node = torch.cat(parts)
                         prev = None
                     rel = node - first
-                gh_node = segment_sum(gh_row, rel, n_nodes, force=leaf_force)
+                    if self.mesh_plan is not None:
+                        hist = self.mesh_plan.allreduce(hist)
+                gh_node = self._seg_sum(gh_row, rel, n_nodes)
                 (split_f, split_b, split_d, split_g,
                  lo, hi, active) = self._level_splits_from_hist(
                     hist, gh_node, lo, hi, active, col_mask, col_key, depth)
@@ -1657,8 +1758,7 @@ class GBDT:
             node = route_pass(node, prev, 2 ** (self.max_depth - 1) - 1)
             n_leaves = 2 ** self.max_depth
             leaf_rel = node - (n_leaves - 1)
-            gh_leaf = segment_sum(gh_row, leaf_rel, n_leaves,
-                                  force=leaf_force)
+            gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
             leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
             if self.monotone_constraints is not None:
                 leaf_w = torch.clamp(leaf_w, lo, hi)

@@ -85,18 +85,33 @@ __device__ __forceinline__ void flush(const unsigned* s, int size,
   }
 }
 
-// out[i] = f32(acc[i] * 2^-k_lane): the one rounding of each bin; NaN for
-// a lane with no usable scale or marked in acc[n + lane] (quantize's over)
+// out[i] = f32(acc[i] * 2^-k_lane), lane = i % lanes: the one rounding of
+// each output; NaN for a lane with no usable scale or marked in
+// acc[n + lane] (quantize's over, summed over any number of accumulators)
 __global__ void __launch_bounds__(256)
 dequantize(const long long* __restrict__ acc, const float* __restrict__ scale,
-           float* __restrict__ out, int64_t n) {
+           float* __restrict__ out, int64_t n, int lanes) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   if (i >= n) return;
-  const float s = scale[i & 1];
-  out[i] = lane_ok(s) && acc[n + (i & 1)] == 0
+  const int lane = static_cast<int>(i % lanes);
+  const float s = scale[lane];
+  out[i] = lane_ok(s) && acc[n + lane] == 0
                ? static_cast<float>(static_cast<double>(acc[i]) /
                                     static_cast<double>(s))
                : __int_as_float(0x7fc00000);
+}
+
+// The dequantize pass over n outputs of `lanes` lanes, on stream s
+inline cudaError_t launch_dequantize(const void* acc, const void* scale,
+                                     void* out, int64_t n, int lanes,
+                                     cudaStream_t s) {
+  if (n <= 0) return cudaSuccess;
+  if (lanes < 1) return cudaErrorInvalidValue;
+  const unsigned gx = static_cast<unsigned>((n + 255) / 256);
+  dequantize<<<gx, 256, 0, s>>>(static_cast<const long long*>(acc),
+                                static_cast<const float*>(scale),
+                                static_cast<float*>(out), n, lanes);
+  return cudaGetLastError();
 }
 
 }  // namespace hist_fixed

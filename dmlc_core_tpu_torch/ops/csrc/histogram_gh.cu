@@ -137,49 +137,66 @@ cudaError_t launch(const void* bins, const void* rel, const void* gh,
   return cudaGetLastError();
 }
 
+// The accumulate half: adds every row into the int64 accumulator `acc`
+// (the bins, then each lane's overflow mark), which the caller zeroed.
+cudaError_t accumulate(const void* bins, int code_bytes, const void* rel,
+                       const void* gh, const float* scale, long long qmax,
+                       unsigned long long* acc, int64_t n_out, int64_t rows,
+                       int num_features, int num_bins, int n_nodes,
+                       int node_tile, int feat_group, int64_t chunk,
+                       cudaStream_t s) {
+  if ((code_bytes != 1 && code_bytes != 4) || node_tile < 1 ||
+      feat_group < 1 || chunk < 1 || rows < 0 || qmax < 1)
+    return cudaErrorInvalidValue;
+  if (rows == 0 || n_out == 0) return cudaSuccess;
+  return code_bytes == 1
+             ? launch<uint8_t>(bins, rel, gh, scale, qmax, acc, acc + n_out,
+                               rows, num_features, num_bins, n_nodes,
+                               node_tile, feat_group, chunk, s)
+             : launch<int32_t>(bins, rel, gh, scale, qmax, acc, acc + n_out,
+                               rows, num_features, num_bins, n_nodes,
+                               node_tile, feat_group, chunk, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// bins: uint8 (code_bytes == 1) or int32 (code_bytes == 4) [rows, F]
-// row-major; rel: int32 [rows]; gh: f32 [rows, 2], 8-byte aligned; scale:
-// f32 [2] on the card (2^k of each lane) and qmax its value limit (see
-// hist_fixed.cuh); acc: int64 [n_nodes * F * num_bins * 2 + 2] (the bins,
-// then each lane's overflow mark), zeroed by the caller; out: f32 [n_nodes,
-// F, num_bins, 2].  A block takes `chunk` rows, `node_tile` nodes and
-// `feat_group` features, and 16 * node_tile * feat_group * num_bins bytes of
-// shared memory.  Launches on `stream`, does not synchronise, and returns
-// the first CUDA error (0 on success).
-int dmlc_histogram_gh_fixed(const void* bins, int code_bytes, const void* rel,
-                            const void* gh, const void* scale,
-                            long long qmax, void* acc, void* out,
-                            long long rows, int num_features, int num_bins,
-                            int n_nodes, int node_tile, int feat_group,
-                            long long chunk, void* stream) {
+// The accumulate half: bins: uint8 (code_bytes == 1) or int32 (code_bytes
+// == 4) [rows, F] row-major; rel: int32 [rows]; gh: f32 [rows, 2], 8-byte
+// aligned; scale: f32 [2] on the card (2^k of each lane) and qmax its value
+// limit (see hist_fixed.cuh), made from this launch's rows or from every
+// process's; acc: int64 [n_nodes * F * num_bins * 2 + 2] (the bins, then
+// each lane's overflow mark), zeroed by the caller and left undequantized,
+// so that the accumulators of several processes can be summed before one
+// dmlc_histogram_gh_dequantize.  A block takes `chunk` rows, `node_tile`
+// nodes and `feat_group` features, and 16 * node_tile * feat_group *
+// num_bins bytes of shared memory.  Launches on `stream`, does not
+// synchronise, and returns the first CUDA error (0 on success).
+int dmlc_histogram_gh_accumulate(const void* bins, int code_bytes,
+                                 const void* rel, const void* gh,
+                                 const void* scale, long long qmax, void* acc,
+                                 long long rows, int num_features,
+                                 int num_bins, int n_nodes, int node_tile,
+                                 int feat_group, long long chunk,
+                                 void* stream) {
   const int64_t n_out = static_cast<int64_t>(n_nodes) * num_features *
                         num_bins * 2;
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  if ((code_bytes != 1 && code_bytes != 4) || node_tile < 1 ||
-      feat_group < 1 || chunk < 1 || rows < 0 || qmax < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* a = static_cast<unsigned long long*>(acc);
-  const auto* sc = static_cast<const float*>(scale);
-  if (rows > 0) {
-    cudaError_t err =
-        code_bytes == 1
-            ? launch<uint8_t>(bins, rel, gh, sc, qmax, a, a + n_out, rows,
-                              num_features, num_bins, n_nodes, node_tile,
-                              feat_group, chunk, s)
-            : launch<int32_t>(bins, rel, gh, sc, qmax, a, a + n_out, rows,
-                              num_features, num_bins, n_nodes, node_tile,
-                              feat_group, chunk, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned gx = static_cast<unsigned>((n_out + 255) / 256);
-  hist_fixed::dequantize<<<gx, 256, 0, s>>>(
-      static_cast<const long long*>(acc), sc, static_cast<float*>(out), n_out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(accumulate(
+      bins, code_bytes, rel, gh, static_cast<const float*>(scale), qmax,
+      static_cast<unsigned long long*>(acc), n_out, rows, num_features,
+      num_bins, n_nodes, node_tile, feat_group, chunk,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The dequantize half: out: f32 [n_out] (n_nodes * F * num_bins * 2 for a
+// histogram), out[i] = f32(acc[i] / scale[i % lanes]), NaN for a lane whose
+// scale is unusable or whose mark acc[n_out + lane] is nonzero.
+int dmlc_histogram_gh_dequantize(const void* acc, const void* scale,
+                                 void* out, long long n_out, int lanes,
+                                 void* stream) {
+  return static_cast<int>(hist_fixed::launch_dequantize(
+      acc, scale, out, n_out, lanes, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dmlc_histogram_error_string(int err) {

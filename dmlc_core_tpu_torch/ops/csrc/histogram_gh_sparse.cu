@@ -132,58 +132,74 @@ hist_sparse(const int* __restrict__ gkey, const int* __restrict__ rel_e,
   });
 }
 
+// The accumulate half: adds every span's entries into the int64
+// accumulator `acc` (the bins, then each lane's overflow mark), which the
+// caller zeroed.
+cudaError_t accumulate(const void* gkey, const void* rel_e, const void* gh_e,
+                       long long nnz, int vec, const float* scale,
+                       long long qmax, const void* table, long long n_spans,
+                       int num_features, int num_bins, int nb, int n_nodes,
+                       int node_tile, unsigned long long* acc,
+                       int64_t n_out, cudaStream_t s) {
+  if (n_spans < 0 || n_spans > 0x7fffffff || node_tile < 1 || nb < num_bins ||
+      qmax < 1)
+    return cudaErrorInvalidValue;
+  if (n_spans == 0 || n_out == 0) return cudaSuccess;
+  const long long* tab = static_cast<const long long*>(table);
+  const size_t smem = 16 * static_cast<size_t>(node_tile) * num_bins;
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_sparse, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n_nodes + node_tile - 1) / node_tile;
+  hist_sparse<<<dim3(static_cast<unsigned>(n_spans), n_tiles), kThreads,
+                smem, s>>>(static_cast<const int*>(gkey),
+                           static_cast<const int*>(rel_e),
+                           static_cast<const float2*>(gh_e), scale, qmax, tab,
+                           tab + n_spans, tab + 2 * n_spans, acc, acc + n_out,
+                           nnz, num_features, num_bins, nb, n_nodes,
+                           node_tile, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// gkey, rel_e: int32 [nnz]; gh_e: f32 [nnz, 2], 8-byte aligned; vec != 0
-// when all three are 16-byte aligned (then 16-byte loads); scale: f32 [2]
-// on the card (2^k of each lane) and qmax its value limit (see
-// hist_fixed.cuh); table: int64 [3 * n_spans] = span begin, span end, span
+// The accumulate half: gkey, rel_e: int32 [nnz]; gh_e: f32 [nnz, 2],
+// 8-byte aligned; vec != 0 when all three are 16-byte aligned (then 16-byte
+// loads); scale: f32 [2] on the card (2^k of each lane) and qmax its value
+// limit (see hist_fixed.cuh), made from this launch's entries or from every
+// process's; table: int64 [3 * n_spans] = span begin, span end, span
 // feature; acc: int64 [n_nodes * num_features * num_bins * 2 + 2] (the
-// bins, then each lane's overflow mark), zeroed by the caller; out: f32
-// [n_nodes, num_features, num_bins, 2].  A block takes one span and `node_tile`
-// nodes, and 16 * node_tile * num_bins bytes of shared memory.  Launches on
-// `stream`, does not synchronise, and returns the first CUDA error (0 on
-// success).
-int dmlc_histogram_gh_sparse_fixed(const void* gkey, const void* rel_e,
-                                   const void* gh_e, long long nnz, int vec,
-                                   const void* scale, long long qmax,
-                                   const void* table, long long n_spans,
-                                   int num_features, int num_bins, int nb,
-                                   int n_nodes, int node_tile, void* acc,
-                                   void* out, void* stream) {
+// bins, then each lane's overflow mark), zeroed by the caller and left
+// undequantized, so that the accumulators of several processes can be
+// summed before one dmlc_histogram_gh_sparse_dequantize.  A block takes one
+// span and `node_tile` nodes, and 16 * node_tile * num_bins bytes of shared
+// memory.  Launches on `stream`, does not synchronise, and returns the
+// first CUDA error (0 on success).
+int dmlc_histogram_gh_sparse_accumulate(
+    const void* gkey, const void* rel_e, const void* gh_e, long long nnz,
+    int vec, const void* scale, long long qmax, const void* table,
+    long long n_spans, int num_features, int num_bins, int nb, int n_nodes,
+    int node_tile, void* acc, void* stream) {
   const int64_t n_out =
       static_cast<int64_t>(n_nodes) * num_features * num_bins * 2;
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  if (n_spans < 0 || n_spans > 0x7fffffff || node_tile < 1 || nb < num_bins ||
-      qmax < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* sc = static_cast<const float*>(scale);
-  if (n_spans > 0) {
-    const long long* tab = static_cast<const long long*>(table);
-    const size_t smem = 16 * static_cast<size_t>(node_tile) * num_bins;
-    cudaError_t err = cudaFuncSetAttribute(
-        hist_sparse, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_tiles = (n_nodes + node_tile - 1) / node_tile;
-    auto* a = static_cast<unsigned long long*>(acc);
-    hist_sparse<<<dim3(static_cast<unsigned>(n_spans), n_tiles), kThreads,
-                  smem, s>>>(static_cast<const int*>(gkey),
-                             static_cast<const int*>(rel_e),
-                             static_cast<const float2*>(gh_e), sc, qmax, tab,
-                             tab + n_spans, tab + 2 * n_spans, a, a + n_out,
-                             nnz, num_features, num_bins, nb, n_nodes,
-                             node_tile, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned gx = static_cast<unsigned>((n_out + 255) / 256);
-  hist_fixed::dequantize<<<gx, 256, 0, s>>>(
-      static_cast<const long long*>(acc), sc, static_cast<float*>(out), n_out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(accumulate(
+      gkey, rel_e, gh_e, nnz, vec, static_cast<const float*>(scale), qmax,
+      table, n_spans, num_features, num_bins, nb, n_nodes, node_tile,
+      static_cast<unsigned long long*>(acc), n_out,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The dequantize half: out: f32 [n_out] (n_nodes * F * num_bins * 2 for a
+// histogram), out[i] = f32(acc[i] / scale[i % lanes]), NaN for a lane whose
+// scale is unusable or whose mark acc[n_out + lane] is nonzero.
+int dmlc_histogram_gh_sparse_dequantize(const void* acc, const void* scale,
+                                        void* out, long long n_out, int lanes,
+                                        void* stream) {
+  return static_cast<int>(hist_fixed::launch_dequantize(
+      acc, scale, out, n_out, lanes, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dmlc_histogram_sparse_error_string(int err) {

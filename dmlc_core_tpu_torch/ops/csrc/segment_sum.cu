@@ -69,6 +69,8 @@ struct Args {
   unsigned long long* acc;       // [num_segments * lanes], then over [lanes]
   unsigned* partial;             // [gridDim.x * lanes] per-block max |v| bits
   float* scale;                  // [lanes] 2^k of each lane (written by block 0)
+  const float* scale_in;         // [lanes] the caller's 2^k, or null: find it
+  int finish;                    // 1: phase C; 0: leave the int64 sums
   int64_t nnz;
   int64_t n_out;                 // num_segments * lanes
   long long qmax;                // hist_fixed value limit for n = max(nnz, 1)
@@ -130,7 +132,7 @@ seg_fixed(const Args a) {
   for (int l = threadIdx.x; l < a.lanes; l += kThreads) s_amax[l] = 0u;
   __syncthreads();
   unsigned m[V];
-  walk(a, c0, c1,
+  if (a.scale_in == nullptr) walk(a, c0, c1,
        [&](int) {
          for (int v = 0; v < V; ++v) m[v] = 0u;
        },
@@ -168,6 +170,10 @@ seg_fixed(const Args a) {
     atomicMax(s_amax + i % a.lanes, a.partial[i]);
   __syncthreads();
   for (int l = threadIdx.x; l < a.lanes; l += kThreads) {
+    if (a.scale_in != nullptr) {
+      s_scale[l] = a.scale_in[l];
+      continue;
+    }
     // fixed_point.fixed_point_scale, step for step: NaN stays NaN through
     // the clamp, amax 0 gives k = +inf and so the clamp
     const double n = static_cast<double>(a.nnz > 0 ? a.nnz : 1);
@@ -234,6 +240,7 @@ seg_fixed(const Args a) {
     const long long total = hist_fixed::plane_value(s_hist, n_hist, i);
     if (total) atomicAdd(a.acc + i, static_cast<unsigned long long>(total));
   }
+  if (!a.finish) return;  // the same for every block
   grid.sync();
 
   // ---- C: the one rounding of each output
@@ -273,6 +280,40 @@ cudaError_t launch(Args& a, int blocks, size_t smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+cudaError_t run(const void* contrib, const void* row_id, void* out,
+                void* scratch, void* scale, const void* scale_in,
+                int finish, long long nnz, int num_segments, int lanes,
+                int vec, int shared, int blocks, long long qmax,
+                cudaStream_t s) {
+  Args a;
+  a.n_out = static_cast<int64_t>(num_segments) * lanes;
+  if (a.n_out == 0) return cudaSuccess;
+  if ((vec != 1 && vec != 2 && vec != 4) || lanes % vec || nnz < 0 ||
+      blocks < 1 || qmax < 1 || (shared && a.n_out > 0x3fffffff))
+    return cudaErrorInvalidValue;
+  a.contrib = static_cast<const float*>(contrib);
+  a.row_id = static_cast<const int*>(row_id);
+  a.out = static_cast<float*>(out);
+  a.acc = static_cast<unsigned long long*>(scratch);
+  a.partial = reinterpret_cast<unsigned*>(a.acc + a.n_out + lanes);
+  a.scale = static_cast<float*>(scale);
+  a.scale_in = static_cast<const float*>(scale_in);
+  a.finish = finish;
+  a.nnz = nnz;
+  a.qmax = qmax;
+  a.num_segments = num_segments;
+  a.lanes = lanes;
+  a.groups = lanes / vec;
+  a.tg = a.groups < kThreads ? a.groups : kThreads;
+  a.streams = kThreads / a.tg;
+  a.shared = shared ? 1 : 0;
+  const size_t smem = 8 * static_cast<size_t>(lanes) +
+                      (shared ? 8 * static_cast<size_t>(a.n_out) : 0);
+  return vec == 4   ? launch<4>(a, blocks, smem, s)
+         : vec == 2 ? launch<2>(a, blocks, smem, s)
+                    : launch<1>(a, blocks, smem, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -290,33 +331,37 @@ int dmlc_segment_sum_fixed(const void* contrib, const void* row_id, void* out,
                            void* scratch, void* scale, long long nnz,
                            int num_segments, int lanes, int vec, int shared,
                            int blocks, long long qmax, void* stream) {
-  Args a;
-  a.n_out = static_cast<int64_t>(num_segments) * lanes;
-  if (a.n_out == 0) return static_cast<int>(cudaSuccess);
-  if ((vec != 1 && vec != 2 && vec != 4) || lanes % vec || nnz < 0 ||
-      blocks < 1 || qmax < 1 || (shared && a.n_out > 0x3fffffff))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.contrib = static_cast<const float*>(contrib);
-  a.row_id = static_cast<const int*>(row_id);
-  a.out = static_cast<float*>(out);
-  a.acc = static_cast<unsigned long long*>(scratch);
-  a.partial = reinterpret_cast<unsigned*>(a.acc + a.n_out + lanes);
-  a.scale = static_cast<float*>(scale);
-  a.nnz = nnz;
-  a.qmax = qmax;
-  a.num_segments = num_segments;
-  a.lanes = lanes;
-  a.groups = lanes / vec;
-  a.tg = a.groups < kThreads ? a.groups : kThreads;
-  a.streams = kThreads / a.tg;
-  a.shared = shared ? 1 : 0;
-  const size_t smem = 8 * static_cast<size_t>(lanes) +
-                      (shared ? 8 * static_cast<size_t>(a.n_out) : 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = vec == 4   ? launch<4>(a, blocks, smem, s)
-                          : vec == 2 ? launch<2>(a, blocks, smem, s)
-                                     : launch<1>(a, blocks, smem, s);
-  return static_cast<int>(err);
+  return static_cast<int>(run(contrib, row_id, out, scratch, scale, nullptr,
+                              1, nnz, num_segments, lanes, vec, shared,
+                              blocks, qmax,
+                              static_cast<cudaStream_t>(stream)));
+}
+
+// The accumulate half of dmlc_segment_sum_fixed, for a sum over several
+// processes: the same launch with the caller's f32 [lanes] scale and value
+// limit (made from every process's entries), ending with the int64 sums in
+// scratch[0, num_segments * lanes) and each lane's overflow mark after
+// them, undequantized; the caller sums those of every process and rounds
+// them with dmlc_segment_sum_dequantize.  scratch as for
+// dmlc_segment_sum_fixed.
+int dmlc_segment_sum_accumulate(const void* contrib, const void* row_id,
+                                void* scratch, const void* scale,
+                                long long nnz, int num_segments, int lanes,
+                                int vec, int shared, int blocks,
+                                long long qmax, void* stream) {
+  if (scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(contrib, row_id, nullptr, scratch, nullptr,
+                              scale, 0, nnz, num_segments, lanes, vec,
+                              shared, blocks, qmax,
+                              static_cast<cudaStream_t>(stream)));
+}
+
+// out[i] = f32(acc[i] / scale[i % lanes]) over n_out outputs, NaN for a
+// lane whose scale is unusable or whose mark acc[n_out + lane] is nonzero.
+int dmlc_segment_sum_dequantize(const void* acc, const void* scale, void* out,
+                                long long n_out, int lanes, void* stream) {
+  return static_cast<int>(hist_fixed::launch_dequantize(
+      acc, scale, out, n_out, lanes, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dmlc_cuda_error_string(int err) {

@@ -55,3 +55,62 @@ def error_bound(scale: torch.Tensor, m: int) -> torch.Tensor:
     """float64 [lanes]: the most a bin of ``m`` values can differ from its
     exact sum before the f32 rounding, ``m * 2^-(k+1)``."""
     return float(m) * 0.5 / scale.to(torch.float64)
+
+
+# ---- the accumulate / dequantize pair, in plain PyTorch ---------------------
+#
+# A sum over several processes splits each kernel's launch in two: every
+# process accumulates its own rows into an int64 accumulator at one shared
+# scale, the accumulators are summed exactly (an integer all-reduce), and
+# one dequantize rounds the total.  These are the kernels' two halves in
+# plain PyTorch: the CPU route runs them, and they are what the kernels are
+# held to bit for bit.
+
+_TWO63 = 2.0 ** 63
+
+
+def quantize_plain(v: torch.Tensor, scale: torch.Tensor, qmax: int):
+    """(q, over): ``q = rint(v * scale)`` as int64 for f32 ``v`` [n, lanes]
+    (the product in f32, as the kernels form it; exact, the scale being a
+    power of two), and bool [lanes], True where a value reaches ``qmax``
+    in magnitude or does not quantise to a finite number (the kernels'
+    overflow mark).  ``q`` is 0 where it is not a usable integer."""
+    p = torch.round(v.to(torch.float32) * scale.to(torch.float32)
+                    ).to(torch.float64)
+    bad = ~torch.isfinite(p) | (p.abs() >= _TWO63)
+    q = torch.where(bad, 0.0, p).to(torch.int64)
+    over = bad | (q.abs() >= int(qmax))
+    return torch.where(over, 0, q), over.any(0)
+
+
+def dequantize_plain(acc: torch.Tensor, scale: torch.Tensor,
+                     lanes: int) -> torch.Tensor:
+    """f32 [n]: ``acc[i] / scale[i % lanes]`` for int64 ``acc`` [n + lanes]
+    (the sums, then each lane's overflow mark), the int64 taken to double,
+    divided in double and rounded once to f32, as ``hist_fixed::dequantize``
+    does; NaN in a lane whose scale is not a finite positive f32 or whose
+    mark is nonzero."""
+    n = acc.numel() - lanes
+    s = scale.to(torch.float32)
+    ok = (s > 0) & (s <= 3.0e38) & (acc[n:] == 0)
+    vals = (acc[:n].to(torch.float64).reshape(-1, lanes)
+            / s.to(torch.float64)).to(torch.float32)
+    return torch.where(ok, vals, torch.nan).reshape(-1)
+
+
+def global_scale(plan, amax: torch.Tensor, counts) -> tuple:
+    """(scale, n_max) shared by every process of ``plan``: one tiny
+    all-gather of each process's ``amax`` [lanes] and ``counts`` [k] (the
+    values each output can receive, by group: rows, or entries by feature),
+    the max of the amaxes, and ``n_max`` = the largest group's sum over the
+    processes.  The scale is then :func:`fixed_point_scale` of the values
+    of every process, bit for bit the one a single process over all of
+    them computes."""
+    c = torch.as_tensor(counts, dtype=torch.float64).reshape(-1)
+    stats = torch.cat([amax.to(torch.float64).reshape(-1),
+                       c.to(amax.device)])
+    every = plan.all_gather(stats)                 # [processes, lanes + k]
+    lanes = amax.numel()
+    g_amax = every[:, :lanes].amax(0).to(torch.float32)
+    n_max = int(every[:, lanes:].sum(0).max().item()) if c.numel() else 0
+    return fixed_point_scale(g_amax, n_max), n_max

@@ -27,7 +27,8 @@ import threading
 import torch
 
 from . import _build
-from .fixed_point import fixed_point_scale, lane_amax, value_limit
+from .fixed_point import (dequantize_plain, fixed_point_scale, global_scale,
+                          lane_amax, quantize_plain, value_limit)
 from .segment_sum import check_force, segment_sum
 
 # ---- the plain version ------------------------------------------------------
@@ -96,13 +97,16 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("histogram_gh")
-        lib.dmlc_histogram_gh_fixed.argtypes = [
+        lib.dmlc_histogram_gh_accumulate.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p]
-        lib.dmlc_histogram_gh_fixed.restype = ctypes.c_int
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        lib.dmlc_histogram_gh_accumulate.restype = ctypes.c_int
+        lib.dmlc_histogram_gh_dequantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.dmlc_histogram_gh_dequantize.restype = ctypes.c_int
         lib.dmlc_histogram_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_histogram_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -142,19 +146,8 @@ def launch_geometry(rows: int, num_features: int, num_bins: int,
                 smem=node_tile * feat_group * per_pair)
 
 
-def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
-                        gh: torch.Tensor, n_nodes: int,
-                        num_bins: int) -> torch.Tensor:
-    """Histogram of f32 ``gh`` [rows, 2] by uint8 or int32 ``bins`` [rows, F]
-    and int32 ``rel`` [rows] -> f32 [n_nodes, F, num_bins, 2].
-
-    On a CUDA tensor it launches ``csrc/histogram_gh.cu`` on the calling
-    thread's current stream (and bumps ``histogram_gh_kernel.launches``),
-    in the fixed point of :mod:`.fixed_point` with ``n_max = rows``.  On a
-    CPU tensor it runs :func:`histogram_gh_plain`.
-    Raises on anything else the kernel does not take."""
-    if gh.device.type == "cpu":
-        return histogram_gh_plain(bins, rel, gh, n_nodes, num_bins)
+def _check_inputs(bins, rel, gh, n_nodes: int, num_bins: int) -> None:
+    """Raise on anything the kernel does not take."""
     if (gh.device.type != "cuda" or bins.device != gh.device
             or rel.device != gh.device):
         raise ValueError(f"histogram_gh_kernel: bins on {bins.device}, rel "
@@ -177,32 +170,200 @@ def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
     if gh.data_ptr() % 8:
         raise ValueError("histogram_gh_kernel reads gh as float2: its data "
                          "must be 8-byte aligned")
-    F = bins.shape[1]
-    out = torch.empty(n_nodes, F, num_bins, 2, dtype=torch.float32,
-                      device=gh.device)
-    if out.numel() == 0:
-        return out
-    geo = launch_geometry(rows, F, num_bins, n_nodes)
+
+
+def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
+                        gh: torch.Tensor, n_nodes: int,
+                        num_bins: int) -> torch.Tensor:
+    """Histogram of f32 ``gh`` [rows, 2] by uint8 or int32 ``bins`` [rows, F]
+    and int32 ``rel`` [rows] -> f32 [n_nodes, F, num_bins, 2].
+
+    On a CUDA tensor it runs the kernel's two halves on the calling
+    thread's current stream, the accumulate launch and
+    :func:`histogram_gh_dequantize`, in the fixed point of
+    :mod:`.fixed_point` with ``n_max = rows``, and bumps
+    ``histogram_gh_kernel.launches``.  On a CPU tensor it runs
+    :func:`histogram_gh_plain`.  Raises on anything else the kernel does
+    not take."""
+    if gh.device.type == "cpu":
+        return histogram_gh_plain(bins, rel, gh, n_nodes, num_bins)
+    _check_inputs(bins, rel, gh, n_nodes, num_bins)
+    rows, F = bins.shape
+    shape = (n_nodes, F, num_bins, 2)
+    if n_nodes * F * num_bins == 0:
+        return torch.empty(shape, dtype=torch.float32, device=gh.device)
     scale = fixed_point_scale(lane_amax(gh), rows)
-    # the bins, then each lane's overflow mark
-    acc = torch.zeros(out.numel() + 2, dtype=torch.int64, device=gh.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(gh.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dmlc_histogram_gh_fixed(
-            bins.data_ptr(), bins.element_size(), rel.data_ptr(),
-            gh.data_ptr(), scale.data_ptr(), value_limit(rows),
-            acc.data_ptr(), out.data_ptr(), rows, F, num_bins, n_nodes,
-            geo["node_tile"], geo["feat_group"], geo["chunk"], stream)
-    if err != 0:
-        raise RuntimeError("histogram_gh kernel launch failed: "
-                           + lib.dmlc_histogram_error_string(err).decode())
-    with _launch_lock:
-        histogram_gh_kernel.launches += 1
+    acc = _accumulate(bins, rel, gh, n_nodes, num_bins, scale,
+                      value_limit(rows))
+    out = histogram_gh_dequantize(acc, scale, shape)
+    _count_launch()  # the dequantize launches even with no rows
     return out
 
 
 histogram_gh_kernel.launches = 0
+
+
+# ---- the accumulate / dequantize pair ---------------------------------------
+
+def histogram_gh_accumulate_plain(bins: torch.Tensor, rel: torch.Tensor,
+                                  gh: torch.Tensor, n_nodes: int,
+                                  num_bins: int, scale: torch.Tensor,
+                                  qmax: int) -> torch.Tensor:
+    """The kernel's accumulate half in plain PyTorch: int64 [n_nodes * F *
+    num_bins * 2 + 2], each row's (g, h) quantised once at ``scale``
+    (:func:`.fixed_point.quantize_plain`) and added exactly with an int64
+    ``index_add`` into bin ``((node * F + f) * num_bins + bin) * 2 + lane``,
+    then each lane's overflow mark (1 where a row of a node in range
+    reached ``qmax``)."""
+    rows, F = bins.shape
+    n_out = n_nodes * F * num_bins * 2
+    acc = torch.zeros(n_out + 2, dtype=torch.int64, device=gh.device)
+    r = rel.to(torch.int64)
+    live = (r >= 0) & (r < n_nodes)
+    q, over = quantize_plain(gh[live].to(torch.float32), scale, qmax)
+    acc[n_out:] = over.to(torch.int64)
+    b = bins[live].to(torch.int64)
+    feat = torch.arange(F, dtype=torch.int64, device=gh.device)
+    keys = ((r[live][:, None] * F + feat) * num_bins + b) * 2
+    ok = (b >= 0) & (b < num_bins)
+    for lane in range(2):
+        src = q[:, lane][:, None].expand(-1, F)
+        acc.index_add_(0, (keys + lane)[ok], src[ok])
+    return acc
+
+
+def _accumulate(bins, rel, gh, n_nodes: int, num_bins: int,
+                scale: torch.Tensor, qmax: int) -> torch.Tensor:
+    """Launch ``dmlc_histogram_gh_accumulate`` on checked CUDA inputs (no
+    launch for no rows); the caller counts."""
+    rows, F = bins.shape
+    acc = torch.zeros(n_nodes * F * num_bins * 2 + 2, dtype=torch.int64,
+                      device=gh.device)
+    if rows == 0:
+        return acc
+    geo = launch_geometry(rows, F, num_bins, n_nodes)
+    scale = scale.to(device=gh.device, dtype=torch.float32).contiguous()
+    lib = _kernel_lib()
+    with torch.cuda.device(gh.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dmlc_histogram_gh_accumulate(
+            bins.data_ptr(), bins.element_size(), rel.data_ptr(),
+            gh.data_ptr(), scale.data_ptr(), int(qmax), acc.data_ptr(),
+            rows, F, num_bins, n_nodes, geo["node_tile"], geo["feat_group"],
+            geo["chunk"], stream)
+    if err != 0:
+        raise RuntimeError("histogram_gh accumulate launch failed: "
+                           + lib.dmlc_histogram_error_string(err).decode())
+    return acc
+
+
+def _count_launch() -> None:
+    with _launch_lock:
+        histogram_gh_kernel.launches += 1
+
+
+def histogram_gh_accumulate(bins: torch.Tensor, rel: torch.Tensor,
+                            gh: torch.Tensor, n_nodes: int, num_bins: int,
+                            scale: torch.Tensor, qmax: int) -> torch.Tensor:
+    """The accumulate half of :func:`histogram_gh_kernel`: int64 [n_nodes *
+    F * num_bins * 2 + 2] (the bins' fixed-point sums at the caller's f32
+    [2] ``scale`` and value limit ``qmax``, then each lane's overflow
+    mark), left undequantized so the accumulators of several processes can
+    be summed exactly before one :func:`histogram_gh_dequantize`.  On a
+    CUDA tensor it launches ``dmlc_histogram_gh_accumulate`` (and bumps
+    ``histogram_gh_kernel.launches``; no launch for no rows); on a CPU
+    tensor it runs
+    :func:`histogram_gh_accumulate_plain`.  Takes what the kernel takes."""
+    if gh.device.type == "cpu":
+        return histogram_gh_accumulate_plain(bins, rel, gh, n_nodes,
+                                             num_bins, scale, qmax)
+    _check_inputs(bins, rel, gh, n_nodes, num_bins)
+    acc = _accumulate(bins, rel, gh, n_nodes, num_bins, scale, qmax)
+    if bins.shape[0]:
+        _count_launch()
+    return acc
+
+
+def histogram_gh_dequantize(acc: torch.Tensor, scale: torch.Tensor,
+                            shape) -> torch.Tensor:
+    """The dequantize half: f32 ``shape`` ([n_nodes, F, num_bins, 2]) from
+    an int64 accumulator of :func:`histogram_gh_accumulate` (or a sum of
+    several), rounded once each (``dmlc_histogram_gh_dequantize`` on the
+    card, :func:`.fixed_point.dequantize_plain` on the CPU)."""
+    if acc.device.type == "cpu":
+        return dequantize_plain(acc, scale, 2).reshape(shape)
+    out = torch.empty(shape, dtype=torch.float32, device=acc.device)
+    scale = scale.to(device=acc.device, dtype=torch.float32).contiguous()
+    lib = _kernel_lib()
+    with torch.cuda.device(acc.device):
+        err = lib.dmlc_histogram_gh_dequantize(
+            acc.data_ptr(), scale.data_ptr(), out.data_ptr(), out.numel(), 2,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("histogram_gh dequantize launch failed: "
+                           + lib.dmlc_histogram_error_string(err).decode())
+    return out
+
+
+def histogram_gh_sharded(bins: torch.Tensor, rel: torch.Tensor,
+                         gh: torch.Tensor, n_nodes: int, num_bins: int,
+                         plan, chunks: int = 1,
+                         force: str | None = "pallas") -> torch.Tensor:
+    """One level's histogram over the rows of every process of ``plan`` (a
+    ``parallel.MeshPlan``), each process passing its own rows.
+
+    ``force="pallas"``: the shared scale from one tiny all-gather (max of
+    the lanes' amax, sum of the rows), the accumulate launch on this
+    process's rows, an exact int64 all-reduce of the accumulator (its
+    overflow marks included) and one dequantize.  The result is the
+    one-process kernel's over all the rows, bit for bit, whatever the
+    process count or the plan's strategy.  Otherwise (``index_add``): each
+    process's f32 histogram, all-reduced through the plan.
+
+    ``chunks > 1`` splits the features into that many chunks and issues
+    chunk k's all-reduce before chunk k + 1's histogram, with at most one
+    reduction in flight; the bits do not change.  f32 [n_nodes, F,
+    num_bins, 2]."""
+    check_force(force, "histogram backend")
+    rows, F = bins.shape
+    g = gh.to(torch.float32).contiguous()
+    if g.data_ptr() % 8:
+        g = g.clone()
+    r = rel.to(torch.int32).contiguous()
+    if bins.dtype not in (torch.uint8, torch.int32):
+        bins = bins.to(torch.int32)
+    if force == "pallas":
+        scale, n_max = global_scale(plan, lane_amax(g), [rows])
+        qmax = value_limit(n_max)
+
+        def local(part):
+            return histogram_gh_accumulate(part, r, g, n_nodes, num_bins,
+                                           scale, qmax)
+
+        def finish(acc, fk):
+            return histogram_gh_dequantize(acc, scale,
+                                           (n_nodes, fk, num_bins, 2))
+    else:
+        def local(part):
+            return _histogram_gh_xla(part, r, g, n_nodes, num_bins)
+
+        def finish(h, fk):
+            return h
+
+    K = max(1, min(int(chunks), F))
+    outs, pending = [], None
+    for k in range(K):
+        f0, f1 = F * k // K, F * (k + 1) // K
+        if f0 == f1:
+            continue
+        # chunk k's histogram runs while chunk k - 1's reduction is in
+        # flight; that one ends before chunk k's is issued
+        h = local(bins if K == 1 else bins[:, f0:f1].contiguous())
+        if pending is not None:
+            outs.append(finish(pending[0].wait(), pending[1]))
+        pending = (plan.allreduce_async(h), f1 - f0)
+    outs.append(finish(pending[0].wait(), pending[1]))
+    return torch.cat(outs, dim=1)
 
 
 # ---- the front end ----------------------------------------------------------

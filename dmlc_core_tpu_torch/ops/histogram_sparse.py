@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .fixed_point import fixed_point_scale, lane_amax, value_limit
+from .fixed_point import (dequantize_plain, fixed_point_scale, global_scale,
+                          lane_amax, quantize_plain, value_limit)
 from .segment_sum import check_force, clamp_index, segment_sum
 
 # ---- the layout -------------------------------------------------------------
@@ -96,16 +97,96 @@ def _sparse_layout_shard(rid: torch.Tensor, fi: torch.Tensor,
     return rid_s, gkey, starts
 
 
+# the TPU kernel's tiles, which fix the per-shard layout's padding and spans
+_JAX_KEY_TILE = 512
+_JAX_NNZ_TILE = 1024
+
+
+class ShardedSparseHistLayout:
+    """The per-shard packed layout of ``sparse_hist_layout(num_shards > 1)``
+    (the JAX package's arrays for its ``shard_map`` route): ``gkey`` /
+    ``rid`` / ``w`` [num_shards * nnz_pad] (padding: gkey -1, rid 0, w 0;
+    row ids local to the shard), ``tstart`` / ``tcount`` [num_shards *
+    num_kt] (each 512-key tile's span of 1024-entry blocks), ``max_tiles``,
+    ``nnz_pad``, ``nnz_live``, as numpy arrays.  Each process of a sharded
+    fit takes its shard's :class:`SparseHistLayout` with :meth:`shard`."""
+
+    def __init__(self, shards: list, **kw):
+        self._shards = shards
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+    def shard(self, s: int) -> SparseHistLayout:
+        """Shard ``s``'s entries (shard-local row ids) as the port's
+        kernel layout."""
+        return self._shards[s]
+
+
+def _jax_tile_spans(starts: np.ndarray, nb: int, num_kt: int,
+                    num_features: int) -> tuple:
+    tstart = np.zeros(num_kt, np.int32)
+    tcount = np.zeros(num_kt, np.int32)
+    for kt in range(num_kt):
+        # features whose key range [f*nb, (f+1)*nb) meets this key tile
+        flo = min((kt * _JAX_KEY_TILE) // nb, num_features)
+        fhi = min(-(-((kt + 1) * _JAX_KEY_TILE) // nb), num_features)
+        s, e = int(starts[flo]), int(starts[fhi])
+        if e > s:
+            tstart[kt] = s // _JAX_NNZ_TILE
+            tcount[kt] = -(-e // _JAX_NNZ_TILE) - tstart[kt]
+    return tstart, tcount
+
+
+def _sharded_layout(rid, fi, eb, em, num_features: int, num_bins: int,
+                    nb: int, num_shards: int, rows) -> ShardedSparseHistLayout:
+    if rows is None or rows % num_shards:
+        raise ValueError("sharded layout needs rows divisible by "
+                         f"num_shards (rows={rows}, "
+                         f"num_shards={num_shards})")
+    local = rows // num_shards
+    owner = rid // local
+    num_kt = -(-(num_features * nb) // _JAX_KEY_TILE)
+    shards, spans = [], []
+    for s in range(num_shards):
+        sel = em & (owner == s)
+        r, f, e = rid[sel] - s * local, fi[sel], eb[sel]
+        rid_s, gkey, starts = _sparse_layout_shard(r, f, e, nb, num_features)
+        shards.append(SparseHistLayout(
+            num_features=num_features, num_bins=num_bins, nb=nb,
+            nnz_live=int(gkey.numel()), gkey=gkey, rid=rid_s,
+            starts=starts))
+        spans.append(_jax_tile_spans(starts.numpy(), nb, num_kt,
+                                     num_features))
+    n_live = [sh.nnz_live for sh in shards]
+    nnz_pad = max(-(-max(max(n_live), 1) // _JAX_NNZ_TILE) * _JAX_NNZ_TILE,
+                  _JAX_NNZ_TILE)
+    gkey_p = np.full(num_shards * nnz_pad, -1, np.int32)
+    rid_p = np.zeros(num_shards * nnz_pad, np.int32)
+    w_p = np.zeros(num_shards * nnz_pad, np.float32)
+    for s, sh in enumerate(shards):
+        o = s * nnz_pad
+        gkey_p[o:o + sh.nnz_live] = sh.gkey.cpu().numpy()
+        rid_p[o:o + sh.nnz_live] = sh.rid.cpu().numpy()
+        w_p[o:o + sh.nnz_live] = 1.0
+    tstart = np.concatenate([t for t, _ in spans])
+    tcount = np.concatenate([c for _, c in spans])
+    return ShardedSparseHistLayout(
+        shards, num_features=num_features, num_bins=num_bins,
+        num_shards=num_shards, nb=nb, num_kt=num_kt,
+        max_tiles=max(int(tcount.max()) if tcount.size else 0, 1),
+        nnz_pad=nnz_pad, nnz_live=sum(n_live), gkey=gkey_p, rid=rid_p,
+        w=w_p, tstart=tstart, tcount=tcount)
+
+
 def sparse_hist_layout(row_id, findex, ebin, emask, num_features: int,
                        num_bins: int, num_shards: int = 1,
-                       rows: int | None = None) -> SparseHistLayout:
+                       rows: int | None = None):
     """Build the feature-sorted layout (see :class:`SparseHistLayout`) on
     the entries' device.  row_id/findex/ebin/emask: [nnz] COO entry arrays
-    (tensors or numpy, any int/bool dtypes).  Only one shard is ported."""
-    if num_shards != 1:
-        raise NotImplementedError(
-            "a sharded sparse layout (num_shards > 1, the multi-device "
-            "histogram route) is not ported yet: ROADMAP A6b")
+    (tensors or numpy, any int/bool dtypes).  ``num_shards > 1`` buckets
+    the entries by the row shard that owns them (``rows`` must divide
+    evenly, the JAX package's rule and error), localises their row ids
+    and returns the packed :class:`ShardedSparseHistLayout`."""
     fi = _tensor(findex).to(torch.int64)
     eb = _tensor(ebin).to(torch.int64).to(fi.device)
     em = _tensor(emask).to(torch.bool).to(fi.device)
@@ -117,6 +198,9 @@ def sparse_hist_layout(row_id, findex, ebin, emask, num_features: int,
         if int(el.min()) < 0 or int(el.max()) >= num_bins:
             raise ValueError("ebin out of range for live entries")
     nb = _sparse_geometry(num_features, num_bins)
+    if num_shards != 1:
+        return _sharded_layout(rid, fi, eb, em, num_features, num_bins, nb,
+                               num_shards, rows)
     rid_s, gkey, starts = _sparse_layout_shard(rid[em], fl, el, nb,
                                                num_features)
     return SparseHistLayout(num_features=num_features, num_bins=num_bins,
@@ -189,13 +273,17 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("histogram_gh_sparse")
-        lib.dmlc_histogram_gh_sparse_fixed.argtypes = [
+        lib.dmlc_histogram_gh_sparse_accumulate.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.dmlc_histogram_gh_sparse_fixed.restype = ctypes.c_int
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.dmlc_histogram_gh_sparse_accumulate.restype = ctypes.c_int
+        lib.dmlc_histogram_gh_sparse_dequantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.dmlc_histogram_gh_sparse_dequantize.restype = ctypes.c_int
         lib.dmlc_histogram_sparse_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_histogram_sparse_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -249,9 +337,10 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
     gh[layout.rid]``; pass that ``layout`` too and the launch takes the span
     table it keeps on the card, else the table is built and copied here.
 
-    On a CUDA tensor it launches ``csrc/histogram_gh_sparse.cu`` on the
-    calling thread's current stream (and bumps
-    ``histogram_gh_sparse_kernel.launches``), in the fixed point of
+    On a CUDA tensor it runs the kernel's two halves on the calling
+    thread's current stream, :func:`histogram_gh_sparse_accumulate`'s launch
+    (which bumps ``histogram_gh_sparse_kernel.launches``) and
+    :func:`histogram_gh_sparse_dequantize`, in the fixed point of
     :mod:`.fixed_point` with ``n_max`` = the most entries of one feature and
     ``amax`` = ``gh_amax`` (f32 [2] on the card, a bound on ``|gh_e|`` of
     each lane; default :func:`.fixed_point.lane_amax` of ``gh_e``; the
@@ -299,11 +388,9 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
         raise ValueError(f"histogram_gh_sparse_kernel: gh_amax "
                          f"{tuple(gh_amax.shape)} on {gh_amax.device}, want "
                          f"[2] on {gh_e.device}")
-    nb = _sparse_geometry(num_features, num_bins)
-    out = torch.empty(n_nodes, num_features, num_bins, 2,
-                      dtype=torch.float32, device=gh_e.device)
-    if out.numel() == 0:
-        return out
+    shape = (n_nodes, num_features, num_bins, 2)
+    if n_nodes * num_features * num_bins == 0:
+        return torch.empty(shape, dtype=torch.float32, device=gh_e.device)
     geo = launch_geometry(nnz, num_features, num_bins, n_nodes)
     if layout is not None:
         n_spans, table = layout.span_table(geo["span"])
@@ -311,31 +398,159 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
         n_spans, table = span_table(st, geo["span"])
         table = torch.from_numpy(table).to(gh_e.device)
     if n_spans == 0:
-        return out.zero_()
+        return torch.zeros(shape, dtype=torch.float32, device=gh_e.device)
     n_max = int((st[1:] - st[:-1]).max())
     scale = fixed_point_scale(
         lane_amax(gh_e) if gh_amax is None else gh_amax, n_max)
-    # the bins, then each lane's overflow mark
-    acc = torch.zeros(out.numel() + 2, dtype=torch.int64, device=gh_e.device)
+    acc = _accumulate(gkey, rel_e, gh_e, n_nodes, num_features, num_bins,
+                      geo, n_spans, table, scale, value_limit(n_max))
+    return histogram_gh_sparse_dequantize(acc, scale, shape)
+
+
+histogram_gh_sparse_kernel.launches = 0
+
+
+# ---- the accumulate / dequantize pair ---------------------------------------
+
+def feature_counts(layout: SparseHistLayout) -> torch.Tensor:
+    """int64 [F] live entries of each feature (host)."""
+    st = _tensor(layout.starts).to(torch.int64)
+    return st[1:] - st[:-1]
+
+
+def histogram_gh_sparse_accumulate_plain(gkey, rel_e, gh_e, starts,
+                                         n_nodes: int, num_features: int,
+                                         num_bins: int, scale, qmax: int
+                                         ) -> torch.Tensor:
+    """The kernel's accumulate half in plain PyTorch: int64 [n_nodes * F *
+    num_bins * 2 + 2], each entry whose node and bin are in range
+    quantised once at ``scale`` (:func:`.fixed_point.quantize_plain`) and
+    added exactly with an int64 ``index_add``, then each lane's overflow
+    mark."""
+    nb = _sparse_geometry(num_features, num_bins)
+    dev = gh_e.device
+    n_out = n_nodes * num_features * num_bins * 2
+    acc = torch.zeros(n_out + 2, dtype=torch.int64, device=dev)
+    st = _tensor(starts).to(torch.int64)
+    feat = torch.repeat_interleave(torch.arange(num_features),
+                                   st[1:] - st[:-1]).to(dev)
+    node = rel_e.to(torch.int64)
+    b = gkey.to(torch.int64) - feat * nb
+    live = (node >= 0) & (node < n_nodes) & (b >= 0) & (b < num_bins)
+    q, over = quantize_plain(gh_e[live].to(torch.float32), scale, qmax)
+    acc[n_out:] = over.to(torch.int64)
+    keys = ((node[live] * num_features + feat[live]) * num_bins + b[live]) * 2
+    for lane in range(2):
+        acc.index_add_(0, keys + lane, q[:, lane])
+    return acc
+
+
+def histogram_gh_sparse_accumulate(layout: SparseHistLayout,
+                                   rel_e: torch.Tensor, gh_e: torch.Tensor,
+                                   n_nodes: int, scale: torch.Tensor,
+                                   qmax: int) -> torch.Tensor:
+    """The accumulate half of :func:`histogram_gh_sparse_kernel` over a
+    layout's entries (``rel_e``, ``gh_e`` in its order): int64 [n_nodes *
+    F * num_bins * 2 + 2], the fixed-point sums at the caller's f32 [2]
+    ``scale`` and value limit ``qmax``, then each lane's overflow mark,
+    left undequantized so the accumulators of several processes can be
+    summed exactly before one :func:`histogram_gh_sparse_dequantize`.  On a
+    CUDA tensor it launches ``dmlc_histogram_gh_sparse_accumulate`` (and
+    bumps ``histogram_gh_sparse_kernel.launches``); on a CPU tensor it runs
+    :func:`histogram_gh_sparse_accumulate_plain`."""
+    F, B = layout.num_features, layout.num_bins
+    gkey = layout.gkey
+    if gh_e.device.type == "cpu":
+        return histogram_gh_sparse_accumulate_plain(
+            gkey, rel_e, gh_e, layout.starts, n_nodes, F, B, scale, qmax)
+    nnz = gkey.shape[0]
+    if (rel_e.dtype != torch.int32 or gh_e.dtype != torch.float32
+            or rel_e.shape != (nnz,) or gh_e.shape != (nnz, 2)
+            or not (rel_e.is_contiguous() and gh_e.is_contiguous())
+            or gh_e.data_ptr() % 8 or rel_e.device != gh_e.device
+            or gkey.device != gh_e.device):
+        raise ValueError(f"histogram_gh_sparse_accumulate: rel_e "
+                         f"{tuple(rel_e.shape)} {rel_e.dtype}, gh_e "
+                         f"{tuple(gh_e.shape)} {gh_e.dtype}, want contiguous "
+                         f"int32 [{nnz}] and 8-byte aligned f32 [{nnz}, 2] "
+                         "on the layout's CUDA device")
+    geo = launch_geometry(nnz, F, B, n_nodes)
+    n_spans, table = layout.span_table(geo["span"])
+    return _accumulate(gkey, rel_e, gh_e, n_nodes, F, B, geo, n_spans, table,
+                       scale, qmax)
+
+
+def _accumulate(gkey, rel_e, gh_e, n_nodes: int, num_features: int,
+                num_bins: int, geo: dict, n_spans: int, table,
+                scale: torch.Tensor, qmax: int) -> torch.Tensor:
+    """Launch ``dmlc_histogram_gh_sparse_accumulate`` on checked CUDA
+    inputs over the span ``table`` of ``n_spans`` spans."""
+    acc = torch.zeros(n_nodes * num_features * num_bins * 2 + 2,
+                      dtype=torch.int64, device=gh_e.device)
+    if n_spans == 0:
+        return acc
+    scale = scale.to(device=gh_e.device, dtype=torch.float32).contiguous()
     vec = all(t.data_ptr() % 16 == 0 for t in (gkey, rel_e, gh_e))
     lib = _kernel_lib()
     with torch.cuda.device(gh_e.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dmlc_histogram_gh_sparse_fixed(
-            gkey.data_ptr(), rel_e.data_ptr(), gh_e.data_ptr(), nnz, int(vec),
-            scale.data_ptr(), value_limit(n_max), table.data_ptr(), n_spans,
-            num_features, num_bins, nb, n_nodes, geo["node_tile"],
-            acc.data_ptr(), out.data_ptr(), stream)
+        err = lib.dmlc_histogram_gh_sparse_accumulate(
+            gkey.data_ptr(), rel_e.data_ptr(), gh_e.data_ptr(),
+            gkey.shape[0], int(vec), scale.data_ptr(), int(qmax),
+            table.data_ptr(), n_spans, num_features, num_bins,
+            _sparse_geometry(num_features, num_bins), n_nodes,
+            geo["node_tile"], acc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError("histogram_gh_sparse kernel launch failed: "
+        raise RuntimeError("histogram_gh_sparse accumulate launch failed: "
                            + lib.dmlc_histogram_sparse_error_string(err)
                            .decode())
     with _launch_lock:
         histogram_gh_sparse_kernel.launches += 1
+    return acc
+
+
+def histogram_gh_sparse_dequantize(acc: torch.Tensor, scale: torch.Tensor,
+                                   shape) -> torch.Tensor:
+    """The dequantize half: f32 ``shape`` ([n_nodes, F, num_bins, 2]) from
+    an int64 accumulator of :func:`histogram_gh_sparse_accumulate` (or a
+    sum of several), rounded once each."""
+    if acc.device.type == "cpu":
+        return dequantize_plain(acc, scale, 2).reshape(shape)
+    out = torch.empty(shape, dtype=torch.float32, device=acc.device)
+    scale = scale.to(device=acc.device, dtype=torch.float32).contiguous()
+    lib = _kernel_lib()
+    with torch.cuda.device(acc.device):
+        err = lib.dmlc_histogram_gh_sparse_dequantize(
+            acc.data_ptr(), scale.data_ptr(), out.data_ptr(), out.numel(), 2,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("histogram_gh_sparse dequantize launch failed: "
+                           + lib.dmlc_histogram_sparse_error_string(err)
+                           .decode())
     return out
 
 
-histogram_gh_sparse_kernel.launches = 0
+def histogram_gh_sparse_sharded(layout: SparseHistLayout, rel: torch.Tensor,
+                                gh: torch.Tensor, gh_e: torch.Tensor,
+                                n_nodes: int, plan,
+                                counts: torch.Tensor) -> torch.Tensor:
+    """One level's sparse histogram over the entries of every process of
+    ``plan``, each process passing its own rows' ``layout``, ``rel``,
+    ``gh`` and its layout-ordered ``gh_e`` (:func:`entry_gh`): the shared
+    scale from one tiny all-gather (the max of each lane's amax of ``gh``,
+    and ``n_max`` = the most entries of one feature over all processes:
+    the max over features of ``counts`` [F] summed over the processes,
+    never a sum of the processes' maxima), the accumulate launch on this
+    process's entries, an exact int64 all-reduce and one dequantize.  Bit
+    for bit the one-process kernel's over all the entries.  f32 [n_nodes,
+    F, num_bins, 2]."""
+    F, B = layout.num_features, layout.num_bins
+    scale, n_max = global_scale(plan, lane_amax(gh), counts)
+    rel_e = rel.to(torch.int32)[layout.rid].contiguous()
+    acc = histogram_gh_sparse_accumulate(layout, rel_e, gh_e, n_nodes, scale,
+                                         value_limit(max(n_max, 1)))
+    return histogram_gh_sparse_dequantize(plan.allreduce(acc), scale,
+                                          (n_nodes, F, B, 2))
 
 
 # ---- the front end ----------------------------------------------------------

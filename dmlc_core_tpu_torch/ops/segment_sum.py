@@ -24,7 +24,8 @@ import threading
 import torch
 
 from . import _build
-from .fixed_point import fixed_point_scale, lane_amax, value_limit
+from .fixed_point import (dequantize_plain, fixed_point_scale, global_scale,
+                          lane_amax, quantize_plain, value_limit)
 
 # the one authoritative list of reduction backends; every force= /
 # sdot_backend= surface validates through check_force
@@ -111,6 +112,16 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_void_p]
         lib.dmlc_segment_sum_fixed.restype = ctypes.c_int
+        lib.dmlc_segment_sum_accumulate.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.dmlc_segment_sum_accumulate.restype = ctypes.c_int
+        lib.dmlc_segment_sum_dequantize.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.dmlc_segment_sum_dequantize.restype = ctypes.c_int
         lib.dmlc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -224,6 +235,120 @@ def segment_sum_kernel(contrib: torch.Tensor, row_id: torch.Tensor,
 
 
 segment_sum_kernel.launches = 0
+
+
+# ---- the accumulate / dequantize pair (a sum over several processes) --------
+
+def segment_sum_accumulate_plain(contrib: torch.Tensor, row_id: torch.Tensor,
+                                 num_segments: int, scale: torch.Tensor,
+                                 qmax: int) -> torch.Tensor:
+    """The kernel's accumulate half in plain PyTorch: int64 [num_segments *
+    L + L], each entry with an id in range quantised once at ``scale``
+    (:func:`.fixed_point.quantize_plain`) and added exactly with an int64
+    ``index_add``, then each lane's overflow mark."""
+    lanes = contrib.shape[1]
+    n_out = num_segments * lanes
+    acc = torch.zeros(n_out + lanes, dtype=torch.int64,
+                      device=contrib.device)
+    rid = row_id.to(torch.int64)
+    live = (rid >= 0) & (rid < num_segments)
+    q, over = quantize_plain(contrib[live], scale, qmax)
+    acc[n_out:] = over.to(torch.int64)
+    base = rid[live][:, None] * lanes + torch.arange(
+        lanes, device=contrib.device)
+    acc.index_add_(0, base.reshape(-1), q.reshape(-1))
+    return acc
+
+
+def segment_sum_accumulate(contrib: torch.Tensor, row_id: torch.Tensor,
+                           num_segments: int, scale: torch.Tensor,
+                           qmax: int) -> torch.Tensor:
+    """The accumulate half of :func:`segment_sum_kernel` for f32 ``contrib``
+    [nnz, L] (L <= ``_MAX_LANES``) and i32 ``row_id``: int64
+    [num_segments * L + L], the fixed-point sums at the caller's f32 [L]
+    ``scale`` and value limit ``qmax``, then each lane's overflow mark, left
+    undequantized so the accumulators of several processes can be summed
+    exactly before one :func:`segment_sum_dequantize`.  On a CUDA tensor it
+    launches ``dmlc_segment_sum_accumulate`` (and bumps
+    ``segment_sum_kernel.launches``); on a CPU tensor it runs
+    :func:`segment_sum_accumulate_plain`."""
+    if contrib.device.type == "cpu":
+        return segment_sum_accumulate_plain(contrib, row_id, num_segments,
+                                            scale, qmax)
+    if (contrib.dtype != torch.float32 or row_id.dtype != torch.int32
+            or contrib.dim() != 2 or row_id.shape != contrib.shape[:1]
+            or not (contrib.is_contiguous() and row_id.is_contiguous())
+            or row_id.device != contrib.device
+            or contrib.shape[1] > _MAX_LANES):
+        raise ValueError(f"segment_sum_accumulate takes contiguous f32 "
+                         f"contrib [nnz, L <= {_MAX_LANES}] and i32 row_id "
+                         f"[nnz] on one CUDA device, got "
+                         f"{tuple(contrib.shape)} {contrib.dtype} / "
+                         f"{tuple(row_id.shape)} {row_id.dtype}")
+    nnz, lanes = contrib.shape
+    geo = launch_geometry(nnz, num_segments, lanes, contrib.data_ptr() & 15
+                          or 16)
+    scratch = torch.empty(num_segments * lanes + lanes
+                          + -(-geo["blocks"] * lanes // 2),
+                          dtype=torch.int64, device=contrib.device)
+    scale = scale.to(device=contrib.device,
+                     dtype=torch.float32).contiguous()
+    lib = _kernel_lib()
+    with torch.cuda.device(contrib.device):
+        err = lib.dmlc_segment_sum_accumulate(
+            contrib.data_ptr(), row_id.data_ptr(), scratch.data_ptr(),
+            scale.data_ptr(), nnz, num_segments, lanes, geo["vec"],
+            int(geo["shared"]), geo["blocks"], int(qmax),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("segment_sum accumulate launch failed: "
+                           + lib.dmlc_cuda_error_string(err).decode())
+    with _launch_lock:
+        segment_sum_kernel.launches += 1
+    return scratch[:num_segments * lanes + lanes]
+
+
+def segment_sum_dequantize(acc: torch.Tensor, scale: torch.Tensor,
+                           num_segments: int, lanes: int) -> torch.Tensor:
+    """The dequantize half: f32 [num_segments, lanes] from an int64
+    accumulator of :func:`segment_sum_accumulate` (or a sum of several),
+    rounded once each (``dmlc_segment_sum_dequantize`` on the card,
+    :func:`.fixed_point.dequantize_plain` on the CPU)."""
+    if acc.device.type == "cpu":
+        return dequantize_plain(acc, scale, lanes).reshape(num_segments,
+                                                           lanes)
+    out = torch.empty(num_segments, lanes, dtype=torch.float32,
+                      device=acc.device)
+    scale = scale.to(device=acc.device, dtype=torch.float32).contiguous()
+    lib = _kernel_lib()
+    with torch.cuda.device(acc.device):
+        err = lib.dmlc_segment_sum_dequantize(
+            acc.data_ptr(), scale.data_ptr(), out.data_ptr(), out.numel(),
+            lanes, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("segment_sum dequantize launch failed: "
+                           + lib.dmlc_cuda_error_string(err).decode())
+    return out
+
+
+def segment_sum_sharded(contrib: torch.Tensor, row_id: torch.Tensor,
+                        num_segments: int, plan) -> torch.Tensor:
+    """Segment-sum over the entries of every process of ``plan`` (a
+    ``parallel.MeshPlan``), each process passing its own: the shared scale
+    from one tiny all-gather (max of the lanes' amax, sum of the entries),
+    the accumulate launch on this process's entries, an exact int64
+    all-reduce and one dequantize.  Bit for bit the one-process kernel's
+    over all the entries, whatever the process count or strategy.
+    ``contrib`` [nnz] or [nnz, L] -> f32 [num_segments(, L)]."""
+    c = contrib if contrib.dim() == 2 else contrib[:, None]
+    c = c.to(torch.float32).contiguous()
+    rid = row_id.to(torch.int32).contiguous()
+    scale, n_max = global_scale(plan, lane_amax(c), [c.shape[0]])
+    acc = segment_sum_accumulate(c, rid, num_segments, scale,
+                                 value_limit(max(n_max, 1)))
+    out = segment_sum_dequantize(plan.allreduce(acc), scale, num_segments,
+                                 c.shape[1])
+    return out.reshape(_out_shape(contrib, num_segments))
 
 
 class _SegmentSumFn(torch.autograd.Function):

@@ -304,15 +304,19 @@ def test_lz4_blocks_decode_to_the_raw_layout(data, tmp_path):
 
 
 def test_unported_options_raise(data, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # sharding= takes a mesh spec (multi-process staging is ported:
+    # tests/test_torch_sharded_staging.py); anything else raises
+    with pytest.raises(TypeError, match="not a mesh spec"):
         _iter(data, _binner(), sharding=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        _iter(data, _binner()).host_blocks_coordinated(0)
+    # without a tracker, coordinated reads are every block of the
+    # worker's parts once
+    blocks = list(_iter(data, _binner()).host_blocks_coordinated(0))
+    assert sum(int(b["num_rows"]) for b in blocks) == 1200
     # autotune is ported: autotune=True and DMLCTPU_AUTOTUNE arm the tuner
     assert _iter(data, _binner(), autotune=True)._autotune
     monkeypatch.setenv("DMLCTPU_AUTOTUNE", "1")
     assert _iter(data, _binner())._autotune
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(TypeError, match="not a mesh spec"):
         _iter(data, _binner(), sharding=object())
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):

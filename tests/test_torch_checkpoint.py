@@ -167,13 +167,26 @@ def test_checkpoint_is_a_recordio_container_and_contracts(tmp_path):
 
 
 def test_multi_process_is_refused(tmp_path, monkeypatch):
+    # multi-process checkpoints are ported (a real 2-process save:
+    # test_two_process_save_is_the_jax_file): a process other than 0
+    # writes nothing and returns 0, and raises when the writer's sync
+    # reports a failed write
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    for call in (lambda: checkpoint.save({"a": np.ones(2)},
-                                         str(tmp_path / "x.ckpt")),
-                 lambda: checkpoint.load(str(tmp_path / "x.ckpt"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            call()
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+    writer_ok = [1]
+
+    def all_reduce(flag, op=None):
+        flag.fill_(writer_ok[0])
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    path = tmp_path / "x.ckpt"
+    assert checkpoint.save({"a": np.ones(2)}, str(path)) == 0
+    assert not path.exists()
+    writer_ok[0] = 0
+    with pytest.raises(RuntimeError, match="failed on the writer"):
+        checkpoint.save({"a": np.ones(2)}, str(path))
 
 
 def test_module_state_round_trip_predicts_bit_identically(tmp_path):
@@ -200,3 +213,27 @@ def test_module_state_round_trip_predicts_bit_identically(tmp_path):
                                          device="cpu"))
     with torch.no_grad():
         assert torch.equal(twin.margins(batch), ffm.margins(batch))
+
+
+def test_two_process_save_is_the_jax_file(tmp_path):
+    """Two gloo ranks save FM params whose ``w`` is row-sharded over the
+    mesh (a DTensor): rank 0 writes the JAX package's one-process file of
+    the same values, byte for byte; rank 1 writes nothing; both load it
+    back."""
+    from dmlc_core_tpu import checkpoint as jax_checkpoint
+    from torch_ranks import run_ranks
+    rng = np.random.default_rng(12)
+    params = {"w": rng.standard_normal(16).astype(np.float32),
+              "v": rng.standard_normal((16, 4)).astype(np.float32),
+              "b": np.float32(0.5)}
+    path = tmp_path / "two.ckpt"
+    res = run_ranks(2, "checkpoint_save", tmp_path, params=params,
+                    path=str(path))
+    want = tmp_path / "jax.ckpt"
+    jax_checkpoint.save({k: jnp.asarray(v) for k, v in params.items()},
+                        str(want))
+    assert path.read_bytes() == want.read_bytes()
+    assert [r[0] for r in res] == [3, 0]
+    for _, arrays, meta in res:
+        for a, k in zip(arrays, sorted(params)):
+            np.testing.assert_array_equal(a, params[k])

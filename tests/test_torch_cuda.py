@@ -1132,3 +1132,95 @@ def test_init_from_env_with_one_worker_is_a_no_op_on_the_card(
     info = parallel.init_from_env()  # the default device: the card
     assert info.num_workers == 1 and info.task_id == 0
     assert not dist.is_initialized()
+
+
+# ---- the accumulate / dequantize pair (the multi-process route) -------------
+#
+# Each kernel's two halves against their plain versions, bit for bit: the
+# int64 accumulator (sums and overflow marks) and the dequantized f32, at a
+# scale made for more rows than the launch sees (as a process's share of a
+# sharded fit does); and the one-process kernel equals accumulate +
+# dequantize at its own scale.
+
+from dmlc_core_tpu_torch.ops import histogram_sparse as hs  # noqa: E402
+from dmlc_core_tpu_torch.ops.fixed_point import (  # noqa: E402
+    fixed_point_scale as _fps, lane_amax as _amax, value_limit as _vlim)
+
+
+@pytest.mark.parametrize("rows,F,B,n", [(5000, 7, 64, 4), (20000, 28, 256, 32),
+                                        (0, 3, 8, 2)])
+def test_histogram_accumulate_and_dequantize_match_plain(cuda, rows, F, B, n):
+    bins, rel, gh = _hist_case(rows, F, B, n, torch.uint8, cuda, seed=3)
+    scale = _fps(_amax(gh) * 1.5, 4 * max(rows, 1))
+    qmax = _vlim(4 * max(rows, 1))
+    before = hg.histogram_gh_kernel.launches
+    acc = hg.histogram_gh_accumulate(bins, rel, gh, n, B, scale, qmax)
+    torch.cuda.synchronize()
+    assert hg.histogram_gh_kernel.launches == before + (1 if rows else 0)
+    want = hg.histogram_gh_accumulate_plain(bins.cpu(), rel.cpu(), gh.cpu(),
+                                            n, B, scale.cpu(), qmax)
+    assert torch.equal(acc.cpu(), want)
+    out = hg.histogram_gh_dequantize(acc, scale, (n, F, B, 2))
+    assert torch.equal(out.cpu(), hg.histogram_gh_dequantize(
+        want, scale.cpu(), (n, F, B, 2)))
+    own = _fps(_amax(gh), rows)
+    one = hg.histogram_gh_dequantize(hg.histogram_gh_accumulate(
+        bins, rel, gh, n, B, own, _vlim(rows)), own, (n, F, B, 2))
+    assert torch.equal(one, hg.histogram_gh_kernel(bins, rel, gh, n, B))
+
+
+def test_sparse_accumulate_and_dequantize_match_plain(cuda):
+    rng = np.random.default_rng(4)
+    rows, F, B, n = 3000, 40, 256, 8
+    present = rng.random((rows, F)) < 0.2
+    rid, fi = (a.astype(np.int64) for a in np.nonzero(present))
+    eb = rng.integers(1, B, rid.size)
+    em = np.ones(rid.size, bool)
+    layout = hs.sparse_hist_layout(*(torch.from_numpy(a).to(cuda)
+                                     for a in (rid, fi, eb, em)), F, B)
+    gh = torch.from_numpy(rng.standard_normal((rows, 2)).astype(
+        np.float32)).to(cuda)
+    rel = torch.from_numpy(rng.integers(0, n, rows).astype(np.int32)).to(
+        cuda)
+    gh_e = hs.entry_gh(gh, layout=layout)
+    rel_e = rel[layout.rid].contiguous()
+    n_max = int(hs.feature_counts(layout).max())
+    scale, qmax = _fps(_amax(gh), 3 * n_max), _vlim(3 * n_max)
+    acc = hs.histogram_gh_sparse_accumulate(layout, rel_e, gh_e, n, scale,
+                                            qmax)
+    want = hs.histogram_gh_sparse_accumulate_plain(
+        layout.gkey.cpu(), rel_e.cpu(), gh_e.cpu(), layout.starts, n, F, B,
+        scale.cpu(), qmax)
+    assert torch.equal(acc.cpu(), want)
+    out = hs.histogram_gh_sparse_dequantize(acc, scale, (n, F, B, 2))
+    assert torch.equal(out.cpu(), hs.histogram_gh_sparse_dequantize(
+        want, scale.cpu(), (n, F, B, 2)))
+    own = _fps(_amax(gh), n_max)
+    one = hs.histogram_gh_sparse_dequantize(hs.histogram_gh_sparse_accumulate(
+        layout, rel_e, gh_e, n, own, _vlim(n_max)), own, (n, F, B, 2))
+    assert torch.equal(one, hs.histogram_gh_sparse_kernel(
+        layout.gkey, rel_e, gh_e, layout.starts, n, F, B, layout=layout,
+        gh_amax=_amax(gh)))
+
+
+@pytest.mark.parametrize("name", ["unsorted-out-of-range", "one-entry"])
+def test_segment_accumulate_and_dequantize_match_plain(cuda, name):
+    c, rid, rows = _case(name, cuda)
+    c = c.reshape(c.shape[0], -1).contiguous()
+    nnz, lanes = c.shape
+    scale = _fps(_amax(c) * 3, 5 * nnz)
+    qmax = _vlim(5 * nnz)
+    before = ss.segment_sum_kernel.launches
+    acc = ss.segment_sum_accumulate(c, rid, rows, scale, qmax)
+    torch.cuda.synchronize()
+    assert ss.segment_sum_kernel.launches == before + 1
+    want = ss.segment_sum_accumulate_plain(c.cpu(), rid.cpu(), rows,
+                                           scale.cpu(), qmax)
+    assert torch.equal(acc.cpu(), want)
+    out = ss.segment_sum_dequantize(acc, scale, rows, lanes)
+    assert torch.equal(out.cpu(), ss.segment_sum_dequantize(
+        want, scale.cpu(), rows, lanes))
+    own = _fps(_amax(c), nnz)
+    one = ss.segment_sum_dequantize(ss.segment_sum_accumulate(
+        c, rid, rows, own, _vlim(nnz)), own, rows, lanes)
+    assert torch.equal(one, ss.segment_sum_kernel(c, rid, rows))

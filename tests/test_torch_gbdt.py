@@ -396,7 +396,9 @@ def test_forest_from_numpy_keeps_dtypes():
 # ---- what the port refuses, and its backend routing ---------------------------
 
 def test_histogram_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # histogram_mesh takes a mesh spec (the sharded fit is ported:
+    # tests/test_torch_gbdt_mesh.py); anything else raises
+    with pytest.raises(TypeError, match="not a mesh spec"):
         GBDT(num_features=4, histogram_mesh=object(), device="cpu")
 
 

@@ -430,7 +430,9 @@ def test_not_ported_options_raise():
         emask=tb.value != 0, num_rows=tb.num_rows, cuts_digest="0" * 16)
     with pytest.raises(ValueError, match="cuts"):
         model.fit_batch(binned, binner)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # histogram_mesh takes a mesh spec (the sharded fit is ported:
+    # tests/test_torch_gbdt_mesh.py); anything else raises
+    with pytest.raises(TypeError, match="not a mesh spec"):
         GBDT(num_features=4, histogram_mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="missing_aware"):
         GBDT(device="cpu", **model_kw).fit_batch(tb, binner)

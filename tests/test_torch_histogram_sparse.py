@@ -151,8 +151,10 @@ def test_validation_errors_match_jax(bad):
 def test_layout_mismatch_and_sharding_refused():
     rid, fi, eb, em, rel, gh, n, F, B = _case(0)
     t = _torch((rid, fi, eb, em))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        sparse_hist_layout(*t, F, B, num_shards=2, rows=100)
+    # the sharded layout is ported (tests/test_torch_gbdt_mesh.py holds
+    # it to the JAX package's); it keeps the JAX package's even-rows rule
+    with pytest.raises(ValueError, match="rows divisible"):
+        sparse_hist_layout(*t, F, B, num_shards=2, rows=101)
     layout = sparse_hist_layout(*t, F, B)
     with pytest.raises(ValueError, match="layout built for"):
         histogram_gh_sparse(*t, *_torch((rel, gh)), n, F, B + 1,

@@ -50,6 +50,13 @@ def _records(batches):
     return out
 
 
+def _host_records(w):
+    """The records of one host batch dict (payload bytes and offsets)."""
+    raw, offs = w["bytes"], w["offsets"]
+    return [raw[offs[k]:offs[k + 1]].tobytes()
+            for k in range(int(w["num_records"]))]
+
+
 @pytest.mark.parametrize("num_workers", [1, 2])
 def test_batches_equal_jax(recordio_file, num_workers):
     uri, payloads = recordio_file
@@ -123,15 +130,20 @@ def test_abandoned_epoch_and_close(recordio_file):
 
 def test_unported_options_raise(recordio_file, monkeypatch):
     uri, _ = recordio_file
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # sharding= takes a mesh spec (multi-process staging is ported:
+    # tests/test_torch_sharded_staging.py); anything else raises
+    with pytest.raises(TypeError, match="not a mesh spec"):
         RecordStagingIter(uri, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        RecordStagingIter(uri, device="cpu").host_batches_coordinated(0)
+    # without a tracker, coordinated reads are every record once, in order
+    got = [b for w in RecordStagingIter(uri, device="cpu")
+           .host_batches_coordinated(0)
+           for b in _host_records(w)]
+    assert got == recordio_file[1]
     # autotune is ported: autotune=True and DMLCTPU_AUTOTUNE arm the tuner
     assert RecordStagingIter(uri, autotune=True, device="cpu")._autotune
     monkeypatch.setenv("DMLCTPU_AUTOTUNE", "1")
     assert RecordStagingIter(uri, device="cpu")._autotune
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(TypeError, match="not a mesh spec"):
         RecordStagingIter(uri, sharding=object(), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -283,12 +283,13 @@ def test_profile_counters_knobs_and_h2d_metrics(libsvm_file):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sharding=object()), "A6"),
-    (dict(sharding=object(), autotune=True), "A6")])
+    (dict(sharding=object()), "not a mesh spec"),
+    (dict(sharding=object(), autotune=True), "not a mesh spec")])
 def test_unported_options_raise(libsvm_file, kw, item):
-    # sharding= is refused with or without the tuner (autotune itself is
-    # ported: tests/test_torch_autotune.py)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    # sharding= takes a mesh spec, with or without the tuner (multi-process
+    # staging is ported: tests/test_torch_sharded_staging.py; autotune:
+    # tests/test_torch_autotune.py)
+    with pytest.raises(TypeError, match=item):
         DeviceStagingIter(libsvm_file, device="cpu", **kw)
 
 
