@@ -35,9 +35,14 @@ update to float64) and served through ``ScoringServer(with_field=True)``
 against a float64 pairwise oracle; the first 262,144 Bosch rows written to
 libsvm, staged into the binned epoch cache by ``BinnedStagingIter`` and fit
 out of core by ``GBDT.fit_streamed`` (its forest equal to ``fit_batch``'s
-and to the text replay's bit for bit, every level audited against
-float64); an ImageNet-sized RecordIO file staged by ``RecordStagingIter``
-with 1 and 4 workers, every record held to ``RecordIOReader``'s; and the
+bit for bit, a shorter text replay's to a cache fit's, every level
+audited against float64); the same file served by two staging workers on
+the card through the data service (``DataServiceIter``; one cache file,
+batches equal to a local cache hit's, a worker killed mid-epoch, the
+staged text mode) and fit out of core over it, its forest equal to the
+local one's bit for bit; an ImageNet-sized RecordIO file staged by
+``RecordStagingIter`` with 1 and 4 workers, every record held to
+``RecordIOReader``'s; and the
 FM and the forest checkpointed and loaded back bit for bit (the FFM's
 factor table, one record past the native 2^29-byte limit, raises its
 error).  Then the observability phase trains one epoch of the FM through
@@ -72,6 +77,12 @@ main-path shapes under every launch geometry of ``segment_sweep``, beside
 the one ``segment_sum.launch_geometry`` picks.  It prints its readings and
 no result line.
 
+    python3 chip_smoke.py --service-sweep
+
+builds the kernels, then times epochs of the Bosch out-of-core cell over
+the data service with 1, 2, 4 and 8 parts in flight, beside a local cache
+hit (see ``service_sweep``).  It prints its readings and no result line.
+
     python3 chip_smoke.py --geometry-sweep
 
 builds the kernels, then times the dense histogram kernel at every level
@@ -81,6 +92,7 @@ its readings and no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import re
@@ -2606,6 +2618,9 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
 STREAM_ROWS, STREAM_BATCH, STREAM_BUCKET = 1 << 18, 32_768, 1 << 16
 STREAM_WORKERS = 8  # parse threads of the text replays
 STREAM_CHUNK = 16_384  # rows a libsvm_text call writes
+# trees of the text-replay fit held to a cache fit of as many trees: the
+# replay parses the text once a pass (1 + 6 a tree), ~3.5 s a tree
+TEXT_TREES = 4
 
 
 def streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
@@ -2665,6 +2680,29 @@ def streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
             "node_totals": node}
 
 
+def streamed_file(data, build_dir: Path) -> tuple:
+    """The first STREAM_ROWS Bosch-width rows as libsvm under
+    ``build_dir`` (values written shortest, so they read back bit for
+    bit); returns (path, entries)."""
+    R = STREAM_ROWS
+    host = {k: data[k][:R + (k == "row_ptr")].cpu().numpy()
+            for k in ("label", "row_ptr")}
+    e1 = int(host["row_ptr"][R])
+    index = data["index"][:e1].cpu().numpy()
+    value = data["value"][:e1].cpu().numpy()
+    path = build_dir / f"bosch_{R}.libsvm"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        for r0 in range(0, R, STREAM_CHUNK):
+            r1 = min(r0 + STREAM_CHUNK, R)
+            e0, e = int(host["row_ptr"][r0]), int(host["row_ptr"][r1])
+            f.write(libsvm_text(
+                host["label"][r0:r1],
+                host["row_ptr"][r0:r1 + 1].astype(np.int64) - e0,
+                index[e0:e], value[e0:e], shortest=True))
+    return path, e1
+
+
 def phase_streamed(torch, ss_mod, dev, build_dir: Path, data, binner) -> dict:
     """The Bosch-width GBDT out of core: the first 2^18 rows written to
     libsvm, the binned epoch cache built by BinnedStagingIter (and a
@@ -2683,22 +2721,8 @@ def phase_streamed(torch, ss_mod, dev, build_dir: Path, data, binner) -> dict:
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
     R, F = STREAM_ROWS, BOSCH_FEATURES
     depth, trees = GBDT_KW["max_depth"], GBDT_KW["num_trees"]
-    host = {k: data[k][:R + (k == "row_ptr")].cpu().numpy()
-            for k in ("label", "row_ptr")}
-    e1 = int(host["row_ptr"][R])
-    index = data["index"][:e1].cpu().numpy()
-    value = data["value"][:e1].cpu().numpy()
-    path = build_dir / f"bosch_{R}.libsvm"
-    path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
-    with open(path, "wb") as f:
-        for r0 in range(0, R, STREAM_CHUNK):
-            r1 = min(r0 + STREAM_CHUNK, R)
-            e0, e = int(host["row_ptr"][r0]), int(host["row_ptr"][r1])
-            f.write(libsvm_text(
-                host["label"][r0:r1],
-                host["row_ptr"][r0:r1 + 1].astype(np.int64) - e0,
-                index[e0:e], value[e0:e], shortest=True))
+    path, e1 = streamed_file(data, build_dir)
     t_write = time.monotonic() - t0
     size = path.stat().st_size
     uri = str(path)
@@ -2801,16 +2825,19 @@ def phase_streamed(torch, ss_mod, dev, build_dir: Path, data, binner) -> dict:
     torch.cuda.synchronize()
     t_res = time.monotonic() - t0
     same_r = all(torch.equal(forest[k], resident[k]) for k in resident)
+    short = GBDT(num_features=F, missing_aware=True, device=dev,
+                 **dict(GBDT_KW, num_trees=TEXT_TREES))
     t0 = time.monotonic()
-    from_text = model.fit_streamed(uri, binner, staging_options=dict(
+    from_text = short.fit_streamed(uri, binner, staging_options=dict(
         num_workers=STREAM_WORKERS, **kw))
     torch.cuda.synchronize()
     t_txt = time.monotonic() - t0
-    same_t = all(torch.equal(forest[k], from_text[k]) for k in from_text)
+    from_cache = short.fit_streamed(lambda: iter(hit), binner)
+    same_t = all(torch.equal(from_cache[k], from_text[k]) for k in from_text)
     print(f"streamed forests: equal bit for bit to fit_batch on the same "
-          f"rows resident ({t_res:.3f} s): {same_r}; to fit_streamed over "
-          f"the text file ({t_txt:.3f} s, {STREAM_WORKERS} parse workers): "
-          f"{same_t}")
+          f"rows resident ({t_res:.3f} s): {same_r}; a {TEXT_TREES}-tree "
+          f"fit_streamed over the text file ({t_txt:.3f} s, "
+          f"{STREAM_WORKERS} parse workers) to one over the cache: {same_t}")
     check(same_r and same_t, "the streamed forest differs from fit_batch's "
           "or from the text replay's")
     ent = model._sparse_entries(*model._entry_bins(sb, binner))
@@ -2822,7 +2849,300 @@ def phase_streamed(torch, ss_mod, dev, build_dir: Path, data, binner) -> dict:
     kern = streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
                                   sb.label)
     return {"launches": h_l, "seg_launches": s_l, "forest": forest,
-            "fit_s": t_fit, **kern}
+            "fit_s": t_fit, "uri": uri, "hit_rows_s": R / t_hit, "ent": ent,
+            "layout": layout, "label": sb.label, **kern}
+
+
+# ---- phase 7b: the data service ---------------------------------------------
+
+DS_WORKERS = 2  # staging workers, as submit(data_service=2) spawns them
+DS_READY_S = 120  # seconds the workers have to register on the board
+
+
+@contextlib.contextmanager
+def service_fleet(cache_dir: Path):
+    """The port's aggregator in this process and DS_WORKERS staging
+    workers on the card, spawned by ``tracker.submit.spawn_data_service``
+    (what ``submit(data_service=...)`` runs) over one cache directory,
+    emptied first; yields (aggregator, worker processes) once every worker
+    registered, and stops them all."""
+    import shutil
+
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    from dmlc_core_tpu_torch.tracker.submit import spawn_data_service
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    agg = tm.MetricsAggregator()
+    envs = {"DMLC_TRACKER_URI": "127.0.0.1", tm.METRICS_PORT_ENV: agg.port,
+            "DMLCTPU_DATASERVICE_CACHE_DIR": str(cache_dir),
+            "PYTHONPATH": str(REPO)}
+    procs = spawn_data_service(DS_WORKERS, envs)
+    try:
+        t0 = time.monotonic()
+        while len(agg.leases.state()["workers"]) < DS_WORKERS:
+            check(time.monotonic() - t0 < DS_READY_S
+                  and all(p.poll() is None for p in procs),
+                  "the staging workers did not register on the lease board")
+            time.sleep(0.2)
+        print(f"dataservice: {DS_WORKERS} workers registered in "
+              f"{time.monotonic() - t0:.1f} s")
+        yield agg, procs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        agg.close()
+
+
+def service_client(dev, agg, uri, binner, **extra):
+    """A DataServiceIter of the streamed cell's geometry on the fleet."""
+    from dmlc_core_tpu_torch.dataservice import DataServiceIter
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    return DataServiceIter(
+        uri, binner, retries=8, device=dev, batch_size=STREAM_BATCH,
+        nnz_bucket=STREAM_BUCKET,
+        shard_client=tm.ShardClient("127.0.0.1", agg.port, rank=0), **extra)
+
+
+def same_batches(torch, got, want) -> bool:
+    """Two BinnedBatch streams equal leaf by leaf on the card."""
+    got, want = list(got), list(want)
+    return len(got) == len(want) and all(
+        a.num_rows == b.num_rows and a.cuts_digest == b.cuts_digest
+        and all(torch.equal(getattr(a, k), getattr(b, k))
+                for k in ("label", "weight", "row_ptr", "index", "ebin",
+                          "emask"))
+        for a, b in zip(got, want))
+
+
+def epoch_rows(torch, batches) -> tuple:
+    """An epoch's real rows, in order: (labels, row lengths, and each
+    entry's index, ebin and emask), concatenated on the card."""
+    lab, lens, idx, ebin, emask = [], [], [], [], []
+    for b in batches:
+        n, nnz = b.num_rows, int(b.row_ptr[b.num_rows])
+        lab.append(b.label[:n])
+        lens.append(b.row_ptr[1:n + 1] - b.row_ptr[:n])
+        idx.append(b.index[:nnz])
+        ebin.append(b.ebin[:nnz])
+        emask.append(b.emask[:nnz])
+    return tuple(torch.cat(x) for x in (lab, lens, idx, ebin, emask))
+
+
+def phase_dataservice(torch, ss_mod, dev, build_dir: Path, streamed) -> dict:
+    """The data service over the Bosch out-of-core cell's file: the port's
+    aggregator in this process, two staging workers on the card spawned by
+    ``tracker.submit.spawn_data_service`` (what ``submit(data_service=2)``
+    runs) over one cache directory, and a ``DataServiceIter`` with an
+    unfitted binner that adopts the service's cuts.  Checks: one cache file
+    named by ``spec_key``; two service epochs equal a local cache hit over
+    the worker's file bit for bit; a local build from the text sketches the
+    worker's cuts; ``fit_streamed`` over the service (the main path: 120
+    sparse-histogram and 140 segment-sum launches, 121 epochs) equals a fit
+    over one local epoch bit for bit; a worker SIGKILLed partway through an
+    epoch leaves the epoch whole on the survivor; the staged (text) mode
+    gives the cache epoch's rows."""
+    import signal
+
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.data import BinnedStagingIter
+    from dmlc_core_tpu_torch.dataservice.server import spec_key
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    R, F = STREAM_ROWS, BOSCH_FEATURES
+    depth, trees = GBDT_KW["max_depth"], GBDT_KW["num_trees"]
+    kw = dict(batch_size=STREAM_BATCH, nnz_bucket=STREAM_BUCKET)
+    uri = streamed["uri"]
+    cache_dir = build_dir / "dataservice"
+    with service_fleet(cache_dir) as (agg, procs):
+        def counters():
+            return {k: telemetry.counter_get(k) for k in (
+                "dataservice.fetch_bytes", "dataservice.fetch_blocks",
+                "dataservice.errors", "cache.rebuilds", "cache.build_bytes",
+                "cache.hit_bytes")}
+
+        def delta(c0):
+            c1 = counters()
+            return {k: c1[k] - c0[k] for k in c1}
+
+        # 1. one parse: the meta request builds the worker's cache
+        binner = QuantileBinner(GBDT_KW["num_bins"], missing_aware=True,
+                                device=dev)
+        ds = service_client(dev, agg, uri, binner)
+        t0 = time.monotonic()
+        ds.ensure_meta()
+        t_build = time.monotonic() - t0
+        c0 = counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        first = list(ds)
+        torch.cuda.synchronize()
+        t_epoch = time.monotonic() - t0
+        d1 = delta(c0)
+        rows = sum(b.num_rows for b in first)
+        files = sorted(p.name for p in cache_dir.glob("*.bincache"))
+        print(f"dataservice: the worker's cache build (the meta request)"
+              f" {t_build:.2f} s; cache files {files}; epoch 1 {t_epoch:.3f}"
+              f" s, {rows / t_epoch:.0f} rows/s, "
+              f"{d1['dataservice.fetch_bytes'] / t_epoch / 1e6:.1f} MB/s of "
+              f"frames ({d1['dataservice.fetch_blocks']} blocks), beside the"
+              f" local cache hit's {streamed['hit_rows_s']:.0f} rows/s")
+        check(rows == R and ds.meta is not None and binner.cuts is not None
+              and files == [spec_key(ds.spec) + ".bincache"]
+              and d1["dataservice.fetch_blocks"] > 0
+              and d1["dataservice.errors"] == 0,
+              f"the service epoch: {rows} rows, cache files {files}, "
+              f"counters {d1}")
+
+        # 2. bit identity with a local cache hit, in two epochs
+        c0 = counters()
+        local_it = BinnedStagingIter(
+            uri, QuantileBinner(GBDT_KW["num_bins"], missing_aware=True,
+                                device=dev),
+            cache=str(cache_dir / files[0]), device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        local = list(local_it)
+        torch.cuda.synchronize()
+        t_local = time.monotonic() - t0
+        d2 = delta(c0)
+        same1 = same_batches(torch, first, local)
+        del first
+        c0 = counters()
+        same2 = same_batches(torch, ds, local)
+        d3 = delta(c0)
+        print(f"dataservice batches: epoch 1 equal to the local cache hit "
+              f"over the worker's file ({t_local:.3f} s, {R / t_local:.0f} "
+              f"rows/s, counters {d2}) leaf by leaf: {same1}; epoch 2 under "
+              f"a fresh lease ledger: {same2} ({d3})")
+        check(same1 and same2 and d2["cache.rebuilds"] == 0
+              and d2["cache.build_bytes"] == 0 and d2["cache.hit_bytes"] > 0
+              and d3["dataservice.errors"] == 0,
+              f"the service epochs differ from the local hit: {same1}, "
+              f"{same2}; counters {d2}, {d3}")
+
+        # 3. a local build on the card sketches the worker's cuts
+        own = QuantileBinner(GBDT_KW["num_bins"], missing_aware=True,
+                             device=dev)
+        own_cache = build_dir / "dataservice_local.bincache"
+        if own_cache.exists():
+            own_cache.unlink()
+        t0 = time.monotonic()
+        BinnedStagingIter(uri, own, cache=str(own_cache), device=dev,
+                          **kw).ensure_cache()
+        t_own = time.monotonic() - t0
+        print(f"dataservice cuts: a local build on the card ({t_own:.2f} s)"
+              f" {own.cuts_digest()}, the worker's {ds.meta['cuts_digest']}")
+        check(own.cuts_digest() == ds.meta["cuts_digest"],
+              "a worker on the card and a local build sketch other cuts")
+
+        # 4. the main path: fit_streamed over the service
+        model = GBDT(num_features=F, missing_aware=True, device=dev,
+                     **GBDT_KW)
+        passes = [0]
+
+        def replay():
+            passes[0] += 1
+            return iter(ds)
+
+        log = {}
+        timed = {(hs, "_accumulate"): hs._accumulate,
+                 (hs, "histogram_gh_sparse_dequantize"):
+                     hs.histogram_gh_sparse_dequantize,
+                 (ss_mod, "_launch"): ss_mod._launch}
+        for mod, name in timed:
+            _event_timed(torch, mod, name, log)
+        hs.histogram_gh_sparse_kernel.launches = 0
+        ss_mod.segment_sum_kernel.launches = 0
+        hg.histogram_gh_kernel.launches = 0
+        c0 = counters()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        try:
+            forest = model.fit_streamed(replay, binner)
+            torch.cuda.synchronize()
+        finally:
+            for (mod, name), fn in timed.items():
+                setattr(mod, name, fn)
+        t_fit = time.monotonic() - t0
+        h_l = hs.histogram_gh_sparse_kernel.launches
+        s_l = ss_mod.segment_sum_kernel.launches
+        d_l = hg.histogram_gh_kernel.launches
+        kern_ms = _events_ms(torch, log)
+        d4 = delta(c0)
+        t0 = time.monotonic()
+        want = model.fit_streamed(local, binner)
+        torch.cuda.synchronize()
+        t_want = time.monotonic() - t0
+        same_f = all(torch.equal(forest[k], want[k]) for k in want)
+        print(f"dataservice fit_streamed: {t_fit:.3f} s wall "
+              f"({R * trees / t_fit:.0f} row_trees_s, {passes[0]} epochs, "
+              f"{d4['dataservice.fetch_bytes'] / 2**30:.2f} GiB of frames), "
+              f"beside {streamed['fit_s']:.3f} s over the local cache; "
+              f"kernels {kern_ms:.1f} device ms, "
+              f"{100 * kern_ms / 1e3 / t_fit:.2f}% of the wall; launches: "
+              f"histogram_gh_sparse {h_l}, segment_sum {s_l}, histogram_gh "
+              f"{d_l}; forest equal to a fit over one resident local epoch "
+              f"({t_want:.3f} s) bit for bit: {same_f}")
+        check(h_l == trees * depth and s_l == trees * (depth + 1)
+              and d_l == 0 and passes[0] == 1 + trees * depth
+              and d4["dataservice.errors"] == 0,
+              f"fit over the service: {h_l} sparse histograms, {s_l} "
+              f"segment sums, {d_l} dense, {passes[0]} epochs; {d4}")
+        check(same_f, "the forest over the service differs from the local "
+              "fit's")
+
+        # 5. failover: SIGKILL a worker after the epoch's first batch (the
+        # producer runs at most a few parts ahead of a fast consumer, so
+        # dozens of parts are still to lease, about half placed on it)
+        c0 = counters()
+        epoch = ds._epoch
+        got, victim = [], procs[0]
+        for b in ds:
+            got.append(b)
+            if len(got) == 1:
+                victim.send_signal(signal.SIGKILL)
+                victim.wait(timeout=30)
+        d5 = delta(c0)
+        lease = agg.leases.state()["leases"][ds.client_id][str(epoch)]
+        same5 = same_batches(torch, got, local)
+        del got
+        print(f"dataservice failover: a worker SIGKILLed after 1 of "
+              f"{len(local)} batches; the epoch "
+              f"equal to the local hit bit for bit: {same5}; ledger "
+              f"{lease['done']} of {lease['shards']} parts done, "
+              f"{len(lease['failovers'])} failovers; counters {d5}")
+        check(same5 and lease["pending"] == 0 and lease["failovers"]
+              and d5["dataservice.errors"] >= 1,
+              f"the epoch over a killed worker: {same5}, ledger {lease}, "
+              f"counters {d5}")
+
+        # 6. the staged (text) mode, binned on the host with the cuts
+        st = service_client(dev, agg, uri, binner, mode="staged")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        staged = list(st)
+        torch.cuda.synchronize()
+        t_staged = time.monotonic() - t0
+        a, b = epoch_rows(torch, staged), epoch_rows(torch, local)
+        same6 = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"dataservice staged mode: {len(staged)} batches "
+              f"({len(local)} from the cache) in {t_staged:.3f} s "
+              f"({R / t_staged:.0f} rows/s); rows equal to the cache "
+              f"epoch's (label, indices, ebin, emask): {same6}")
+        check(same6 and int(a[0].numel()) == R,
+              "the staged mode's rows differ from the cache epoch's")
+        del staged, a, b, local
+    kern = streamed_kernel_levels(torch, ss_mod, model, forest,
+                                  streamed["ent"], streamed["layout"],
+                                  streamed["label"])
+    return {"launches": h_l, "seg_launches": s_l, "fit_s": t_fit, **kern}
 
 
 # ---- phase 8: RecordIO staging ----------------------------------------------
@@ -4001,6 +4321,82 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
             "fm_steps": sum(f["steps"] for f in fms), "readings": readings}
 
 
+# ---- --service-sweep: parts in flight of a data-service epoch --------------
+
+SERVICE_FETCH_AHEAD = (1, 2, 4, 8)
+SERVICE_SWEEP_EPOCHS = 3
+
+
+def service_sweep(torch, dev) -> None:
+    """Times epochs of the Bosch out-of-core cell over the data service
+    (two workers on the card, the streamed cell's file and geometry) with
+    1, 2, 4 and 8 parts in flight (``dataservice.client._FETCH_AHEAD``,
+    the client's constant), beside a local cache hit over the worker's
+    file; then a lease call and a worker round trip alone.  Readings
+    only."""
+    from dmlc_core_tpu_torch.data import BinnedStagingIter
+    from dmlc_core_tpu_torch.dataservice import client as ds_client
+    from dmlc_core_tpu_torch.dataservice.server import spec_key
+    from dmlc_core_tpu_torch.models import QuantileBinner
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    build_dir = REPO / "build" / "chip_smoke"
+    path, _ = streamed_file(bosch_like(torch, dev), build_dir)
+    torch.cuda.empty_cache()
+    uri = str(path)
+    cache_dir = build_dir / "dataservice_sweep"
+
+    def epoch_s(it) -> float:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rows = sum(b.num_rows for b in it)
+        torch.cuda.synchronize()
+        check(rows == STREAM_ROWS, f"an epoch of {rows} rows")
+        return time.monotonic() - t0
+
+    def line(what, times):
+        best = STREAM_ROWS / min(times)
+        print(f"service sweep [{what}]: "
+              + ", ".join(f"{t:.3f}" for t in times)
+              + f" s; best {best:.0f} rows/s")
+
+    with service_fleet(cache_dir) as (agg, _):
+        ds = service_client(dev, agg, uri, QuantileBinner(
+            GBDT_KW["num_bins"], missing_aware=True, device=dev))
+        ds.ensure_meta()
+        local = BinnedStagingIter(
+            uri, QuantileBinner(GBDT_KW["num_bins"], missing_aware=True,
+                                device=dev),
+            cache=str(cache_dir / (spec_key(ds.spec) + ".bincache")),
+            device=dev, batch_size=STREAM_BATCH, nnz_bucket=STREAM_BUCKET)
+        line("local cache hit", [epoch_s(local)
+                                 for _ in range(SERVICE_SWEEP_EPOCHS)])
+        default = ds_client._FETCH_AHEAD
+        try:
+            for depth in SERVICE_FETCH_AHEAD:
+                ds_client._FETCH_AHEAD = depth
+                line(f"{depth} parts in flight"
+                     + (" (the default)" if depth == default else ""),
+                     [epoch_s(ds) for _ in range(SERVICE_SWEEP_EPOCHS)])
+        finally:
+            ds_client._FETCH_AHEAD = default
+        sc = tm.ShardClient("127.0.0.1", agg.port, rank=0)
+        worker = ds._any_worker()
+        t0 = time.monotonic()
+        for _ in range(100):
+            sc.data_req({"op": "state"})
+        t1 = time.monotonic()
+        for _ in range(100):
+            ds._req_reply(worker, {"op": "ping"})
+        t2 = time.monotonic()
+        for g in range(20):
+            ds._fetch_from(worker, g)
+        t3 = time.monotonic()
+        print(f"service sweep: a lease call {(t1 - t0) * 10:.3f} ms, a "
+              f"worker ping {(t2 - t1) * 10:.3f} ms, a part's fetch alone "
+              f"{(t3 - t2) * 50:.2f} ms ({ds.meta['virtual_parts']} parts "
+              "an epoch)")
+
+
 # ---- --geometry-sweep: the dense kernel's launch geometry -------------------
 
 SWEEP_GROUPS = (1, 3, 7, 14, 28)        # features a block takes
@@ -4309,6 +4705,9 @@ def main(argv) -> int:
     if "--segment-sweep" in argv:
         segment_sweep(torch, torch.device("cuda"))
         return 0
+    if "--service-sweep" in argv:
+        service_sweep(torch, torch.device("cuda"))
+        return 0
     if "--geometry-sweep" in argv:
         geometry_sweep(torch, torch.device("cuda"))
         return 0
@@ -4327,6 +4726,9 @@ def main(argv) -> int:
     sparse_data = sparse.pop("data")
     streamed = phase_streamed(torch, ss_mod, dev, build_dir, sparse_data,
                               sparse["binner"])
+    served_fit = phase_dataservice(torch, ss_mod, dev, build_dir, streamed)
+    for k in ("ent", "layout", "label"):
+        streamed.pop(k)
     phase_records(torch, dev, build_dir)
     phase_checkpoints(torch, dev, build_dir, train["model"], ffm["model"],
                       sparse["forest"])
@@ -4412,6 +4814,14 @@ def main(argv) -> int:
         "launches": streamed["seg_launches"],
         "max_abs_err": streamed["node_totals"]["max_abs_err"],
         **{k: streamed["node_totals"][k] for k in keys},
+    }, {
+        **segment_sum,
+        "shape": f"fit_streamed over the data service, node totals, "
+                 f"{STREAM_ROWS} rows x L=2 into 32 nodes; launches: its "
+                 "node totals (6 a tree) and leaf sums (1 a tree)",
+        "launches": served_fit["seg_launches"],
+        "max_abs_err": served_fit["node_totals"]["max_abs_err"],
+        **{k: served_fit["node_totals"][k] for k in keys},
     }] + [{
         "name": "histogram_gh",
         "route": "cuda",
@@ -4444,6 +4854,16 @@ def main(argv) -> int:
                  "epoch cache",
         "launches": streamed["launches"],
         **{k: streamed["hist"][k] for k in ("max_abs_err", *keys)},
+    }, {
+        "name": "histogram_gh_sparse",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh_sparse.cu",
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:466",
+        "shape": f"fit_streamed over the data service, {STREAM_ROWS} rows, "
+                 f"{served_fit['hist']['nnz']} entries x 256 bins, mean of "
+                 "depths 0-5",
+        "launches": served_fit["launches"],
+        **{k: served_fit["hist"][k] for k in ("max_abs_err", *keys)},
     }] + [{
         "name": k["name"],
         "route": "cuda",

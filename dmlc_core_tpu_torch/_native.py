@@ -6,9 +6,10 @@ packages bind the same library through its C API
 functions the port calls: telemetry (the registry, the trace buffer,
 flight records, the log sink), the stall watchdog and time-series
 sampler, fault injection, the row parser (``data.rowblock``), the staged
-and record batchers (``data.staging``), the input split, RecordIO, streams
-and file system calls (``io``), and the binned epoch cache with its block
-codec and arena pool (``data.binned_cache``).
+and record batchers (``data.staging``) with the staged batch's wire codec
+(``dataservice.protocol``), the input split, RecordIO, streams and file
+system calls (``io``), and the binned epoch cache with its block codec and
+arena pool (``data.binned_cache``).
 
 Resolution order for the library path:
   1. ``$DMLCTPU_LIBRARY_PATH``
@@ -246,6 +247,13 @@ def _declare(L: ctypes.CDLL) -> None:
                                               intp], ctypes.c_int),
         "DmlcTpuStagedBatcherFree": ([handle], None),
         "DmlcTpuStagedBatchFree": ([handle], None),
+        # the staged batch's wire codec (dataservice.protocol)
+        "DmlcTpuStagedBatchWireHeader": (
+            [ctypes.POINTER(StagedBatchOwnedC), handle, u64, u64p],
+            ctypes.c_int),
+        "DmlcTpuStagedBatchFromWire": (
+            [handle, u64, handle, u64, ctypes.POINTER(StagedBatchOwnedC)],
+            ctypes.c_int),
         # the record batcher (data.staging.RecordStagingIter)
         "DmlcTpuRecordBatcherCreateEx": ([cstr, ctypes.c_uint, ctypes.c_uint,
                                           u64, u64, ctypes.c_int, vpp],
@@ -309,7 +317,14 @@ def _declare(L: ctypes.CDLL) -> None:
         "DmlcTpuBinnedCacheReaderNextBlockView": ([handle, vpp, u64p, intp],
                                                   ctypes.c_int),
         "DmlcTpuBinnedCacheReaderTakeArena": ([handle, vpp], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderNextBlock": ([handle, vpp, u64p],
+                                              ctypes.c_int),
         "DmlcTpuBinnedCacheReaderSeekTo": ([handle, u64], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderSetDecode": ([handle, ctypes.c_int],
+                                              ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderBackend": ([handle, intp], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderBeforeFirst": ([handle], ctypes.c_int),
+        "DmlcTpuBinnedCacheReaderCorruptSkipped": ([handle], ctypes.c_int64),
         "DmlcTpuBinnedCacheReaderFree": ([handle], None),
         "DmlcTpuBinnedBlockDecode": ([handle, u64, vpp, u64p], ctypes.c_int),
         "DmlcTpuBlockCodecEnabled": ([], ctypes.c_int),

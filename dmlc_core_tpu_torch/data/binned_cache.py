@@ -314,6 +314,17 @@ class _NativeReader:
                              json.loads((s.value or b"{}").decode()
                                         ).get("parts", [])}
 
+    def next_block(self) -> Optional[bytes]:
+        """The next block payload copied out as bytes (counted in
+        ``cache.bytes_copied``), or None at the end."""
+        data, size = ctypes.c_void_p(), ctypes.c_uint64()
+        rc = check(self._lib.DmlcTpuBinnedCacheReaderNextBlock(
+            self._handle, ctypes.byref(data), ctypes.byref(size)))
+        if rc != 1:
+            return None
+        telemetry.counter_add("cache.bytes_copied", int(size.value))
+        return ctypes.string_at(data, size.value)
+
     def next_block_view(self) -> Optional[np.ndarray]:
         """The next block payload as a uint8 numpy view, or None at the
         end.  A borrowed view points into the reader's mapping and pins the
@@ -345,8 +356,33 @@ class _NativeReader:
             telemetry.counter_add("cache.bytes_copied", n)
         return a
 
+    @property
+    def backend(self) -> int:
+        """The read backend this open resolved to: 0 streaming, 1 mmap,
+        2 O_DIRECT arena."""
+        out = ctypes.c_int()
+        check(self._lib.DmlcTpuBinnedCacheReaderBackend(self._handle,
+                                                        ctypes.byref(out)))
+        return int(out.value)
+
+    def set_decode(self, decode: bool) -> None:
+        """Toggle inline decode.  False serves records exactly as stored,
+        compressed payloads included (the data-service worker's mode: the
+        client decodes)."""
+        check(self._lib.DmlcTpuBinnedCacheReaderSetDecode(self._handle,
+                                                          int(decode)))
+
     def seek_to(self, offset: int) -> None:
         check(self._lib.DmlcTpuBinnedCacheReaderSeekTo(self._handle, offset))
+
+    def before_first(self) -> None:
+        check(self._lib.DmlcTpuBinnedCacheReaderBeforeFirst(self._handle))
+
+    @property
+    def corrupt_skipped(self) -> int:
+        """Records a recover-mode open skipped as corrupt."""
+        return int(self._lib.DmlcTpuBinnedCacheReaderCorruptSkipped(
+            self._handle))
 
     def close(self) -> None:
         # drops this wrapper's reference; the native free waits for every
@@ -393,22 +429,41 @@ def unpack_block(buf: Union[bytes, np.ndarray]) -> dict:
     }
 
 
+def _le_keys(a: np.ndarray) -> np.ndarray:
+    """uint32 keys in the order of f32 ``<=``: -0.0 and 0.0 one key, every
+    NaN the largest key (a NaN cut is never ``<=`` a value; NaN values
+    are coded apart)."""
+    a = np.asarray(a, np.float32) + np.float32(0.0)  # -0.0 -> +0.0
+    u = a.view(np.uint32)
+    k = np.where(u >> 31, ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(a), np.uint32(0xFFFFFFFF), k)
+
+
 def bin_entries_np(cuts: np.ndarray, index: np.ndarray,
-                   value: np.ndarray, chunk: int = 1 << 16) -> np.ndarray:
+                   value: np.ndarray, chunk: int = 1 << 20) -> np.ndarray:
     """``QuantileBinner.transform_entries`` (and the native writer's
-    binning) on the host: uint8 codes, NaN -> 0, an index past the cuts
-    binned against feature 0.  Chunked so the [n, C] cut gather stays
-    small."""
-    cuts = np.ascontiguousarray(cuts, np.float32)
-    F = cuts.shape[0]
-    index = np.asarray(index, np.int64)
+    binning) on the host: uint8 codes, ``1 + #(cuts[f] <= v)``, NaN -> 0,
+    an index past the cuts binned against feature 0.
+
+    One ``searchsorted`` over every feature's cuts at once: each cut and
+    value becomes a uint64 ``feature << 32 | key`` (``_le_keys``), each
+    feature's cut keys sorted, so the insertion point of a value's key,
+    less the cuts of the features before it, counts its cuts ``<=`` it."""
+    cuts = np.asarray(cuts, np.float32)
+    F, K = cuts.shape
+    fshift = np.arange(F, dtype=np.uint64)[:, None] << np.uint64(32)
+    table = (fshift | np.sort(_le_keys(cuts), axis=1).astype(np.uint64)
+             ).ravel()
+    index = np.asarray(index)
     value = np.asarray(value, np.float32)
     out = np.empty(index.shape[0], np.uint8)
     for s in range(0, index.shape[0], chunk):
-        fi = index[s:s + chunk]
+        fi = index[s:s + chunk].astype(np.int64)
         v = value[s:s + chunk]
         fi = np.where((fi >= 0) & (fi < F), fi, 0)
-        code = (cuts[fi] <= v[:, None]).sum(axis=1) + 1
+        q = (fi.astype(np.uint64) << np.uint64(32)) | \
+            _le_keys(v).astype(np.uint64)
+        code = np.searchsorted(table, q, side="right") - fi * K + 1
         out[s:s + chunk] = np.where(np.isnan(v), 0, code).astype(np.uint8)
     return out
 
@@ -757,6 +812,86 @@ _BYTE_LEAVES = ("ebin", "emask")
 _BYTE_DTYPES = {"ebin": torch.uint8, "emask": torch.bool}
 
 
+class _BinnedStager:
+    """The device half of a binned epoch, shared by ``BinnedStagingIter``
+    and the data service's ``DataServiceIter`` (a service epoch's batches
+    are a local cache hit's bit for bit because both stage here): each
+    repacked host batch goes into one host buffer of a pinned ring (the
+    4-byte leaves, then the 1-byte lanes each from a word boundary) and to
+    ``device`` in one copy on the stager's own stream."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self.ring = None  # the pinned buffers, made on the first epoch
+        self.batches = 0
+
+    def stage(self, w: dict, digest: str):
+        """One host batch -> (BinnedBatch on the device, the copy's CUDA
+        event or None)."""
+        with telemetry.span("h2d.stage_binned"):
+            present = [k for k in _WORD_LEAVES if w[k] is not None]
+            spans, off = {}, 0
+            for k in present:
+                spans[k] = (off, w[k].size)
+                off += w[k].size
+            for k in _BYTE_LEAVES:
+                spans[k] = (off, w[k].size)
+                off += (w[k].size + 3) // 4
+            words = off
+            cuda = self.device.type == "cuda"
+            if cuda:
+                slot, host = self.ring.take(words)
+            else:
+                host = torch.empty(words, dtype=torch.int32)
+            flat = host.numpy()
+            for k in present:
+                o, n = spans[k]
+                flat[o:o + n] = w[k].view(np.int32)
+            for k in _BYTE_LEAVES:
+                o, n = spans[k]
+                flat[o:o + (n + 3) // 4].view(np.uint8)[:n] = \
+                    w[k].view(np.uint8)
+            event = None
+            if cuda:
+                with torch.cuda.stream(self.stream):
+                    dev = host[:words].to(self.device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self.stream)
+                self.ring.events[slot] = event
+            else:
+                dev = host
+            leaves = {}
+            for k, (o, n) in spans.items():
+                if k in _BYTE_LEAVES:
+                    t = dev[o:o + (n + 3) // 4].view(torch.uint8)[:n]
+                    leaves[k] = t.view(_BYTE_DTYPES[k])
+                else:
+                    t = dev[o:o + n]
+                    leaves[k] = (t.view(torch.float32)
+                                 if k in ("label", "weight") else t)
+            batch = BinnedBatch(num_rows=int(w["num_rows"]),
+                                cuts_digest=digest, **leaves)
+            self.batches += 1
+            return batch, event
+
+    def host_iter(self, produce, prefetch: int):
+        """``produce(emit)``'s host batches, up to ``prefetch`` ahead, on a
+        producer thread (the ring is sized on the first epoch)."""
+        if self.device.type == "cuda" and self.ring is None:
+            self.ring = _PinnedRing(prefetch + 2)
+        return _staged_iter(produce, prefetch,
+                            depth_gauge="cache.queue_depth")
+
+    def feed(self, host_iter, digest: str, prof: dict
+             ) -> Iterator[BinnedBatch]:
+        """The epoch's batches on the device, staged on a thread of their
+        own (``_device_feed``)."""
+        yield from _device_feed(self.device, host_iter,
+                                lambda w: self.stage(w, digest), prof)
+
+
 class BinnedStagingIter:
     """Stage pre-binned batches (``BinnedBatch``) from the epoch cache onto
     ``device`` (the card unless the caller asks for the CPU).
@@ -821,15 +956,16 @@ class BinnedStagingIter:
         self._part_map: dict = {}
         self._fallback_text = False
         self._lock = threading.Lock()
-        self._stream = (torch.cuda.Stream(self._device)
-                        if self._device.type == "cuda" else None)
-        self._ring = None  # the pinned buffers, made on the first epoch
-        self.batches_staged = 0
+        self._stager = _BinnedStager(self._device)
         self.profile = None
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def batches_staged(self) -> int:
+        return self._stager.batches
 
     @property
     def cache_path(self) -> str:
@@ -1063,58 +1199,10 @@ class BinnedStagingIter:
         finally:
             it.close()
 
-    # -- staging --------------------------------------------------------------
-    def _stage(self, w: dict):
-        """One host batch -> (BinnedBatch on the device, the copy's CUDA
-        event or None): every leaf into one host buffer (the 1-byte lanes
-        each from a word boundary), one copy on the iterator's stream."""
-        with telemetry.span("h2d.stage_binned"):
-            present = [k for k in _WORD_LEAVES if w[k] is not None]
-            spans, off = {}, 0
-            for k in present:
-                spans[k] = (off, w[k].size)
-                off += w[k].size
-            for k in _BYTE_LEAVES:
-                spans[k] = (off, w[k].size)
-                off += (w[k].size + 3) // 4
-            words = off
-            cuda = self._device.type == "cuda"
-            if cuda:
-                slot, host = self._ring.take(words)
-            else:
-                host = torch.empty(words, dtype=torch.int32)
-            flat = host.numpy()
-            for k in present:
-                o, n = spans[k]
-                flat[o:o + n] = w[k].view(np.int32)
-            for k in _BYTE_LEAVES:
-                o, n = spans[k]
-                flat[o:o + (n + 3) // 4].view(np.uint8)[:n] = \
-                    w[k].view(np.uint8)
-            event = None
-            if cuda:
-                with torch.cuda.stream(self._stream):
-                    dev = host[:words].to(self._device, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
-                self._ring.events[slot] = event
-            else:
-                dev = host
-            leaves = {}
-            for k, (o, n) in spans.items():
-                if k in _BYTE_LEAVES:
-                    t = dev[o:o + (n + 3) // 4].view(torch.uint8)[:n]
-                    leaves[k] = t.view(_BYTE_DTYPES[k])
-                else:
-                    t = dev[o:o + n]
-                    leaves[k] = (t.view(torch.float32)
-                                 if k in ("label", "weight") else t)
-            digest = (self._binner.cuts_digest() if self._fallback_text
-                      else self._meta["cuts_digest"])
-            batch = BinnedBatch(num_rows=int(w["num_rows"]),
-                                cuts_digest=digest, **leaves)
-            self.batches_staged += 1
-            return batch, event
+    def _digest(self) -> str:
+        """The cuts digest the epoch's batches carry."""
+        return (self._binner.cuts_digest() if self._fallback_text
+                else self._meta["cuts_digest"])
 
     @property
     def knobs(self) -> dict:
@@ -1136,18 +1224,14 @@ class BinnedStagingIter:
             self.ensure_cache()
         produce = (self._produce_host_text if self._fallback_text
                    else self._produce_host)
-        if self._device.type == "cuda" and self._ring is None:
-            self._ring = _PinnedRing(self._prefetch + 2)
         prof = {"host_wait_s": 0.0, "stage_s": 0.0, "emit_wait_s": 0.0,
                 "batches": 0}
         self.profile = prof
-        host_iter = _staged_iter(produce, self._prefetch,
-                                 depth_gauge="cache.queue_depth")
-
+        host_iter = self._stager.host_iter(produce, self._prefetch)
         if self._plan is not None:
             yield from self._iter_multiprocess(host_iter)
             return
-        yield from _device_feed(self._device, host_iter, self._stage, prof)
+        yield from self._stager.feed(host_iter, self._digest(), prof)
 
     def _iter_multiprocess(self, host_iter) -> Iterator[BinnedBatch]:
         """A multi-process epoch, coordinated batch by batch as
@@ -1180,7 +1264,8 @@ class BinnedStagingIter:
                          "qid": z32(B) if self._with_qid else None,
                          "ebin": np.full(nnz, pad_bin, np.uint8),
                          "emask": np.zeros(nnz, np.bool_)}
-            batch = _consume(self._device, *self._stage(local))
+            batch = _consume(self._device,
+                             *self._stager.stage(local, self._digest()))
             batch.plan = plan
             batch.global_num_rows = int(gathered[:, 1].sum())
             batch.global_row_ptr = torch.from_numpy(global_rp).to(

@@ -87,8 +87,15 @@ def _read_str(sock: socket.socket) -> str:
 
 def _write_str(sock: socket.socket, value: str) -> None:
     data = value.encode()
-    _write_int(sock, len(data))
-    sock.sendall(data)
+    sock.sendall(struct.pack("@i", len(data)) + data)
+
+
+def _no_delay(sock: socket.socket) -> socket.socket:
+    """Send small frames at once: a request is several small writes, and
+    Nagle's algorithm holding one behind the peer's delayed ACK costs
+    tens of milliseconds a round trip."""
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return sock
 
 
 # ---- tracker side -----------------------------------------------------------
@@ -517,6 +524,7 @@ class MetricsAggregator:
 
     def _handle(self, fd: socket.socket) -> None:
         fd.settimeout(10.0)
+        _no_delay(fd)
         magic = _read_int(fd)
         if magic != METRICS_MAGIC:
             raise ConnectionError(f"bad metrics magic {magic:#x}")
@@ -988,6 +996,7 @@ class ShardClient:
         with socket.create_connection((self.tracker_uri, self.metrics_port),
                                       timeout=self.timeout) as sock:
             sock.settimeout(self.timeout)
+            _no_delay(sock)
             _write_int(sock, METRICS_MAGIC)
             if _read_int(sock) != METRICS_MAGIC:
                 raise ConnectionError("metrics channel handshake failed")

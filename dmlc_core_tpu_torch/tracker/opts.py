@@ -43,8 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data-service", type=int,
                         default=int(os.environ.get("DMLC_DATA_SERVICE", "0")),
                         help="spawn N staging-service workers next to the "
-                             "tracker (not ported yet: ROADMAP A8; any N > 0 "
-                             "raises)")
+                             "tracker (env fallback DMLC_DATA_SERVICE)")
     parser.add_argument("--env", action="append", default=[],
                         help="extra KEY=VALUE exported to every worker (repeatable)")
     parser.add_argument("--log-level", default="INFO",
@@ -65,8 +64,4 @@ def parse(argv=None) -> argparse.Namespace:
         key, _, value = item.partition("=")
         extra[key] = value
     args.extra_env = extra
-    if args.data_service > 0:
-        raise NotImplementedError(
-            "--data-service (the staging service) is not ported yet: "
-            "ROADMAP A8")
     return args

@@ -7,17 +7,46 @@ DMLC_JAX_COORDINATOR (tracker host, tracker port + 1: where
 ``parallel.init_from_env`` binds the ``torch.distributed`` store, and
 where a JAX-package worker binds its coordination service) and
 DMLC_TRACKER_METRICS_PORT, the tracker's telemetry channel
-(``tracker/metrics.py``).  The data service (``data_service > 0``) is not
-ported yet: ROADMAP A8.
+(``tracker/metrics.py``), on which the data service's staging workers
+register (``data_service > 0``).
 """
 from __future__ import annotations
 
+import atexit
 import logging
-from typing import Callable, Optional
+import os
+import subprocess
+import sys
+from typing import Callable, List, Optional
 
 from .rendezvous import PSTracker, RabitTracker, get_host_ip
 
 LOGGER = logging.getLogger(__name__)
+
+
+def spawn_data_service(count: int, envs: dict) -> List[subprocess.Popen]:
+    """Start ``count`` staging workers (``python -m
+    dmlc_core_tpu_torch.dataservice.server``) as local subprocesses under
+    the job's env contract; each registers with the tracker's lease board
+    over the metrics channel.  They are reaped at interpreter exit."""
+    env = os.environ.copy()
+    env.update({k: str(v) for k, v in envs.items()})
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.dataservice.server"],
+        env=env) for _ in range(count)]
+    LOGGER.info("spawned %d data-service staging worker(s)", count)
+
+    def _reap() -> None:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                p.kill()
+    atexit.register(_reap)
+    return procs
 
 
 def submit(num_workers: int, num_servers: int, fun_submit: Callable,
@@ -27,13 +56,10 @@ def submit(num_workers: int, num_servers: int, fun_submit: Callable,
     """Start the rendezvous and call fun_submit(num_workers, num_servers, envs).
 
     Returns the tracker (caller may join()); rabit mode when num_servers == 0,
-    parameter-server scheduler mode otherwise.  ``data_service > 0`` raises
-    ``NotImplementedError``: the staging service is not ported yet.
+    parameter-server scheduler mode otherwise.  ``data_service > 0`` also
+    spawns that many staging workers beside the tracker (their Popen
+    handles land on ``tracker.data_service_procs``).
     """
-    if data_service > 0:
-        raise NotImplementedError(
-            "the data service (data_service > 0, --data-service) is not "
-            "ported yet: ROADMAP A8")
     envs = {"DMLC_NUM_WORKER": num_workers, "DMLC_NUM_SERVER": num_servers}
     envs.update(extra_envs or {})
     ip = get_host_ip(host_ip)
@@ -43,11 +69,16 @@ def submit(num_workers: int, num_servers: int, fun_submit: Callable,
         envs.update(tracker.worker_envs())
         envs["DMLC_JAX_COORDINATOR"] = f"{ip}:{tracker.port + 1}"
         tracker.start()
+        tracker.data_service_procs = (
+            spawn_data_service(data_service, envs) if data_service > 0
+            and tracker.alive() else [])
         if tracker.alive():
             fun_submit(num_workers, num_servers, envs)
         return tracker
     tracker = PSTracker(host_ip=ip, cmd=pscmd, envs=envs)
     envs.update(tracker.worker_envs())
+    tracker.data_service_procs = (
+        spawn_data_service(data_service, envs) if data_service > 0 else [])
     if tracker.alive() or pscmd is None:
         fun_submit(num_workers, num_servers, envs)
     return tracker

@@ -19,6 +19,7 @@ import torch
 
 from dmlc_core_tpu.data import BinnedRowIter as JaxRowIter
 from dmlc_core_tpu.data import BinnedStagingIter as JaxBinnedIter
+from dmlc_core_tpu.data.binned_cache import bin_entries_np as jax_bin_entries
 from dmlc_core_tpu.data import build_bin_cache as jax_build
 from dmlc_core_tpu.models import QuantileBinner as JaxBinner
 from dmlc_core_tpu_torch import faultinject, telemetry
@@ -173,6 +174,35 @@ def test_cache_epoch_equals_text_epoch(data):
                                       tb.row_ids().numpy())
 
 
+@pytest.mark.parametrize("num_cuts", [0, 1, 15, 255])
+def test_bin_entries_equals_the_broadcast_comparison(num_cuts):
+    """``bin_entries_np`` (one searchsorted over ordered keys) gives the
+    JAX package's codes (a broadcast comparison with each entry's cuts
+    row): ties on a cut, -0.0 against 0.0, +-inf,
+    NaN values and NaN cuts, unsorted cuts, indices out of range, and
+    255 cuts (whose top code wraps in uint8 as the comparison's does)."""
+    rng = np.random.default_rng(num_cuts)
+    F = 9
+    cuts = np.sort(rng.normal(size=(F, num_cuts)).astype(np.float32), 1)
+    if num_cuts:
+        cuts[1] = cuts[1][::-1]  # unsorted
+        cuts[2, :] = 0.0
+        cuts[3, -1] = np.nan
+        cuts[4, 0] = -np.inf
+        cuts[5, -1] = np.inf
+    n = 5000
+    index = rng.integers(-2, F + 2, n).astype(np.int32)
+    value = rng.normal(size=n).astype(np.float32)
+    pool = np.concatenate([cuts.ravel(), [0.0, -0.0, np.inf, -np.inf,
+                                          np.nan, 1e30, -1e30]])
+    pick = rng.random(n) < 0.4
+    value[pick] = rng.choice(pool, pick.sum()).astype(np.float32)
+    value[rng.random(n) < 0.05] = np.float32(1e6)  # above every cut
+    np.testing.assert_array_equal(
+        bin_entries_np(cuts, index, value, chunk=777),
+        jax_bin_entries(cuts, index, value))
+
+
 def test_nnz_max_spill_matches_text_path(data, tmp_path):
     got = list(_iter(data, _binner(), batch_size=64, nnz_max=96))
     text = list(DeviceStagingIter(data, batch_size=64, nnz_bucket=1024,
@@ -301,6 +331,50 @@ def test_lz4_blocks_decode_to_the_raw_layout(data, tmp_path):
     payload = np.frombuffer(bytes(4096), np.uint8)
     assert decode_block_payload(payload) is payload
     assert unpack_block(payload)["num_rows"] == 0
+
+
+@pytest.mark.parametrize("codec", ["raw", "lz4"])
+def test_reader_surface_equals_jax(data, tmp_path, codec):
+    """The reader's other calls against the JAX package's on one cache:
+    ``set_decode(False)`` serves the stored (compressed) records and
+    ``decode_block_payload`` turns them into the decoded ones; ``next_block``
+    copies what ``next_block_view`` borrows; ``before_first`` rewinds;
+    the backend and the corrupt count agree."""
+    from dmlc_core_tpu.data.binned_cache import _NativeReader as JaxReader
+    from dmlc_core_tpu_torch.data.binned_cache import _NativeReader
+    if resolve_codec(codec) != codec:
+        pytest.skip("libdmlctpu built without codecs")
+    cache = str(tmp_path / "c.bc")
+    build_bin_cache(data, cache, _binner(), batch_size=64, nnz_bucket=1024,
+                    codec=codec)
+
+    def blocks(reader, view=True):
+        out = []
+        while True:
+            b = reader.next_block_view() if view else reader.next_block()
+            if b is None:
+                return out
+            out.append(bytes(b))
+
+    r, jr = _NativeReader(cache), JaxReader(cache)
+    try:
+        assert r.backend == jr.backend and r.corrupt_skipped == 0
+        decoded = blocks(r)
+        r.before_first()
+        assert blocks(r, view=False) == decoded
+        r.before_first()
+        r.set_decode(False)
+        jr.set_decode(False)
+        stored = blocks(r)
+        assert stored == blocks(jr) and len(stored) == len(decoded) > 1
+        assert (stored == decoded) == (codec == "raw")
+        for s, d in zip(stored, decoded):
+            got = decode_block_payload(np.frombuffer(s, np.uint8))
+            assert bytes(got) == d
+        assert r.corrupt_skipped == jr.corrupt_skipped == 0
+    finally:
+        r.close()
+        jr.close()
 
 
 def test_unported_options_raise(data, monkeypatch):

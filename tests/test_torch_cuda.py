@@ -1081,6 +1081,101 @@ def test_streamed_forest_on_card_equals_fit_batch(cuda, tmp_path):
         assert torch.equal(streamed[k], resident[k]), k
 
 
+def _service_fixture(cuda, tmp_path, rows=6000, F=30):
+    """The sparse rows as libsvm, the port's aggregator and one staging
+    worker on the card; returns (uri, aggregator, worker)."""
+    from dmlc_core_tpu_torch.dataservice import StagingWorker
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    batch, f, vals, _ = _sparse_batch(rows, F, cuda, seed=9)
+    rp = batch.row_ptr.cpu().numpy()
+    lab = batch.label.cpu().numpy()
+    path = tmp_path / "s.libsvm"
+    path.write_text("\n".join(
+        f"{int(lab[r])} " + " ".join(f"{i}:{v:.9g}" for i, v in zip(
+            f[rp[r]:rp[r + 1]], vals[rp[r]:rp[r + 1]]))
+        for r in range(rows)) + "\n")
+    agg = tm.MetricsAggregator()
+    worker = StagingWorker(metrics_port=agg.port, tracker_uri="127.0.0.1",
+                           cache_dir=str(tmp_path / "cache"))
+    return str(path), agg, worker
+
+
+def _service_iter(uri, agg, binner, **kw):
+    from dmlc_core_tpu_torch.dataservice import DataServiceIter
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    return DataServiceIter(uri, binner, batch_size=1000, nnz_bucket=4096,
+                           shard_client=tm.ShardClient("127.0.0.1", agg.port,
+                                                       rank=0), **kw)
+
+
+def test_service_on_card_equals_a_local_hit(cuda, tmp_path):
+    """A staging worker and a client on the card: every BinnedBatch of two
+    epochs equals, leaf by leaf on the card, the batch a local
+    BinnedStagingIter yields over the worker's cache file (a hit)."""
+    from dmlc_core_tpu_torch import telemetry
+    from dmlc_core_tpu_torch.data import BinnedStagingIter
+    from dmlc_core_tpu_torch.dataservice.server import spec_key
+    uri, agg, worker = _service_fixture(cuda, tmp_path)
+    try:
+        binner = QuantileBinner(num_bins=32, missing_aware=True)
+        ds = _service_iter(uri, agg, binner)
+        first, second = list(ds), list(ds)
+        cache = tmp_path / "cache" / (spec_key(ds.spec) + ".bincache")
+        rebuilds = telemetry.counter_get("cache.rebuilds")
+        local = list(BinnedStagingIter(
+            uri, QuantileBinner(num_bins=32, missing_aware=True),
+            cache=str(cache), batch_size=1000, nnz_bucket=4096))
+        assert telemetry.counter_get("cache.rebuilds") == rebuilds
+    finally:
+        worker.close()
+        agg.close()
+    assert binner.cuts.device.type == "cuda"
+    for epoch in (first, second):
+        assert len(epoch) == len(local) > 1
+        for a, b in zip(epoch, local):
+            assert a.num_rows == b.num_rows
+            assert a.cuts_digest == b.cuts_digest
+            for k in ("label", "weight", "row_ptr", "index", "ebin",
+                      "emask"):
+                assert getattr(a, k).device.type == "cuda"
+                assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def test_fit_over_the_service_launches_the_kernels(cuda, tmp_path):
+    """fit_streamed over the data service on the card: 6 sparse-histogram
+    and 7 segment-sum launches a depth-6 tree (6 node totals, 1 leaf sum),
+    no dense histogram, and the forest of a fit over one local epoch bit
+    for bit."""
+    from dmlc_core_tpu_torch.data import BinnedStagingIter
+    from dmlc_core_tpu_torch.dataservice.server import spec_key
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    uri, agg, worker = _service_fixture(cuda, tmp_path)
+    trees, depth = 3, 6
+    try:
+        binner = QuantileBinner(num_bins=32, missing_aware=True)
+        ds = _service_iter(uri, agg, binner)
+        model = GBDT(num_features=30, num_trees=trees, max_depth=depth,
+                     num_bins=32, missing_aware=True)
+        h0, s0, d0 = (hs.histogram_gh_sparse_kernel.launches,
+                      ss.segment_sum_kernel.launches,
+                      hg.histogram_gh_kernel.launches)
+        served = model.fit_streamed(lambda: iter(ds), binner)
+        torch.cuda.synchronize()
+        launches = (hs.histogram_gh_sparse_kernel.launches - h0,
+                    ss.segment_sum_kernel.launches - s0,
+                    hg.histogram_gh_kernel.launches - d0)
+        cache = tmp_path / "cache" / (spec_key(ds.spec) + ".bincache")
+        local = list(BinnedStagingIter(uri, binner, cache=str(cache),
+                                       batch_size=1000, nnz_bucket=4096))
+    finally:
+        worker.close()
+        agg.close()
+    assert launches == (trees * depth, trees * (depth + 1), 0)
+    want = model.fit_streamed(local, binner)
+    for k in want:
+        assert torch.equal(served[k], want[k]), k
+
+
 def test_resource_sample_publishes_the_card_memory(cuda):
     """resource.hbm_bytes_in_use is torch.cuda.memory_allocated at the
     call, resource.hbm_bytes_limit the card's total memory."""

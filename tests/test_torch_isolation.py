@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "dmlc_core_tpu_torch/parallel/bootstrap.py",
             "dmlc_core_tpu_torch/parallel/collective.py",
             "dmlc_core_tpu_torch/parallel/mesh.py",
-            "dmlc_core_tpu_torch/parallel/meshplan.py"} <= names
+            "dmlc_core_tpu_torch/parallel/meshplan.py",
+            "dmlc_core_tpu_torch/dataservice/protocol.py",
+            "dmlc_core_tpu_torch/dataservice/server.py",
+            "dmlc_core_tpu_torch/dataservice/client.py"} <= names
     bad = []
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -94,6 +97,8 @@ def _entry_points(tmp_path):
     from dmlc_core_tpu_torch.data import (BinnedStagingIter,
                                           DeviceStagingIter, Parser,
                                           RecordStagingIter)
+    from dmlc_core_tpu_torch.dataservice import (DataServiceIter,
+                                                 StagingWorker)
     from dmlc_core_tpu_torch.io import RecordIOWriter
     from dmlc_core_tpu_torch.models import (GBDT, FactorizationMachine,
                                             FieldAwareFactorizationMachine,
@@ -153,6 +158,11 @@ def _entry_points(tmp_path):
         "checkpoint.load (like=)": lambda: checkpoint.load(
             str(ckpt), like={"w": 0}),
         "parallel.init_from_env": parallel.init_from_env,
+        "DataServiceIter": lambda: DataServiceIter(
+            str(data), QuantileBinner(num_bins=4, missing_aware=True,
+                                      device="cpu")),
+        "StagingWorker": lambda: StagingWorker(register=False,
+                                               cache_dir=str(tmp_path)),
     }
 
 
@@ -168,7 +178,8 @@ def _entry_points(tmp_path):
                                   "FieldAwareFactorizationMachine",
                                   "RecordStagingIter", "BinnedStagingIter",
                                   "checkpoint.load (like=)",
-                                  "parallel.init_from_env"])
+                                  "parallel.init_from_env",
+                                  "DataServiceIter", "StagingWorker"])
 def test_default_device_raises_without_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

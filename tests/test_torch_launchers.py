@@ -1,8 +1,9 @@
 """The port's dmlc-submit backends against the JAX package's: for each
 cluster backend the same arguments give the same scheduler command lines,
 env and submit() call, with the subprocess layer and the rendezvous
-stubbed out (the rendezvous has its own tests).  ``--cluster=tpu`` and
-``--data-service`` are refused, naming their reasons.
+stubbed out (the rendezvous has its own tests).  ``--cluster=tpu`` is
+refused, naming its reason; ``--data-service N`` parses and
+``submit(data_service=N)`` spawns the port's staging workers.
 """
 import importlib
 import json
@@ -160,16 +161,51 @@ def test_in_container_bootstrap_equals_the_jax_one():
     assert launcher.main([]) == 2
 
 
-def test_tpu_cluster_and_data_service_are_refused():
-    from dmlc_core_tpu_torch.tracker import launchers, submit
+def test_tpu_cluster_is_refused():
+    from dmlc_core_tpu_torch.tracker import launchers
     from dmlc_core_tpu_torch.tracker.opts import parse
     args = parse(["--cluster=tpu", "-n", "2", "--", "python", "train.py"])
     with pytest.raises(ValueError, match="NVIDIA"):
         launchers.get(args.cluster)(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        parse(["--cluster=local", "-n", "1", "--data-service", "2",
-               "--", "true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        submit(1, 0, lambda *a: None, host_ip="127.0.0.1", data_service=1)
     with pytest.raises(ValueError, match="unknown cluster backend"):
         launchers.get("nope")
+
+
+def test_data_service_option_parses():
+    from dmlc_core_tpu_torch.tracker.opts import parse
+    args = parse(["--cluster=local", "-n", "1", "--data-service", "2",
+                  "--", "true"])
+    assert args.data_service == 2 and args.command == ["true"]
+
+
+# stop() closes the rendezvous socket under its accept loop, which then
+# ends on EBADF
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_submit_spawns_the_data_service(monkeypatch):
+    """``submit(data_service=1)`` starts one staging worker of the port
+    beside the tracker, under the job's env contract."""
+    import sys
+    submit_mod = importlib.import_module("dmlc_core_tpu_torch.tracker.submit")
+
+    class Proc:
+        def poll(self):
+            return 0
+
+        def wait(self, timeout=None):
+            return 0
+
+    spawned = []
+    monkeypatch.setattr(submit_mod.subprocess, "Popen",
+                        lambda cmd, **kw: spawned.append((cmd, kw)) or Proc())
+    tracker = submit_mod.submit(1, 0, lambda *a: None, host_ip="127.0.0.1",
+                                data_service=1)
+    try:
+        assert [cmd for cmd, _ in spawned] == [
+            [sys.executable, "-m", "dmlc_core_tpu_torch.dataservice.server"]]
+        env = spawned[0][1]["env"]
+        assert env["DMLC_TRACKER_METRICS_PORT"] == str(tracker.metrics.port)
+        assert env["DMLC_TRACKER_URI"] == "127.0.0.1"
+        assert len(tracker.data_service_procs) == 1
+    finally:
+        tracker.stop()

@@ -414,6 +414,25 @@ def checkpoint_save(rank, n, params, path):
     return wrote, [np.asarray(a) for a in arrays], meta
 
 
+# ---- the data service ---------------------------------------------------------
+
+def dataservice_sharding_refused(rank, n, uri):
+    """A ``DataServiceIter`` given this job's plan (more than one process)
+    refuses it before it contacts any service; returns the message."""
+    from dmlc_core_tpu_torch.dataservice import DataServiceIter
+    from dmlc_core_tpu_torch.models import QuantileBinner
+    from dmlc_core_tpu_torch.parallel.meshplan import MeshPlan
+    plan = MeshPlan.build()
+    assert plan.num_shards == n
+    try:
+        DataServiceIter(uri, QuantileBinner(32, missing_aware=True,
+                                            device="cpu"),
+                        sharding=plan, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return "accepted"
+
+
 if __name__ == "__main__":
     _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
            Path(sys.argv[4]))
