@@ -57,7 +57,12 @@ record naming the stage, served at ``/flight``) and reads ``/trace``,
 local ranks on the one card (rendezvous, ``init_from_env(backend="gloo")``,
 an FM epoch over each rank's half of the file, an all-reduced row count,
 metric pushes) and holds the tracker's job snapshot, trace and time series
-to both ranks.  Any failed check raises and the script exits non-zero.
+to both ranks.  Last, the mesh phase (``phase_mesh``) fits the Higgs and
+Bosch forests on 2 and 4 gloo ranks on the card, held to the one-process
+kernels bit for bit; its 2-rank job also fits out of core over the data
+service, each rank leasing its share of the parts from two staging
+workers under the job's tracker (``service_rank``), and trains the FM
+data-parallel.  Any failed check raises and the script exits non-zero.
 The last two lines of its output are the card's name and power limit, and
 one JSON object with ``"ok": true``; the line before them is the
 per-kernel JSON (times, bound, launches on each main path, error against
@@ -2944,9 +2949,10 @@ def phase_dataservice(torch, ss_mod, dev, build_dir: Path, streamed) -> dict:
     the worker's file bit for bit; a local build from the text sketches the
     worker's cuts; ``fit_streamed`` over the service (the main path: 120
     sparse-histogram and 140 segment-sum launches, 121 epochs) equals a fit
-    over one local epoch bit for bit; a worker SIGKILLed partway through an
-    epoch leaves the epoch whole on the survivor; the staged (text) mode
-    gives the cache epoch's rows."""
+    over one local epoch bit for bit (and a shorter fit over that epoch is
+    the mesh phase's one-process reference); a worker SIGKILLed partway
+    through an epoch leaves the epoch whole on the survivor; the staged
+    (text) mode gives the cache epoch's rows."""
     import signal
 
     from dmlc_core_tpu_torch import telemetry
@@ -3097,6 +3103,11 @@ def phase_dataservice(torch, ss_mod, dev, build_dir: Path, streamed) -> dict:
               f"segment sums, {d_l} dense, {passes[0]} epochs; {d4}")
         check(same_f, "the forest over the service differs from the local "
               "fit's")
+        # the one-process forest the mesh phase's shorter fit over the
+        # service is held to: as many trees over the same (resident) epoch
+        short = GBDT(num_features=F, missing_aware=True, device=dev,
+                     **dict(GBDT_KW, num_trees=SERVICE_TREES)).fit_streamed(
+            local, binner)
 
         # 5. failover: SIGKILL a worker after the epoch's first batch (the
         # producer runs at most a few parts ahead of a fast consumer, so
@@ -3142,7 +3153,8 @@ def phase_dataservice(torch, ss_mod, dev, build_dir: Path, streamed) -> dict:
     kern = streamed_kernel_levels(torch, ss_mod, model, forest,
                                   streamed["ent"], streamed["layout"],
                                   streamed["label"])
-    return {"launches": h_l, "seg_launches": s_l, "fit_s": t_fit, **kern}
+    return {"launches": h_l, "seg_launches": s_l, "fit_s": t_fit,
+            "forest_short": short, **kern}
 
 
 # ---- phase 8: RecordIO staging ----------------------------------------------
@@ -3658,9 +3670,156 @@ MESH_TIMEOUT_S = 900
 MESH_CHUNKS = 4  # DMLCTPU_MESH_OVERLAP_CHUNKS of the 4-rank job
 MESH_BENCH_MIB = (0.25, 16.0)
 MESH_FITS = {"dense": "Higgs-width fit", "sparse": "Bosch-width fit_batch",
-             "streamed": "Bosch-width fit_streamed"}
+             "streamed": "Bosch-width fit_streamed",
+             "service": "Bosch-width fit_streamed over the data service"}
 MESH_REPLACES = {"segment_sum": 67, "histogram_gh": 168,
                  "histogram_gh_sparse": 466}
+# the 2-rank job's fit over the data service: its trees are cut to the text
+# replay's (each level replays the ranks' shares of the epoch over the
+# service), and a rank's batches hold up to SERVICE_NNZ_MAX entries (Bosch
+# rows carry ~184)
+SERVICE_TREES = TEXT_TREES
+SERVICE_NNZ_MAX = STREAM_BATCH * 200
+
+
+def share_rows(cache: Path, parts) -> list:
+    """The rows of the global virtual ``parts`` of a binned cache file, in
+    part order, as host lanes: labels, row lengths, and each entry's index,
+    ebin and emask (``epoch_rows``'s lanes)."""
+    from dmlc_core_tpu_torch.data.binned_cache import (_NativeReader,
+                                                       unpack_block)
+    lanes = ([], [], [], [], [])
+    r = _NativeReader(str(cache))
+    try:
+        for g in parts:
+            ent = r.part_map.get(g)
+            if ent is None:
+                continue
+            r.seek_to(int(ent["offset"]))
+            for _ in range(int(ent["records"])):
+                b = unpack_block(r.next_block_view())
+                n, nnz = int(b["num_rows"]), int(b["nnz"])
+                for out, x in zip(lanes, (
+                        b["label"][:n], np.diff(b["row_ptr"][:n + 1]),
+                        b["index"][:nnz], b["ebin"][:nnz],
+                        b["emask"][:nnz])):
+                    out.append(np.array(x))
+    finally:
+        r.close()
+    return [np.concatenate(x).astype(dt) if x else np.zeros(0, dt)
+            for x, dt in zip(lanes, (np.float32, np.int32, np.int32,
+                                     np.uint8, np.bool_))]
+
+
+def lanes_digest(lanes) -> list:
+    return [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+            for x in lanes]
+
+
+def _wait_timed(it, log: dict):
+    """``it``'s items, the consumer's wait for each added to
+    ``log["service_wait_ms"]``."""
+    try:
+        while True:
+            t0 = time.monotonic()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                log["service_wait_ms"] += (time.monotonic() - t0) * 1e3
+            yield item
+    finally:
+        it.close()
+
+
+def service_rank(torch, work: Path, rank: int, plan, dev, log: dict, fit,
+                 out: dict) -> None:
+    """The 2-rank job's fit over the data service, on one rank: wait for
+    the job's staging workers; one epoch of this rank's share, held to the
+    share's rows in the workers' cache file; ``fit_streamed`` over the
+    service (``fit``'s counts and times, plus the consumer's wait on the
+    service); then an epoch in which rank 0 SIGKILLs the worker of its
+    first lease as it fetches."""
+    import os
+    import signal
+
+    from dmlc_core_tpu_torch.dataservice import DataServiceIter
+    from dmlc_core_tpu_torch.dataservice.server import spec_key
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    board = tm.shard_client_from_env()
+
+    def state():
+        return board.data_req({"op": "state"})
+
+    t0 = time.monotonic()
+    while sum(not w["dead"] for w in state()["workers"].values()) \
+            < DS_WORKERS:
+        check(time.monotonic() - t0 < DS_READY_S, "the job's staging "
+              "workers did not register on the lease board")
+        time.sleep(0.2)
+    binner = QuantileBinner(GBDT_KW["num_bins"], missing_aware=True,
+                            device=dev)
+    ds = DataServiceIter((work / "stream_uri.txt").read_text(), binner,
+                         sharding=plan, nnz_max=SERVICE_NNZ_MAX, retries=8,
+                         device=dev, batch_size=STREAM_BATCH,
+                         nnz_bucket=STREAM_BUCKET, shard_client=board)
+    t0 = time.monotonic()
+    ds.ensure_meta()
+    build_s = time.monotonic() - t0
+    cache = work / "dataservice" / (spec_key(ds.spec) + ".bincache")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    mine = [x.cpu().numpy() for x in epoch_rows(torch, ds)]
+    epoch_s = time.monotonic() - t0
+    want = share_rows(cache, ds.share)
+    out["service_rows"] = {
+        "share": [ds.share.start, ds.share.stop],
+        "parts": ds.meta["virtual_parts"], "rows": int(mine[0].size),
+        "digest": lanes_digest(mine), "cache": cache.name,
+        "own": all(np.array_equal(a, b) for a, b in zip(mine, want)),
+        "epoch_s": epoch_s, "build_s": build_s}
+    del mine, want
+
+    model = GBDT(num_features=BOSCH_FEATURES, missing_aware=True, device=dev,
+                 histogram_mesh=plan,
+                 **dict(GBDT_KW, num_trees=SERVICE_TREES))
+    host_iter = ds._stager.host_iter
+    ds._stager.host_iter = lambda produce, prefetch: _wait_timed(
+        host_iter(produce, prefetch), log)
+    log["service_wait_ms"] = 0.0
+    epoch0 = ds._epoch
+    fit("service", lambda: model.fit_streamed(lambda: iter(ds), binner),
+        model, "_level_histogram_sparse")
+    ds._stager.host_iter = host_iter
+    out["service"].update(wait_ms=log["service_wait_ms"],
+                          epochs=ds._epoch - epoch0)
+
+    # the failover epoch: rank 0 SIGKILLs the worker its first lease was
+    # placed on just before fetching it (a worker dying mid-epoch: leases
+    # are out, parts in flight), then fetches the part from it all the same
+    epoch, killed = ds._epoch, []
+    fetch_from, lock = ds._fetch_from, threading.Lock()
+
+    def killing_fetch(worker, part):
+        with lock:
+            if not killed:
+                killed.append(worker["id"])
+                os.kill(int(worker["id"].rsplit("-", 1)[1]), signal.SIGKILL)
+        return fetch_from(worker, part)
+
+    if rank == 0:
+        ds._fetch_from = killing_fetch
+    lanes = [x.cpu().numpy() for x in epoch_rows(torch, ds)]
+    ds._fetch_from = fetch_from
+    lease = state()["leases"][ds.client_id][str(epoch)]
+    out["service_failover"] = {
+        "digest": lanes_digest(lanes), "killed": killed[0] if killed else None,
+        "failovers": len(lease["failovers"]),
+        "parts": sorted({f["part"] for f in lease["failovers"]}),
+        "pending": lease["pending"], "shards": lease["shards"],
+        "done": lease["done"]}
 
 
 def _timed_plan(torch, plan, log: dict):
@@ -3851,6 +4010,9 @@ def mesh_worker(argv) -> int:
     del parts
 
     if job == "pair":
+        # (b3) fit_streamed over the data service, each rank on its share
+        service_rank(torch, work, rank, plan, dev, log, fit, out)
+
         # (c) the FM, data-parallel, one epoch of this rank's part
         uri = (work / "uri.txt").read_text()
         nnz_max = TRAIN_BATCH * NNZ_PER_ROW
@@ -3916,12 +4078,23 @@ def mesh_worker(argv) -> int:
     return 0
 
 
-def run_mesh_job(work: Path, job: str, ranks: int, env: dict) -> list:
-    """The tracker's local job of ``ranks`` mesh workers; their readings."""
+def run_mesh_job(work: Path, job: str, ranks: int, env: dict,
+                 data_service: int = 0) -> tuple:
+    """The tracker's local job of ``ranks`` mesh workers, and with
+    ``data_service`` that many staging workers on the card under the job's
+    tracker (``submit(data_service=...)``, caching under WORK/dataservice,
+    emptied first); the ranks' readings and the staging workers' exit
+    codes."""
     import os
+    import shutil
 
     from dmlc_core_tpu_torch.tracker import submit
-    procs = []
+    procs, extra = [], None
+    if data_service:
+        cache_dir = work / "dataservice"
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        extra = {"DMLCTPU_DATASERVICE_CACHE_DIR": str(cache_dir),
+                 "PYTHONPATH": str(REPO)}
 
     def spawn(num_workers, num_servers, envs):
         for rank in range(num_workers):
@@ -3934,7 +4107,9 @@ def run_mesh_job(work: Path, job: str, ranks: int, env: dict) -> list:
                  str(work), job], env=e))
 
     t0 = time.monotonic()
-    tracker = submit(ranks, 0, spawn, host_ip="127.0.0.1")
+    tracker = submit(ranks, 0, spawn, host_ip="127.0.0.1", extra_envs=extra,
+                     data_service=data_service)
+    service = tracker.data_service_procs
     try:
         deadline = time.monotonic() + MESH_TIMEOUT_S
         while tracker.alive():
@@ -3950,12 +4125,22 @@ def run_mesh_job(work: Path, job: str, ranks: int, env: dict) -> list:
         for p in procs:
             if p.poll() is None:
                 p.kill()
+        exits = [p.poll() for p in service]
+        for p in service:
+            if p.poll() is None:
+                p.terminate()
+        for p in service:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
         tracker.stop()
     out = [json.loads((work / f"{job}_rank{r}.json").read_text())
            for r in range(ranks)]
     print(f"mesh {job}: {ranks} ranks, wall {time.monotonic() - t0:.1f} s "
           f"(processes up to exit); plan {out[0]['plan']}")
-    return out
+    return out, exits
 
 
 def _forests(work: Path, what: str, job: str, ranks: int) -> list:
@@ -3969,7 +4154,7 @@ def _same(a: dict, b: dict, keys=None) -> bool:
 
 def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
                sparse: dict, sparse_data: dict, streamed: dict,
-               train: dict) -> dict:
+               train: dict, served_fit: dict) -> dict:
     """The multi-process data plane on the card: the Higgs-width fit on 2
     ranks (flat) and 4 ranks (DMLCTPU_MESH_HOSTS=2, the hier route, and
     DMLCTPU_MESH_OVERLAP_CHUNKS=4), the Bosch-width fit_batch and the
@@ -4003,10 +4188,12 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
     np.save(work / "higgs_label.npy", label.cpu().numpy())
     np.save(work / "bosch_cuts.npy", sparse["binner"].cuts.cpu().numpy())
     (work / "uri.txt").write_text(train["uri"])
+    (work / "stream_uri.txt").write_text(streamed["uri"])
     print(f"mesh inputs: Higgs codes and labels written for the ranks in "
           f"{time.monotonic() - t0:.1f} s")
-    pair = run_mesh_job(work, "pair", 2, {})
-    quad = run_mesh_job(work, "quad", 4, {
+    pair, service_exits = run_mesh_job(work, "pair", 2, {},
+                                       data_service=DS_WORKERS)
+    quad, _ = run_mesh_job(work, "quad", 4, {
         "DMLCTPU_MESH_HOSTS": "2", "DMLCTPU_MESH_COLLECTIVE": "hier",
         "DMLCTPU_MESH_OVERLAP_CHUNKS": str(MESH_CHUNKS)})
     check(pair[0]["plan"]["hosts"] == 1 and pair[0]["plan"]["collective"]
@@ -4124,6 +4311,103 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
     print("mesh: every level of the first tree, dense, sparse and "
           "streamed, on 2 and 4 ranks: the reduced histogram equals the "
           "one-process kernel's on the same level inputs bit for bit")
+
+    # (b3) the 2-rank fit over the data service: launches, route and epochs
+    # a rank; every rank's forest = the one-process fit_streamed's of as
+    # many trees over the service's epoch (the workers sketch their own
+    # cuts, so not the streamed phase's forest); each rank's rows = its
+    # share's, and the two in rank order = a
+    # one-process epoch over the workers' file (which the dataservice phase
+    # held to the one-process service epoch); the epoch over a worker
+    # SIGKILLed as rank 0 fetches its first part = the clean one, with its
+    # failovers inside each rank's share
+    from dmlc_core_tpu_torch.data import BinnedStagingIter
+    from dmlc_core_tpu_torch.models import QuantileBinner
+    for r in pair:
+        got = r["service"]
+        check(got["histogram_gh_sparse"] == SERVICE_TREES * depth
+              and got["segment_sum"] == SERVICE_TREES * (depth + 1) + 1
+              and got["histogram_gh"] == 0 and got["strategies"] == ["flat"]
+              and got["epochs"] == 1 + SERVICE_TREES * depth,
+              f"the fit over the service, rank {r['rank']}: "
+              f"{got['histogram_gh_sparse']} sparse histograms, "
+              f"{got['segment_sum']} segment sums, {got['histogram_gh']} "
+              f"dense, routes {got['strategies']}, {got['epochs']} epochs")
+    one_short = {k: v.cpu().numpy()
+                 for k, v in served_fit["forest_short"].items()}
+    fsv = _forests(work, "service", "pair", 2)
+    differ = [k for k in one_short if not np.array_equal(fsv[0][k],
+                                                         one_short[k])]
+    check(_same(fsv[1], fsv[0], list(one_short)) and not differ,
+          "the 2-rank forest over the service differs from the one-process "
+          f"{SERVICE_TREES}-tree fit_streamed's over the service's epoch: "
+          f"{differ}")
+    rows = [r["service_rows"] for r in pair]
+    V = rows[0]["parts"]
+    check(rows[0]["share"] == [0, V // 2] and rows[1]["share"] == [V // 2, V]
+          and all(x["own"] for x in rows), "service shares: "
+          f"{[(x['share'], x['own']) for x in rows]} of {V} parts")
+    local = BinnedStagingIter(
+        streamed["uri"], QuantileBinner(GBDT_KW["num_bins"],
+                                        missing_aware=True, device=dev),
+        cache=str(work / "dataservice" / rows[0]["cache"]), device=dev,
+        batch_size=STREAM_BATCH, nnz_bucket=STREAM_BUCKET)
+    lanes = [x.cpu().numpy() for x in epoch_rows(torch, local)]
+    n0 = rows[0]["rows"]
+    e0 = int(lanes[1][:n0].sum())
+    cut = [n0, n0, e0, e0, e0]
+    halves = ([x[:c] for x, c in zip(lanes, cut)],
+              [x[c:] for x, c in zip(lanes, cut)])
+    check(n0 + rows[1]["rows"] == STREAM_ROWS == lanes[0].size
+          and all(lanes_digest(h) == x["digest"]
+                  for h, x in zip(halves, rows)),
+          "the ranks' service rows are not the one-process epoch's in "
+          "order")
+    del lanes, halves
+    fo = [r["service_failover"] for r in pair]
+    check(fo[0]["killed"] is not None and -9 in service_exits
+          and all(f["digest"] == x["digest"] for f, x in zip(fo, rows))
+          and all(f["pending"] == 0 and f["done"] == f["shards"]
+                  == x["share"][1] - x["share"][0] for f, x in zip(fo, rows))
+          and all(set(f["parts"]) <= set(range(*x["share"]))
+                  for f, x in zip(fo, rows))
+          and fo[0]["failovers"] >= 1,
+          f"the service epoch over a killed worker: {fo}, worker exits "
+          f"{service_exits}")
+    sv = {k: float(np.mean([r["service"][k] for r in pair]))
+          for k in ("secs", "kernel_ms", "collective_ms", "wait_ms")}
+    readings[("service", "pair")] = sv
+    one_s, pair_s = served_fit["fit_s"], readings[("streamed", "pair")][
+        "secs"]
+    smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]).splitlines()[0]
+    print(f"mesh service: {V} parts, shares {rows[0]['share']} and "
+          f"{rows[1]['share']} ({rows[0]['rows']} and {rows[1]['rows']} "
+          f"rows), each rank's rows equal to its share of the workers' "
+          f"cache file and the two in rank order to the one-process epoch; "
+          f"the workers' cache build (the meta request) "
+          f"{max(x['build_s'] for x in rows):.2f} s, a sharded epoch "
+          f"{max(x['epoch_s'] for x in rows):.3f} s; the epoch over a "
+          f"worker SIGKILLed as rank 0 fetched its first part equal to the "
+          f"clean one, failovers a rank {[f['failovers'] for f in fo]} "
+          f"(parts {[f['parts'] for f in fo]}), ledgers whole")
+    rest_ms = (sv["secs"] * 1e3 - sv["kernel_ms"] - sv["collective_ms"]
+               - sv["wait_ms"])
+    print(f"mesh service fit, 2 ranks (pair, flat all-reduces), "
+          f"{SERVICE_TREES} trees: wall {sv['secs']:.2f} s a rank "
+          f"({sv['secs'] / SERVICE_TREES:.3f} s a tree), kernels "
+          f"{sv['kernel_ms']:.0f} ms (accumulate launches, device), "
+          f"collectives {sv['collective_ms']:.0f} ms (host-blocking), "
+          f"service wait {sv['wait_ms']:.0f} ms (the consumer waiting on "
+          f"fetched, repacked parts), the rest {rest_ms:.0f} ms; launches "
+          f"a rank: {pair[0]['service']['histogram_gh_sparse']}"
+          f" histogram_gh_sparse, {pair[0]['service']['segment_sum']} "
+          f"segment_sum; forests equal to the one-process "
+          f"{SERVICE_TREES}-tree fit_streamed bit for bit on every rank. "
+          f"Beside it, a tree in this run: the one-process fit over the "
+          f"service {one_s / trees:.3f} s ({one_s:.2f} s for {trees} "
+          f"trees), the 2-rank local fit_streamed {pair_s / trees:.3f} s "
+          f"({pair_s:.2f} s for {trees}); card {smi}")
 
     # (c) the data-parallel FM
     fms = [r["fm"] for r in pair]
@@ -4273,7 +4557,8 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
             (BOSCH_ROWS // 2, "a 2-rank share", [("pair", ("sparse",))]),
             (BOSCH_ROWS // 4, "a 4-rank share", [("quad", ("sparse",))]),
             (STREAM_ROWS // 2, "a 2-rank share of the streamed rows",
-             [("pair", ("streamed",)), ("quad", ("streamed",))])):
+             [("pair", ("streamed", "service")),
+              ("quad", ("streamed",))])):
         sub = sub_batch(torch, PaddedBatch, sparse_data, 0, rs)
         ent_h = sp_model._sparse_entries(*sp_model._entry_bins(
             sub, sparse["binner"]))
@@ -4316,7 +4601,8 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
             lambda a: ss_mod.segment_sum_dequantize(a, sc, n_leaves, 2),
             lambda: torch.index_add(z, 0, idx, g2),
             12 * r1 + 16 * n_leaves, 20,
-            [(job, ("dense", "sparse", "streamed"))]))
+            [(job, ("dense", "sparse", "streamed")
+                   + (("service",) if job == "pair" else ()))]))
     return {"kern": kern, "fm_launches": sum(f["launches"] for f in fms),
             "fm_steps": sum(f["steps"] for f in fms), "readings": readings}
 
@@ -4736,7 +5022,7 @@ def main(argv) -> int:
                               train.pop("want"), params_a)
     job = phase_job(torch, dev, build_dir, train["uri"])
     mesh = phase_mesh(torch, ss_mod, dev, build_dir, gbdt, sparse,
-                      sparse_data, streamed, train)
+                      sparse_data, streamed, train, served_fit)
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
     node, root = sparse["node_totals"], sparse["root_totals"]

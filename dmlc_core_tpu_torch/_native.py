@@ -3,7 +3,8 @@
 The C++ runtime under ``cpp/`` depends on no framework; both Python
 packages bind the same library through its C API
 (``cpp/include/dmlctpu/c_api.h``).  This loader declares only the
-functions the port calls: telemetry (the registry, the trace buffer,
+functions the port calls: the runtime's version, its parse-thread default
+and its log entry point, telemetry (the registry, the trace buffer,
 flight records, the log sink), the stall watchdog and time-series
 sampler, fault injection, the row parser (``data.rowblock``), the staged
 and record batchers (``data.staging``) with the staged batch's wire codec
@@ -181,6 +182,10 @@ def _declare(L: ctypes.CDLL) -> None:
     handle, u64, cstr = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p
     sigs = {
         "DmlcTpuGetLastError": ([], ctypes.c_char_p),
+        "DmlcTpuVersion": ([], ctypes.c_char_p),
+        "DmlcTpuSetDefaultParseThreads": ([ctypes.c_int], ctypes.c_int),
+        "DmlcTpuGetDefaultParseThreads": ([intp], ctypes.c_int),
+        "DmlcTpuLogEmit": ([ctypes.c_int, cstr], ctypes.c_int),
         "DmlcTpuTelemetrySnapshotJson": ([c_char_pp], ctypes.c_int),
         "DmlcTpuTelemetryCounterAdd": ([ctypes.c_char_p, ctypes.c_int64],
                                        ctypes.c_int),
@@ -355,6 +360,30 @@ def check(status: int) -> int:
         msg = lib().DmlcTpuGetLastError()
         raise NativeError((msg or b"").decode(errors="replace"))
     return status
+
+
+def version() -> str:
+    """The native runtime's version string."""
+    return lib().DmlcTpuVersion().decode()
+
+
+def set_default_parse_threads(nthread: int) -> None:
+    """Pin the parse-thread pool size of parsers created without an
+    explicit ``?nthread=`` URI argument; 0 restores the per-parser
+    heuristic."""
+    check(lib().DmlcTpuSetDefaultParseThreads(int(nthread)))
+
+
+def get_default_parse_threads() -> int:
+    out = ctypes.c_int()
+    check(lib().DmlcTpuGetDefaultParseThreads(ctypes.byref(out)))
+    return out.value
+
+
+def log_emit(severity: int, message: str) -> None:
+    """Send one message through the native logging pipeline (0=DEBUG
+    1=INFO 2=WARNING 3=ERROR; honours ``DMLCTPU_LOG_LEVEL``)."""
+    check(lib().DmlcTpuLogEmit(int(severity), str(message).encode()))
 
 
 # Keeps the installed ctypes callback alive: native threads call it long

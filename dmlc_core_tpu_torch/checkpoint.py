@@ -1,18 +1,23 @@
 """Checkpoint and resume over the native stream substrate.
 
 The port of ``dmlc_core_tpu.checkpoint``.  A pytree (nested ``dict`` /
-``list`` / ``tuple`` of tensors, numpy arrays or scalars; a module's
-``state_dict()`` works) is written as a RecordIO container through the
-native ``RecordIOWriter``: one record of JSON metadata, then one record of
-raw bytes per leaf, so ``save(params, "s3://...")`` works against every
-registered file system backend.
+``list`` / ``tuple`` / namedtuple / ``defaultdict`` of tensors, numpy
+arrays or scalars; a module's ``state_dict()`` works) is written as a
+RecordIO container through the native ``RecordIOWriter``: one record of
+JSON metadata, then one record of raw bytes per leaf, so ``save(params,
+"s3://...")`` works against every registered file system backend.
 
 The file is the JAX package's, byte for byte, for the same arrays: leaves
 are taken in JAX's flatten order (a mapping's keys sorted, whatever order
 they were inserted in; a ``state_dict()`` lists its parameters in
 registration order), and the metadata holds the same JSON, ``treedef``
 written in ``jax.tree``'s spelling (``PyTreeDef({'b': *, 'v': *, 'w':
-*})``).  A checkpoint written by either package loads in the other.
+*})``; a namedtuple ``CustomNode(namedtuple[NT], [*, *])``, a
+``defaultdict`` ``CustomNode(defaultdict[(<class 'list'>, ('a',))],
+[*])``), and a leaf's shape is its array's (``[]`` for a 0-d array or a
+Python scalar).  A checkpoint written by either package loads in the
+other; ``load(like=...)`` gives back the template's namedtuple class and
+``defaultdict`` factory.
 
 ``bfloat16`` leaves are written as their 2-byte words and read back as
 ``torch.bfloat16`` without ``ml_dtypes``.  The native RecordIO writer
@@ -30,6 +35,7 @@ the file on every process.
 from __future__ import annotations
 
 import json
+from collections import defaultdict
 from collections.abc import Mapping
 from typing import Any
 
@@ -70,6 +76,14 @@ def _flatten(tree: Any, leaves: list) -> str:
     the ``PyTreeDef(...)`` wrapper)."""
     if tree is None:
         return "None"
+    if _is_namedtuple(tree):
+        parts = ", ".join(_flatten(x, leaves) for x in tree)
+        return f"CustomNode(namedtuple[{type(tree).__name__}], [{parts}])"
+    if isinstance(tree, defaultdict):
+        keys = tuple(sorted(tree))
+        parts = ", ".join(_flatten(tree[k], leaves) for k in keys)
+        return (f"CustomNode(defaultdict[({tree.default_factory!r}, "
+                f"{keys!r})], [{parts}])")
     if isinstance(tree, Mapping):
         parts = [f"{k!r}: {_flatten(tree[k], leaves)}" for k in sorted(tree)]
         return "{" + ", ".join(parts) + "}"
@@ -82,18 +96,27 @@ def _flatten(tree: Any, leaves: list) -> str:
     return "*"
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
 def _unflatten(like: Any, arrays) -> Any:
     """``like``'s structure with its leaves taken from the ``arrays``
     iterator in flatten order (a mapping keeps ``like``'s key order and
-    type)."""
+    type, a ``defaultdict`` its factory; a namedtuple its class)."""
     if like is None:
         return None
     if isinstance(like, Mapping):
         got = {k: _unflatten(like[k], arrays) for k in sorted(like)}
+        if isinstance(like, defaultdict):
+            return defaultdict(like.default_factory,
+                               ((k, got[k]) for k in like))
         return type(like)((k, got[k]) for k in like) \
             if isinstance(like, dict) else got
     if isinstance(like, list):
         return [_unflatten(x, arrays) for x in like]
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(x, arrays) for x in like))
     if isinstance(like, tuple):
         return tuple(_unflatten(x, arrays) for x in like)
     return next(arrays)
@@ -107,8 +130,9 @@ def _leaf_bytes(leaf) -> tuple:
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)  # numpy has no bfloat16: the raw words
         return name, list(t.shape), t.numpy().tobytes()
-    a = np.ascontiguousarray(np.asarray(leaf))
-    return str(a.dtype), list(a.shape), a.tobytes()
+    a = np.asarray(leaf)  # the shape before ascontiguousarray, which
+    # makes a 0-d array 1-d
+    return str(a.dtype), list(a.shape), np.ascontiguousarray(a).tobytes()
 
 
 def _leaf_from_bytes(spec: dict, payload: bytes):

@@ -51,9 +51,9 @@ from .._device import resolve_device
 from .._native import NativeError, StagedBatchOwnedC, check, lib
 from ..tracker import metrics as _tracker_metrics
 from .staging import (DeviceStagingIter, _consume, _device_feed,
-                      _pick_virtual_parts, multiprocess_rounds, staging_plan,
-                      _PinnedRing, _staged_iter, _tuned_epoch,
-                      source_total_bytes)
+                      _pick_virtual_parts, multiprocess_rounds,
+                      require_fixed_shapes, staging_plan, _PinnedRing,
+                      _staged_iter, _tuned_epoch, source_total_bytes)
 
 LOGGER = logging.getLogger("dmlc_core_tpu_torch.binned_cache")
 
@@ -600,6 +600,8 @@ class _Repacker:
         n = self._len.shape[0]
         if self._nnz_max == 0:
             return self._B if n >= self._B else None
+        if n == 0:  # drained by a batch that closed at batch_size rows
+            return None
         # spill rule: close the batch when the next row would overflow the
         # fixed entry budget, or at batch_size rows
         csum = np.cumsum(self._len[:self._B + 1])
@@ -1234,40 +1236,48 @@ class BinnedStagingIter:
         yield from self._stager.feed(host_iter, self._digest(), prof)
 
     def _iter_multiprocess(self, host_iter) -> Iterator[BinnedBatch]:
-        """A multi-process epoch, coordinated batch by batch as
-        ``DeviceStagingIter``'s (``[status, num_rows, row_ptr]`` on the
-        consumer thread)."""
-        if self._nnz_max == 0:
-            raise ValueError(
-                "multi-process staging needs fixed shapes: pass nnz_max=... "
-                "so every process contributes identically-shaped shards")
-        B, nnz, plan = self._batch_size, self._nnz_max, self._plan
-        nprocs = plan.num_shards
+        pad_bin = int(self._meta.get("pad_bin", 1)) if self._meta else 1
+        digest = self._digest()
+        yield from binned_rounds(
+            host_iter, self._plan, self._batch_size, self._nnz_max, pad_bin,
+            self._with_qid, lambda w: self._stager.stage(w, digest),
+            self._device)
 
-        def pack(local, out):
-            out[0] = local["num_rows"]
-            out[1:] = local["row_ptr"]
 
-        for local, gathered in multiprocess_rounds(host_iter, B + 2, pack,
-                                                   plan):
-            shifts = np.arange(nprocs, dtype=np.int64) * nnz
-            shifted = gathered[:, 2:] + shifts[:, None]
-            global_rp = np.concatenate(
-                [shifted[:, :-1].reshape(-1),
-                 [np.int64(nnz) * nprocs]]).astype(np.int32)
-            if local is None:  # out of rows: padding rows and lanes
-                pad_bin = int(self._meta.get("pad_bin", 1)) if self._meta \
-                    else 1
-                z32 = lambda k: np.zeros(k, np.int32)  # noqa: E731
-                local = {"num_rows": 0, "label": z32(B), "weight": z32(B),
-                         "row_ptr": z32(B + 1), "index": z32(nnz),
-                         "qid": z32(B) if self._with_qid else None,
-                         "ebin": np.full(nnz, pad_bin, np.uint8),
-                         "emask": np.zeros(nnz, np.bool_)}
-            batch = _consume(self._device,
-                             *self._stager.stage(local, self._digest()))
-            batch.plan = plan
-            batch.global_num_rows = int(gathered[:, 1].sum())
-            batch.global_row_ptr = torch.from_numpy(global_rp).to(
-                self._device)
-            yield batch
+def binned_rounds(host_iter, plan, batch_size: int, nnz_max: int,
+                  pad_bin: int, with_qid: bool, stage, device
+                  ) -> Iterator[BinnedBatch]:
+    """A multi-process binned epoch (``BinnedStagingIter`` and the data
+    service's ``DataServiceIter`` under a plan), coordinated batch by batch
+    as ``DeviceStagingIter``'s: ``[status, num_rows, row_ptr]`` a round
+    through :func:`.staging.multiprocess_rounds`, on the consumer thread.
+    ``stage(host_batch)`` gives (BinnedBatch, the copy's event); a process
+    out of rows stages padding rows and lanes while the others still have
+    some.  Each batch is this process's local one plus ``plan``,
+    ``global_num_rows`` and ``global_row_ptr`` (on ``device``)."""
+    require_fixed_shapes(nnz_max)
+    B, nnz = int(batch_size), int(nnz_max)
+    nprocs = plan.num_shards
+
+    def pack(local, out):
+        out[0] = local["num_rows"]
+        out[1:] = local["row_ptr"]
+
+    for local, gathered in multiprocess_rounds(host_iter, B + 2, pack, plan):
+        shifts = np.arange(nprocs, dtype=np.int64) * nnz
+        shifted = gathered[:, 2:] + shifts[:, None]
+        global_rp = np.concatenate(
+            [shifted[:, :-1].reshape(-1),
+             [np.int64(nnz) * nprocs]]).astype(np.int32)
+        if local is None:  # out of rows: padding rows and lanes
+            z32 = lambda k: np.zeros(k, np.int32)  # noqa: E731
+            local = {"num_rows": 0, "label": z32(B), "weight": z32(B),
+                     "row_ptr": z32(B + 1), "index": z32(nnz),
+                     "qid": z32(B) if with_qid else None,
+                     "ebin": np.full(nnz, pad_bin, np.uint8),
+                     "emask": np.zeros(nnz, np.bool_)}
+        batch = _consume(device, *stage(local))
+        batch.plan = plan
+        batch.global_num_rows = int(gathered[:, 1].sum())
+        batch.global_row_ptr = torch.from_numpy(global_rp).to(device)
+        yield batch

@@ -341,6 +341,15 @@ def staging_plan(sharding):
     return plan if plan.num_shards > 1 else None
 
 
+def require_fixed_shapes(nnz_max: int) -> None:
+    """Multi-process staging's precondition: every process contributes
+    batches of one shape, so the entry lanes are ``nnz_max`` wide."""
+    if int(nnz_max) == 0:
+        raise ValueError(
+            "multi-process staging needs fixed shapes: pass nnz_max=... "
+            "so every process contributes identically-shaped shards")
+
+
 def multiprocess_rounds(host_iter, payload_len: int, pack, plan):
     """Coordinate one epoch of multi-process staging: yield (local,
     gathered) per global batch, where ``local`` is this process's host
@@ -750,10 +759,7 @@ class DeviceStagingIter:
         part; here, on the consumer thread, each batch's coordination
         all-gather of ``[status, num_rows, max_index, row_ptr]`` and its
         staging run in program order."""
-        if self._nnz_max == 0:
-            raise ValueError(
-                "multi-process staging needs fixed shapes: pass nnz_max=... "
-                "so every process contributes identically-shaped shards")
+        require_fixed_shapes(self._nnz_max)
         B, nnz, plan = self._batch_size, self._nnz_max, self._plan
         nprocs = plan.num_shards
 

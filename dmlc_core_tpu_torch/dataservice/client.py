@@ -12,13 +12,23 @@ The staged (text) mode ships packed parse batches and bins them here with
 the binner's cuts: the same rows, with batch edges set by the service's
 virtual part split.
 
+Under a plan of n processes (``sharding=``), rank r leases, fetches and
+repacks only its share of the V virtual parts, the contiguous global parts
+``[r*V // n, (r+1)*V // n)``, and each batch joins one host all-gather
+(``binned_cache.binned_rounds``, ``BinnedStagingIter(sharding=...)``'s
+rounds), so a rank moves 1/n of the epoch's bytes and the ranks' rows,
+concatenated in rank order, are the one-process epoch's.  (The JAX client
+moves the whole epoch to every process and ``device_put``s one global
+batch.)
+
 Every epoch registers a lease ledger with the tracker's lease board and
-walks parts ``0..V-1``: assign, fetch, done.  Failover is by whole part: a
-part's blocks are buffered until its END trailer checks out and only then
-fed to the (stateful) repacker, so a worker dying mid-stream costs a
-discard, a ``lease_fail`` and a fetch from a survivor, never a row twice
-or not at all.  Both hops fire the fault points ``dataservice.connect``
-and ``dataservice.block.drop``.
+walks its parts (``0..V-1`` in one process) in order: assign, fetch, done.
+Failover is by whole part: a part's blocks are buffered until its END
+trailer checks out and only then fed to the (stateful) repacker, so a
+worker dying mid-stream costs a discard, a ``lease_fail`` and a fetch of
+the same part from a survivor, never a row twice or not at all.  Both
+hops fire the fault points ``dataservice.connect`` and
+``dataservice.block.drop``.
 """
 from __future__ import annotations
 
@@ -38,10 +48,10 @@ from .. import faultinject, telemetry
 from .._device import resolve_device
 from .._native import lib
 from ..data.binned_cache import (BinnedBatch, _BinnedStager, _cuts_from_meta,
-                                 _Repacker, bin_entries_np,
+                                 _Repacker, bin_entries_np, binned_rounds,
                                  decode_block_payload, resolve_codec,
                                  unpack_block)
-from ..data.staging import staging_plan
+from ..data.staging import require_fixed_shapes, staging_plan
 from ..tracker import metrics as tracker_metrics
 from . import protocol
 
@@ -79,9 +89,18 @@ class DataServiceIter:
     lease calls; by default the env contract's
     (``tracker.metrics.shard_client_from_env``).
 
-    ``sharding``: None, or a one-process plan.  A plan over more than one
-    process raises: leasing a share of the parts to each rank is not
-    ported yet (ROADMAP A8b).
+    ``sharding``: None, or a plan (a ``parallel.MeshPlan``, a mesh, a
+    ``parallel.data_sharding``).  Over n processes, rank r of n takes the
+    contiguous share ``[r*V // n, (r+1)*V // n)`` of the service's V
+    virtual parts (shares may be uneven, or empty), registers only those
+    with the lease board under its own client id, fetches them (failing
+    over inside the share) and repacks them in part order; each batch is
+    coordinated with the other ranks (``[status, num_rows, row_ptr]`` a
+    round) and carries ``plan``, ``global_num_rows`` and
+    ``global_row_ptr``, and a rank out of rows contributes padding
+    batches.  It needs ``nnz_max``.  A rank whose producer fails makes
+    every rank raise; no rank falls back to a local cache or the whole
+    epoch.  A one-process plan is the same as None.
     """
 
     def __init__(self, uri: str, binner, *, batch_size: int = 4096,
@@ -96,11 +115,9 @@ class DataServiceIter:
         if mode not in ("binned", "staged"):
             raise ValueError(
                 f"mode must be 'binned' or 'staged', not {mode!r}")
-        if staging_plan(sharding) is not None:
-            raise ValueError(
-                "DataServiceIter(sharding=...) over more than one process is "
-                "not ported yet (ROADMAP A8b); pass sharding=None or a "
-                "one-process plan")
+        self._plan = staging_plan(sharding)
+        if self._plan is not None:
+            require_fixed_shapes(nnz_max)
         if mode == "staged" and binner.cuts is None:
             raise ValueError("staged (text) mode needs a fitted binner; the "
                              "service has no cuts to adopt")
@@ -245,6 +262,16 @@ class DataServiceIter:
     def meta(self) -> Optional[dict]:
         return self._meta
 
+    @property
+    def share(self) -> range:
+        """The global virtual parts this process leases each epoch (all
+        of them without a plan); after :meth:`ensure_meta`."""
+        V = self._virtual_parts
+        if self._plan is None:
+            return range(V)
+        r, n = self._plan.shard_index, self._plan.num_shards
+        return range(r * V // n, (r + 1) * V // n)
+
     # -- leased part fetch ----------------------------------------------------
 
     def _fetch_from(self, worker: dict, part: int) -> List:
@@ -332,23 +359,22 @@ class DataServiceIter:
     # -- host batches ---------------------------------------------------------
 
     def _parts(self, epoch: int) -> Iterator[List]:
-        """Each part's blocks, in part order, with up to
+        """Each part of the share's blocks, in part order, with up to
         ``_FETCH_AHEAD`` parts fetched at once on a pool (each a whole
         lease: assign, fetch, done)."""
-        V = self._virtual_parts
+        parts = iter(self.share)
         with ThreadPoolExecutor(
                 _FETCH_AHEAD,
                 thread_name_prefix="dmlctpu-dataservice-fetch") as pool:
             futures = deque(pool.submit(self._fetch_part, epoch, g)
-                            for g in range(min(_FETCH_AHEAD, V)))
-            nxt = len(futures)
+                            for g in itertools.islice(parts, _FETCH_AHEAD))
             try:
                 while futures:
                     blocks = futures.popleft().result()
-                    if nxt < V:
+                    g = next(parts, None)
+                    if g is not None:
                         futures.append(pool.submit(self._fetch_part, epoch,
-                                                   nxt))
-                        nxt += 1
+                                                   g))
                     yield blocks
             finally:
                 for f in futures:
@@ -402,8 +428,7 @@ class DataServiceIter:
             self.ensure_meta()
             self._data().data_req({
                 "op": "lease_register", "client": self.client_id,
-                "epoch": int(self._epoch),
-                "parts": list(range(self._virtual_parts))})
+                "epoch": int(self._epoch), "parts": list(self.share)})
             produce = (self._produce_host if self._mode == "binned"
                        else self._produce_host_staged)
             digest = (self._meta["cuts_digest"] if self._meta is not None
@@ -413,7 +438,16 @@ class DataServiceIter:
             self.profile = prof
             host_iter = self._stager.host_iter(produce, self._prefetch)
             with telemetry.span("dataservice.epoch"):
-                yield from self._stager.feed(host_iter, digest, prof)
+                if self._plan is None:
+                    yield from self._stager.feed(host_iter, digest, prof)
+                    return
+                spec = self._spec
+                yield from binned_rounds(
+                    host_iter, self._plan, spec["batch_size"],
+                    spec["nnz_max"],
+                    int(self._meta.get("pad_bin", 1)) if self._meta else 1,
+                    spec["with_qid"],
+                    lambda w: self._stager.stage(w, digest), self.device)
         finally:
             telemetry.clear_trace_context()
             self._epoch += 1

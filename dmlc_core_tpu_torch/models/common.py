@@ -85,6 +85,43 @@ class SGDModelMixin:
     ``learning_rate``, and may override ``_l2_terms()`` (default: just
     ``self.w``)."""
 
+    #: the ``parallel.MeshPlan`` of ``place_params``, ``batch_sharding`` and
+    #: ``grad_allreduce`` (None: one process)
+    mesh_plan = None
+
+    def _set_mesh_plan(self, mesh_plan) -> None:
+        from ..parallel.meshplan import MeshPlan
+        self.mesh_plan = MeshPlan.from_spec(mesh_plan)
+
+    def place_params(self, params: dict) -> dict:
+        """Replicate ``params`` over the plan: every process gets rank 0's
+        values (a broadcast a tensor, into fresh tensors on each tensor's
+        device).  No plan: passed through."""
+        plan = self.mesh_plan
+        if plan is None or plan.num_shards <= 1:
+            return params
+        out = {}
+        for k, t in params.items():
+            buf, group, back = plan._stage(torch.as_tensor(t))
+            torch.distributed.broadcast(buf, src=0, group=group)
+            out[k] = back(buf)
+        return out
+
+    def batch_sharding(self):
+        """The plan's row sharding for staged batches (``sharding=`` of the
+        staging iterators), or None without a plan."""
+        return (None if self.mesh_plan is None
+                else self.mesh_plan.data_sharding())
+
+    def grad_allreduce(self, grads: dict, op: str = "sum") -> dict:
+        """Reduce a dict of gradients through the plan's all-reduce, for
+        custom loops that compute each process's gradients themselves
+        (``train_step`` reduces a sharded batch's own).  No plan: passed
+        through."""
+        if self.mesh_plan is None:
+            return grads
+        return {k: self.mesh_plan.allreduce(g, op) for k, g in grads.items()}
+
     def _l2_terms(self) -> tuple:
         return (self.w,)
 

@@ -17,11 +17,15 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
     Parameters ``w`` [num_features] and ``b`` [] start at zero (the
     canonical linear init).  objective: "logistic" (labels in {0,1} or
     {-1,1}) or "squared".  ``sdot_backend`` picks the Row::SDot reduction
-    (:mod:`..ops.segment_sum`)."""
+    (:mod:`..ops.segment_sum`).  ``mesh_plan`` (a ``parallel.MeshPlan``, a
+    mesh or the ``(mesh, axis)`` tuple) serves ``place_params``,
+    ``batch_sharding`` and ``grad_allreduce``; ``train_step`` takes its
+    plan from a sharded batch."""
 
     def __init__(self, num_features: int, objective: str = "logistic",
                  l2: float = 0.0, learning_rate: float = 0.1,
-                 sdot_backend: str | None = None, device="cuda"):
+                 sdot_backend: str | None = None, mesh_plan=None,
+                 device="cuda"):
         super().__init__()
         if objective not in ("logistic", "squared"):
             raise ValueError(f"unknown objective '{objective}'")
@@ -34,6 +38,16 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
         self.sdot_backend = sdot_backend
         self.w = nn.Parameter(torch.zeros(num_features, device=dev))
         self.b = nn.Parameter(torch.zeros((), device=dev))
+        self._set_mesh_plan(mesh_plan)
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "SparseLinearModel":
+        """The canonical linear start, in place: ``w`` [F] and 0-d ``b``
+        zero, f32 (``seed`` is unused, as the JAX package's)."""
+        del seed
+        self.w.zero_()
+        self.b.zero_()
+        return self
 
     def margins(self, batch: PaddedBatch) -> torch.Tensor:
         """Per-row scores w.x + b."""

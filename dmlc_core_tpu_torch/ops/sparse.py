@@ -43,6 +43,27 @@ def csr_row_sumsq_matmul(table: torch.Tensor, index: torch.Tensor,
     return segment_sum(gathered, row_id, num_rows, force=force)
 
 
+def csr_to_dense(index: torch.Tensor, value: torch.Tensor,
+                 row_id: torch.Tensor, num_rows: int,
+                 num_features: int) -> torch.Tensor:
+    """Densify a COO batch: ``out[r, f]`` is the sum of ``value[k]`` over
+    the entries with ``row_id[k] == r`` and ``index[k] == f``, in
+    ``value``'s dtype.  Ids are taken as JAX's ``.at[].add(mode="drop")``
+    takes them: a negative id counts from the end once, and an entry whose
+    row or feature is then out of range is dropped (padding lanes, value
+    0, add nothing).  A plain scatter-add, as the JAX package's is plain
+    XLA."""
+    r, f = row_id.to(torch.int64), index.to(torch.int64)
+    r = torch.where(r < 0, r + num_rows, r)
+    f = torch.where(f < 0, f + num_features, f)
+    keep = (r >= 0) & (r < num_rows) & (f >= 0) & (f < num_features)
+    cells = num_rows * num_features
+    flat = torch.where(keep, r * num_features + f, cells)
+    out = torch.zeros(cells + 1, dtype=value.dtype, device=value.device)
+    out.index_add_(0, flat, value)
+    return out[:cells].reshape(num_rows, num_features)
+
+
 def csr_to_dense_missing(index: torch.Tensor, value: torch.Tensor,
                          row_id: torch.Tensor, num_rows: int,
                          num_features: int) -> torch.Tensor:

@@ -43,7 +43,8 @@ from .. import telemetry
 from ..timer import Stopwatch
 from .collective import (_all_gather_flat, _reduce_scatter, on_group_device,
                          reduce_op)
-from .mesh import host_count, make_mesh, world
+from .mesh import (data_sharding, host_count, make_mesh, replicated_sharding,
+                   world)
 
 _STRATEGIES = ("auto", "flat", "hier")
 
@@ -227,6 +228,14 @@ class MeshPlan:
     @property
     def num_shards(self) -> int:
         return int(np.prod([self.shape[a] for a in self.axes]))
+
+    def data_sharding(self):
+        """Rows over every plan axis (``mesh.data_sharding``)."""
+        return data_sharding(self.mesh, self.axes)
+
+    def replicated_sharding(self):
+        """Every rank holds the whole value (``mesh.replicated_sharding``)."""
+        return replicated_sharding(self.mesh)
 
     def describe(self) -> dict:
         c = self.shape[self.chip_axis]

@@ -218,6 +218,22 @@ def test_nnz_max_spill_matches_text_path(data, tmp_path):
         list(_iter(wide, _binner(), nnz_max=16))
 
 
+def test_nnz_max_batches_that_close_at_batch_size(data):
+    """An ``nnz_max`` no batch reaches: every batch closes at
+    ``batch_size`` rows and may drain the repacker's buffer at a block's
+    end, which must wait for the next block (the JAX package's repacker
+    raises "a single row has more than nnz_max" there); the batches are
+    the text path's."""
+    got = list(_iter(data, _binner(), batch_size=64, nnz_max=1024))
+    text = list(DeviceStagingIter(data, batch_size=64, nnz_bucket=1024,
+                                  nnz_max=1024, device="cpu"))
+    assert len(got) == len(text) and len(got) > 2
+    for cb, tb in zip(got, text):
+        for k in ("label", "weight", "row_ptr", "index"):
+            assert torch.equal(getattr(cb, k), getattr(tb, k)), k
+    assert all(b.num_rows == 64 for b in got[:-1])
+
+
 def _mutants(path):
     def grow_source():
         with open(path, "a") as f:

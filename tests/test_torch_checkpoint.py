@@ -8,7 +8,11 @@ metadata JSON, ``treedef`` in JAX's spelling.  A checkpoint written by
 either package loads in the other bit for bit: dicts, lists, tuples,
 nesting, ``None``, an FFM's params, a GBDT forest and a ``bfloat16`` leaf
 (read without ``ml_dtypes``, as 2-byte words viewed as ``torch.bfloat16``).
+Leaves given as numpy arrays and Python scalars (0-d shapes kept), a
+forest taken to numpy, namedtuples and ``defaultdict``s write the JAX
+package's file too, and ``load(like=...)`` gives back their types.
 """
+import collections
 import json
 
 import jax
@@ -118,6 +122,80 @@ def test_files_byte_identical_and_load_across(name, tmp_path):
     jarrays, jmeta = jax_ckpt.load(str(port_path))
     assert jmeta == meta
     assert [_bits(a) for a in jarrays] == [_bits(w) for w in want]
+
+
+NT = collections.namedtuple("NT", ["w", "b"])
+
+
+def _port_forest_np():
+    """A small forest fitted by the port, taken to numpy (its ``base`` and
+    ``trees_used`` are 0-d)."""
+    from dmlc_core_tpu_torch.models import GBDT
+    rng = np.random.default_rng(4)
+    bins = torch.from_numpy(rng.integers(0, 8, (64, 3)).astype(np.uint8))
+    y = torch.from_numpy((rng.random(64) < 0.5).astype(np.float32))
+    forest = GBDT(num_features=3, num_trees=2, max_depth=2, num_bins=8,
+                  device="cpu").fit(bins, y)
+    return {k: v.numpy() for k, v in forest.items()}
+
+
+def _host_trees():
+    """(name, pytree) saved as given: numpy and Python scalar leaves, and
+    the containers JAX spells as custom nodes."""
+    rng = np.random.default_rng(9)
+    return {
+        "0-d numpy leaves": {"s": np.float32(1.5),
+                             "z": np.zeros((), np.int32),
+                             "a": np.asarray(3), "v": np.arange(2.0)},
+        "python scalars": {"step": 3, "lr": 0.25, "flag": True,
+                           "xs": [1, 2.5, False]},
+        "forest to numpy": _port_forest_np(),
+        "namedtuple": NT(w=rng.standard_normal(4).astype(np.float32),
+                         b=np.float32(0.5)),
+        "defaultdict": collections.defaultdict(
+            list, {"b": [np.ones(2, np.float32)],
+                   "a": [np.arange(3), np.int16(-2)]}),
+        "nested custom nodes": {
+            "opt": NT(w=(np.float32(1.0),), b=None),
+            "d": collections.defaultdict(None, {"q": np.eye(2)}),
+            "empty": collections.defaultdict(int)},
+    }
+
+
+def _types(tree):
+    """The container types of ``tree``, with namedtuple classes and
+    defaultdict factories, leaves as None."""
+    if isinstance(tree, collections.defaultdict):
+        return ("defaultdict", tree.default_factory,
+                {k: _types(v) for k, v in tree.items()})
+    if isinstance(tree, dict):
+        return ("dict", {k: _types(v) for k, v in tree.items()})
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), [_types(v) for v in tree])
+    return None
+
+
+@pytest.mark.parametrize("name", list(_host_trees()))
+def test_host_leaves_and_custom_nodes_byte_identical(name, tmp_path):
+    """The port's writer takes numpy and Python scalar leaves, namedtuples
+    and defaultdicts as given: the JAX package's file byte for byte (0-d
+    leaves write ``"shape": []``), and ``load(like=...)`` gives back the
+    template's types with JAX's shapes."""
+    tree = _host_trees()[name]
+    jax_path, port_path = tmp_path / "jax.ckpt", tmp_path / "port.ckpt"
+    n = jax_ckpt.save(tree, str(jax_path))
+    assert checkpoint.save(tree, str(port_path)) == n
+    assert port_path.read_bytes() == jax_path.read_bytes()
+    _, meta = checkpoint.load(str(port_path))
+    assert meta["treedef"] == str(jax.tree.structure(tree))
+    shapes = [np.shape(x) for x in
+              jax.tree.leaves(jax_ckpt.load(str(port_path), like=tree))]
+    assert [tuple(s["shape"]) for s in meta["leaves"]] == shapes
+    want, _ = jax_ckpt.load(str(port_path))
+    back = checkpoint.load(str(port_path), like=tree, device="cpu")
+    assert _types(back) == _types(tree)
+    got = jax.tree.leaves(back, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert [_bits(t) for t in got] == [_bits(w) for w in want]
 
 
 def test_unsorted_state_dict_round_trips_to_its_keys(tmp_path):

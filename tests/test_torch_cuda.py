@@ -1176,6 +1176,38 @@ def test_fit_over_the_service_launches_the_kernels(cuda, tmp_path):
         assert torch.equal(served[k], want[k]), k
 
 
+def test_two_rank_fit_over_the_service_on_card(cuda, tmp_path):
+    """Two gloo ranks on the card, each a ``DataServiceIter(sharding=plan)``
+    over its share of the worker's parts into ``fit_streamed(histogram=
+    "pallas", histogram_mesh=plan)``: every rank launches 6 sparse
+    histograms and 7 segment sums a tree (and 1 for the base margin), and
+    its forest is the one-process kernel fit's over the service bit for
+    bit."""
+    from torch_ranks import run_ranks
+    uri, agg, worker = _service_fixture(cuda, tmp_path)
+    trees, depth = 2, 6
+    kw = dict(num_features=30, num_trees=trees, max_depth=depth,
+              num_bins=32, missing_aware=True)
+    try:
+        binner = QuantileBinner(num_bins=32, missing_aware=True)
+        ds = _service_iter(uri, agg, binner)
+        one = GBDT(histogram="pallas", **kw).fit_streamed(lambda: iter(ds),
+                                                          binner)
+        res = run_ranks(2, "dataservice_forest", tmp_path, timeout=300,
+                        uri=uri, port=agg.port, nnz_max=1000 * 30,
+                        geom=dict(batch_size=1000, nnz_bucket=4096), kw=kw,
+                        device="cuda")
+    finally:
+        worker.close()
+        agg.close()
+    for r in res:
+        assert r["epochs"] == 1 + trees * depth
+        assert r["launches"] == [trees * depth, trees * (depth + 1) + 1, 0]
+        for k, v in one.items():
+            np.testing.assert_array_equal(r["forest"][k], v.cpu().numpy(),
+                                          err_msg=k)
+
+
 def test_resource_sample_publishes_the_card_memory(cuda):
     """resource.hbm_bytes_in_use is torch.cuda.memory_allocated at the
     call, resource.hbm_bytes_limit the card's total memory."""

@@ -17,8 +17,16 @@ the JAX package's, on the same numpy-made libsvm files, on the CPU.
   package's ``fit_streamed`` over its local cache within
   tests/test_torch_streamed.py's tolerances (its gain-gap fixture), and
   the port's local cache fit bit for bit on the kernel route.
-* Refusals: a multi-process ``sharding=`` (ROADMAP A8b), the staged mode
-  without cuts, fitted cuts that disagree with the service's.
+* Sharded epochs (gloo ranks as child processes, ``tests/torch_ranks.py``,
+  against in-process workers): each rank leases its contiguous share of
+  the parts; its batches are a local repack of that share of the worker's
+  cache file leaf by leaf, the global facts are the ranks' rows, and the
+  ranks' rows in rank order are the JAX package's one-process epoch's, in
+  the binned and the staged mode and after a failover inside rank 0's
+  share; a 2-rank ``fit_streamed`` over the service is the one-process
+  forest bit for bit.
+* Refusals: a multi-process ``sharding=`` without ``nnz_max``, the staged
+  mode without cuts, fitted cuts that disagree with the service's.
 """
 import hashlib
 import os
@@ -345,15 +353,19 @@ def test_abandoned_epoch_then_a_whole_one(board_env, data):
 
 
 def _rows(batches) -> list:
-    """Each real row's (label, indices, ebin, emask), in order."""
+    """Each real row's (label, indices, ebin, emask), in order (a port
+    batch, a JAX one, or a rank's batch as a dict)."""
     out = []
     for b in batches:
-        rp = b.row_ptr.numpy()
-        for r in range(b.num_rows):
+        get = b.get if isinstance(b, dict) else \
+            (lambda k, b=b: getattr(b, k))
+        rp, lab = np.asarray(get("row_ptr")), np.asarray(get("label"))
+        idx, ebin, emask = (np.asarray(get(k))
+                            for k in ("index", "ebin", "emask"))
+        for r in range(int(get("num_rows"))):
             s = slice(rp[r], rp[r + 1])
-            out.append((float(b.label[r]), b.index[s].numpy().tobytes(),
-                        b.ebin[s].numpy().tobytes(),
-                        b.emask[s].numpy().tobytes()))
+            out.append((float(lab[r]), idx[s].tobytes(), ebin[s].tobytes(),
+                        emask[s].tobytes()))
     return out
 
 
@@ -582,9 +594,205 @@ def test_forest_over_the_service(board_env, tmp_path):
         assert torch.equal(served[k], resident[k]), k
 
 
+# ---- sharded epochs ---------------------------------------------------------
+
+SHARD_V = 7  # virtual parts of the sharded tests' caches: odd, so 3 + 4
+SHARD_NNZ = 512  # nnz_max of the sharded epochs (rows have 3-9 entries)
+
+
+@pytest.fixture()
+def odd_parts(monkeypatch):
+    """Split every dataset into SHARD_V virtual parts (a small file gets
+    the 8-part floor otherwise), so two ranks' shares are uneven."""
+    from dmlc_core_tpu_torch.data import binned_cache, staging
+    pick = lambda total, num_parts, *a, **k: SHARD_V  # noqa: E731
+    monkeypatch.setattr(binned_cache, "_pick_virtual_parts", pick)
+    monkeypatch.setattr(staging, "_pick_virtual_parts", pick)
+
+
+def _local_share(cache: Path, parts, geom, nnz_max) -> list:
+    """A local repack of ``parts`` of a cache file in part order, staged as
+    a DataServiceIter stages (``_Repacker`` + ``_BinnedStager``)."""
+    from dmlc_core_tpu_torch.data.binned_cache import (_BinnedStager,
+                                                       _NativeReader,
+                                                       _Repacker,
+                                                       unpack_block)
+    r = _NativeReader(str(cache))
+    try:
+        meta, part_map = r.meta, r.part_map
+        rp = _Repacker(geom["batch_size"], geom["nnz_bucket"], nnz_max,
+                       int(meta.get("pad_bin", 1)), False)
+        stager = _BinnedStager(torch.device("cpu"))
+        out = []
+        for g in parts:
+            ent = part_map.get(g)
+            if ent is None:
+                continue
+            r.seek_to(int(ent["offset"]))
+            for _ in range(int(ent["records"])):
+                for w in rp.feed(unpack_block(r.next_block_view())):
+                    out.append(stager.stage(w, meta["cuts_digest"])[0])
+        for w in rp.flush():
+            out.append(stager.stage(w, meta["cuts_digest"])[0])
+        return out
+    finally:
+        r.close()
+
+
+def _check_rounds(res, nnz_max) -> None:
+    """Every rank ran the same rounds; each batch carries the job's plan
+    and the round's global facts; a rank out of rows sends padding."""
+    rounds = {len(r["batches"]) for r in res}
+    assert len(rounds) == 1
+    for i in range(rounds.pop()):
+        bs = [r["batches"][i] for r in res]
+        assert all(b["planned"] for b in bs)
+        assert {b["global_num_rows"] for b in bs} == {
+            sum(b["num_rows"] for b in bs)}
+        want = np.concatenate(
+            [b["row_ptr"][:-1] + k * nnz_max for k, b in enumerate(bs)]
+            + [[len(bs) * nnz_max]]).astype(np.int32)
+        for b in bs:
+            np.testing.assert_array_equal(b["global_row_ptr"], want)
+            assert b["index"].shape == (nnz_max,)
+            if b["num_rows"] == 0:
+                assert not b["weight"].any() and not b["emask"].any()
+
+
+def _jax_epoch_rows(agg, uri) -> list:
+    """The JAX package's one-process DataServiceIter epoch, row by row."""
+    return _rows(JaxServiceIter(uri, JaxBinner(**BINNER), **GEOM,
+                                shard_client=tm.ShardClient(
+                                    "127.0.0.1", agg.port, rank=0)))
+
+
+def _share_of(rank, n, V=SHARD_V) -> list:
+    return list(range(rank * V // n, (rank + 1) * V // n))
+
+
+@pytest.mark.parametrize("mode", ["binned", "staged"])
+def test_two_rank_epoch_is_the_local_repack_of_each_share(
+        board_env, odd_parts, data, tmp_path, mode):
+    """Two ranks over the 7 parts: rank 0 leases parts 0-2 and rank 1
+    parts 3-6, each under its own client id; each rank's batches are the
+    local repack of its share of the worker's cache file leaf by leaf
+    (binned), or its rows (staged: the worker's parse batches binned on
+    the rank); the rows of both, in rank order, are the JAX package's
+    one-process epoch's, every row once."""
+    from torch_ranks import run_ranks
+    agg, _ = board_env
+    # the binned cache the reference repacks: the ranks' own in the binned
+    # mode; in the staged mode a binned client's (its cuts bin the ranks'
+    # batches), whose blocks hold the same parts' rows
+    probe = _client(agg, data, nnz_max=SHARD_NNZ)
+    cuts = None
+    if mode == "staged":
+        probe.ensure_meta()
+        cuts = probe._binner.cuts.numpy()
+    res = run_ranks(2, "dataservice_epoch", tmp_path, uri=data,
+                    port=agg.port, nnz_max=SHARD_NNZ, geom=GEOM,
+                    binner_kw=BINNER, mode=mode, cuts=cuts)
+    assert [r["share"] for r in res] == [_share_of(0, 2), _share_of(1, 2)]
+    _check_rounds(res, SHARD_NNZ)
+    cache = tmp_path / "cache" / (spec_key(probe.spec) + ".bincache")
+    state = agg.leases.state()["leases"]
+    for r in res:
+        lease = state[r["client_id"]]["0"]
+        assert lease["shards"] == lease["done"] == len(r["share"])
+        assert {int(p) for p in lease["assigned"]} == set(r["share"])
+        want = _local_share(cache, r["share"], GEOM, SHARD_NNZ)
+        got = [b for b in r["batches"] if b["num_rows"]]
+        if mode == "binned":
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g["num_rows"] == w.num_rows
+                assert g["cuts_digest"] == w.cuts_digest
+                for k in LANES:
+                    np.testing.assert_array_equal(g[k],
+                                                  getattr(w, k).numpy(), k)
+        else:
+            assert _rows(got) == _rows(want)
+    rows = _rows(b for r in res for b in r["batches"])
+    assert len(rows) == 600 and rows == _jax_epoch_rows(agg, data)
+
+
+@pytest.mark.parametrize("point", ["dataservice.connect",
+                                   "dataservice.block.drop"])
+def test_two_rank_failover_stays_in_the_share(board_env, odd_parts, data,
+                                              tmp_path, point):
+    """A fault at either hop of rank 0's first fetch: rank 0 fails the
+    lease over to the other worker inside its own share, rank 1's ledger
+    holds none of rank 0's parts, and the ranks' rows are the one-process
+    epoch's, none lost or doubled."""
+    if not faultinject.compiled_in():
+        pytest.skip("faults compiled out")
+    from torch_ranks import run_ranks
+    agg, _ = board_env
+    w1 = StagingWorker(cache_dir=str(tmp_path / "cache"), device="cpu")
+    try:
+        res = run_ranks(2, "dataservice_epoch", tmp_path, uri=data,
+                        port=agg.port, nnz_max=SHARD_NNZ, geom=GEOM,
+                        binner_kw=BINNER, fault=f"{point}=err@1.0:n=1;seed=5")
+        state = agg.leases.state()["leases"]
+        jax_rows = _jax_epoch_rows(agg, data)
+    finally:
+        w1.close()
+    _check_rounds(res, SHARD_NNZ)
+    l0, l1 = (state[r["client_id"]]["0"] for r in res)
+    assert len(l0["failovers"]) >= 1
+    assert {f["part"] for f in l0["failovers"]} <= set(_share_of(0, 2))
+    assert not l1["failovers"]
+    # a ledger's parts are those its client registered or leased
+    for lease, r in ((l0, 0), (l1, 1)):
+        assert lease["shards"] == lease["done"] == len(_share_of(r, 2))
+        assert {int(p) for p in lease["assigned"]} <= set(_share_of(r, 2))
+        assert lease["pending"] == 0
+    rows = _rows(b for r in res for b in r["batches"])
+    assert len(rows) == 600 and rows == jax_rows
+
+
+def test_two_rank_forest_over_the_service(board_env, tmp_path):
+    """tests/test_torch_streamed.py's gain-gap fixture served to two ranks:
+    a ``fit_streamed(histogram="pallas", histogram_mesh=plan)`` on each
+    rank's share equals the one-process forest over the service (a
+    one-process plan: the same exact fixed-point route) bit for bit, on
+    every rank."""
+    from test_torch_streamed import KW, ROWS, _data
+    from torch_ranks import run_ranks
+
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    idx, val, y, ptr, _ = _data()
+    uri = str(tmp_path / "rows.libsvm")
+    Path(uri).write_text("".join(
+        f"{int(y[r])} " + " ".join(
+            f"{i}:{v:.9g}" for i, v in zip(idx[ptr[r]:ptr[r + 1]],
+                                           val[ptr[r]:ptr[r + 1]])) + "\n"
+        for r in range(ROWS)))
+    geom = dict(batch_size=512, nnz_bucket=1024)
+    agg, _ = board_env
+    binner = QuantileBinner(num_bins=KW["num_bins"], missing_aware=True,
+                            device="cpu")
+    one = GBDT(histogram="pallas", histogram_mesh=MeshPlan.build(),
+               device="cpu", **KW).fit_streamed(
+        lambda: iter(_client(agg, uri, binner, **geom)), binner)
+    res = run_ranks(2, "dataservice_forest", tmp_path, timeout=180,
+                    uri=uri, port=agg.port, nnz_max=1024, geom=geom, kw=KW)
+    epochs = 1 + KW["num_trees"] * KW["max_depth"]
+    for r in res:
+        assert r["epochs"] == epochs
+        for k, v in one.items():
+            np.testing.assert_array_equal(r["forest"][k], v.numpy(),
+                                          err_msg=k)
+
+
 # ---- refusals ---------------------------------------------------------------
 
 def test_refusals(board_env, data, tmp_path):
+    """The staged mode without cuts, an unknown mode and cuts that are not
+    the service's are refused; a one-process plan is the unsharded stream
+    bit for bit; over two ranks a plan without ``nnz_max`` is refused
+    before any rank contacts the service (the ranks could not contribute
+    batches of one shape)."""
     from dmlc_core_tpu_torch.parallel.meshplan import MeshPlan
     from torch_ranks import run_ranks
     agg, _ = board_env
@@ -602,5 +810,7 @@ def test_refusals(board_env, data, tmp_path):
     other.fit_sparse(np.arange(40), np.linspace(-1, 1, 40), 40)
     with pytest.raises(ValueError, match="do not match the service"):
         list(_client(agg, data, other))
+    clients = set(agg.leases.state()["leases"])
     msgs = run_ranks(2, "dataservice_sharding_refused", tmp_path, uri=data)
-    assert all("ROADMAP A8b" in m for m in msgs), msgs
+    assert all("fixed shapes" in m and "nnz_max" in m for m in msgs), msgs
+    assert set(agg.leases.state()["leases"]) == clients

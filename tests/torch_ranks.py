@@ -393,6 +393,26 @@ def dp_steps(rank, n, family, params, batches, kw, steps):
     return losses, states
 
 
+def linear_mesh_helpers(rank, n, params, grads):
+    """``SparseLinearModel(mesh_plan=)``'s helpers on this rank's values:
+    the placed params, the all-reduced grads and the batch sharding's
+    axes."""
+    import torch
+
+    from dmlc_core_tpu_torch.models import SparseLinearModel
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    plan = MeshPlan.build()
+    m = SparseLinearModel(len(params[0]["w"]), mesh_plan=plan, device="cpu")
+    mine = {k: torch.tensor(v) for k, v in params[rank].items()}
+    placed = m.place_params(mine)
+    assert all(torch.equal(mine[k], torch.tensor(params[rank][k]))
+               for k in mine)  # the inputs are left as they were
+    reduced = m.grad_allreduce({k: torch.tensor(v)
+                                for k, v in grads[rank].items()})
+    return {"placed": _np(placed), "reduced": _np(reduced),
+            "axes": m.batch_sharding().axes}
+
+
 # ---- checkpoints --------------------------------------------------------------
 
 def checkpoint_save(rank, n, params, path):
@@ -418,7 +438,9 @@ def checkpoint_save(rank, n, params, path):
 
 def dataservice_sharding_refused(rank, n, uri):
     """A ``DataServiceIter`` given this job's plan (more than one process)
-    refuses it before it contacts any service; returns the message."""
+    without ``nnz_max`` refuses it before it contacts any service (its
+    ranks could not contribute batches of one shape); returns the
+    message."""
     from dmlc_core_tpu_torch.dataservice import DataServiceIter
     from dmlc_core_tpu_torch.models import QuantileBinner
     from dmlc_core_tpu_torch.parallel.meshplan import MeshPlan
@@ -431,6 +453,81 @@ def dataservice_sharding_refused(rank, n, uri):
     except ValueError as e:
         return str(e)
     return "accepted"
+
+
+def _service_iter(rank, uri, port, binner, nnz_max, geom, device="cpu",
+                  **kw):
+    """This job's plan's ``DataServiceIter`` on the aggregator at
+    ``port``."""
+    from dmlc_core_tpu_torch.dataservice import DataServiceIter
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    from dmlc_core_tpu_torch.tracker import metrics as tm
+    return DataServiceIter(
+        uri, binner, sharding=MeshPlan.build(), nnz_max=nnz_max, retries=8,
+        device=device, shard_client=tm.ShardClient("127.0.0.1", port,
+                                                   rank=rank), **geom, **kw)
+
+
+def dataservice_epoch(rank, n, uri, port, nnz_max, geom, binner_kw,
+                      mode="binned", cuts=None, fault=None):
+    """One epoch of this rank's share of the service (``cuts``: a fitted
+    binner's, for the staged mode; ``fault``: a fault spec armed on rank 0
+    for the epoch); returns the client id, the share and every batch's
+    leaves and global facts."""
+    import contextlib
+
+    from dmlc_core_tpu_torch import faultinject
+    from dmlc_core_tpu_torch.models import QuantileBinner
+    binner = (QuantileBinner(device="cpu", **binner_kw)
+              if cuts is None else QuantileBinner.from_cuts(
+                  cuts, binner_kw["num_bins"], missing_aware=True,
+                  device="cpu"))
+    it = _service_iter(rank, uri, port, binner, nnz_max, geom, mode=mode)
+    it.ensure_meta()
+    armed = (faultinject.armed(fault) if fault is not None and rank == 0
+             else contextlib.nullcontext())
+    batches = []
+    with armed:
+        for b in it:
+            leaves = {k: getattr(b, k).numpy().copy() for k in (
+                "label", "weight", "row_ptr", "index", "ebin", "emask")}
+            batches.append(dict(
+                leaves, num_rows=b.num_rows, cuts_digest=b.cuts_digest,
+                planned=b.plan is not None,
+                global_num_rows=b.global_num_rows,
+                global_row_ptr=b.global_row_ptr.numpy()))
+    return {"client_id": it.client_id, "share": list(it.share),
+            "batches": batches}
+
+
+def dataservice_forest(rank, n, uri, port, nnz_max, geom, kw,
+                       device="cpu"):
+    """A sharded ``fit_streamed`` (on the CPU the kernel route's plain
+    version, on ``"cuda"`` the kernels) over this rank's share of the
+    service; the forest, the epochs read and the launches of each
+    kernel."""
+    import torch
+
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops import segment_sum as ss
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    kernels = (hs.histogram_gh_sparse_kernel, ss.segment_sum_kernel,
+               hg.histogram_gh_kernel)
+    for k in kernels:
+        k.launches = 0
+    binner = QuantileBinner(num_bins=kw["num_bins"], missing_aware=True,
+                            device=device)
+    it = _service_iter(rank, uri, port, binner, nnz_max, geom,
+                       device=device)
+    m = GBDT(device=device, histogram="pallas",
+             histogram_mesh=MeshPlan.build(), **kw)
+    forest = m.fit_streamed(lambda: iter(it), binner)
+    return {"forest": _np(forest), "epochs": it._epoch,
+            "launches": [k.launches for k in kernels]}
 
 
 if __name__ == "__main__":
