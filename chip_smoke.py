@@ -99,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import re
 import subprocess
@@ -1553,6 +1554,37 @@ F64_WARP_DENSE_MS = (3.533, 5.532, 6.391, 12.430, 17.522, 32.784)
 F64_WARP_SPARSE_MS = (2.379, 3.418, 4.335, 12.599, 16.860, 29.450)
 
 
+def dense_level_time(torch, hg, bins, rel, gh, n: int, B: int) -> tuple:
+    """The dense kernel at one level: its device time beside the plain
+    version, ``index_add`` over the prebuilt flattened keys and its bound,
+    and its error against float64 sums by ``index_add``.  Returns (the
+    times, the error, the bytes of the bound, whether the queue covered
+    the launches)."""
+    rows, F = bins.shape
+    dev = bins.device
+    ms, cov = device_ms(
+        torch, lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B), 20)
+    plain_ms, _ = device_ms(
+        torch, lambda: hg.histogram_gh_plain(bins, rel, gh, n, B), 1,
+        warmup=1)
+    keys = ((rel.long()[:, None] * F
+             + torch.arange(F, device=dev)) * B + bins.long()).reshape(-1)
+    src = gh[:, None, :].expand(rows, F, 2).reshape(-1, 2)
+    zeros = torch.zeros(n * F * B, 2, device=dev)
+    lib_ms, _ = device_ms(
+        torch, lambda: torch.index_add(zeros, 0, keys, src), 3, warmup=1)
+    h64 = torch.zeros(n * F * B, 2, dtype=torch.float64, device=dev)
+    h64.index_add_(0, keys, src.double())
+    err = level_error(hg.histogram_gh_kernel(bins, rel, gh, n, B), h64)
+    del keys, src, h64
+    nbytes = rows * F + 4 * rows + 8 * rows + 8 * n * F * B
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * rows * F / F32_OPS_PER_S
+    return (dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=max(byte_s, op_s) * 1e3,
+                 bound_by="bytes" if byte_s >= op_s else "operations"),
+            err, nbytes, cov)
+
+
 def level_error(h32, h64) -> float:
     """max |f32 histogram - float64 sums| relative to max(1, the largest
     float64 bin)."""
@@ -1785,27 +1817,9 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     # at every level
     per_level = []
     for d, (rel, n) in enumerate(levels):
-        ms, cov = device_ms(
-            torch, lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B), 20)
-        plain_ms, _ = device_ms(
-            torch, lambda: hg.histogram_gh_plain(bins, rel, gh, n, B), 1,
-            warmup=1)
-        keys = ((rel.long()[:, None] * F
-                 + torch.arange(F, device=dev)) * B + bins.long()).reshape(-1)
-        src = gh[:, None, :].expand(rows, F, 2).reshape(-1, 2)
-        zeros = torch.zeros(n * F * B, 2, device=dev)
-        lib_ms, _ = device_ms(
-            torch, lambda: torch.index_add(zeros, 0, keys, src), 3, warmup=1)
-        h64 = torch.zeros(n * F * B, 2, dtype=torch.float64, device=dev)
-        h64.index_add_(0, keys, src.double())
-        err = level_error(hg.histogram_gh_kernel(bins, rel, gh, n, B), h64)
-        del keys, src, h64
-        nbytes = rows * F + 4 * rows + 8 * rows + 8 * n * F * B
-        byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * rows * F / F32_OPS_PER_S
-        per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=max(byte_s, op_s) * 1e3,
-                              bound_by="bytes" if byte_s >= op_s
-                              else "operations"))
+        lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
+                                                B)
+        per_level.append(lv)
         print_level("histogram", d, n, per_level[-1], F64_WARP_DENSE_MS[d], err,
                     nbytes, cov)
         check(err <= HIST_TOL, f"histogram depth {d}: {err} of the largest "
@@ -2010,7 +2024,8 @@ def bosch_like(torch, dev, seed: int = 2016) -> dict:
     row_ptr = torch.zeros(R + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(torch.cat(counts), 0)
     return dict(label=y.to(torch.float32), row_ptr=row_ptr,
-                index=torch.cat(index), value=torch.cat(value))
+                index=torch.cat(index), value=torch.cat(value),
+                rule=m > 0)
 
 
 def sparse_tree_inputs(torch, model, forest, ent, label):
@@ -2126,8 +2141,8 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
     B, F = model.num_bins, model.num_features
     lam, mcw, lr = model.lambda_, model.min_child_weight, model.learning_rate
     rid_l = layout.rid.long()
-    out = dict(hist_err=0.0, leaf_err=0.0, nodes=0, off_best=0, beyond=0,
-               worst=0.0, replay=0)
+    out = dict(hist_err=0.0, leaf_err=0.0, leaf_max=0.0, nodes=0,
+               off_best=0, beyond=0, worst=0.0, replay=0)
     scale = []
     for t, (gh, levels, leaf_rel, col_mask, col_key) in enumerate(
             sparse_tree_inputs(torch, model, forest, ent, label)):
@@ -2195,6 +2210,7 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
         leaf = forest["leaf"][t].double()
         out["leaf_err"] = max(out["leaf_err"],
                               float((leaf - leaf64).abs().max()))
+        out["leaf_max"] = max(out["leaf_max"], float(leaf64.abs().max()))
         big = leaf64.abs() > 1e-3
         scale.append((leaf[big] / leaf64[big]).cpu())
     out["leaf_scale"] = float(torch.cat(scale).mean()) - 1.0
@@ -2628,6 +2644,40 @@ STREAM_CHUNK = 16_384  # rows a libsvm_text call writes
 TEXT_TREES = 4
 
 
+def sparse_level_time(torch, hs, layout, rel_e, gh_e, amax, n: int, F: int,
+                      B: int, what: str) -> tuple:
+    """The sparse kernel at one level of a fit: against its plain version
+    and float64, and its device time beside the plain version,
+    ``index_add`` over the flattened keys and the bound.  Returns (the
+    times, max |kernel - plain|)."""
+    nnz = layout.nnz_live
+    ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_kernel(
+        layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
+        layout=layout, gh_amax=amax), 20)
+    plain_ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_plain(
+        layout.gkey, rel_e, gh_e, layout.starts, n, F, B), 1, warmup=1)
+    gk = layout.gkey.long()
+    keys = (rel_e.long() * F + gk // layout.nb) * B + gk % layout.nb
+    del gk
+    zeros = torch.zeros(n * F * B, 2, device=gh_e.device)
+    lib_ms, _ = device_ms(
+        torch, lambda: torch.index_add(zeros, 0, keys, gh_e), 3, warmup=1)
+    del keys, zeros
+    oracle = sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B)
+    err, _ = check_sparse_hist(torch, hs, what, layout.gkey, rel_e, gh_e,
+                               layout.starts, n, F, B, oracle)
+    del oracle
+    nbytes = 16 * nnz + 8 * n * F * B
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
+    lv = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=max(byte_s, op_s) * 1e3,
+              bound_by="bytes" if byte_s >= op_s else "operations")
+    print(f"time [{what}, {n} nodes]: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, bound "
+          f"{lv['bound_ms']:.4f} ms ({nbytes} bytes)")
+    return lv, err
+
+
 def streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
                            label) -> dict:
     """The sparse kernel at the streamed fit's shape, on the first tree's
@@ -2648,36 +2698,11 @@ def streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
                            what="streamed node totals (depth 5)")
     max_err, per_level = 0.0, []
     for d, (rel, n) in enumerate(levels):
-        rel_e = rel[rid_l].contiguous()
-        ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_kernel(
-            layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
-            layout=layout, gh_amax=amax), 20)
-        plain_ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_plain(
-            layout.gkey, rel_e, gh_e, layout.starts, n, F, B), 1, warmup=1)
-        gk = layout.gkey.long()
-        keys = (rel_e.long() * F + gk // layout.nb) * B + gk % layout.nb
-        del gk
-        zeros = torch.zeros(n * F * B, 2, device=gh.device)
-        lib_ms, _ = device_ms(
-            torch, lambda: torch.index_add(zeros, 0, keys, gh_e), 3,
-            warmup=1)
-        del keys, zeros
-        oracle = sparse_oracle64(torch, layout, rel_e, gh_e, n, F, B)
-        err, _ = check_sparse_hist(torch, hs, f"streamed depth {d}",
-                                   layout.gkey, rel_e, gh_e, layout.starts,
-                                   n, F, B, oracle)
+        lv, err = sparse_level_time(torch, hs, layout, rel[rid_l].contiguous(),
+                                    gh_e, amax, n, F, B,
+                                    f"streamed sparse histogram, depth {d}")
+        per_level.append(lv)
         max_err = max(max_err, err)
-        del oracle
-        nbytes = 16 * nnz + 8 * n * F * B
-        byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S
-        per_level.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=max(byte_s, op_s) * 1e3,
-                              bound_by="bytes" if byte_s >= op_s
-                              else "operations"))
-        print(f"time [streamed sparse histogram, depth {d}, {n} nodes]: "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, index_add "
-              f"{lib_ms:.3f} ms, bound {per_level[-1]['bound_ms']:.4f} ms "
-              f"({nbytes} bytes)")
     mean = {k: float(np.mean([lv[k] for lv in per_level]))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"hist": {"max_abs_err": max_err, "nnz": nnz,
@@ -4824,6 +4849,772 @@ def segment_sweep(torch, dev) -> None:
         ss.launch_geometry, ss._RUNS_PER_THREAD = picked, runs0
 
 
+# ---- the objectives: softmax and rank:pairwise at full width ---------------
+
+# UCI Covertype (Blackard 1998), the multi-class set of XGBoost's
+# demo/gpu_acceleration/cover_type.py: 581,012 rows x 54 features, 10
+# continuous, 4 wilderness-area and 40 soil-type one-hot columns, 7 classes
+# at the dataset's counts.  Made on the card from a seed: the classes cut
+# from a latent elevation that a continuous column, the wilderness area and
+# the soil type set, at the order of the classes' mean elevations.  Cut:
+# rounds, 20.
+COVER_ROWS, COVER_CONT, COVER_SOILS = 581_012, 10, 40
+COVER_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COVER_ELEVATION_ORDER = (3, 2, 5, 4, 1, 0, 6)   # classes, lowest first
+COVER_WILD_SHARES = (0.449, 0.051, 0.436, 0.064)  # the four areas' rows
+# Microsoft Learning to Rank MSLR-WEB10K Fold1 train (Qin & Liu 2013):
+# 723,412 rows x 136 features, 6,000 queries (mean 120.6 documents, a
+# long tail up to 908), relevance 0-4 at its shares, rows contiguous by
+# qid.  Made on the card from a seed.  Cut: trees, 20.
+MSLR_ROWS, MSLR_FEATURES, MSLR_QUERIES, MSLR_MAX_DOCS = (723_412, 136,
+                                                         6_000, 908)
+MSLR_SHARES = (0.522, 0.321, 0.131, 0.017, 0.009)
+OBJ_KW = dict(num_trees=20, max_depth=6, num_bins=256, learning_rate=0.3)
+OBJ_BINNER_ROWS = 200_000  # the binner's host sample
+OBJ_ROUNDS = (0, 1, 5, 10, 20)
+OBJ_EARLY_STOP = 5
+GH_TOL = 1e-5  # first-round (grad, hess) vs float64, of the largest
+
+
+def covertype_on_card(torch, dev, seed: int = 1998) -> tuple:
+    """(x f32 [rows, 54], label f32 [rows]) on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = COVER_ROWS
+    cont = torch.randn(rows, COVER_CONT, generator=g, device=dev)
+    wild = torch.multinomial(torch.tensor(COVER_WILD_SHARES, device=dev),
+                             rows, replacement=True, generator=g)
+    soil = torch.randint(0, COVER_SOILS, (rows,), generator=g, device=dev)
+    latent = (cont[:, 0] + 0.6 * (wild == 2) - 0.8 * (wild == 3)
+              + 0.5 * torch.sin(soil.float()) + 0.3 * cont[:, 1] * cont[:, 2])
+    order = torch.argsort(latent, stable=True)
+    label = torch.empty(rows, device=dev)
+    e0 = 0
+    for c in COVER_ELEVATION_ORDER:
+        label[order[e0:e0 + COVER_COUNTS[c]]] = c
+        e0 += COVER_COUNTS[c]
+    oh = torch.nn.functional.one_hot
+    x = torch.cat([cont, oh(wild, 4).float(), oh(soil, COVER_SOILS).float()],
+                  dim=1).contiguous()
+    return x, label
+
+
+def mslr_on_card(torch, dev, seed: int = 2013) -> tuple:
+    """(x f32 [rows, 136], relevance f32, qid i32, the group sizes (host))
+    on the card: lognormal query sizes scaled to the rows, the largest at
+    MSLR_MAX_DOCS; relevance from a latent (a few features, a query offset
+    and noise) cut at MSLR_SHARES."""
+    rng = np.random.default_rng(seed)
+    s = rng.lognormal(0.0, 0.75, MSLR_QUERIES)
+    sizes = np.clip(np.round(s * MSLR_ROWS / s.sum()), 1,
+                    MSLR_MAX_DOCS).astype(np.int64)
+    sizes[np.argmax(sizes)] = MSLR_MAX_DOCS
+    while sizes.sum() != MSLR_ROWS:  # spread the rounding over the groups
+        diff = MSLR_ROWS - int(sizes.sum())
+        free = np.flatnonzero((sizes > 1) & (sizes < MSLR_MAX_DOCS))
+        pick = rng.choice(free, min(abs(diff), free.size), replace=False)
+        sizes[pick] += np.sign(diff)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qid = torch.repeat_interleave(
+        torch.arange(MSLR_QUERIES, dtype=torch.int32, device=dev),
+        torch.from_numpy(sizes).to(dev))
+    x = torch.randn(MSLR_ROWS, MSLR_FEATURES, generator=g, device=dev)
+    offset = 0.5 * torch.randn(MSLR_QUERIES, generator=g, device=dev)
+    latent = (x[:, 0] + 0.7 * x[:, 1] * (x[:, 2] > 0) - 0.5 * x[:, 3]
+              + 0.4 * x[:, 4] * x[:, 5] + offset[qid.long()]
+              + 0.3 * torch.randn(MSLR_ROWS, generator=g, device=dev))
+    cuts = torch.quantile(latent, torch.tensor(
+        np.cumsum(MSLR_SHARES)[:-1], dtype=torch.float32, device=dev))
+    rel = torch.bucketize(latent, cuts).to(torch.float32)
+    return x, rel, qid, sizes
+
+
+def softmax_gh64(margin: np.ndarray, label: np.ndarray) -> np.ndarray:
+    """float64 [rows, K, 2]: ``p - onehot`` and ``p(1-p)`` per class."""
+    m = margin.astype(np.float64)
+    p = np.exp(m - m.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    onehot = np.eye(m.shape[1])[label.astype(np.int64)]
+    return np.stack([p - onehot, np.maximum(p * (1 - p), 1e-16)], -1)
+
+
+def group_spans(sizes: np.ndarray):
+    ends = np.cumsum(sizes)
+    return zip(ends - sizes, ends)
+
+
+def ranknet_gh64(margin: np.ndarray, label: np.ndarray,
+                 sizes: np.ndarray) -> np.ndarray:
+    """float64 [rows, 2]: RankNet over every same-query pair of differing
+    relevance, XGBoost's signs (the winner's grad falls, the loser's
+    rises)."""
+    m, y = margin.astype(np.float64), label.astype(np.float64)
+    out = np.zeros((m.size, 2))
+    for a, b in group_spans(sizes):
+        d = m[a:b, None] - m[None, a:b]          # d[i, j] = m_i - m_j
+        win = y[a:b, None] > y[None, a:b]        # i beats j
+        p = np.where(win, 1.0 / (1.0 + np.exp(d)), 0.0)
+        hh = np.where(win, np.maximum(p * (1 - p), 1e-16), 0.0)
+        out[a:b, 0] = -p.sum(1) + p.sum(0)
+        out[a:b, 1] = hh.sum(1) + hh.sum(0)
+    return out
+
+
+def rank_metrics(scores: np.ndarray, label: np.ndarray,
+                 sizes: np.ndarray) -> tuple:
+    """(pairwise accuracy over every same-query pair of differing
+    relevance, mean NDCG@10 over the queries with a relevant document)."""
+    good = total = 0
+    ndcg = []
+    disc = 1.0 / np.log2(np.arange(2, 12))
+    for a, b in group_spans(sizes):
+        s, y = scores[a:b], label[a:b]
+        win = y[:, None] > y[None, :]
+        total += int(win.sum())
+        good += int((win & (s[:, None] > s[None, :])).sum())
+        gain = 2.0 ** y - 1.0
+        ideal = np.sort(gain)[::-1][:10]
+        if ideal[0] > 0:
+            top = gain[np.argsort(-s, kind="stable")][:10]
+            ndcg.append((top * disc[:top.size]).sum()
+                        / (ideal * disc[:ideal.size]).sum())
+    return good / max(total, 1), float(np.mean(ndcg))
+
+
+def objective_tree_inputs(torch, model, forest, bins, label, qid=None):
+    """``tree_inputs`` for the softmax and pairwise drivers: tree by tree,
+    the (grad, hess) the fit gave its tree builder (softmax: round r's
+    class k tree from the round's ``softmax``, ``p - onehot`` and
+    ``p(1-p)``; rank: the pairwise scan over the margins so far), each
+    row's node at every depth and its leaf, routed through the fitted
+    forest, and no feature masks (the fits do not sample).  The margins
+    add up as the drivers add them, so the inputs are the fit's own, bit
+    for bit."""
+    rows, depth = label.shape[0], model.max_depth
+
+    def route(t):
+        feat, thr = forest["feature"][t], forest["threshold"][t]
+        node = torch.zeros(rows, dtype=torch.int64, device=label.device)
+        levels = []
+        for d in range(depth):
+            levels.append(((node - (2 ** d - 1)).to(torch.int32)
+                           .contiguous(), 2 ** d))
+            b = torch.gather(bins, 1, feat[node].long()[:, None])[:, 0]
+            node = 2 * node + 1 + (b.to(torch.int32) > thr[node]).long()
+        return levels, node - (2 ** depth - 1)
+
+    ones = torch.ones_like(label)
+    masks = [None] * depth
+    if model.objective == "softmax":
+        K = model.num_class
+        margin = forest["base"].expand(rows, K).clone()
+        onehot = torch.nn.functional.one_hot(label.long(), K).float()
+        for r in range(model.num_trees):
+            p = torch.softmax(margin, dim=1)
+            for k in range(K):
+                g = p[:, k] - onehot[:, k]
+                h = torch.clamp(p[:, k] * (1.0 - p[:, k]), min=1e-16)
+                gh = torch.stack([g * ones, h * ones], dim=-1).contiguous()
+                levels, leaf_rel = route(r * K + k)
+                yield gh, levels, leaf_rel.to(torch.int32).contiguous(), masks
+                margin[:, k] += forest["leaf"][r * K + k][leaf_rel]
+        return
+    grad_hess, _ = model._rank_fns(qid, ones)
+    margin = forest["base"].expand(rows).clone()
+    for t in range(model.num_trees):
+        g, h = grad_hess(margin, label)
+        gh = torch.stack([g * ones, h * ones], dim=-1).contiguous()
+        levels, leaf_rel = route(t)
+        yield gh, levels, leaf_rel.to(torch.int32).contiguous(), masks
+        margin = margin + forest["leaf"][t][leaf_rel]
+
+
+def forest_leaves64(forest: dict, bins: np.ndarray, depth: int) -> np.ndarray:
+    """float64 [rows, trees]: each row's leaf value in every tree, routed
+    in numpy."""
+    feat = forest["feature"].cpu().numpy()
+    thr = forest["threshold"].cpu().numpy()
+    leaf = forest["leaf"].cpu().numpy().astype(np.float64)
+    rows = np.arange(bins.shape[0])
+    out = np.empty((bins.shape[0], feat.shape[0]))
+    for t in range(feat.shape[0]):
+        node = np.zeros(bins.shape[0], np.int64)
+        for _ in range(depth):
+            node = 2 * node + 1 + (bins[rows, feat[t, node]] > thr[t, node])
+        out[:, t] = leaf[t, node - (2 ** depth - 1)]
+    return out
+
+
+def round_margins(torch, model, forest, bins, rounds):
+    """Yield (round, margins after it) for the rounds asked, adding the
+    trees' margins on the card as ``margins``/``margins_multi`` do."""
+    K = max(model.num_class, 1)
+    rows = bins.shape[0]
+    m = (forest["base"].expand(rows, K) if K > 1
+         else forest["base"].expand(rows)).clone()
+    if 0 in rounds:
+        yield 0, m
+    for r in range(model.num_trees):
+        for k in range(K):
+            t = r * K + k
+            tm = model._tree_margins(forest["feature"][t],
+                                     forest["threshold"][t],
+                                     forest["default_right"][t],
+                                     forest["leaf"][t], bins)
+            if K > 1:
+                m[:, k] += tm
+            else:
+                m += tm
+        if r + 1 in rounds:
+            yield r + 1, m
+
+
+def objective_fit(torch, hg, ss_mod, model, bins, label, qid, what: str,
+                  trees: int) -> tuple:
+    """Two timed fits of the main path (the kernels are built and warm by
+    now) with the launch counts set to 0 just before each and read just
+    after; the forests bitwise equal.  Returns (forest, [(seconds,
+    histogram launches, segment-sum launches, peak bytes)] of the
+    fits)."""
+    kw = {} if qid is None else {"qid": qid}
+    warm, out = None, []
+    for _ in range(2):
+        hg.histogram_gh_kernel.launches = 0
+        ss_mod.segment_sum_kernel.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        forest = model.fit(bins, label, **kw)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        out.append((secs, hg.histogram_gh_kernel.launches,
+                    ss_mod.segment_sum_kernel.launches,
+                    torch.cuda.max_memory_allocated()))
+        warm = forest if warm is None else warm
+        check(all(torch.equal(forest[k], warm[k]) for k in warm),
+              f"{what}: two fits gave different forests")
+    rows = bins.shape[0]
+    for secs, h_l, s_l, peak in out:
+        print(f"{what} fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
+              f"row_trees_s ({trees} trees); launches: histogram_gh {h_l}, "
+              f"segment_sum {s_l}; peak device memory {peak / 2**30:.2f} "
+              "GiB")
+    return forest, out
+
+
+def objective_kernel_levels(torch, hg, ss_mod, model, forest, bins, label,
+                            qid, what: str) -> dict:
+    """The first tree's own levels: the dense kernel's time at each depth
+    beside the plain version, ``index_add`` and the bound, its error
+    against float64 (means over depths 0-5), and the leaf sums on the
+    segment-sum kernel."""
+    gh, levels, leaf_rel, _ = next(objective_tree_inputs(
+        torch, model, forest, bins, label, qid))
+    B = model.num_bins
+    leaf = check_leaf_sums(torch, ss_mod, gh, leaf_rel, 2 ** model.max_depth,
+                           what=f"{what} leaf sums")
+    max_err, per_level = 0.0, []
+    for d in (0, 3, 5):
+        rel, n = levels[d]
+        max_err = max(max_err, check_hist(torch, hg, f"{what} depth {d}",
+                                          bins, rel, gh, n, B))
+    for d, (rel, n) in enumerate(levels):
+        lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
+                                                B)
+        per_level.append(lv)
+        print(f"time [{what} histogram, depth {d}, n={n}]: kernel "
+              f"{lv['ms']:.3f} ms, plain {lv['plain_ms']:.1f} ms, index_add "
+              f"{lv['library_ms']:.3f} ms, bound {lv['bound_ms']:.4f} ms "
+              f"({nbytes} bytes, {lv['bound_by']}); |kernel - float64| "
+              f"{err:.3e} of the largest bin; queue covered: {cov}")
+        check(err <= HIST_TOL, f"{what} depth {d}: {err} from float64")
+    mean = {k: float(np.mean([lv[k] for lv in per_level]))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"max_abs_err": max_err, "bound_by": per_level[0]["bound_by"],
+            **mean, "leaf": leaf}
+
+
+def objective_audit(torch, hg, model, forest, bins, label, qid,
+                    what: str) -> None:
+    a = split_audit(torch, hg, model, forest, bins, label, "pallas",
+                    inputs=objective_tree_inputs(torch, model, forest, bins,
+                                                 label, qid))
+    trees = forest["feature"].shape[0]
+    # a rare class's leaves run far past 1 (-G/(H + lambda) over rows with
+    # p(1-p) near 0), so the leaves are held relative to the largest
+    leaf_tol = LEAF_TOL * max(1.0, a["leaf_max"])
+    print(f"{what} audit [every level of {trees} trees]: histogram vs "
+          f"float64 {a['hist_err']:.3e} of the largest bin; {a['off_best']} "
+          f"of {a['nodes']} splits off the float64 best, {a['beyond']} "
+          f"beyond rounding (worst regret/noise {a['worst']:.2f}); replay "
+          f"mismatches {a['replay']}; |leaf - float64 leaf| "
+          f"{a['leaf_err']:.3e} (largest leaf {a['leaf_max']:.3f}, tol "
+          f"{leaf_tol:.3e})")
+    check(a["hist_err"] <= HIST_TOL and a["beyond"] == 0
+          and a["replay"] == 0 and a["leaf_err"] <= leaf_tol,
+          f"{what} audit: {a}")
+
+
+def profile_one_round(torch, model_cls, kw, bins, label, qid, what: str):
+    """One round (softmax: K trees) under the profiler: wall, device busy
+    and the kernels; returns the wall in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    one = model_cls(**{**kw, "num_trees": 1})
+    fit_kw = {} if qid is None else {"qid": qid}
+    one.fit(bins, label, **fit_kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        one.fit(bins, label, **fit_kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    dev_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"profile [{what}, one round under the profiler]: wall "
+          f"{wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%), {len(events)} kernel kinds")
+    if not events:
+        print("  device time: not measured (no CUDA events in the trace)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:6]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:<6} "
+              f"{e.key[:90]}")
+    return wall_ms
+
+
+def phase_objectives(torch, ss_mod, dev) -> dict:
+    """The softmax and rank:pairwise GBDT at Covertype and MSLR-WEB10K
+    width on the dense kernel: exact launches, two fits bitwise, the first
+    round's (grad, hess) against float64, an audit of every level of every
+    tree, predictions against a float64 routing oracle, baselines, times,
+    a profile of one round, and Covertype's early stopping at the round a
+    float64 replay picks."""
+    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    B, depth, rounds = OBJ_KW["num_bins"], OBJ_KW["max_depth"], \
+        OBJ_KW["num_trees"]
+    out = {}
+
+    # ---- Covertype, softmax
+    t0 = time.monotonic()
+    x, label = covertype_on_card(torch, dev)
+    torch.cuda.synchronize()
+    t_gen = time.monotonic() - t0
+    counts = torch.bincount(label.long(), minlength=7).tolist()
+    check(tuple(counts) == COVER_COUNTS, f"Covertype counts {counts}")
+    check(bool((x[:, 10:14].sum(1) == 1).all()
+               and (x[:, 14:].sum(1) == 1).all()), "one-hot columns")
+    binner = QuantileBinner(num_bins=B, device=dev).fit(
+        x[:OBJ_BINNER_ROWS].cpu().numpy())
+    bins = binner.transform(x)
+    del x
+    print(f"objectives data [Covertype]: {COVER_ROWS} x {bins.shape[1]} "
+          f"(10 continuous, 4 + 40 one-hot), classes {counts}; generated on "
+          f"the card in {t_gen:.2f} s; codes a one-hot column takes: "
+          f"{sorted({len(torch.unique(bins[:, f])) for f in range(10, 54)})}")
+    K = 7
+    kw = dict(num_features=54, objective="softmax", num_class=K, device=dev,
+              **OBJ_KW)
+    model = GBDT(**kw)
+    forest, fits = objective_fit(torch, hg, ss_mod, model, bins, label, None,
+                                 "Covertype softmax", rounds * K)
+    for _, h_l, s_l, _ in fits:
+        check(h_l == rounds * K * depth and s_l == rounds * K,
+              f"Covertype: {h_l} histogram and {s_l} segment-sum launches "
+              f"(want {rounds * K * depth} and {rounds * K})")
+    # the first round's (grad, hess) against float64
+    gh0 = next(objective_tree_inputs(torch, model, forest, bins, label))[0]
+    p0 = torch.softmax(forest["base"].expand(COVER_ROWS, K), dim=1)
+    onehot = torch.nn.functional.one_hot(label.long(), K).float()
+    got = torch.stack([p0 - onehot, torch.clamp(p0 * (1 - p0), min=1e-16)],
+                      -1).cpu().numpy()
+    want = softmax_gh64(forest["base"].expand(COVER_ROWS, K).cpu().numpy(),
+                        label.cpu().numpy())
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    check(torch.equal(gh0, torch.stack([p0[:, 0] - onehot[:, 0], torch.clamp(
+        p0[:, 0] * (1 - p0[:, 0]), min=1e-16)], -1)),
+          "Covertype: the replayed class-0 (grad, hess) is not the round's")
+    print(f"Covertype first round (grad, hess) vs float64: {err:.3e} of the "
+          f"largest (tol {GH_TOL})")
+    check(err <= GH_TOL, f"Covertype first-round gh error {err}")
+    out["cover"] = objective_kernel_levels(torch, hg, ss_mod, model, forest,
+                                           bins, label, None, "Covertype")
+    out["cover"].update(launches=fits[0][1], seg=fits[0][2], fit_s=fits[0][0])
+    objective_audit(torch, hg, model, forest, bins, label, None,
+                    "Covertype softmax")
+    # predictions on 100k rows against float64 routing
+    pb = bins[:PREDICT_ROWS]
+    prob = model.predict(forest, pb)
+    m = model.margins_multi(forest, pb).cpu().numpy().astype(np.float64)
+    leaves = forest_leaves64(forest, pb.cpu().numpy(), depth)
+    base64 = forest["base"].cpu().numpy().astype(np.float64)[None, :]
+    m64 = base64 + leaves.reshape(PREDICT_ROWS, rounds, K).sum(1)
+    # the rare classes' leaves run into the hundreds and cancel, so a
+    # margin is held relative to the size of its terms (|base| + the sum
+    # of |leaf| over its trees: f32 adds round at ~6e-8 of that each), and
+    # the probabilities to a float64 softmax of the card's margins
+    terms = np.abs(base64) + np.abs(leaves.reshape(PREDICT_ROWS, rounds,
+                                                   K)).sum(1)
+    err_m = float((np.abs(m - m64) / np.maximum(1.0, terms)).max())
+    p64 = np.exp(m - m.max(1, keepdims=True))
+    p64 /= p64.sum(1, keepdims=True)
+    err_p = float(np.abs(prob.cpu().numpy() - p64).max())
+    print(f"Covertype predict: {PREDICT_ROWS} rows, max |margin - float64 "
+          f"routing| / max(1, |base| + sum |leaf|) {err_m:.3e} (largest "
+          f"|margin| {np.abs(m64).max():.1f}, largest term sum "
+          f"{terms.max():.1f}), max |p - float64 softmax of the margins| "
+          f"{err_p:.3e}")
+    check(err_p <= 1e-5 and err_m <= 1e-5, "Covertype predictions")
+    base = []
+    y = label.long()
+    for r, mr in round_margins(torch, model, forest, bins, OBJ_ROUNDS):
+        md = mr.double()
+        logp = md - torch.logsumexp(md, dim=1, keepdim=True)
+        base.append((r, float(-logp.gather(1, y[:, None]).mean()),
+                     float((mr.argmax(1) == y).float().mean())))
+    print("Covertype train mlogloss / accuracy after "
+          + ", ".join(f"{r} rounds {l:.6f} / {a:.4f}" for r, l, a in base))
+    # baselines, no limit: the rare classes' large leaves overshoot in
+    # early rounds, so the loss need not fall every round
+    check(base[-1][2] > base[0][2], "Covertype accuracy did not rise")
+    profile_one_round(torch, GBDT, kw, bins, label, None, "Covertype softmax")
+    # early stopping on a held-out fifth
+    cut = COVER_ROWS * 4 // 5
+    es = GBDT(**kw).fit(bins[:cut], label[:cut],
+                        eval_set=(bins[cut:], label[cut:]),
+                        early_stopping_rounds=OBJ_EARLY_STOP)
+    full = model.fit(bins[:cut], label[:cut])
+    used = int(es["trees_used"])
+    check(all(torch.equal(es[k][:used], full[k][:used])
+              for k in ("feature", "threshold", "leaf")),
+          "the early-stopped forest's trees are not the full fit's")
+    leaves = forest_leaves64(full, bins[cut:].cpu().numpy(), depth)
+    ev_y = label[cut:].long().cpu().numpy()
+    losses = []
+    m64 = np.broadcast_to(full["base"].cpu().numpy().astype(np.float64),
+                          (ev_y.size, K)).copy()
+    for r in range(rounds):
+        m64 += leaves[:, r * K:(r + 1) * K]
+        z = m64 - m64.max(1, keepdims=True)
+        logp = z - np.log(np.exp(z).sum(1, keepdims=True))
+        losses.append(float(-logp[np.arange(ev_y.size), ev_y].mean()))
+    ran = min(rounds, used // K + OBJ_EARLY_STOP)
+    pick = 1 + int(np.argmin(losses[:ran]))
+    print(f"Covertype early stopping (eval {COVER_ROWS - cut} rows, "
+          f"{OBJ_EARLY_STOP} rounds): trees_used {used} ({used // K} rounds); "
+          f"the float64 held-out mlogloss is least after round {pick} of the "
+          f"{ran} run ({losses[pick - 1]:.6f}; last {losses[ran - 1]:.6f})")
+    check(used == pick * K, f"trees_used {used}, float64 picks round {pick}")
+    del bins, label, es, full
+
+    # ---- MSLR-WEB10K, rank:pairwise
+    t0 = time.monotonic()
+    x, rel, qid, sizes = mslr_on_card(torch, dev)
+    torch.cuda.synchronize()
+    t_gen = time.monotonic() - t0
+    shares = (torch.bincount(rel.long(), minlength=5).double()
+              / MSLR_ROWS).tolist()
+    binner = QuantileBinner(num_bins=B, device=dev).fit(
+        x[:OBJ_BINNER_ROWS].cpu().numpy())
+    bins = binner.transform(x)
+    del x
+    print(f"objectives data [MSLR-WEB10K]: {MSLR_ROWS} x {MSLR_FEATURES}, "
+          f"{MSLR_QUERIES} queries (documents: mean {sizes.mean():.1f}, "
+          f"median {int(np.median(sizes))}, max {int(sizes.max())}), "
+          f"relevance shares {[round(s, 4) for s in shares]}; generated on "
+          f"the card in {t_gen:.2f} s")
+    kw = dict(num_features=MSLR_FEATURES, objective="rank:pairwise",
+              device=dev, **OBJ_KW)
+    model = GBDT(**kw)
+    forest, fits = objective_fit(torch, hg, ss_mod, model, bins, rel, qid,
+                                 "MSLR rank:pairwise", rounds)
+    for _, h_l, s_l, _ in fits:
+        check(h_l == rounds * depth and s_l == rounds,
+              f"MSLR: {h_l} histogram and {s_l} segment-sum launches (want "
+              f"{rounds * depth} and {rounds})")
+    ones = torch.ones_like(rel)
+    grad_hess, _ = model._rank_fns(qid, ones)
+    host_rel = rel.cpu().numpy()
+    margin = forest["base"].expand(MSLR_ROWS).clone()
+    for r in (0, 1):  # the first round's, and the second's off its margins
+        g, h = grad_hess(margin, rel)
+        want = ranknet_gh64(margin.cpu().numpy(), host_rel, sizes)
+        err = float(np.abs(torch.stack([g, h], -1).cpu().numpy() - want).max()
+                    / np.abs(want).max())
+        print(f"MSLR round {r} (grad, hess) vs float64 RankNet: {err:.3e} of "
+              f"the largest (tol {GH_TOL})")
+        check(err <= GH_TOL, f"MSLR round {r} gh error {err}")
+        margin = margin + model._tree_margins(
+            forest["feature"][0], forest["threshold"][0],
+            forest["default_right"][0], forest["leaf"][0], bins)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    grad_hess(margin, rel)
+    torch.cuda.synchronize()
+    scan_ms = (time.monotonic() - t0) * 1e3
+    out["mslr"] = objective_kernel_levels(torch, hg, ss_mod, model, forest,
+                                          bins, rel, qid, "MSLR")
+    out["mslr"].update(launches=fits[0][1], seg=fits[0][2], fit_s=fits[0][0])
+    objective_audit(torch, hg, model, forest, bins, rel, qid,
+                    "MSLR rank:pairwise")
+    pb = bins[:PREDICT_ROWS]
+    m = model.margins(forest, pb).cpu().numpy().astype(np.float64)
+    leaves = forest_leaves64(forest, pb.cpu().numpy(), depth)
+    m64 = float(forest["base"]) + leaves.sum(1)
+    terms = abs(float(forest["base"])) + np.abs(leaves).sum(1)
+    err_m = float((np.abs(m - m64) / np.maximum(1.0, terms)).max())
+    print(f"MSLR predict: {PREDICT_ROWS} rows, max |score - float64 "
+          f"routing| / max(1, |base| + sum |leaf|) {err_m:.3e} (largest "
+          f"|score| {np.abs(m64).max():.2f})")
+    check(err_m <= 1e-5, "MSLR predictions")
+    base = []
+    for r, mr in round_margins(torch, model, forest, bins, OBJ_ROUNDS):
+        base.append((r, *rank_metrics(mr.cpu().numpy(), host_rel, sizes)))
+    print("MSLR train pairwise accuracy / NDCG@10 after " + ", ".join(
+        f"{r} trees {a:.4f} / {n:.4f}" for r, a, n in base))
+    check(base[-1][1] > base[1][1], "MSLR pairwise accuracy did not rise "
+          "past the first tree's")
+    wall = profile_one_round(torch, GBDT, kw, bins, rel, qid,
+                             "MSLR rank:pairwise")
+    depth_scan = int(sizes.max())
+    print(f"MSLR pairwise scan: {depth_scan} shifts a round, "
+          f"{scan_ms:.1f} ms (host clock), {100 * scan_ms / wall:.1f}% of a "
+          f"one-tree round's {wall:.1f} ms")
+    out["mslr"]["scan_ms"], out["mslr"]["round_ms"] = scan_ms, wall
+    return out
+
+
+# ---- the examples: the port's programs on the card ---------------------------
+
+EX_EPOCHS = 2          # train_linear's and train_ffm's (cut from 3 and 30)
+EX_DIST_BATCH = 4096   # distributed_train's rows a rank a global batch
+EX_DIST_NNZ_MAX = EX_DIST_BATCH * (NNZ_PER_ROW + 1)  # no batch closes early
+EX_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def first_calls(mod, name: str, keep: int):
+    """Keep the arguments of the first ``keep`` calls of ``mod.name`` (a
+    kernel's wrapper) while the block runs.  The wrapper counts its launches
+    on the object the module's name holds, so the spy carries the count
+    and hands it back when the block ends."""
+    orig = getattr(mod, name)
+    calls = []
+
+    def spy(*args, **kwargs):
+        if len(calls) < keep:
+            calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    spy.launches = orig.launches
+    setattr(mod, name, spy)
+    try:
+        yield calls
+    finally:
+        orig.launches = spy.launches
+        setattr(mod, name, orig)
+
+
+def run_example(torch, main, argv: list, what: str) -> tuple:
+    """An example's ``main(argv)`` in this process: its exit code must be 0
+    and its output hold a ``final`` line.  Returns (stdout, seconds)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    text = out.getvalue()
+    final = [ln for ln in text.splitlines() if ln.startswith("final")]
+    print(f"example [{what}]: exit {rc}, {secs:.2f} s; "
+          + (final[-1] if final else "no final line"))
+    check(rc == 0 and final, f"example {what}: exit {rc}\n{text[-2000:]}")
+    return text, secs
+
+
+def phase_examples(torch, ss_mod, dev, build_dir: Path, train_uri: str,
+                   ffm_uri: str, bosch_uri: str, bosch_rule) -> dict:
+    """The port's example programs on the card: train_linear on the
+    Criteo-width training file, train_ffm on the libffm file, gbdt_train
+    --native-sparse on the Bosch-width rows, --rank and --missing on their
+    own synthetic data under ``build_dir``, each in process with the
+    launch counts set to 0 just before and read just after; and
+    distributed_train as a 2-rank ``dmlc_submit`` job on the one card
+    (gloo).  Each exits 0 and prints its final line; each launches its
+    kernels (a segment sum at least every step, a histogram every level of
+    every tree), and each kernel is timed at the first launch's inputs
+    beside its plain version."""
+    from dmlc_core_tpu_torch.examples import (gbdt_train, train_ffm,
+                                              train_linear)
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    out, runs = {}, {}
+
+    def counts():
+        return (ss_mod.segment_sum_kernel.launches,
+                hg.histogram_gh_kernel.launches,
+                hs.histogram_gh_sparse_kernel.launches)
+
+    def reset():
+        ss_mod.segment_sum_kernel.launches = 0
+        hg.histogram_gh_kernel.launches = 0
+        hs.histogram_gh_sparse_kernel.launches = 0
+
+    # the linear model: 64 steps an epoch of 8192 rows, one launch a step
+    reset()
+    with first_calls(ss_mod, "segment_sum_kernel", 1) as seg:
+        text, secs = run_example(
+            torch, train_linear.main,
+            ["--data", train_uri, "--epochs", str(EX_EPOCHS)],
+            "train_linear")
+    steps = sum(int(n) for n in re.findall(r"\((\d+) batches", text))
+    runs["train_linear"] = dict(secs=secs, steps=steps, launches=counts())
+    check(steps == EX_EPOCHS * TRAIN_ROWS // TRAIN_BATCH
+          and counts()[0] >= steps, f"train_linear: {counts()} launches in "
+          f"{steps} steps")
+    (c, rid, R), _ = seg[0]
+    out["linear"] = segment_timing(torch, ss_mod, c.detach(), rid, R,
+                                   "train_linear step")
+    del seg
+
+    # the FFM: 64 steps an epoch of 4096 rows, one launch a step
+    reset()
+    with first_calls(ss_mod, "segment_sum_kernel", 1) as seg:
+        text, secs = run_example(
+            torch, train_ffm.main,
+            ["--data", ffm_uri, "--epochs", str(EX_EPOCHS)], "train_ffm")
+    steps = EX_EPOCHS * -(-FFM_ROWS // 4096)
+    runs["train_ffm"] = dict(secs=secs, steps=steps, launches=counts())
+    check(counts()[0] >= steps, f"train_ffm: {counts()} launches in {steps}"
+          " steps")
+    (c, rid, R), _ = seg[0]
+    out["ffm"] = segment_timing(torch, ss_mod, c.detach(), rid, R,
+                                "train_ffm step")
+    del seg
+
+    # the GBDT paths: 10 trees of depth 5, one histogram a level
+    trees, depth = 10, 5
+    rank_uri = build_dir / "gbdt_rank_example.libsvm"
+    miss_uri = build_dir / "gbdt_example.libsvm"
+    t0 = time.monotonic()
+    gbdt_train.synth_rank_dataset(str(rank_uri))
+    gbdt_train.synth_dataset(str(miss_uri))
+    # the Bosch-width rows labelled by the planted rule's sign: the file's
+    # labels are Bernoulli draws from it, which no model gets past the
+    # example's 0.8 accuracy gate
+    blob = np.fromfile(bosch_uri, np.uint8)
+    starts = np.r_[0, np.flatnonzero(blob == ord("\n"))[:-1] + 1]
+    check(starts.size == bosch_rule.size, "Bosch rows")
+    blob[starts] = np.where(bosch_rule, ord("1"), ord("0"))
+    bosch_uri = str(build_dir / f"bosch_{STREAM_ROWS}_rule.libsvm")
+    blob.tofile(bosch_uri)
+    del blob, starts
+    print(f"examples data: the gbdt --rank and --missing synthetic files "
+          f"and the Bosch rows under the rule's labels ({bosch_rule.mean():.4f}"
+          f" positive) under {build_dir.name}/ in "
+          f"{time.monotonic() - t0:.1f} s (host)")
+    gbdt_seg = 0
+    for name, argv, mod, kname in (
+            ("gbdt_train --native-sparse",
+             ["--native-sparse", "--dim", str(BOSCH_FEATURES), "--data",
+              bosch_uri], hs, "histogram_gh_sparse_kernel"),
+            ("gbdt_train --rank", ["--rank", "--data", str(rank_uri)], hs,
+             "histogram_gh_sparse_kernel"),
+            ("gbdt_train --missing", ["--missing", "--data", str(miss_uri)],
+             hg, "histogram_gh_kernel")):
+        reset()
+        with first_calls(mod, kname, depth) as hist, \
+                first_calls(ss_mod, "segment_sum_kernel", 1) as seg:
+            text, secs = run_example(torch, gbdt_train.main, argv, name)
+        seg_l, dense_l, sparse_l = counts()
+        hist_l = dense_l if mod is hg else sparse_l
+        runs[name] = dict(secs=secs, launches=counts())
+        check(hist_l == trees * depth and (dense_l if mod is hs else
+                                           sparse_l) == 0,
+              f"{name}: launches (segment, dense, sparse) {counts()}, want "
+              f"{trees * depth} histograms")
+        gbdt_seg += seg_l
+        per_level, max_err = [], 0.0
+        for d, (args, kw) in enumerate(hist):
+            if mod is hs:
+                gkey, rel_e, gh_e, starts, n, F, B = args
+                lv, err = sparse_level_time(
+                    torch, hs, kw["layout"], rel_e, gh_e, kw["gh_amax"], n, F,
+                    B, f"{name} sparse histogram, depth {d}")
+            else:
+                bins, rel, gh, n, B = args
+                lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel,
+                                                        gh, n, B)
+                print(f"time [{name} histogram, depth {d}, n={n}]: kernel "
+                      f"{lv['ms']:.3f} ms, plain {lv['plain_ms']:.1f} ms, "
+                      f"index_add {lv['library_ms']:.3f} ms, bound "
+                      f"{lv['bound_ms']:.4f} ms ({nbytes} bytes); |kernel - "
+                      f"float64| {err:.3e}; queue covered: {cov}")
+                check(err <= HIST_TOL, f"{name} depth {d}: {err}")
+            per_level.append(lv)
+            max_err = max(max_err, err)
+        out[name] = {"max_abs_err": max_err, "launches": hist_l,
+                     "bound_by": per_level[0]["bound_by"],
+                     "shape": f"{tuple(args[0].shape)} "
+                              f"{'entries' if mod is hs else 'codes'}",
+                     **{k: float(np.mean([lv[k] for lv in per_level]))
+                        for k in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms")}}
+        if name == "gbdt_train --native-sparse":
+            (c, rid, R), _ = seg[0]
+            out["gbdt_seg"] = check_leaf_sums(
+                torch, ss_mod, c, rid, R, what=f"{name} node totals")
+        del hist, seg
+    out["gbdt_seg"]["launches"] = gbdt_seg
+
+    # distributed_train: a 2-rank job under the port's dmlc_submit, both
+    # ranks on the one card (gloo: NCCL refuses two ranks on one device)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.dmlc_submit",
+         "--cluster=local", "-n", "2", "--", sys.executable, "-m",
+         "dmlc_core_tpu_torch.examples.distributed_train", "--data",
+         train_uri, "--batch-size", str(EX_DIST_BATCH), "--nnz-max",
+         str(EX_DIST_NNZ_MAX), "--device", "cuda"],
+        cwd=REPO, capture_output=True, text=True, timeout=EX_TIMEOUT_S)
+    secs = time.monotonic() - t0
+    ranks = re.findall(r"^rank (\d): (\d+) steps, segment_sum launches "
+                       r"(\d+)$", proc.stdout, re.M)
+    final = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("final")]
+    print(f"example [distributed_train, 2 ranks under dmlc_submit]: exit "
+          f"{proc.returncode}, {secs:.2f} s (job wall); "
+          + (final[-1] if final else "no final line") + "; "
+          + "; ".join(f"rank {r}: {s} steps, {n} segment_sum launches"
+                      for r, s, n in ranks))
+    check(proc.returncode == 0 and final and len(ranks) == 2
+          and all(int(n) >= int(s) > 0 for _, s, n in ranks),
+          f"distributed_train: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    runs["distributed_train"] = dict(secs=secs, steps=sum(
+        int(s) for _, s, _ in ranks), launches=(sum(
+            int(n) for _, _, n in ranks), 0, 0))
+    # a rank's step: its part's rows in nnz_max lanes
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    it = DeviceStagingIter(train_uri, batch_size=EX_DIST_BATCH,
+                           nnz_bucket=EX_DIST_NNZ_MAX, part=0, num_parts=2,
+                           device=dev)
+    b = next(iter(it))
+    it.close()
+    w = torch.randn(NUM_FEATURES, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    out["dist"] = segment_timing(
+        torch, ss_mod, w[b.index.long()] * b.value, b.row_ids(),
+        b.batch_size, "distributed_train rank step")
+    print("examples: " + "; ".join(
+        f"{k} {v['secs']:.2f} s, launches (segment_sum, histogram_gh, "
+        f"histogram_gh_sparse) {v['launches']}" for k, v in runs.items()))
+    out["runs"] = runs
+    return out
+
+
 # ---- --label-study: where a kernel fit and an index_add fit part ------------
 
 STUDY_SEEDS = (2014, 2015, 2016)
@@ -4841,9 +5632,11 @@ def split_gains(torch, h, lam: float, min_child_weight: float):
                        g, -torch.inf)
 
 
-def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
-    """Every level of every tree of a logistic fit against float64, on the
-    fit's own inputs: the route's f32 histogram against a float64 one
+def split_audit(torch, hg, model, forest, bins, label, hist_force,
+                inputs=None) -> dict:
+    """Every level of every tree of a fit against float64, on the fit's
+    own inputs (``inputs``: ``tree_inputs``' tuples, tree by tree; by
+    default a logistic fit's, else ``objective_tree_inputs``'): the route's f32 histogram against a float64 one
     (``hist_err``, relative to the level's largest bin); each node's split
     against the float64 best split.  A node's rounding noise is the largest
     |f32 gain - float64 gain| over its candidates; a split is within
@@ -4859,11 +5652,12 @@ def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
     lam, mcw, lr = model.lambda_, model.min_child_weight, model.learning_rate
     dev = bins.device
     fidx = torch.arange(F, device=dev)
-    out = dict(hist_err=0.0, leaf_err=0.0, nodes=0, off_best=0, beyond=0,
-               worst=0.0, replay=0)
+    out = dict(hist_err=0.0, leaf_err=0.0, leaf_max=0.0, nodes=0,
+               off_best=0, beyond=0, worst=0.0, replay=0)
     scale = []
-    for t, (gh, levels, leaf_rel, masks) in enumerate(
-            tree_inputs(torch, model, forest, bins, label)):
+    if inputs is None:
+        inputs = tree_inputs(torch, model, forest, bins, label)
+    for t, (gh, levels, leaf_rel, masks) in enumerate(inputs):
         gh64 = gh.double()
         for (rel, n), mask in zip(levels, masks):
             h32 = hg.histogram_gh(bins, rel, gh, n, B, force=hist_force)
@@ -4909,6 +5703,7 @@ def split_audit(torch, hg, model, forest, bins, label, hist_force) -> dict:
         leaf = forest["leaf"][t].double()
         out["leaf_err"] = max(out["leaf_err"],
                               float((leaf - leaf64).abs().max()))
+        out["leaf_max"] = max(out["leaf_max"], float(leaf64.abs().max()))
         big = leaf64.abs() > 1e-3
         scale.append((leaf[big] / leaf64[big]).cpu())
     out["leaf_scale"] = float(torch.cat(scale).mean()) - 1.0
@@ -5001,28 +5796,51 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     build_dir = REPO / "build" / "chip_smoke"
     params_a, params_b = fm_params(1), fm_params(2)
-    kern = phase_kernel(torch, ss_mod, params_a, dev)
-    served = phase_serving(torch, ss_mod, params_a, params_b, "cuda")
-    phase_profile(torch, params_a)
-    train = phase_training(torch, ss_mod, dev, build_dir)
-    ffm = phase_ffm(torch, ss_mod, dev, build_dir)
-    ffm_served = phase_ffm_serving(torch, ss_mod, ffm["model"], dev)
-    gbdt = phase_gbdt(torch, ss_mod, dev)
-    sparse = phase_gbdt_sparse(torch, ss_mod, dev, build_dir)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        result = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        return result
+
+    kern = timed("kernel", phase_kernel, torch, ss_mod, params_a, dev)
+    served = timed("serving", phase_serving, torch, ss_mod, params_a,
+                   params_b, "cuda")
+    timed("profile", phase_profile, torch, params_a)
+    train = timed("training", phase_training, torch, ss_mod, dev, build_dir)
+    ffm = timed("ffm", phase_ffm, torch, ss_mod, dev, build_dir)
+    ffm_served = timed("ffm serving", phase_ffm_serving, torch, ss_mod,
+                       ffm["model"], dev)
+    gbdt = timed("gbdt", phase_gbdt, torch, ss_mod, dev)
+    sparse = timed("gbdt sparse", phase_gbdt_sparse, torch, ss_mod, dev,
+                   build_dir)
     sparse_data = sparse.pop("data")
-    streamed = phase_streamed(torch, ss_mod, dev, build_dir, sparse_data,
-                              sparse["binner"])
-    served_fit = phase_dataservice(torch, ss_mod, dev, build_dir, streamed)
+    streamed = timed("streamed", phase_streamed, torch, ss_mod, dev,
+                     build_dir, sparse_data, sparse["binner"])
+    # the planted rule's sign on the streamed rows: the labels the gbdt
+    # example learns (the Bernoulli labels sit under its 0.8 accuracy gate)
+    bosch_rule = sparse_data["rule"][:STREAM_ROWS].cpu().numpy()
+    served_fit = timed("dataservice", phase_dataservice, torch, ss_mod, dev,
+                       build_dir, streamed)
     for k in ("ent", "layout", "label"):
         streamed.pop(k)
-    phase_records(torch, dev, build_dir)
-    phase_checkpoints(torch, dev, build_dir, train["model"], ffm["model"],
-                      sparse["forest"])
-    obs = phase_observability(torch, ss_mod, dev, build_dir, train["uri"],
-                              train.pop("want"), params_a)
-    job = phase_job(torch, dev, build_dir, train["uri"])
-    mesh = phase_mesh(torch, ss_mod, dev, build_dir, gbdt, sparse,
-                      sparse_data, streamed, train, served_fit)
+    timed("records", phase_records, torch, dev, build_dir)
+    timed("checkpoints", phase_checkpoints, torch, dev, build_dir,
+          train["model"], ffm["model"], sparse["forest"])
+    obs = timed("observability", phase_observability, torch, ss_mod, dev,
+                build_dir, train["uri"], train.pop("want"), params_a)
+    job = timed("job", phase_job, torch, dev, build_dir, train["uri"])
+    mesh = timed("mesh", phase_mesh, torch, ss_mod, dev, build_dir, gbdt,
+                 sparse, sparse_data, streamed, train, served_fit)
+    del sparse_data, gbdt["bins"], gbdt["label"]
+    obj = timed("objectives", phase_objectives, torch, ss_mod, dev)
+    ffm_uri = (f"{build_dir / f'criteo_{FFM_ROWS}_seed{TRAIN_SEED}.libffm'}"
+               "?format=libfm")
+    ex = timed("examples", phase_examples, torch, ss_mod, dev, build_dir,
+               train["uri"], ffm_uri, streamed["uri"], bosch_rule)
+    print("phases, seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
 
     t, leaf = kern["timings"][NUM_FACTORS], gbdt["leaf"]
     node, root = sparse["node_totals"], sparse["root_totals"]
@@ -5160,7 +5978,59 @@ def main(argv) -> int:
                  f"launches: {k['of']}",
         "launches": k["launches"],
         **{key: k[key] for key in ("max_abs_err", *keys)},
-    } for k in mesh["kern"]]}))
+    } for k in mesh["kern"]] + [{
+        **segment_sum,
+        "shape": f"{what} GBDT leaf sums, {rows} rows x L=2 into 64 leaves; "
+                 f"launches: a fit's (one a tree, {trees} trees)",
+        "launches": o["seg"],
+        **{k: o["leaf"][k] for k in ("max_abs_err", *keys)},
+    } for what, rows, trees, o in (
+        ("Covertype softmax", COVER_ROWS, 140, obj["cover"]),
+        ("MSLR-WEB10K rank:pairwise", MSLR_ROWS, 20, obj["mslr"]))] + [{
+        "name": "histogram_gh",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh.cu",
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:168",
+        "shape": f"{what}, {rows} rows x {F} features x 256 bins, mean of "
+                 f"depths 0-5 of the first tree; launches: a fit's",
+        "launches": o["launches"],
+        **{k: o[k] for k in ("max_abs_err", *keys)},
+    } for what, rows, F, o in (
+        ("Covertype softmax", COVER_ROWS, 54, obj["cover"]),
+        ("MSLR-WEB10K rank:pairwise", MSLR_ROWS, MSLR_FEATURES,
+         obj["mslr"]))] + [{
+        **segment_sum,
+        "shape": f"{what}; launches: {of}",
+        "launches": launches,
+        **{k: ex[key][k] for k in ("max_abs_err", *keys)},
+    } for key, what, of, launches in (
+        ("linear", f"train_linear example step, {TRAIN_BATCH} rows, L=1",
+         "its two epochs and evaluation pass",
+         ex["runs"]["train_linear"]["launches"][0]),
+        ("ffm", "train_ffm example step, 4096 rows, linear term, L=1",
+         "its two epochs and accuracy pass",
+         ex["runs"]["train_ffm"]["launches"][0]),
+        ("dist", f"distributed_train rank step, {EX_DIST_BATCH} rows in "
+                 f"{EX_DIST_NNZ_MAX} lanes, L=1",
+         "both ranks of the 2-rank job",
+         ex["runs"]["distributed_train"]["launches"][0]),
+        ("gbdt_seg", "gbdt_train --native-sparse example node totals, "
+                     "the first launch's rows x L=2",
+         "the --native-sparse, --rank and --missing runs' node totals and "
+         "leaf sums", ex["gbdt_seg"]["launches"]))] + [{
+        "name": "histogram_gh" if "missing" in name else "histogram_gh_sparse",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/" + (
+            "histogram_gh.cu" if "missing" in name
+            else "histogram_gh_sparse.cu"),
+        "replaces": "dmlc_core_tpu/ops/pallas_segment.py:"
+                    + ("168" if "missing" in name else "466"),
+        "shape": f"{name} example, {ex[name]['shape']}, mean of depths 0-4 "
+                 "of the first tree; launches: its fit's",
+        "launches": ex[name]["launches"],
+        **{k: ex[name][k] for k in ("max_abs_err", *keys)},
+    } for name in ("gbdt_train --native-sparse", "gbdt_train --rank",
+                   "gbdt_train --missing")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

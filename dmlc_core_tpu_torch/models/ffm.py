@@ -26,6 +26,7 @@ from .._device import resolve_device
 from ..data.staging import PaddedBatch
 from ..ops.segment_sum import check_force, clamp_index
 from ..ops.sparse import csr_matvec
+from ..random import PRNGKey, normal
 from .common import SGDModelMixin
 
 
@@ -60,14 +61,14 @@ class FieldAwareFactorizationMachine(SGDModelMixin, nn.Module):
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "FieldAwareFactorizationMachine":
-        """Random start: w = 0, b = 0, v = init_scale * N(0, 1) drawn from
-        a ``torch.Generator`` seeded with ``seed`` (not the JAX package's
-        numbers: tests hand both packages the same numpy params)."""
-        gen = torch.Generator(device=self.v.device).manual_seed(seed)
+        """Random start: w = 0, b = 0, v = init_scale * N(0, 1), the JAX
+        package's draw ``jax.random.normal(PRNGKey(seed), ...)`` through
+        :func:`..random.normal` (to its last bit now and then), so both
+        packages start a model from the same numbers."""
         self.w.zero_()
         self.b.zero_()
-        self.v.copy_(self.init_scale * torch.randn(
-            self.v.shape, generator=gen, device=self.v.device))
+        self.v.copy_(self.init_scale * normal(
+            PRNGKey(seed, device="cpu"), self.v.shape, self.v.device))
         return self
 
     def margins(self, batch: PaddedBatch) -> torch.Tensor:

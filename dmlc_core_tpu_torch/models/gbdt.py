@@ -62,7 +62,8 @@ from ..ops.histogram_sparse import (entry_gh, feature_counts,
                                     sparse_hist_layout)
 from ..ops.segment_sum import clamp_index, segment_sum, segment_sum_sharded
 from ..parallel.meshplan import MeshPlan
-from ..random import PRNGKey, bernoulli, fold_in, permutation, uniform
+from ..random import (PRNGKey, bernoulli, bernoulli_at, fold_in,
+                      permutation, uniform)
 from .common import logistic_nll
 
 
@@ -529,9 +530,9 @@ class GBDT:
         if gamma < 0:
             raise ValueError("gamma must be >= 0")
         self.mesh_plan = MeshPlan.from_spec(histogram_mesh)
-        # (this process's first global row, the global rows) during a
-        # sharded fit; sampling draws over the global rows
-        self._row_slice = None
+        # each local row's global row number during a sharded fit: the
+        # sampling draws' element of each row
+        self._row_index = None
         self.device = resolve_device(device)
         self.num_features = num_features
         self.num_trees = num_trees
@@ -716,11 +717,25 @@ class GBDT:
                                    n_nodes, self.num_features, self.num_bins,
                                    force="pallas", layout=layout, gh_e=gh_e)
 
-    def _start_fit(self, rows: int) -> None:
-        """Under a mesh plan: this process's first global row and the
-        global rows, for the sampling draws (a collective)."""
-        self._row_slice = (None if self.mesh_plan is None
-                           else self.mesh_plan.row_offsets(rows))
+    def _start_fit(self, rows: int, real: list) -> None:
+        """Under a mesh plan: each local row's global row number, for the
+        sampling draws (a collective).  ``real``: the rows that hold data in
+        this process's ``rows`` rows, as ``(first row, count)`` spans; the
+        other rows are padding (weight 0).  The real rows are numbered as
+        the one-process epoch numbers them, after every earlier process's
+        real rows, so a sharded fit whose processes pad their short and
+        missing batches draws the one-process rows; padding rows take
+        number 0, and their weight keeps them out of every sum."""
+        if self.mesh_plan is None:
+            self._row_index = None
+            return
+        off, _ = self.mesh_plan.row_offsets(sum(n for _, n in real))
+        index = torch.zeros(rows, dtype=torch.int64, device=self.device)
+        for first, n in real:
+            index[first:first + n] = torch.arange(off, off + n,
+                                                  device=self.device)
+            off += n
+        self._row_index = index
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray) and not x.flags.writeable:
@@ -1110,15 +1125,13 @@ class GBDT:
         w_t, col_mask = w, None
         if self.subsample < 1.0:
             kr = fold_in(root_key, 2 * t_idx)
-            if self._row_slice is None:
+            if self._row_index is None:
                 keep = bernoulli(kr, self.subsample, tuple(w.shape),
                                  self.device)
             else:
-                # a sharded fit: this process's slice of the one global
-                # draw, at its global row offset
-                off, total = self._row_slice
-                keep = bernoulli(kr, self.subsample, (total,),
-                                 self.device)[off:off + w.shape[0]]
+                # a sharded fit: the one global draw at this process's
+                # global row numbers
+                keep = bernoulli_at(kr, self.subsample, self._row_index)
             w_t = w * keep.to(torch.float32)
         if self.colsample_bytree < 1.0:
             kc = fold_in(root_key, 2 * t_idx + 1)
@@ -1476,7 +1489,7 @@ class GBDT:
         label = self._t(label, torch.float32)
         w = (torch.ones_like(label) if weight is None
              else self._t(weight, torch.float32))
-        self._start_fit(int(label.shape[0]))
+        self._start_fit(int(label.shape[0]), [(0, int(label.shape[0]))])
         eval_margin = eval_label = eval_weight = None
         if eval_set is not None:
             eval_bins = self._bins(eval_set[0])
@@ -1563,7 +1576,7 @@ class GBDT:
         w = self._t(batch.weight if weight is None else weight,
                     torch.float32)
         row_id, findex, ebin, emask = self._entry_bins(batch, binner)
-        self._start_fit(int(label.shape[0]))
+        self._start_fit(int(label.shape[0]), [(0, int(batch.num_rows))])
         # the same for every tree: the cast entry arrays and (for the
         # kernel) the feature-sorted layout, built once
         entries = self._sparse_entries(row_id, findex, ebin, emask)
@@ -1631,6 +1644,10 @@ class GBDT:
         forests are equal bit for bit.  All of ``fit_batch``'s objectives
         and controls apply (rank:pairwise needs batches staged with
         ``with_qid=True``); ``eval_set`` is a resident ``PaddedBatch``.
+        Under a mesh plan a batch's real rows (its first ``num_rows``)
+        take their row sampling at their numbers in the one-process epoch,
+        whatever padding the ranks' batches carry, so a sampled sharded fit
+        grows the forest of one process whose batches are full.
         Returns the forest dict."""
         if not (self.missing_aware and binner.missing_aware):
             raise ValueError("fit_streamed requires missing_aware=True on "
@@ -1652,7 +1669,7 @@ class GBDT:
         # rows: its kernel levels take the exact sharded route, as
         # fit_batch's do)
         want_layout = self._sparse_layout_enabled()
-        labels, weights, qids, offsets = [], [], [], [0]
+        labels, weights, qids, offsets, real = [], [], [], [0], []
         ent = ([], [], [], []) if want_layout else None
         for b in replay():
             if want_layout:
@@ -1665,11 +1682,12 @@ class GBDT:
             weights.append(self._t(b.weight, torch.float32))
             if b.qid is not None:
                 qids.append(self._t(b.qid))
+            real.append((offsets[-1], int(b.num_rows)))
             offsets.append(offsets[-1] + int(b.label.shape[0]))
         if not labels:
             raise ValueError("fit_streamed: the batch source is empty")
         label, w = torch.cat(labels), torch.cat(weights)
-        self._start_fit(int(label.shape[0]))
+        self._start_fit(int(label.shape[0]), real)
         qid = torch.cat(qids) if len(qids) == len(labels) else None
         rows = int(label.shape[0])
         F, B = self.num_features, self.num_bins

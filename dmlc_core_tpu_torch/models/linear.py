@@ -57,18 +57,26 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
     @torch.no_grad()
     def evaluate(self, batches) -> dict:
         """Weighted loss (and accuracy, for the logistic objective) over an
-        iterable of batches, reduced on the host as the JAX package's."""
+        iterable of batches, reduced on the host as the JAX package's.  A
+        process's batch of a multi-process epoch counts every process's
+        rows (its weight and hits all-reduced by ``batch.plan``), so every
+        process reports the metrics of the global batches."""
         total_w = total_loss = correct = 0.0
         for batch in batches:
             m = self.margins(batch)
             w = batch.weight
-            sum_w = float(torch.sum(w))
-            total_w += sum_w
-            total_loss += float(self.loss(batch)) * sum_w
+            stats = torch.zeros(2, device=w.device)
+            stats[0] = torch.sum(w)
             if self.objective == "logistic":
                 y = (batch.label > 0.5).to(torch.float32)
                 pred = (m > 0).to(torch.float32)
-                correct += float(torch.sum((pred == y) * w))
+                stats[1] = torch.sum((pred == y) * w)
+            if batch.plan is not None:
+                stats = batch.plan.allreduce(stats)
+            sum_w, hits = (float(v) for v in stats)
+            total_w += sum_w
+            total_loss += float(self.loss(batch)) * sum_w
+            correct += hits
         out = {"loss": total_loss / max(total_w, 1.0)}
         if self.objective == "logistic":
             out["accuracy"] = correct / max(total_w, 1.0)

@@ -98,23 +98,78 @@ def _draw_device(key: torch.Tensor, device) -> tuple:
     return key, dev
 
 
+def _bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The stream's words at the int64 element numbers ``idx``."""
+    a, b = threefry2x32(_words(key), idx >> 32, idx & MASK32)
+    return a ^ b
+
+
+_BITS_CHUNK = 1 << 25  # elements hashed at a time (bounds the temporaries)
+
+
 def bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit, partitionable): int64 words
     in ``[0, 2^32)`` of ``shape``, on ``device`` (default: the key's)."""
     key, dev = _draw_device(key, device)
     shape = tuple(int(s) for s in shape)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=dev)
-    a, b = threefry2x32(_words(key), idx >> 32, idx & MASK32)
-    return (a ^ b).reshape(shape)
+    n = math.prod(shape)
+    if n <= _BITS_CHUNK:
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+        return _bits_at(key, idx).reshape(shape)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    for k0 in range(0, n, _BITS_CHUNK):
+        k1 = min(n, k0 + _BITS_CHUNK)
+        out[k0:k1] = _bits_at(key, torch.arange(k0, k1, dtype=torch.int64,
+                                                 device=dev))
+    return out.reshape(shape)
+
+
+def _unit_f32(words: torch.Tensor) -> torch.Tensor:
+    """f32 in ``[0, 1)`` from the top 23 bits of each word, as ``1.m - 1``
+    (``jax.random.uniform``'s map)."""
+    one = 0x3F800000  # the bits of 1.0f
+    f = ((words >> 9) | one).to(torch.int32).view(torch.float32)
+    return torch.clamp(f - 1.0, min=0.0)
 
 
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: f32 in ``[0, 1)`` from the top 23
-    bits of each word, as ``1.m - 1``."""
-    one = 0x3F800000  # the bits of 1.0f
-    f = ((bits(key, shape, device) >> 9) | one).to(torch.int32).view(
-        torch.float32)
-    return torch.clamp(f - 1.0, min=0.0)
+    """``jax.random.uniform(key, shape)``: f32 in ``[0, 1)``."""
+    return _unit_f32(bits(key, shape, device))
+
+
+# Giles' single-precision erfinv polynomial, as XLA expands ``erf_inv``:
+# coefficients for w = -log1p(-x^2) below 5 (in w - 2.5) and past it (in
+# sqrt(w) - 3), highest degree first
+_ERFINV_LOW = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HIGH = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` (its polynomial and edge cases) in torch."""
+    w = -torch.log1p(-x * x)
+    low = w < 5.0
+    w = torch.where(low, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(low, _ERFINV_LOW[0], _ERFINV_HIGH[0])
+    for a, b in zip(_ERFINV_LOW[1:], _ERFINV_HIGH[1:]):
+        p = torch.where(low, a, b) + p * w
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (f32): ``sqrt(2) * erf_inv(u)`` of
+    a uniform ``u`` over ``[nextafter(-1, 0), 1)``.  ``u`` is JAX's bit for
+    bit and ``erf_inv`` XLA's polynomial; torch's ``log1p`` inside it
+    parts from XLA's in the last bit now and then, so a few percent of the
+    draws differ from JAX's by an ulp."""
+    f = uniform(key, shape, device)
+    lo = torch.tensor(-1.0).nextafter(torch.tensor(0.0)).to(f.device)
+    u = torch.maximum(f * (1.0 - lo) + lo, lo)
+    return _erfinv_f32(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
+                                         device=f.device)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape, device=None
@@ -122,6 +177,17 @@ def bernoulli(key: torch.Tensor, p: float, shape, device=None
     """``jax.random.bernoulli(key, p, shape)`` with a Python float ``p``
     (compared as f32): bool ``uniform < p``."""
     u = uniform(key, shape, device)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
+def bernoulli_at(key: torch.Tensor, p: float, index: torch.Tensor
+                 ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (n,))[index]`` for any ``n`` past
+    ``index.max()``, without drawing the other elements (the partitionable
+    stream's element ``i`` depends on ``i`` alone); on ``index``'s
+    device."""
+    key, _ = _draw_device(key, index.device)
+    u = _unit_f32(_bits_at(key, index.to(torch.int64)))
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
 
 

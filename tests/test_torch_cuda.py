@@ -543,6 +543,88 @@ def test_gbdt_forest_on_kernel_equals_forest_on_plain(cuda):
         torch.testing.assert_close(gpu[k], cpu[k], **TOL)
 
 
+def _objective_case(objective):
+    """A small softmax (7 skewed classes) or rank:pairwise (long-tailed
+    query groups) fit's data, continuous columns only, big enough that no
+    split is within rounding of another: the card's exact sums and the
+    CPU's f32 sums part at near-ties (one-hot columns make exact ones, and
+    chip_smoke's float64 audit holds the one-hot Covertype fit).  The
+    softmax fit's splits hold under 1e-5 relative noise on every (grad,
+    hess)."""
+    rng = np.random.default_rng(12)
+    if objective == "softmax":
+        x = rng.standard_normal((8000, 6)).astype(np.float32)
+        latent = x[:, 0] + 0.5 * np.sin(3 * x[:, 1]) + 0.3 * x[:, 2] * x[:, 3]
+        y = np.searchsorted(np.quantile(latent, np.cumsum(
+            [0.30, 0.25, 0.15, 0.10, 0.08, 0.07])), latent)
+        return x, y.astype(np.float32), None, dict(
+            objective="softmax", num_class=7, num_features=6)
+    sizes = np.maximum(2, rng.lognormal(2.5, 0.8, 80).astype(np.int64))
+    sizes[0] = 90
+    qid = np.repeat(np.arange(sizes.size), sizes).astype(np.int32)
+    x = rng.standard_normal((qid.size, 6)).astype(np.float32)
+    latent = x[:, 0] - 0.5 * x[:, 1] + rng.normal(0, 0.3, qid.size)
+    y = np.searchsorted(np.quantile(latent, [0.52, 0.84, 0.97, 0.99]),
+                        latent).astype(np.float32)
+    return x, y, qid, dict(objective="rank:pairwise", num_features=6)
+
+
+@pytest.mark.parametrize("objective", ["softmax", "rank:pairwise"])
+def test_objective_fit_on_card_matches_cpu(cuda, objective):
+    """A softmax and a rank:pairwise fit on the card (histograms and leaf
+    sums on the kernels) against the port on the CPU: one histogram launch
+    a level of every tree and one leaf sum a tree; the same splits; the
+    (grad, hess) within 1e-5 of the largest (softmax: the first round's;
+    rank: the pairwise scan at the fitted margins, a harder input than the
+    first round's constant one); leaves within 1e-4 of the largest (the
+    CPU's f32 leaf sums drift); the card's forest scoring every row within
+    2e-5 on both devices."""
+    x, y, qid, kw = _objective_case(objective)
+    kw = dict(kw, num_trees=3, max_depth=3, num_bins=32, learning_rate=0.5)
+    K = kw.get("num_class", 1)
+    fit_kw = {} if qid is None else {"qid": qid}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        bins = QuantileBinner(num_bins=32, device=dev).fit_transform(x)
+        model = GBDT(device=dev, **kw)
+        h0, s0 = hg.histogram_gh_kernel.launches, ss.segment_sum_kernel.launches
+        forest = model.fit(bins, y, **fit_kw)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert hg.histogram_gh_kernel.launches - h0 == 3 * K * 3
+            assert ss.segment_sum_kernel.launches - s0 == 3 * K
+        label = torch.from_numpy(y).to(dev)
+        if K > 1:
+            margins = model.margins_multi(forest, bins)
+            p = torch.softmax(forest["base"].expand(len(y), K), 1)
+            onehot = torch.nn.functional.one_hot(label.long(), K)
+            gh = torch.stack([p - onehot, torch.clamp(p * (1 - p),
+                                                      min=1e-16)], -1)
+        else:
+            margins = model.margins(forest, bins)
+            grad_hess, _ = model._rank_fns(qid, torch.ones_like(label))
+            g, h = grad_hess(margins, label)
+            gh = torch.stack([g, h], -1)
+        out[dev.type] = (margins.cpu(), gh.cpu(), forest)
+    (m_gpu, gh_gpu, f_gpu), (m_cpu, gh_cpu, f_cpu) = out["cuda"], out["cpu"]
+    for k in ("feature", "threshold", "default_right"):
+        assert torch.equal(f_gpu[k].cpu(), f_cpu[k]), k
+    assert float((gh_gpu - gh_cpu).abs().max()) <= \
+        1e-5 * float(gh_cpu.abs().max())
+    # the CPU sums a leaf in one f32 index_add chain, ~1e-4 relative off
+    # over thousands of near-equal hessians; the card sums it exactly
+    leaf = f_cpu["leaf"]
+    torch.testing.assert_close(f_gpu["leaf"].cpu(), leaf, rtol=0,
+                               atol=1e-4 * float(leaf.abs().max()))
+    # the card's forest scores every row alike on both devices
+    carried = {k: v.cpu() for k, v in f_gpu.items()}
+    cpu_model = GBDT(device="cpu", **kw)
+    bins = QuantileBinner(num_bins=32, device="cpu").fit_transform(x)
+    m_carried = (cpu_model.margins_multi(carried, bins) if K > 1
+                 else cpu_model.margins(carried, bins))
+    torch.testing.assert_close(m_gpu, m_carried, rtol=0, atol=2e-5)
+
+
 @pytest.mark.parametrize("histogram", ["pallas", "xla"])
 def test_gbdt_leaf_sums_run_on_the_kernel_for_either_histogram(cuda,
                                                               histogram):

@@ -785,6 +785,110 @@ def test_two_rank_forest_over_the_service(board_env, tmp_path):
                                           err_msg=k)
 
 
+# seed 7: a draw under which no node of the fixture's sampled forest ties
+# its two default directions (a node whose kept rows all carry the split
+# feature ties them exactly, and the exact route and the JAX package's f32
+# sums break such a tie on ulps of the missing mass)
+SAMPLED = dict(subsample=0.8, colsample_bytree=0.8, seed=7)
+
+
+def _fixture_file(tmp_path) -> str:
+    """tests/test_torch_streamed.py's gain-gap rows as a libsvm file."""
+    from test_torch_streamed import ROWS, _data
+    idx, val, y, ptr, _ = _data()
+    uri = str(tmp_path / "rows.libsvm")
+    Path(uri).write_text("".join(
+        f"{int(y[r])} " + " ".join(
+            f"{i}:{v:.9g}" for i, v in zip(idx[ptr[r]:ptr[r + 1]],
+                                           val[ptr[r]:ptr[r + 1]])) + "\n"
+        for r in range(ROWS)))
+    return uri
+
+
+def test_two_rank_sampled_forest_over_the_service(board_env, odd_parts,
+                                                  tmp_path):
+    """A sampled 2-rank ``fit_streamed`` over the service's 7 parts (rank
+    0 leases 3 and rank 1 4, so rank 0 pads its short last batch and then
+    a whole batch while rank 1 still has rows) draws each real row at its
+    number in the one-process epoch: its forest equals the port's
+    one-process sampled forest over the service (a one-process plan, the
+    same exact route) bit for bit.  That forest's nodes are the port's
+    unsharded ``index_add`` fit's, which equals the JAX package's
+    one-process sampled ``fit_streamed`` over a ``DataServiceIter`` epoch
+    of the same file within tests/test_torch_streamed.py's tolerances (its
+    gain-gap fixture; the exact route's leaves differ from f32 sums in the
+    last digits).  Numbering the rows by their padded local positions (each
+    rank after the padded rows of the ranks before it) draws other rows
+    on rank 1."""
+    from dmlc_core_tpu.models.gbdt import GBDT as JaxGBDT
+    from test_torch_streamed import EXACT, KW, _assert_close_to_jax
+    from torch_ranks import run_ranks
+
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    kw = {**KW, **SAMPLED}
+    uri = _fixture_file(tmp_path)
+    geom = dict(batch_size=512, nnz_bucket=1024)
+    agg, _ = board_env
+    binner = QuantileBinner(num_bins=KW["num_bins"], missing_aware=True,
+                            device="cpu")
+    one, unsharded = (GBDT(histogram=h, histogram_mesh=plan, device="cpu",
+                           **kw).fit_streamed(
+        lambda: iter(_client(agg, uri, binner, **geom)), binner)
+        for h, plan in (("pallas", MeshPlan.build()), ("xla", None)))
+    for k in EXACT:
+        assert torch.equal(one[k], unsharded[k]), k
+    jbinner = JaxBinner(num_bins=KW["num_bins"], missing_aware=True)
+    # its own client id: the packages' default ids count separately, so
+    # the first iterator of each in one process would share a ledger
+    jax_epoch = list(JaxServiceIter(uri, jbinner, **geom,
+                                    client_id="jax-one-process",
+                                    shard_client=tm.ShardClient(
+                                        "127.0.0.1", agg.port, rank=0)))
+    assert [int(b.num_rows) for b in jax_epoch] == [512, 512, 512, 464]
+    want = {k: np.asarray(v) for k, v in JaxGBDT(histogram="xla", **kw)
+            .fit_streamed(jax_epoch, jbinner).items()}
+    _assert_close_to_jax(unsharded, want)
+    res = run_ranks(2, "dataservice_forest", tmp_path, timeout=180,
+                    uri=uri, port=agg.port, nnz_max=1024, geom=geom, kw=kw)
+    for r in res:
+        for k, v in one.items():
+            np.testing.assert_array_equal(r["forest"][k], v.numpy(),
+                                          err_msg=k)
+
+
+def test_two_rank_sampled_forest_over_the_binned_cache(tmp_path):
+    """The same draw through ``BinnedStagingIter(sharding=)``: each rank
+    caches and stages its part of the file, and the sampled 2-rank forest
+    equals the port's one-process sampled ``fit_streamed`` (a one-process
+    plan) over the whole file's cache bit for bit.  (The JAX package
+    refuses a multi-process binned cache.)"""
+    from test_torch_streamed import KW, _binner as fixture_binner
+    from torch_ranks import run_ranks
+
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    kw = {**KW, **SAMPLED}
+    uri = _fixture_file(tmp_path)
+    geom = dict(batch_size=256, nnz_bucket=512)
+    cuts = fixture_binner().cuts.numpy()
+    binner = QuantileBinner.from_cuts(cuts, KW["num_bins"],
+                                      missing_aware=True, device="cpu")
+    local = BinnedStagingIter(uri, binner, cache=str(tmp_path / "one.bc"),
+                              device="cpu", **geom)
+    one = GBDT(histogram="pallas", histogram_mesh=MeshPlan.build(),
+               device="cpu", **kw).fit_streamed(lambda: iter(local), binner)
+    res = run_ranks(2, "binned_forest", tmp_path, timeout=180, uri=uri,
+                    cuts=cuts, kw=kw, geom=geom, nnz_max=512 * 4)
+    counts = [r["rows"] for r in res]
+    # rank 0's short last batch is padded, so rank 1's padded positions
+    # start past its one-process numbers
+    assert sum(map(sum, counts)) == 2000
+    assert counts[0][-1] < geom["batch_size"], counts
+    for r in res:
+        for k, v in one.items():
+            np.testing.assert_array_equal(r["forest"][k], v.numpy(),
+                                          err_msg=k)
+
+
 # ---- refusals ---------------------------------------------------------------
 
 def test_refusals(board_env, data, tmp_path):

@@ -271,3 +271,37 @@ def test_sparse_hist_layout_shards_equal_jax():
         assert sh.nnz_live == int(sel.sum())
         np.testing.assert_array_equal(np.sort(sh.rid.numpy()),
                                       np.sort(rid[sel] - lo))
+
+
+def test_sampled_padded_fit_batch_draws_the_one_process_rows(tmp_path):
+    """A sampled sharded ``fit_batch`` whose ranks pad their shares with
+    weight-0 rows, as a staged share's short last batch is (rank 0 128 real
+    rows of 160, rank 1 72): each real row (a batch's first ``num_rows``)
+    is drawn at its number among the one-process rows, so on the
+    fixed-point route both ranks grow the one-process plan's forest over
+    the unsharded rows bit for bit.  Numbering the rows by their padded
+    positions shifts rank 1's draws by rank 0's padding.  The one-process
+    batch is padded to 256 rows so that every real row takes the same
+    vectorised gradient path as on its rank (the module docstring)."""
+    data, kw, cuts = _sparse_case()
+    kw = dict(kw, subsample=0.8, colsample_bytree=0.75, seed=3)
+    res = run_ranks(2, "gbdt_fits", tmp_path, timeout=120, cases=[dict(
+        kind="sparse", data=data, kw=kw, cuts=cuts, uneven=True, align=32,
+        pad_to=160, plans=[(None, None, 1, "pallas")])])
+    import torch
+
+    from dmlc_core_tpu_torch.data.staging import PaddedBatch
+    from dmlc_core_tpu_torch.models.gbdt import QuantileBinner
+    rows, pad = len(data["label"]), 256 - len(data["label"])
+    batch = PaddedBatch(
+        label=torch.tensor(np.pad(data["label"], (0, pad))),
+        weight=torch.tensor(np.pad(data["weight"], (0, pad))),
+        row_ptr=torch.tensor(np.pad(data["row_ptr"], (0, pad), mode="edge")),
+        index=torch.tensor(data["index"]), value=torch.tensor(data["value"]),
+        num_rows=rows)
+    one = GBDT(device="cpu", histogram="pallas", histogram_mesh=MeshPlan.build(),
+               **kw).fit_batch(batch, QuantileBinner.from_cuts(
+                   cuts, kw["num_bins"], missing_aware=True, device="cpu"))
+    for r in res:
+        for k, v in one.items():
+            np.testing.assert_array_equal(r[0][0][k], v.numpy(), err_msg=k)

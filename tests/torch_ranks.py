@@ -132,8 +132,10 @@ def gbdt_fits(rank, n, cases):
     """Sharded fits: each case a dict of ``kind`` ("dense" with ``bins``,
     ``y``, optional ``weight``; "sparse" with a CSR ``data`` dict and
     ``cuts``), ``kw`` (the GBDT's), ``plans`` (a list of (hosts,
-    collective, overlap_chunks, histogram)) and ``uneven``/``align`` (the
-    row cut); returns each case's forests, one per plan."""
+    collective, overlap_chunks, histogram)), ``uneven``/``align`` (the
+    row cut) and, for "sparse", ``pad_to`` (each rank's batch padded with
+    weight-0 rows to that many rows, as a staged share's is); returns each
+    case's forests, one per plan."""
     import torch
 
     from dmlc_core_tpu_torch.data.staging import PaddedBatch
@@ -156,10 +158,12 @@ def gbdt_fits(rank, n, cases):
                                   case.get("uneven", False),
                                   case.get("align", 1))
             e0, e1 = int(rp[lo]), int(rp[hi])
+            pad = case.get("pad_to", hi - lo) - (hi - lo)
             batch = PaddedBatch(
-                label=torch.tensor(data["label"][lo:hi]),
-                weight=torch.tensor(data["weight"][lo:hi]),
-                row_ptr=torch.tensor((rp[lo:hi + 1] - e0).astype(np.int32)),
+                label=torch.tensor(np.pad(data["label"][lo:hi], (0, pad))),
+                weight=torch.tensor(np.pad(data["weight"][lo:hi], (0, pad))),
+                row_ptr=torch.tensor(np.pad(rp[lo:hi + 1] - e0, (0, pad),
+                                            mode="edge").astype(np.int32)),
                 index=torch.tensor(data["index"][e0:e1]),
                 value=torch.tensor(data["value"][e0:e1]), num_rows=hi - lo)
             args = (batch, QuantileBinner.from_cuts(
@@ -528,6 +532,24 @@ def dataservice_forest(rank, n, uri, port, nnz_max, geom, kw,
     forest = m.fit_streamed(lambda: iter(it), binner)
     return {"forest": _np(forest), "epochs": it._epoch,
             "launches": [k.launches for k in kernels]}
+
+
+def binned_forest(rank, n, uri, cuts, kw, geom, nnz_max):
+    """A sharded ``fit_streamed`` (the kernel route's plain version) over
+    this rank's part of ``uri`` through ``BinnedStagingIter(sharding=)``,
+    each rank caching its part; the forest and the rows of each batch."""
+    from dmlc_core_tpu_torch.data.binned_cache import BinnedStagingIter
+    from dmlc_core_tpu_torch.models.gbdt import GBDT, QuantileBinner
+    from dmlc_core_tpu_torch.parallel import MeshPlan
+    plan = MeshPlan.build()
+    binner = QuantileBinner.from_cuts(cuts, kw["num_bins"],
+                                      missing_aware=True, device="cpu")
+    it = BinnedStagingIter(uri, binner, cache=f"{uri}.{rank}.bincache",
+                           nnz_max=nnz_max, part=rank, num_parts=n,
+                           sharding=plan, device="cpu", **geom)
+    m = GBDT(device="cpu", histogram="pallas", histogram_mesh=plan, **kw)
+    forest = m.fit_streamed(lambda: iter(it), binner)
+    return {"forest": _np(forest), "rows": [b.num_rows for b in it]}
 
 
 if __name__ == "__main__":
