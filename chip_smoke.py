@@ -90,10 +90,18 @@ hit (see ``service_sweep``).  It prints its readings and no result line.
 
     python3 chip_smoke.py --geometry-sweep
 
-builds the kernels, then times the dense histogram kernel at every level
-of a Higgs-width first tree under every launch geometry that fits (see
-``geometry_sweep``), beside the one ``launch_geometry`` picks.  It prints
-its readings and no result line.
+builds the kernels, then times both histogram kernels on synthetic levels
+under each few-bin threshold, least row chunk and small-launch span
+setting (see ``geometry_sweep``), beside the ones the launch geometries
+pick.  It prints its readings and no result line.
+
+    python3 chip_smoke.py --ab DIR
+
+builds the kernels of this tree and of the checkout at DIR (a parent
+commit unpacked by ``git archive``), then times both histogram kernels of
+each in turns on the same synthetic levels, outputs held bit for bit (see
+``ab_parent``).  It prints its readings and no result line; the two flags
+combine in one run.
 """
 from __future__ import annotations
 
@@ -1525,11 +1533,11 @@ def tree_inputs(torch, model, forest, bins, label):
         margin = margin + forest["leaf"][t][leaf_rel]
 
 
-def check_hist(torch, hg, name, bins, rel, gh, n, B) -> float:
+def check_hist(torch, hg, name, bins, rel, gh, n, B, layout=None) -> float:
     """Kernel vs plain vs the float64 oracle, and two launches bitwise
     equal.  Returns max |kernel - plain|."""
-    a = hg.histogram_gh_kernel(bins, rel, gh, n, B)
-    b = hg.histogram_gh_kernel(bins, rel, gh, n, B)
+    a = hg.histogram_gh_kernel(bins, rel, gh, n, B, layout)
+    b = hg.histogram_gh_kernel(bins, rel, gh, n, B, layout)
     plain = hg.histogram_gh_plain(bins, rel, gh, n, B)
     torch.cuda.synchronize()
     check(torch.equal(a, b), f"histogram {name}: two launches differ")
@@ -1552,18 +1560,109 @@ def check_hist(torch, hg, name, bins, rel, gh, n, B) -> float:
 # same shapes (PERF.md's per-level table; H100 80GB HBM3, 700 W)
 F64_WARP_DENSE_MS = (3.533, 5.532, 6.391, 12.430, 17.522, 32.784)
 F64_WARP_SPARSE_MS = (2.379, 3.418, 4.335, 12.599, 16.860, 29.450)
+# per-level times of the previous kernels (before the redesign for few-bin
+# columns and small launches) on the same shapes, from their last chip_smoke
+# run (PERF.md; H100 80GB HBM3, 700 W); the service cell is the streamed
+# shape
+PRIOR_MS = {
+    "Higgs": (0.751, 0.784, 0.967, 1.138, 1.492, 2.557),
+    "Bosch": (1.177, 1.196, 1.227, 1.271, 1.343, 1.462),
+    "streamed": (0.309, 0.321, 0.339, 0.368, 0.426, 0.539),
+    "Covertype": (0.564, 0.569, 0.524, 0.560, 0.662, 0.700),
+    "MSLR": (0.827, 0.872, 0.754, 0.908, 0.990, 1.133),
+    "gbdt_train --native-sparse": (0.298, 0.302, 0.309, 0.321, 0.339),
+    "gbdt_train --rank": (0.040, 0.040, 0.040, 0.040, 0.041),
+    "gbdt_train --missing": (0.098, 0.084, 0.081, 0.082, 0.083),
+}
+# the previous accumulate halves at the mesh phase's shares (same run), ms
+PRIOR_ACCUMULATE_MS = {("histogram_gh", 2): 1.289, ("histogram_gh", 4): 0.325,
+                      ("histogram_gh_sparse", 2): 0.752,
+                      ("histogram_gh_sparse", 4): 0.452,
+                      ("histogram_gh_sparse", "streamed"): 0.271}
 
 
-def dense_level_time(torch, hg, bins, rel, gh, n: int, B: int) -> tuple:
-    """The dense kernel at one level: its device time beside the plain
-    version, ``index_add`` over the prebuilt flattened keys and its bound,
-    and its error against float64 sums by ``index_add``.  Returns (the
-    times, the error, the bytes of the bound, whether the queue covered
-    the launches)."""
+def graph_ops(torch, fn):
+    """Device operations (kernel and memset nodes) that one call of ``fn``
+    queues, from a CUDA graph captured around it on a stream of its own
+    (libcuda's ``cuGraphGetNodes``); the reason as text where this torch
+    cannot capture it or hand the graph over.  A counting aid: the call
+    already ran and was checked outside any capture."""
+    import ctypes
+    stream = torch.cuda.Stream()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(stream):
+            fn()  # the first call on this stream builds what it keeps
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            fn()
+        handle = graph.raw_cuda_graph()
+    except (TypeError, RuntimeError) as exc:
+        torch.cuda.synchronize()
+        return f"not measured ({type(exc).__name__}: {str(exc)[:80]})"
+    count = ctypes.c_size_t(0)
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    err = lib.cuGraphGetNodes(handle, None, ctypes.byref(count))
+    return int(count.value) if err == 0 else f"not measured (CUresult {err})"
+
+
+def device_ops(torch, fn) -> list:
+    """(name, device us) of each device operation (kernel, memset, copy)
+    that one call of ``fn`` queues, from torch.profiler, after a warm-up
+    call; a trace with none (its device records lost) is taken again, up
+    to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [(re.sub(r"\(anonymous namespace\)::|[(<].*", "", e.key)[:40],
+                e.device_time_total / e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               for _ in range(e.count)]
+        if ops:
+            return ops
+    return []
+
+
+def op_times(torch, fn) -> str:
+    """Each device operation of one call of ``fn`` with its device time,
+    as text."""
+    return "; ".join(f"{name} {us:.1f} us"
+                     for name, us in device_ops(torch, fn)) or "no trace"
+
+
+def ops_line(torch, what: str, fn) -> int:
+    """Print and return the device operations of one call of ``fn``: the
+    profiler's count and names, and the nodes of a CUDA graph of the call
+    (the count where the profiler's trace holds no device records)."""
+    ops = device_ops(torch, fn)
+    nodes = graph_ops(torch, fn)
+    print(f"device ops [{what}, one call]: profiler {len(ops) or 'no trace'}"
+          f" (" + ", ".join(name for name, _ in ops)
+          + f"); CUDA graph nodes {nodes}")
+    return len(ops)
+
+
+def dense_level_time(torch, hg, bins, rel, gh, n: int, B: int,
+                     layout=None) -> tuple:
+    """The dense kernel at one level (with the fit's ``layout``): its
+    device time beside the plain version, ``index_add`` over the prebuilt
+    flattened keys and its bound, and its error against float64 sums by
+    ``index_add``.  Returns (the times, the error, the bytes of the bound,
+    whether the queue covered the launches)."""
     rows, F = bins.shape
     dev = bins.device
     ms, cov = device_ms(
-        torch, lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B), 20)
+        torch, lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B, layout),
+        20)
     plain_ms, _ = device_ms(
         torch, lambda: hg.histogram_gh_plain(bins, rel, gh, n, B), 1,
         warmup=1)
@@ -1575,7 +1674,8 @@ def dense_level_time(torch, hg, bins, rel, gh, n: int, B: int) -> tuple:
         torch, lambda: torch.index_add(zeros, 0, keys, src), 3, warmup=1)
     h64 = torch.zeros(n * F * B, 2, dtype=torch.float64, device=dev)
     h64.index_add_(0, keys, src.double())
-    err = level_error(hg.histogram_gh_kernel(bins, rel, gh, n, B), h64)
+    err = level_error(hg.histogram_gh_kernel(bins, rel, gh, n, B, layout),
+                      h64)
     del keys, src, h64
     nbytes = rows * F + 4 * rows + 8 * rows + 8 * n * F * B
     byte_s, op_s = nbytes / HBM_BYTES_PER_S, 2 * rows * F / F32_OPS_PER_S
@@ -1593,22 +1693,29 @@ def level_error(h32, h64) -> float:
         1.0, float(h64.abs().max()))
 
 
-def print_level(what, d, n, lv, before_ms, err, nbytes, cov) -> None:
+def print_level(what, d, n, lv, before_ms, err, nbytes, cov,
+                prior_ms) -> None:
     print(f"time [{what}, depth {d}, n={n}]: kernel {lv['ms']:.3f} ms "
-          f"(per-warp f64 kernel: {before_ms:.3f}), plain "
+          f"(previous kernel: {prior_ms:.3f}; per-warp f64 kernel: "
+          f"{before_ms:.3f}), plain "
           f"{lv['plain_ms']:.1f} ms, index_add {lv['library_ms']:.3f} ms, bound {lv['bound_ms']:.4f} ms "
           f"({nbytes} bytes, {lv['bound_by']}); |kernel - float64| "
           f"{err:.3e} of the largest bin; queue covered: {cov}")
 
 
-def level_summary(what, per_level, before_ms) -> None:
+def level_summary(what, per_level, before_ms=None, prior_ms=None) -> None:
     ms = [lv["ms"] for lv in per_level]
     lib = [lv["library_ms"] for lv in per_level]
-    print(f"{what} per level: mean {np.mean(ms):.3f} ms (per-warp f64 "
-          f"kernel: {np.mean(before_ms):.3f}, index_add {np.mean(lib):.3f}); "
-          f"faster than the per-warp f64 kernel at depths "
-          f"{[d for d, (a, b) in enumerate(zip(ms, before_ms)) if a < b]}, "
-          f"than index_add at depths "
+    old = ([f"previous kernel: {np.mean(prior_ms):.4f}"] if prior_ms else []) + (
+        [f"per-warp f64 kernel: {np.mean(before_ms):.3f}"] if before_ms
+        else [])
+    print(f"{what} per level: mean {np.mean(ms):.4f} ms ("
+          + ", ".join(old + [f"index_add {np.mean(lib):.4f}"]) + "); "
+          + "".join(f"faster than {name} at depths {[d for d, (a, b) in enumerate(zip(ms, ref)) if a < b]}, "
+                    for name, ref in (("the previous kernel", prior_ms),
+                                      ("the per-warp f64 kernel", before_ms))
+                    if ref)
+          + f"than index_add at depths "
           f"{[d for d, (a, b) in enumerate(zip(ms, lib)) if a < b]}")
 
 
@@ -1795,11 +1902,12 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     gh, levels, leaf_rel, _ = next(tree_inputs(torch, model, warm, bins,
                                                label))
     leaf = check_leaf_sums(torch, ss_mod, gh, leaf_rel, 2 ** depth)
+    layout = hg.dense_hist_layout(bins, B)  # as the fit builds it
     max_err = 0.0
     for d in CHECK_DEPTHS:
         rel, n = levels[d]
         max_err = max(max_err, check_hist(torch, hg, f"Higgs depth {d}",
-                                          bins, rel, gh, n, B))
+                                          bins, rel, gh, n, B, layout))
     rng = np.random.default_rng(9)
     for name, (r, f, b, n, dt) in {
             "1024 bins": (200_000, 5, 1024, 4, torch.int32),
@@ -1818,13 +1926,16 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     per_level = []
     for d, (rel, n) in enumerate(levels):
         lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
-                                                B)
+                                                B, layout)
         per_level.append(lv)
         print_level("histogram", d, n, per_level[-1], F64_WARP_DENSE_MS[d], err,
-                    nbytes, cov)
+                    nbytes, cov, PRIOR_MS["Higgs"][d])
         check(err <= HIST_TOL, f"histogram depth {d}: {err} of the largest "
               "bin from float64")
-    level_summary("histogram", per_level, F64_WARP_DENSE_MS)
+    level_summary("histogram", per_level, F64_WARP_DENSE_MS, PRIOR_MS["Higgs"])
+    rel, n = levels[-1]
+    ops_line(torch, "histogram_gh, Higgs depth 5",
+             lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B, layout))
     del gh, levels, leaf_rel
 
     # the main path: two timed fits of the same forest
@@ -2373,7 +2484,8 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
                               bound_by="bytes" if byte_s >= op_s
                               else "operations"))
         print_level("sparse histogram", d, n, per_level[-1],
-                    F64_WARP_SPARSE_MS[d], err, nbytes, cov)
+                    F64_WARP_SPARSE_MS[d], err, nbytes, cov,
+                    PRIOR_MS["Bosch"][d])
         check(err <= HIST_TOL, f"sparse histogram depth {d}: {err} of the "
               "largest bin from float64")
         if d in CHECK_DEPTHS:
@@ -2382,7 +2494,12 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
                 layout.starts, n, F, B, oracle)
             max_err = max(max_err, err)
         del oracle
-    level_summary("sparse histogram", per_level, F64_WARP_SPARSE_MS)
+    level_summary("sparse histogram", per_level, F64_WARP_SPARSE_MS,
+                  PRIOR_MS["Bosch"])
+    ops_line(torch, "histogram_gh_sparse, Bosch depth 5",
+             lambda: hs.histogram_gh_sparse_kernel(
+                 layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
+                 layout=layout, gh_amax=amax))
     rng = torch.Generator(device=dev).manual_seed(9)
     for name, (c_nnz, c_f, c_b, c_n) in {
             "512 nodes": (5_000_000, 100, 256, 512),
@@ -2645,11 +2762,11 @@ TEXT_TREES = 4
 
 
 def sparse_level_time(torch, hs, layout, rel_e, gh_e, amax, n: int, F: int,
-                      B: int, what: str) -> tuple:
+                      B: int, what: str, prior_ms: float) -> tuple:
     """The sparse kernel at one level of a fit: against its plain version
-    and float64, and its device time beside the plain version,
-    ``index_add`` over the flattened keys and the bound.  Returns (the
-    times, max |kernel - plain|)."""
+    and float64, and its device time beside the previous kernel's, the plain
+    version, ``index_add`` over the flattened keys and the bound.  Returns
+    (the times, max |kernel - plain|)."""
     nnz = layout.nnz_live
     ms, _ = device_ms(torch, lambda: hs.histogram_gh_sparse_kernel(
         layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
@@ -2672,9 +2789,9 @@ def sparse_level_time(torch, hs, layout, rel_e, gh_e, amax, n: int, F: int,
     lv = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
               bound_ms=max(byte_s, op_s) * 1e3,
               bound_by="bytes" if byte_s >= op_s else "operations")
-    print(f"time [{what}, {n} nodes]: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, bound "
-          f"{lv['bound_ms']:.4f} ms ({nbytes} bytes)")
+    print(f"time [{what}, {n} nodes]: kernel {ms:.4f} ms (previous kernel: "
+          f"{prior_ms:.3f}), plain {plain_ms:.1f} ms, index_add {lib_ms:.4f} "
+          f"ms, bound {lv['bound_ms']:.4f} ms ({nbytes} bytes)")
     return lv, err
 
 
@@ -2698,11 +2815,19 @@ def streamed_kernel_levels(torch, ss_mod, model, forest, ent, layout,
                            what="streamed node totals (depth 5)")
     max_err, per_level = 0.0, []
     for d, (rel, n) in enumerate(levels):
-        lv, err = sparse_level_time(torch, hs, layout, rel[rid_l].contiguous(),
-                                    gh_e, amax, n, F, B,
-                                    f"streamed sparse histogram, depth {d}")
+        rel_e = rel[rid_l].contiguous()
+        lv, err = sparse_level_time(torch, hs, layout, rel_e, gh_e, amax, n,
+                                    F, B,
+                                    f"streamed sparse histogram, depth {d}",
+                                    PRIOR_MS["streamed"][d])
         per_level.append(lv)
         max_err = max(max_err, err)
+    level_summary("streamed sparse histogram", per_level,
+                  prior_ms=PRIOR_MS["streamed"])
+    ops_line(torch, "histogram_gh_sparse, streamed depth 5",
+             lambda: hs.histogram_gh_sparse_kernel(
+                 layout.gkey, rel_e, gh_e, layout.starts, n, F, B,
+                 layout=layout, gh_amax=amax))
     mean = {k: float(np.mean([lv[k] for lv in per_level]))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"hist": {"max_abs_err": max_err, "nnz": nnz,
@@ -3083,7 +3208,7 @@ def phase_dataservice(torch, ss_mod, dev, build_dir: Path, streamed) -> dict:
             return iter(ds)
 
         log = {}
-        timed = {(hs, "_accumulate"): hs._accumulate,
+        timed = {(hs, "_run"): hs._run,
                  (hs, "histogram_gh_sparse_dequantize"):
                      hs.histogram_gh_sparse_dequantize,
                  (ss_mod, "_launch"): ss_mod._launch}
@@ -4524,7 +4649,7 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
     # its plain version (int64 accumulators equal, and the dequantized
     # sums), times, bound, library call
     def held(name, share, acc, plain, deq, lib, nbytes, iters, jobs_of,
-             **extra):
+             prior_ms=None, **extra):
         a, p = acc(), plain()
         check(torch.equal(a, p), f"{name} accumulate at {share} != plain")
         got, want = deq(a), dequantize_plain(p, scale_of[name], 2)
@@ -4543,8 +4668,11 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                    **extra)
-        print(f"mesh {name} accumulate at {share}: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+        if prior_ms is not None:
+            ops_line(torch, f"mesh {name} accumulate at {share}", acc)
+        print(f"mesh {name} accumulate at {share}: kernel {ms:.4f} ms"
+              + (f" (previous: {prior_ms:.3f})" if prior_ms is not None else "")
+              + f", plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
               f"{out['bound_ms']:.4f} ms; int64 accumulators equal to the "
               f"plain version's, dequantized sums {out['max_abs_err']:.3e} "
               f"apart; launches {launches}")
@@ -4572,18 +4700,18 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
                                                                 2)),
             lambda: hg._histogram_gh_xla(b_h, r_h, g_h, n5, B),
             r1 * f1 + 12 * r1 + 16 * n5 * f1 * B, 10,
-            [(job, ("dense",))]))
+            [(job, ("dense",))], PRIOR_ACCUMULATE_MS[("histogram_gh", n)]))
     rel_s, n_s = levels_s[depth - 1]
     n_max = int(hs.feature_counts(layout).max())
     scale_of["histogram_gh_sparse"] = fixed_point_scale(lane_amax(gh_s),
                                                         n_max)
     s_qmax = value_limit(n_max)
-    for rs, share, job_of in (
-            (BOSCH_ROWS // 2, "a 2-rank share", [("pair", ("sparse",))]),
-            (BOSCH_ROWS // 4, "a 4-rank share", [("quad", ("sparse",))]),
+    for rs, share, job_of, prior in (
+            (BOSCH_ROWS // 2, "a 2-rank share", [("pair", ("sparse",))], 2),
+            (BOSCH_ROWS // 4, "a 4-rank share", [("quad", ("sparse",))], 4),
             (STREAM_ROWS // 2, "a 2-rank share of the streamed rows",
              [("pair", ("streamed", "service")),
-              ("quad", ("streamed",))])):
+              ("quad", ("streamed",))], "streamed")):
         sub = sub_batch(torch, PaddedBatch, sparse_data, 0, rs)
         ent_h = sp_model._sparse_entries(*sp_model._entry_bins(
             sub, sparse["binner"]))
@@ -4607,7 +4735,7 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
                 a, sc, (n_s, BOSCH_FEATURES, B, 2)),
             lambda: torch.index_add(zeros, 0, keys, ge_h),
             16 * nnz_h + 16 * n_s * BOSCH_FEATURES * B, 10, job_of,
-            nnz=nnz_h))
+            PRIOR_ACCUMULATE_MS[("histogram_gh_sparse", prior)], nnz=nnz_h))
         del sub, ent_h, lay_h, ge_h, re_h, keys, zeros
     n_leaves = 2 ** depth
     scale_of["segment_sum"] = fixed_point_scale(lane_amax(gh), rows)
@@ -4710,72 +4838,363 @@ def service_sweep(torch, dev) -> None:
 
 # ---- --geometry-sweep: the dense kernel's launch geometry -------------------
 
-SWEEP_GROUPS = (1, 3, 7, 14, 28)        # features a block takes
-SWEEP_BLOCKS = (264, 528, 1056, 2112)   # blocks a launch aims at
-SWEEP_SHOW = 6
+# ---- synthetic levels: --geometry-sweep and --ab --------------------------
+
+# (rows, F, num_bins, one-hot columns, missing share, depths): the dense
+# shapes chip_smoke's phases time, with codes drawn on the card: Higgs and
+# MSLR any of 256 codes; Covertype 10 such columns, then 4 + 40 one-hot
+# columns whose two codes sit where quantile cuts of a 0/1 column put them
+# (242 and 255); gbdt_train --missing 64 bins, 41% in the missing bin 0
+SYNTH_DENSE = {
+    "Higgs": (HIGGS_ROWS, HIGGS_FEATURES, 256, 0, 0.0, range(6)),
+    "Covertype": (581_012, 54, 256, 44, 0.0, range(6)),
+    "MSLR": (723_412, 136, 256, 0, 0.0, range(6)),
+    "--missing": (50_000, 32, 64, 0, 0.41, range(5)),
+}
+# (rows, F, num_bins, entries a row, depths): Bosch width (19% of 968
+# present), its streamed rows, gbdt_train --rank (8 of 32 features, 1,500
+# queries of ~9.5 documents)
+SYNTH_SPARSE = {
+    "Bosch": (1_183_747, 968, 256, 184, range(6)),
+    "streamed": (1 << 18, 968, 256, 184, range(6)),
+    "--rank": (14_285, 32, 64, 8, range(5)),
+}
+
+
+def synth_dense(torch, dev, name: str, rows=None, seed: int = 5) -> tuple:
+    """(bins uint8 [rows, F], gh f32 [rows, 2], num_bins) of SYNTH_DENSE's
+    ``name`` on the card (its first ``rows`` rows)."""
+    full, F, B, hot, missing, _ = SYNTH_DENSE[name]
+    rows = rows or full
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, B, (rows, F - hot), generator=g, device=dev)
+    if missing:
+        codes = torch.where(torch.rand(rows, F - hot, generator=g,
+                                       device=dev) < missing, 0,
+                            codes.clamp(min=1))
+    parts = [codes]
+    if hot:
+        oh = torch.nn.functional.one_hot
+        wild = torch.multinomial(torch.tensor(COVER_WILD_SHARES, device=dev),
+                                 rows, replacement=True, generator=g)
+        soil = torch.randint(0, hot - 4, (rows,), generator=g, device=dev)
+        parts.append(torch.where(torch.cat([oh(wild, 4), oh(soil, hot - 4)],
+                                           1) == 1, 255, 242))
+    bins = torch.cat(parts, 1).to(torch.uint8).contiguous()
+    gh = torch.stack([torch.randn(rows, generator=g, device=dev),
+                      0.05 + 0.2 * torch.rand(rows, generator=g, device=dev)],
+                     1).contiguous()
+    return bins, gh, B
+
+
+def synth_sparse(torch, hs_mod, dev, name: str, rows=None,
+                 seed: int = 6) -> tuple:
+    """(layout fields, row ids of the entries, gh f32 [rows, 2]) of
+    SYNTH_SPARSE's ``name`` on the card: every feature ``rows * per_row /
+    F`` entries, bins 1..B-1 uniform, rows uniform; ``hs_mod`` makes the
+    layout (this tree's or a parent's module)."""
+    full, F, B, per_row, _ = SYNTH_SPARSE[name]
+    rows = rows or full
+    g = torch.Generator(device=dev).manual_seed(seed)
+    each = rows * per_row // F
+    nb = 1 << max(B - 1, 1).bit_length()
+    fi = torch.arange(F, device=dev).repeat_interleave(each)
+    gkey = (fi * nb + torch.randint(1, B, (fi.numel(),), generator=g,
+                                    device=dev)).to(torch.int32)
+    del fi
+    starts = torch.arange(F + 1, dtype=torch.int64) * each
+    rid = torch.randint(0, rows, (gkey.numel(),), generator=g, device=dev)
+    gh = torch.stack([torch.randn(rows, generator=g, device=dev),
+                      0.05 + 0.2 * torch.rand(rows, generator=g, device=dev)],
+                     1).contiguous()
+    fields = dict(num_features=F, num_bins=B, nb=nb, nnz_live=gkey.numel(),
+                  gkey=gkey, rid=None, starts=starts)
+    return fields, rid, gh
+
+
+def load_parent_ops(parent: Path) -> tuple:
+    """The parent commit's ``histogram`` and ``histogram_sparse`` modules,
+    from a checkout at ``parent`` (``git archive`` unpacked), imported as
+    the package ``parent_ops`` beside this tree's (the ops package imports
+    nothing outside itself); its kernels build under ``parent/build``."""
+    import importlib
+    import importlib.util
+    pkg = parent / "dmlc_core_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location(
+        "parent_ops", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_ops"] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module("parent_ops.histogram"),
+            importlib.import_module("parent_ops.histogram_sparse"))
+
+
+AB_ITERS = 20
+
+
+def ab_parent(torch, dev, parent: Path) -> None:
+    """Both histogram kernels of this tree against the parent commit's, in
+    one process on the same synthetic levels (SYNTH_DENSE, SYNTH_SPARSE,
+    and the mesh phase's accumulate shares), timed in turns parent,
+    change, change, parent (device_ms, AB_ITERS calls each); every output
+    equal bit for bit (both sum exact int64 fixed point at the same scale),
+    beside index_add at the example shapes.  Prints its readings and no
+    result line."""
+    from dmlc_core_tpu_torch.ops import histogram as hg
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.fixed_point import (fixed_point_scale,
+                                                     lane_amax, value_limit)
+    p_hg, p_hs = load_parent_ops(parent)
+    t0 = time.monotonic()
+    for k in ("histogram_gh", "histogram_gh_sparse"):
+        sys.modules["parent_ops._build"].build(k)
+    print(f"ab: the parent's kernels built in {time.monotonic() - t0:.1f} s "
+          f"from {parent}")
+
+    def turns(what, parent_fn, change_fn, lib_fn=None):
+        a, b = parent_fn(), change_fn()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"ab {what}: the parent's and this tree's "
+              "kernels differ")
+        p1 = device_ms(torch, parent_fn, AB_ITERS)[0]
+        c1 = device_ms(torch, change_fn, AB_ITERS)[0]
+        c2 = device_ms(torch, change_fn, AB_ITERS)[0]
+        p2 = device_ms(torch, parent_fn, AB_ITERS)[0]
+        lib = device_ms(torch, lib_fn, AB_ITERS)[0] if lib_fn else None
+        p, c = (p1 + p2) / 2, (c1 + c2) / 2
+        print(f"ab [{what}]: parent {p1:.4f} / {p2:.4f} ms, change "
+              f"{c1:.4f} / {c2:.4f} ms, change / parent {c / p:.3f}"
+              + (f", index_add {lib:.4f} ms" if lib is not None else "")
+              + "; outputs bitwise equal")
+        return p, c, lib
+
+    summary = {}
+    for name, (rows, F, B, *_rest, depths) in SYNTH_DENSE.items():
+        bins, gh, B = synth_dense(torch, dev, name)
+        layout = hg.dense_hist_layout(bins, B)
+        g = torch.Generator(device=dev).manual_seed(8)
+        got = []
+        for d in depths:
+            n = 2 ** d
+            rel = torch.randint(0, n, (rows,), generator=g, device=dev,
+                                dtype=torch.int32)
+            lib_fn = None
+            if rows <= 1_000_000:
+                keys = ((rel.long()[:, None] * F + torch.arange(
+                    F, device=dev)) * B + bins.long()).reshape(-1)
+                src = gh[:, None, :].expand(rows, F, 2).reshape(-1, 2)
+                zeros = torch.zeros(n * F * B, 2, device=dev)
+                lib_fn = (lambda z=zeros, k=keys, s=src:
+                          torch.index_add(z, 0, k, s))
+            got.append(turns(
+                f"histogram_gh {name}, depth {d}",
+                lambda: p_hg.histogram_gh_kernel(bins, rel, gh, n, B),
+                lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B, layout),
+                lib_fn))
+            if d in (0, depths[-1]):
+                for who, fn in (
+                        ("parent",
+                         lambda: p_hg.histogram_gh_kernel(bins, rel, gh, n, B)),
+                        ("change", lambda: hg.histogram_gh_kernel(
+                            bins, rel, gh, n, B, layout))):
+                    print(f"ab ops [histogram_gh {name}, depth {d}, {who}]: "
+                          + op_times(torch, fn))
+                ops_line(torch, f"histogram_gh {name}, depth {d}",
+                         lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B,
+                                                        layout))
+            lib_fn = keys = src = zeros = None
+        summary[f"histogram_gh {name}"] = got
+        del bins, gh, layout
+    for name, (rows, F, B, _, depths) in SYNTH_SPARSE.items():
+        fields, rid, gh = synth_sparse(torch, hs, dev, name)
+        lay, p_lay = hs.SparseHistLayout(**fields), p_hs.SparseHistLayout(
+            **fields)
+        gh_e = gh[rid].contiguous()
+        amax = lane_amax(gh)
+        g = torch.Generator(device=dev).manual_seed(9)
+        got = []
+        for d in depths:
+            n = 2 ** d
+            rel_e = torch.randint(0, n, (rows,), generator=g, device=dev,
+                                  dtype=torch.int32)[rid].contiguous()
+            lib_fn = None
+            if lay.nnz_live <= 1_000_000:
+                gk = lay.gkey.long()
+                keys = (rel_e.long() * F + gk // lay.nb) * B + gk % lay.nb
+                zeros = torch.zeros(n * F * B, 2, device=dev)
+                lib_fn = (lambda z=zeros, k=keys: torch.index_add(z, 0, k,
+                                                                  gh_e))
+            if d in (0, depths[-1]):
+                ops_line(torch, f"histogram_gh_sparse {name}, depth {d}",
+                         lambda: hs.histogram_gh_sparse_kernel(
+                             lay.gkey, rel_e, gh_e, lay.starts, n, F, B,
+                             layout=lay, gh_amax=amax))
+            got.append(turns(
+                f"histogram_gh_sparse {name}, depth {d}",
+                lambda: p_hs.histogram_gh_sparse_kernel(
+                    lay.gkey, rel_e, gh_e, lay.starts, n, F, B, layout=p_lay,
+                    gh_amax=amax),
+                lambda: hs.histogram_gh_sparse_kernel(
+                    lay.gkey, rel_e, gh_e, lay.starts, n, F, B, layout=lay,
+                    gh_amax=amax), lib_fn))
+            lib_fn = keys = zeros = None
+        summary[f"histogram_gh_sparse {name}"] = got
+        del fields, rid, gh, gh_e, lay, p_lay
+    # the mesh phase's accumulate shares at depth 5
+    for share, rows, F in (("2-rank", HIGGS_ROWS // 2, HIGGS_FEATURES),
+                           ("4-rank chunk", HIGGS_ROWS // 4,
+                            HIGGS_FEATURES // MESH_CHUNKS)):
+        bins, gh, B = synth_dense(torch, dev, "Higgs", rows)
+        bins = bins[:, :F].contiguous()
+        rel = torch.randint(0, 32, (rows,), device=dev, dtype=torch.int32)
+        sc, qmax = fixed_point_scale(lane_amax(gh), 2 * rows), value_limit(
+            2 * rows)
+        for who, fn in (("parent", lambda: p_hg.histogram_gh_accumulate(
+                bins, rel, gh, 32, B, sc, qmax)),
+                        ("change", lambda: hg.histogram_gh_accumulate(
+                            bins, rel, gh, 32, B, sc, qmax))):
+            print(f"ab ops [histogram_gh accumulate, {share}, {who}]: "
+                  + op_times(torch, fn))
+        summary[f"histogram_gh accumulate {share}"] = [turns(
+            f"histogram_gh accumulate, {share} share ({rows} x {F}, depth 5)",
+            lambda: p_hg.histogram_gh_accumulate(bins, rel, gh, 32, B, sc,
+                                                 qmax),
+            lambda: hg.histogram_gh_accumulate(bins, rel, gh, 32, B, sc,
+                                               qmax))]
+        del bins, gh, rel
+    for share, name, rows in (("2-rank", "Bosch", 1_183_747 // 2),
+                              ("4-rank", "Bosch", 1_183_747 // 4),
+                              ("2-rank streamed", "streamed", (1 << 18) // 2)):
+        fields, rid, gh = synth_sparse(torch, hs, dev, name, rows)
+        lay, p_lay = hs.SparseHistLayout(**fields), p_hs.SparseHistLayout(
+            **fields)
+        gh_e = gh[rid].contiguous()
+        rel_e = torch.randint(0, 32, (rows,), device=dev,
+                              dtype=torch.int32)[rid].contiguous()
+        n_max = int((fields["starts"][1:] - fields["starts"][:-1]).max())
+        sc, qmax = fixed_point_scale(lane_amax(gh), 2 * n_max), value_limit(
+            2 * n_max)
+        summary[f"histogram_gh_sparse accumulate {share}"] = [turns(
+            f"histogram_gh_sparse accumulate, {share} share "
+            f"({lay.nnz_live} entries, depth 5)",
+            lambda: p_hs.histogram_gh_sparse_accumulate(p_lay, rel_e, gh_e,
+                                                        32, sc, qmax),
+            lambda: hs.histogram_gh_sparse_accumulate(lay, rel_e, gh_e, 32,
+                                                      sc, qmax))]
+        for who, fn in (("parent", lambda: p_hs.histogram_gh_sparse_accumulate(
+                p_lay, rel_e, gh_e, 32, sc, qmax)),
+                        ("change", lambda: hs.histogram_gh_sparse_accumulate(
+                            lay, rel_e, gh_e, 32, sc, qmax))):
+            print(f"ab ops [histogram_gh_sparse accumulate, {share}, {who}]: "
+                  + op_times(torch, fn))
+        del fields, rid, gh, gh_e, lay, p_lay
+    for what, got in summary.items():
+        p = float(np.mean([r[0] for r in got]))
+        c = float(np.mean([r[1] for r in got]))
+        libs = [r[2] for r in got if r[2] is not None]
+        print(f"ab mean [{what}]: parent {p:.4f} ms, change {c:.4f} ms, "
+              f"change / parent {c / p:.3f}"
+              + (f", index_add {np.mean(libs):.4f} ms" if libs else ""))
+
+
+SWEEP_FEW = (0, 8)                    # _FEW_BINS: a few-bin feature's bins
+SWEEP_REDUCE = (0, 2, 4, 8, 16)       # _REDUCE_KEYS: keys that pre-reduce
+SWEEP_CHUNK = (512, 1024, 2048, 4096)  # _MIN_CHUNK: rows a block at least
+SWEEP_SPAN = ((264, 1024), (264, 2048), (264, 4096), (264, 8192))
+# sparse (_SMALL_SPANS, _SPAN_FLOOR)
+SWEEP_SPARSE_REDUCE = (0, 2, 8)       # sparse _REDUCE_KEYS at --rank
+SWEEP_PROLOGUE = (264, 2112)          # _PROLOGUE_BLOCKS at Higgs width
+SWEEP_DEEP = (528, 1056, 2112)        # _DEEP_BLOCKS at Higgs and MSLR width
 
 
 def geometry_sweep(torch, dev) -> None:
-    """The dense kernel at each level of a Higgs-width first tree under
-    every geometry that fits a block's shared memory: node tile (a power of
-    two up to the level's nodes) x feature group (SWEEP_GROUPS) x block
-    count (SWEEP_BLOCKS).  Each gives the histogram of the geometry
-    ``launch_geometry`` picks, bit for bit; prints the picked geometry's
-    device time, the SWEEP_SHOW fastest and the slowest."""
-    from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
+    """The constants of the redesigned launch geometries, at the synthetic
+    levels of ``--ab`` (SYNTH_DENSE, SYNTH_SPARSE): the dense kernel under
+    each few-bin bound (SWEEP_FEW; 0: no feature is few-bin) and each
+    pre-reduction bound (SWEEP_REDUCE; 0: no warp pre-reduces) at
+    Covertype width, and each least chunk (SWEEP_CHUNK) at --missing and
+    Covertype width; the sparse kernel under each (spans a small launch
+    aims at, least span) (SWEEP_SPAN) and pre-reduction bound
+    (SWEEP_SPARSE_REDUCE) at the --rank shape.  Each setting gives the
+    histogram of the picked one bit for bit; prints device times by depth
+    and their means.  (The many-bin geometry's constants, _WIDE_PAIRS,
+    _DEEP_GROUP and the block targets, were swept at Higgs width before;
+    PERF.md.)"""
     from dmlc_core_tpu_torch.ops import histogram as hg
-    rows, F, B = HIGGS_ROWS, HIGGS_FEATURES, GBDT_KW["num_bins"]
-    x, y = higgs_like(rows, seed=2014)
-    binner = QuantileBinner(num_bins=B, device=dev).fit(x[:BINNER_SAMPLE])
-    bins = binner.transform(torch.from_numpy(x).to(dev))
-    label = torch.from_numpy(y).to(dev)
-    del x
-    model = GBDT(num_features=F, device=dev, **GBDT_KW)
-    gh, levels, *_ = next(tree_inputs(torch, model, model.fit(bins, label),
-                                     bins, label))
-    picked, most = hg.launch_geometry, hg._SMEM_MAX // (16 * B)
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    from dmlc_core_tpu_torch.ops.fixed_point import lane_amax
 
-    def run(rel, n):
-        return hg.histogram_gh_kernel(bins, rel, gh, n, B)
+    def sweep(what, attr_vals, mod, cases, run, fresh):
+        picked = {a: getattr(mod, a) for a in attr_vals[0][0]}
+        want = [run(c, fresh()) for c in cases]
+        rows = []
+        try:
+            for names, vals in attr_vals:
+                for a, v in zip(names, vals):
+                    setattr(mod, a, v)
+                lay = fresh()
+                ms = []
+                for c, w in zip(cases, want):
+                    check(torch.equal(run(c, lay), w),
+                          f"{what} {dict(zip(names, vals))} changed bits")
+                    ms.append(device_ms(torch, lambda: run(c, lay), 10)[0])
+                rows.append((dict(zip(names, vals)), ms))
+        finally:
+            for a, v in picked.items():
+                setattr(mod, a, v)
+        print(f"sweep [{what}]: picked {picked}")
+        for setting, ms in rows:
+            print(f"  {setting}: mean {np.mean(ms):.4f} ms; by depth "
+                  + ", ".join(f"{m:.4f}" for m in ms))
 
-    def show(ms, g):
-        return (f"{ms:.3f} ms: node_tile {g['node_tile']} x feat_group "
-                f"{g['feat_group']}, {g['blocks']} blocks, "
-                f"{g['smem'] // 1024} KB")
+    g = torch.Generator(device=dev).manual_seed(10)
+    values = {"_FEW_BINS": SWEEP_FEW, "_REDUCE_KEYS": SWEEP_REDUCE,
+              "_MIN_CHUNK": SWEEP_CHUNK, "_PROLOGUE_BLOCKS": SWEEP_PROLOGUE,
+              "_DEEP_BLOCKS": SWEEP_DEEP}
+    for name, params in (("Covertype", ("_FEW_BINS", "_REDUCE_KEYS",
+                                        "_MIN_CHUNK")),
+                         ("--missing", ("_MIN_CHUNK",)),
+                         ("Higgs", ("_PROLOGUE_BLOCKS", "_DEEP_BLOCKS")),
+                         ("MSLR", ("_DEEP_BLOCKS",))):
+        rows, F, B, *_r, depths = SYNTH_DENSE[name]
+        if name in ("Higgs", "MSLR"):
+            depths = range(3, 6)
+        bins, gh, B = synth_dense(torch, dev, name)
+        present = hg.dense_hist_layout(bins, B).present
+        cases = [(torch.randint(0, 2 ** d, (rows,), generator=g, device=dev,
+                                dtype=torch.int32), 2 ** d) for d in depths]
 
-    try:
-        for d, (rel, n) in enumerate(levels):
-            want = run(rel, n)
-            base = device_ms(torch, lambda: run(rel, n), 10)[0]
-            timed = []
-            for fg in SWEEP_GROUPS:
-                groups = -(-F // fg)
-                fg = -(-F // groups)
-                t = 1
-                while t <= n and t * fg <= most:
-                    tiles = -(-n // t)
-                    for target in SWEEP_BLOCKS:
-                        chunk = -(-rows // max(1, -(-target
-                                                    // (groups * tiles))))
-                        g = dict(node_tile=t, feat_group=fg, chunk=chunk,
-                                 blocks=-(-rows // chunk) * groups * tiles,
-                                 smem=16 * B * t * fg)
-                        hg.launch_geometry = lambda *_, g=g: g
-                        check(torch.equal(run(rel, n), want),
-                              f"geometry {g} changed the histogram")
-                        timed.append((device_ms(torch, lambda: run(rel, n),
-                                                10)[0], g))
-                    t *= 2
-                hg.launch_geometry = picked
-            timed.sort(key=lambda r: r[0])
-            print(f"geometry [Higgs depth {d}, n={n}]: picked "
-                  f"{show(base, picked(rows, F, B, n))}; {len(timed)} "
-                  "geometries, all bitwise equal")
-            for ms, g in timed[:SWEEP_SHOW]:
-                print(f"  {show(ms, g)}")
-            print(f"  slowest {show(*timed[-1])}")
-    finally:
-        hg.launch_geometry = picked
+        def run(c, lay):
+            return hg.histogram_gh_kernel(bins, c[0], gh, c[1], B, lay)
+
+        def fresh():
+            return hg.DenseHistLayout(present, dev)
+
+        for attr in params:
+            sweep(f"histogram_gh {name}, {attr}",
+                  [((attr,), (v,)) for v in values[attr]], hg, cases, run,
+                  fresh)
+        del bins, gh, cases
+    fields, rid, gh = synth_sparse(torch, hs, dev, "--rank")
+    gh_e = gh[rid].contiguous()
+    amax = lane_amax(gh)
+    rows, F, B, _, depths = SYNTH_SPARSE["--rank"]
+    cases = [(torch.randint(0, 2 ** d, (rows,), generator=g, device=dev,
+                            dtype=torch.int32)[rid].contiguous(), 2 ** d)
+             for d in depths]
+
+    def run_s(c, lay):
+        return hs.histogram_gh_sparse_kernel(
+            lay.gkey, c[0], gh_e, lay.starts, c[1], F, B, layout=lay,
+            gh_amax=amax)
+
+    sweep("histogram_gh_sparse --rank, (_SMALL_SPANS, _SPAN_FLOOR)",
+          [(("_SMALL_SPANS", "_SPAN_FLOOR"), v) for v in SWEEP_SPAN], hs,
+          cases, run_s, lambda: hs.SparseHistLayout(**fields))
+    sweep("histogram_gh_sparse --rank, _REDUCE_KEYS",
+          [(("_REDUCE_KEYS",), (v,)) for v in SWEEP_SPARSE_REDUCE], hs,
+          cases, run_s, lambda: hs.SparseHistLayout(**fields))
 
 
 # ---- --segment-sweep: the segment-sum kernel's launch geometry ---------------
@@ -5112,21 +5531,28 @@ def objective_kernel_levels(torch, hg, ss_mod, model, forest, bins, label,
     B = model.num_bins
     leaf = check_leaf_sums(torch, ss_mod, gh, leaf_rel, 2 ** model.max_depth,
                            what=f"{what} leaf sums")
+    layout = hg.dense_hist_layout(bins, B)  # as the fit builds it
+    print(f"{what} layout: used bins a feature {np.bincount(layout.used)}"
+          f"[count of features with 0, 1, 2, ... used bins]")
     max_err, per_level = 0.0, []
     for d in (0, 3, 5):
         rel, n = levels[d]
         max_err = max(max_err, check_hist(torch, hg, f"{what} depth {d}",
-                                          bins, rel, gh, n, B))
+                                          bins, rel, gh, n, B, layout))
     for d, (rel, n) in enumerate(levels):
         lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
-                                                B)
+                                                B, layout)
         per_level.append(lv)
         print(f"time [{what} histogram, depth {d}, n={n}]: kernel "
-              f"{lv['ms']:.3f} ms, plain {lv['plain_ms']:.1f} ms, index_add "
-              f"{lv['library_ms']:.3f} ms, bound {lv['bound_ms']:.4f} ms "
+              f"{lv['ms']:.4f} ms (previous kernel: {PRIOR_MS[what][d]:.3f}), "
+              f"plain {lv['plain_ms']:.1f} ms, index_add "
+              f"{lv['library_ms']:.4f} ms, bound {lv['bound_ms']:.4f} ms "
               f"({nbytes} bytes, {lv['bound_by']}); |kernel - float64| "
               f"{err:.3e} of the largest bin; queue covered: {cov}")
         check(err <= HIST_TOL, f"{what} depth {d}: {err} from float64")
+    level_summary(f"{what} histogram", per_level, prior_ms=PRIOR_MS[what])
+    ops_line(torch, f"histogram_gh, {what} depth 5",
+             lambda: hg.histogram_gh_kernel(bins, rel, gh, n, B, layout))
     mean = {k: float(np.mean([lv[k] for lv in per_level]))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"max_abs_err": max_err, "bound_by": per_level[0]["bound_by"],
@@ -5542,19 +5968,27 @@ def phase_examples(torch, ss_mod, dev, build_dir: Path, train_uri: str,
                 gkey, rel_e, gh_e, starts, n, F, B = args
                 lv, err = sparse_level_time(
                     torch, hs, kw["layout"], rel_e, gh_e, kw["gh_amax"], n, F,
-                    B, f"{name} sparse histogram, depth {d}")
+                    B, f"{name} sparse histogram, depth {d}",
+                    PRIOR_MS[name][d])
+                call = (lambda a=args, k=kw: hs.histogram_gh_sparse_kernel(
+                    *a, **k))
             else:
-                bins, rel, gh, n, B = args
+                bins, rel, gh, n, B, layout = args
+                check(layout is not None, f"{name}: the fit passed no layout")
                 lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel,
-                                                        gh, n, B)
+                                                        gh, n, B, layout)
                 print(f"time [{name} histogram, depth {d}, n={n}]: kernel "
-                      f"{lv['ms']:.3f} ms, plain {lv['plain_ms']:.1f} ms, "
-                      f"index_add {lv['library_ms']:.3f} ms, bound "
+                      f"{lv['ms']:.4f} ms (previous kernel: "
+                      f"{PRIOR_MS[name][d]:.3f}), plain {lv['plain_ms']:.1f} "
+                      f"ms, index_add {lv['library_ms']:.4f} ms, bound "
                       f"{lv['bound_ms']:.4f} ms ({nbytes} bytes); |kernel - "
                       f"float64| {err:.3e}; queue covered: {cov}")
                 check(err <= HIST_TOL, f"{name} depth {d}: {err}")
+                call = (lambda a=args: hg.histogram_gh_kernel(*a))
             per_level.append(lv)
             max_err = max(max_err, err)
+        level_summary(f"{name} histogram", per_level, prior_ms=PRIOR_MS[name])
+        ops_line(torch, f"{name} histogram, depth {len(hist) - 1}", call)
         out[name] = {"max_abs_err": max_err, "launches": hist_l,
                      "bound_by": per_level[0]["bound_by"],
                      "shape": f"{tuple(args[0].shape)} "
@@ -5789,8 +6223,12 @@ def main(argv) -> int:
     if "--service-sweep" in argv:
         service_sweep(torch, torch.device("cuda"))
         return 0
-    if "--geometry-sweep" in argv:
-        geometry_sweep(torch, torch.device("cuda"))
+    if "--ab" in argv or "--geometry-sweep" in argv:
+        if "--ab" in argv:
+            ab_parent(torch, torch.device("cuda"),
+                      Path(argv[argv.index("--ab") + 1]).resolve())
+        if "--geometry-sweep" in argv:
+            geometry_sweep(torch, torch.device("cuda"))
         return 0
 
     dev = torch.device("cuda")

@@ -33,6 +33,14 @@ import tempfile
 from typing import Optional
 
 
+def _say(line: str) -> None:
+    """One line to stdout in one write: the ranks share the job's stdout,
+    and print()'s separate write of the newline lets another rank's line
+    land between them when stdout is unbuffered."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default=os.path.join(
@@ -94,15 +102,14 @@ def main(argv: Optional[list] = None) -> int:
                 steps += 1
             losses.append(float(loss))
             if rank == 0:
-                print(f"epoch {epoch}: loss {losses[-1]:.4f} "
-                      f"({ranks} processes, {devices} devices)", flush=True)
+                _say(f"epoch {epoch}: loss {losses[-1]:.4f} "
+                     f"({ranks} processes, {devices} devices)")
         it.close()
-        print(f"rank {rank}: {steps} steps, segment_sum launches "
-              f"{ss_mod.segment_sum_kernel.launches - launches0}",
-              flush=True)
+        _say(f"rank {rank}: {steps} steps, segment_sum launches "
+             f"{ss_mod.segment_sum_kernel.launches - launches0}")
         if rank == 0:
-            print("done", flush=True)
-            print(f"final: losses={losses!r}", flush=True)
+            _say("done")
+            _say(f"final: losses={losses!r}")
     finally:
         leave_job(worker)
     return 0

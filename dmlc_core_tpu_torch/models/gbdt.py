@@ -55,7 +55,8 @@ from .. import telemetry
 from .._device import resolve_device
 from ..data.staging import (DeviceStagingIter, bucket_pow2,
                             pad_batch_to_bucket)
-from ..ops.histogram import histogram_gh, histogram_gh_sharded
+from ..ops.histogram import (dense_hist_layout, histogram_gh,
+                             histogram_gh_sharded)
 from ..ops.histogram_sparse import (entry_gh, feature_counts,
                                     histogram_gh_sparse,
                                     histogram_gh_sparse_sharded,
@@ -626,23 +627,36 @@ class GBDT:
         ``jax.ops.segment_sum``."""
         return "pallas" if grad.device.type == "cuda" else None
 
+    def _dense_fit_layout(self, bins: torch.Tensor):
+        """The once-a-fit :func:`dense_hist_layout` of this process's codes
+        (each feature's used bins, which shape the kernel's shared
+        histograms), or None when no level runs the kernel on the card."""
+        if self.device.type != "cuda" or not any(
+                self._hist_impl(2 ** d) == "pallas"
+                for d in range(self.max_depth)):
+            return None
+        return dense_hist_layout(bins, self.num_bins)
+
     def _level_histogram(self, bins: torch.Tensor, rel: torch.Tensor,
-                         gh: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                         gh: torch.Tensor, n_nodes: int,
+                         layout=None) -> torch.Tensor:
         """Per-level [nodes, F, bins, 2] histogram with backend routing.
         With a mesh plan, over every process's rows
         (``histogram_gh_sharded``: exact on kernel levels), in
         ``overlap_chunks`` feature chunks whose all-reduces overlap the
         next chunk's histogram; ``mesh.overlap_occupancy`` is set to the
-        structural overlap (K - 1) / K in permille."""
+        structural overlap (K - 1) / K in permille.  ``layout``: the fit's
+        `_dense_fit_layout`."""
         impl = self._hist_impl(n_nodes)
         plan = self.mesh_plan
         if plan is None:
             return histogram_gh(bins, rel, gh, n_nodes, self.num_bins,
-                                force=impl)
+                                force=impl, layout=layout)
         K = min(plan.overlap_chunks, self.num_features)
         telemetry.gauge_set("mesh.overlap_occupancy", (K - 1) * 1000 // K)
         return histogram_gh_sharded(bins, rel, gh, n_nodes, self.num_bins,
-                                    plan, chunks=K, force=impl).to(gh.dtype)
+                                    plan, chunks=K, force=impl,
+                                    layout=layout).to(gh.dtype)
 
     def _seg_sum(self, gh: torch.Tensor, ids: torch.Tensor,
                  n: int) -> torch.Tensor:
@@ -1198,12 +1212,14 @@ class GBDT:
 
     @torch.no_grad()
     def _build_tree(self, bins: torch.Tensor, grad: torch.Tensor,
-                    hess: torch.Tensor, col_mask=None, col_key=None):
+                    hess: torch.Tensor, col_mask=None, col_key=None,
+                    layout=None):
         """One tree from per-row (grad, hess), level by level.
 
         bins: u8 (or i32) [rows, features]; grad/hess: f32 [rows]
         (weight-scaled, padding rows carry 0 mass); ``col_mask`` /
-        ``col_key``: the tree's feature draws (`_tree_keys`).  Returns
+        ``col_key``: the tree's feature draws (`_tree_keys`); ``layout``:
+        the fit's `_dense_fit_layout`.  Returns
         (feature, threshold, default_right, split_gain, split_cover, leaf,
         leaf_rel) where leaf_rel is each row's final leaf index."""
         B = self.num_bins
@@ -1223,7 +1239,7 @@ class GBDT:
             first = 2 ** depth - 1          # heap id of the level's first node
             n_nodes = 2 ** depth
             rel = node - first              # [rows] in [0, n_nodes)
-            hist = self._level_histogram(bins, rel, gh, n_nodes)
+            hist = self._level_histogram(bins, rel, gh, n_nodes, layout)
             hist_g = hist[..., 0]
             hist_h = hist[..., 1]
             # left cumulative mass for "go right if bin > b" at each cut b
@@ -1499,8 +1515,10 @@ class GBDT:
             eval_margin = (lambda f, t, d, leaf:
                            self._tree_margins(f, t, d, leaf, eval_bins))
 
+        layout = self._dense_fit_layout(bins)
+
         def build(g, h, col_mask, col_key):
-            return self._build_tree(bins, g, h, col_mask, col_key)
+            return self._build_tree(bins, g, h, col_mask, col_key, layout)
 
         if self.objective == "rank:pairwise":
             grad_hess, eval_loss_fn = self._rank_fns(

@@ -17,13 +17,15 @@
 // most m * n * amax * 2^-62 from its exact sum (amax = max |value| of the
 // lane) before its one rounding to f32: 2.6e-5 if all 11M Higgs rows with
 // |g| = 1 fell in one bin, against a tolerance of 1e-5 of the largest bin.
-// A NaN or Inf in a lane makes that lane NaN everywhere.  Many rows in one
-// bin (the missing bin of densified data) serialise its atomics; a warp
-// pre-reduction of equal keys measured slower on the main path's shapes
-// and was not kept (PERF.md).
+// A NaN or Inf in a lane makes that lane NaN everywhere.
 //
 // Layout.  The codes are read where they lie, as uint8 (or int32) [rows, F]
-// row-major; gh as float2 [rows], rel as int32 [rows].
+// row-major; gh as float2 [rows], rel as int32 [rows].  A fit scans its codes
+// once (ops/histogram.py, dense_hist_layout) for the codes each feature's
+// rows hold, its "used" bins: `slot` [F * B] numbers them 0..used-1 (-1 for
+// a code the scan never saw), and the shared histogram keeps a feature's
+// used bins only.  A caller with no scan gives every feature all num_bins
+// (identity slots).
 //
 // What bounds it.  The function must read rows * F code bytes plus 12 bytes
 // a row (rel, gh) and write 8 * n * F * B bytes: 0.131 ms at 3.35 TB/s for
@@ -31,23 +33,62 @@
 // add of two int64 (four 32-bit atomics) per (row, feature), 3.1e8 at
 // Higgs, and it is bound by that atomic rate and by the rows each node tile
 // and feature group reads again, not by bytes: 8-20x the byte bound on an
-// H100 80GB HBM3 (chip_smoke's per-level lines).
+// H100 80GB HBM3 (chip_smoke's per-level lines).  On a column of few used
+// bins every row of a node lands on one of a few words (Covertype's 44
+// one-hot columns: two), and those atomics serialise.
 //
-// Design.  Block (chunk, node tile, feature group) holds ONE shared histogram
-// of node_tile x feature_group (node, feature) pairs x num_bins bins, which all
-// its warps add into with integer atomics.  The wrapper gives a block every
-// node of the level in 14 (node, feature) pairs while that leaves more than 3
-// features (14 and 7 at depths 0-1), and 3 features with as many nodes as fit
-// deeper (16 nodes at 256 bins, so depth 5 takes two node tiles): each node
-// tile scans every row, and each feature group re-reads rel and gh, so the
-// fastest split (`python3 chip_smoke.py --geometry-sweep`) sits between the
-// two.  A thread takes one row at a time, rounds its (g, h) once, and adds it
-// to each feature of the group, reading the row's codes from L1 lines its warp
-// fetched whole.  Blocks of one row chunk are adjacent in launch order, so a
-// chunk's rows come from device memory once and from L2 for its other groups
-// and tiles.  The block then adds its nonzero bins into one zeroed int64 [n, F,
-// B, 2] buffer with global 64-bit integer atomics, and a last pass rounds that
-// buffer to f32.
+// Design.  One call is two launches, the prologue of hist_fixed.cuh and
+// the accumulate, which also dequantizes.  A cooperative launch (one
+// launch, grid barriers, as segment_sum.cu) costs ~9 us however small the
+// work; these calls run at 50,000 rows too, and two plain launches cost
+// less.  The prologue zeroes the int64 accumulator, its marks and tickets
+// and the outputs, and writes each of its blocks' max |g|, |h|; every
+// accumulate block reduces those maxima to the scale itself, in double, as
+// ops/fixed_point.py does, so the scale is fixed_point_scale(amax, rows)
+// bit for bit and nothing else is queued.
+//
+// The accumulate block (chunk, item) takes `chunk` rows and one item: a
+// feature group and a node tile (n0, n1).  It holds ONE shared histogram of
+// (n1 - n0) nodes x the group's used slots, which all its warps add into.
+// Groups follow the rule tuned at Higgs width (ops/histogram.py,
+// launch_geometry): 14 (node, feature) pairs a block while that leaves
+// more than 3 features a node (depths 0-1), else 3 features and as many
+// nodes as the widest group's slots leave room for (16 at 256 bins, so
+// depth 5 takes two tiles); a group of few-bin features (at most 8 used
+// bins each: Covertype's one-hot columns, two slots each) takes every node
+// its own slots leave room for, one tile at depth 5.  A block takes at
+// least as many rows as the slots it zeroes and flushes.
+//   * A group of consecutive features that use every bin is "plain" and
+//     runs the loop tuned at Higgs width: each row adds straight into
+//     shared memory.  A
+//     launch of plain groups only (Higgs, MSLR, the sharded shares) is
+//     the Plain instantiation, which computes its items and reads no
+//     table before the rows.
+//   * Other groups read a member table (in shared memory) and load the
+//     codes of 4 features of a row at once, then add them; a code maps to
+//     its slot by identity, by the few-bin feature's list of codes, or by
+//     the layout's slot table.  Where a few-bin feature has at most
+//     reduce_keys = 2 (node, slot) keys in the block (a one-hot column at
+//     the root), each warp first sums the lanes of equal key
+//     (__match_any_sync, then three 32-bit warp reductions of each int64,
+//     hist_fixed::add_reduced), so a key gets one shared add a warp and
+//     not one a row.  With more keys the match costs more than it saves
+//     (chip_smoke.py --geometry-sweep: 0.57 ms against 0.26 at Covertype
+//     depth 2 with 8 keys), and a warp pre-reduction measured slower
+//     on many-bin features, where keys rarely repeat.
+// Launches whose shared histogram leaves room for two blocks an SM use
+// 32 registers a thread (MinBlocks 2); deeper ones keep their registers.
+// A thread takes one row at a time, rounds its (g, h) once, and adds it to
+// each feature of the group.  Blocks of one row
+// chunk are adjacent in launch order, so a chunk's rows come from device
+// memory once and from L2 for its other items.  The block adds its nonzero
+// slots into the int64 [n, F, B, 2] buffer with global 64-bit integer
+// atomics (a code with no slot adds there directly and marks its item).
+// The last block of an item's chunks (a ticket) rounds the item's slots to
+// f32 (the whole item when it holds an unslotted code or a lane is NaN);
+// the last block of the launch makes a lane NaN everywhere if a value
+// reached the value limit.  The sharded route's accumulate entry runs the
+// same body with the caller's scale and stops before the rounding.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,138 +96,347 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kFew = 1;         // member flag: a few-bin feature (code list)
+constexpr int kIdentity = 2;    // member flag: slot == code (every bin used)
+constexpr int kMaxMembers = 16; // features a group holds at most
+constexpr int kBatch = 4;       // features whose codes a thread loads at once
+constexpr int kTwoBlocksSmem = 100 * 1024;  // dynamic bytes two blocks fit
+// An item (int4): group, n0, n1, and 1 when the group is plain (consecutive
+// features, every bin used, none few-bin): the many-bin loop tuned at
+// Higgs width,
+// with no member table or slot lookups in it.
 
-template <typename Code>
-__global__ void __launch_bounds__(kThreads)
-hist_dense(const Code* __restrict__ bins, const int* __restrict__ rel,
-           const float2* __restrict__ gh, const float* __restrict__ scale,
-           long long qmax, unsigned long long* __restrict__ acc,
-           unsigned long long* __restrict__ over, int64_t rows,
-           int num_features, int num_bins, int n_nodes, int node_tile,
-           int feat_group, int n_groups, int n_tiles, int64_t chunk) {
+struct Dense {
+  const void* bins;        // uint8 or int32 [rows, F]
+  const int* rel;          // [rows]
+  const float2* gh;        // [rows]
+  hist_fixed::Scale sc;
+  long long qmax;
+  unsigned long long* acc; // [n_out] sums, then each lane's overflow mark
+  int64_t n_out;
+  unsigned* tickets;       // [n_items] tickets, [n_items] marks, [1] launch
+  float* out;              // [n_out], or null: accumulate only
+  int64_t rows;
+  int64_t chunk;
+  int F, B;
+  int n_items;
+  int n_groups, feat_group, node_tile, n_nodes;  // a Plain launch's geometry
+  int reduce_keys;         // pre-reduce a few-bin feature of at most this
+                           // many (node, slot) keys in the block
+  const int4* items;       // group, n0, n1, plain
+  const int4* groups;      // first member, members, slots a node, first key
+  const int4* members;     // feature, slot offset, flags, used
+  const int4* lists;       // a few-bin member's used codes, 8 x int16 (-1 pad)
+  const short* slot;       // [F * B] slot of a code in its feature, or -1
+  const int* slot_key;     // f * B + code of each group slot
+};
+
+// the slot of `code` among a few-bin feature's used codes (8 x int16), or -1
+__device__ __forceinline__ int list_slot(int4 l, int code) {
+  const int w[4] = {l.x, l.y, l.z, l.w};
+  int s = -1;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (static_cast<short>(w[k >> 1] >> (16 * (k & 1))) == code) s = k;
+  return s;
+}
+
+// MinBlocks 2: two blocks of 1024 an SM, so 32 registers a thread, for a
+// launch whose shared histogram leaves room for two (kTwoBlocksSmem); 1
+// for the deep levels, where one block fills the SM's shared memory and
+// the plain loop keeps its registers
+//
+// Plain: every group of the launch is plain and every group has the same
+// node tiles (Higgs, MSLR, the sharded shares): the item is group item %
+// n_groups and tile item / n_groups, computed, with no table read before
+// the rows and no code but that loop in the kernel.
+template <typename Code, int MinBlocks, bool Plain>
+__global__ void __launch_bounds__(1024, MinBlocks)
+hist_dense(const Dense a) {
   extern __shared__ unsigned s_hist[];
-  const int size = node_tile * feat_group * num_bins;
-  for (int i = threadIdx.x; i < 4 * size; i += blockDim.x) s_hist[i] = 0u;
+  __shared__ float s_scale[2];
+  __shared__ unsigned s_tmp[2];
+  __shared__ int s_flag[2];
+  __shared__ int4 s_mem[kMaxMembers];
+  __shared__ int4 s_list[kMaxMembers];
+  const int item = static_cast<int>(blockIdx.x % a.n_items);
+  const int64_t c = blockIdx.x / a.n_items;
+  int4 it, gp;  // (group, n0, n1, plain), (first member, members, S, key0)
+  if constexpr (Plain) {
+    const int g = item % a.n_groups, f0 = g * a.feat_group;
+    const int nf = a.feat_group < a.F - f0 ? a.feat_group : a.F - f0;
+    const int t0 = (item / a.n_groups) * a.node_tile;
+    it = make_int4(g, t0, t0 + a.node_tile < a.n_nodes ? t0 + a.node_tile
+                                                        : a.n_nodes, 1);
+    gp = make_int4(f0, nf, nf * a.B, 0);  // .x: the first feature
+  } else {
+    it = a.items[item];
+    gp = a.groups[it.x];
+  }
+  const int n0 = it.y, n1 = it.z, S = gp.z, nm = gp.y;
+  const int size = (n1 - n0) * S;
+  if (!Plain && threadIdx.x < nm) {
+    s_mem[threadIdx.x] = a.members[gp.x + threadIdx.x];
+    s_list[threadIdx.x] = a.lists[gp.x + threadIdx.x];
+  }
+  hist_fixed::block_scale(a.sc, s_scale, s_tmp, [&] {  // ends with a barrier
+    for (int i = threadIdx.x; i < 4 * size; i += blockDim.x) s_hist[i] = 0u;
+  });
+  const float sg = s_scale[0], sh = s_scale[1];
+  unsigned long long* over = a.acc + a.n_out;
+  const int64_t r0 = c * a.chunk;
+  const int64_t r1 = r0 + a.chunk < a.rows ? r0 + a.chunk : a.rows;
+  const int lane = threadIdx.x & 31;
+  bool spill = false;
 
-  // group fastest, then node tile, then row chunk
-  const int group = blockIdx.x % n_groups;
-  const int tile = (blockIdx.x / n_groups) % n_tiles;
-  const int64_t c = blockIdx.x / (n_groups * n_tiles);
-  const int f0 = group * feat_group;
-  const int nf = feat_group < num_features - f0 ? feat_group
-                                                 : num_features - f0;
-  const int n0 = tile * node_tile;
-  const int n1 = n0 + node_tile < n_nodes ? n0 + node_tile : n_nodes;
-  const float sg = scale[0], sh = scale[1];
-  const int64_t r0 = c * chunk;
-  const int64_t r1 = r0 + chunk < rows ? r0 + chunk : rows;
-  __syncthreads();
-
-  for (int64_t r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int nd = rel[r];
-    if (nd < n0 || nd >= n1) continue;
-    const int node = nd - n0;
-    const float2 v = gh[r];
-    const long long qg = hist_fixed::quantize(v.x, sg, qmax, over);
-    const long long qh = hist_fixed::quantize(v.y, sh, qmax, over + 1);
-    const Code* row = bins + r * num_features + f0;
-    for (int j = 0; j < nf; ++j) {
-      const int code = static_cast<int>(row[j]);
-      if (code >= 0 && code < num_bins)
-        hist_fixed::add(s_hist, size,
-                        (node * feat_group + j) * num_bins + code, qg, qh);
+  if (it.w) {  // plain: consecutive features, every bin used, none few
+    const int f0 = Plain ? gp.x : s_mem[0].x;
+    for (int64_t r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+      const int nd = __ldg(a.rel + r);
+      if (nd < n0 || nd >= n1) continue;
+      const float2 v = __ldg(a.gh + r);
+      const long long qg = hist_fixed::quantize(v.x, sg, a.qmax, over);
+      const long long qh = hist_fixed::quantize(v.y, sh, a.qmax, over + 1);
+      const Code* __restrict__ row =
+          static_cast<const Code*>(a.bins) + r * a.F + f0;
+      const int base = (nd - n0) * S;
+      for (int j = 0; j < nm; ++j) {
+        const int code = static_cast<int>(__ldg(row + j));
+        if (code >= 0 && code < a.B)
+          hist_fixed::add(s_hist, size, base + j * a.B + code, qg, qh);
+      }
     }
   }
-  __syncthreads();
+  // a warp's lanes take consecutive rows and stay together (add_reduced)
+  for (int64_t base = r0 + (threadIdx.x & ~31); !Plain && !it.w && base < r1;
+       base += blockDim.x) {
+    const int64_t r = base + lane;
+    int node = -1;
+    long long qg = 0, qh = 0;
+    if (r < r1) {
+      const int nd = __ldg(a.rel + r);
+      if (nd >= n0 && nd < n1) {
+        node = nd - n0;
+        const float2 v = __ldg(a.gh + r);
+        qg = hist_fixed::quantize(v.x, sg, a.qmax, over);
+        qh = hist_fixed::quantize(v.y, sh, a.qmax, over + 1);
+      }
+    }
+    const Code* __restrict__ row = static_cast<const Code*>(a.bins) +
+                                   (node >= 0 ? r * a.F : 0);
+    for (int j0 = 0; j0 < nm; j0 += kBatch) {
+      int code[kBatch];  // a batch's codes loaded together, then added
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        code[k] = node >= 0 && j0 + k < nm
+                      ? static_cast<int>(__ldg(row + s_mem[j0 + k].x))
+                      : -1;
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (j0 + k >= nm) break;  // the same for the whole block
+        const int4 m = s_mem[j0 + k];
+        int key = -1;
+        if (code[k] >= 0 && code[k] < a.B) {
+          const int s = (m.z & kIdentity) ? code[k]
+                        : (m.z & kFew) ? list_slot(s_list[j0 + k], code[k])
+                                       : a.slot[m.x * a.B + code[k]];
+          if (s >= 0) {
+            key = node * S + m.y + s;
+          } else {  // a code the layout does not hold: straight to global
+            const int64_t o = (static_cast<int64_t>(node + n0) * a.F + m.x) *
+                                  a.B + code[k];
+            atomicAdd(a.acc + 2 * o, static_cast<unsigned long long>(qg));
+            atomicAdd(a.acc + 2 * o + 1, static_cast<unsigned long long>(qh));
+            spill = true;
+          }
+        }
+        if ((m.z & kFew) && m.w * (n1 - n0) <= a.reduce_keys)
+          hist_fixed::add_reduced(s_hist, size, key, qg, qh);
+        else if (key >= 0)
+          hist_fixed::add(s_hist, size, key, qg, qh);
+      }
+    }
+  }
+  const bool spilled = __syncthreads_or(spill);
 
-  hist_fixed::flush(s_hist, size, acc, [=](int i) -> int64_t {
-    const int b = i % num_bins;
-    const int p = i / num_bins;
-    const int j = p % feat_group;
-    const int node = n0 + p / feat_group;
-    if (j >= nf || node >= n1) return -1;
-    return (static_cast<int64_t>(node) * num_features + f0 + j) * num_bins + b;
-  });
+  // a slot's output: in a plain group slot s is code s % B of feature
+  // f0 + s / B, so f0 * B + s; else its key
+  const int64_t node_stride = static_cast<int64_t>(a.F) * a.B;
+  const int64_t plain_base =
+      it.w ? static_cast<int64_t>(Plain ? gp.x : s_mem[0].x) * a.B : -1;
+  auto output = [&](int i) -> int64_t {
+    return (n0 + i / S) * node_stride +
+           (plain_base >= 0 ? plain_base + i % S : a.slot_key[gp.w + i % S]);
+  };
+  for (int i = threadIdx.x; i < size; i += blockDim.x) {
+    const long long g = hist_fixed::plane_value(s_hist, size, i);
+    const long long h = hist_fixed::plane_value(s_hist + 2 * size, size, i);
+    if (!(g | h)) continue;
+    const int64_t o = output(i);
+    if (g) atomicAdd(a.acc + 2 * o, static_cast<unsigned long long>(g));
+    if (h) atomicAdd(a.acc + 2 * o + 1, static_cast<unsigned long long>(h));
+  }
+  if (a.out == nullptr) return;  // the same for every block
+
+  if (spilled && threadIdx.x == 0) atomicOr(a.tickets + a.n_items + item, 1u);
+  const unsigned chunks = gridDim.x / a.n_items;
+  if (hist_fixed::last_of(a.tickets + item, chunks, s_flag)) {
+    const bool whole = __ldcg(a.tickets + a.n_items + item) != 0u ||
+                       !hist_fixed::lane_ok(sg) || !hist_fixed::lane_ok(sh);
+    if (whole) {  // every output of the item, slotted or not
+      const int64_t n = static_cast<int64_t>(n1 - n0) * nm * a.B;
+      for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+        const int b = static_cast<int>(i % a.B);
+        const int j = static_cast<int>((i / a.B) % nm);
+        const int nd = n0 + static_cast<int>(i / (static_cast<int64_t>(a.B) * nm));
+        const int64_t o =
+            nd * node_stride +
+            static_cast<int64_t>(Plain ? gp.x + j : s_mem[j].x) * a.B + b;
+        a.out[2 * o] = hist_fixed::dequantize_one(
+            hist_fixed::acc_at(a.acc, 2 * o), sg);
+        a.out[2 * o + 1] = hist_fixed::dequantize_one(
+            hist_fixed::acc_at(a.acc, 2 * o + 1), sh);
+      }
+    } else {  // the slots; the prologue zeroed every other output
+      for (int i = threadIdx.x; i < size; i += blockDim.x) {
+        const int64_t o = output(i);
+        a.out[2 * o] = hist_fixed::dequantize_one(
+            hist_fixed::acc_at(a.acc, 2 * o), sg);
+        a.out[2 * o + 1] = hist_fixed::dequantize_one(
+            hist_fixed::acc_at(a.acc, 2 * o + 1), sh);
+      }
+    }
+  }
+  if (hist_fixed::last_of(a.tickets + 2 * a.n_items, gridDim.x, s_flag + 1))
+    hist_fixed::poison_marked(over, nullptr, false, a.out, a.n_out);
 }
 
-template <typename Code>
-cudaError_t launch(const void* bins, const void* rel, const void* gh,
-                   const float* scale, long long qmax,
-                   unsigned long long* acc, unsigned long long* over,
-                   int64_t rows, int num_features, int num_bins, int n_nodes,
-                   int node_tile, int feat_group, int64_t chunk,
-                   cudaStream_t s) {
-  const int n_groups = (num_features + feat_group - 1) / feat_group;
-  const int n_tiles = (n_nodes + node_tile - 1) / node_tile;
-  const int64_t n_chunks = (rows + chunk - 1) / chunk;
-  const int64_t n_blocks = n_chunks * n_groups * n_tiles;
-  if (n_blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  const size_t smem = 16 * static_cast<size_t>(node_tile) * feat_group *
-                      num_bins;
-  auto kernel = hist_dense<Code>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem, s>>>(
-      static_cast<const Code*>(bins), static_cast<const int*>(rel),
-      static_cast<const float2*>(gh), scale, qmax, acc, over, rows,
-      num_features, num_bins, n_nodes, node_tile, feat_group, n_groups,
-      n_tiles, chunk);
-  return cudaGetLastError();
-}
+struct Launch {
+  int code_bytes;
+  int64_t n_chunks;
+  int threads;
+  int smem;
+  int n_partial;  // prologue blocks (each writes its maxima with out)
+  bool plain;     // every item plain, tiles uniform: hist_dense<..., true>
+};
 
-// The accumulate half: adds every row into the int64 accumulator `acc`
-// (the bins, then each lane's overflow mark), which the caller zeroed.
-cudaError_t accumulate(const void* bins, int code_bytes, const void* rel,
-                       const void* gh, const float* scale, long long qmax,
-                       unsigned long long* acc, int64_t n_out, int64_t rows,
-                       int num_features, int num_bins, int n_nodes,
-                       int node_tile, int feat_group, int64_t chunk,
-                       cudaStream_t s) {
-  if ((code_bytes != 1 && code_bytes != 4) || node_tile < 1 ||
-      feat_group < 1 || chunk < 1 || rows < 0 || qmax < 1)
+cudaError_t run(Dense& a, const Launch& l, unsigned* partial,
+                cudaStream_t s) {
+  if ((l.code_bytes != 1 && l.code_bytes != 4) || a.n_items < 1 ||
+      a.chunk < 1 || l.n_chunks < 0 || a.rows < 0 || a.qmax < 1 ||
+      l.threads < 32 || l.threads > 1024 || l.threads % 32 || l.smem < 0 ||
+      l.n_chunks * a.n_items > 0x7fffffff ||
+      (a.out != nullptr) == (a.sc.scale != nullptr))
     return cudaErrorInvalidValue;
-  if (rows == 0 || n_out == 0) return cudaSuccess;
-  return code_bytes == 1
-             ? launch<uint8_t>(bins, rel, gh, scale, qmax, acc, acc + n_out,
-                               rows, num_features, num_bins, n_nodes,
-                               node_tile, feat_group, chunk, s)
-             : launch<int32_t>(bins, rel, gh, scale, qmax, acc, acc + n_out,
-                               rows, num_features, num_bins, n_nodes,
-                               node_tile, feat_group, chunk, s);
+  const int64_t n_tickets = a.out ? (2 * a.n_items + 2) / 2 : 0;
+  cudaError_t err = hist_fixed::launch_prologue(
+      a.out ? a.gh : nullptr, a.rows, partial, l.n_partial, a.acc,
+      a.n_out + 2 + n_tickets, a.out, a.out ? a.n_out : 0, s);
+  if (err != cudaSuccess || a.rows == 0 || a.n_out == 0) return err;
+  const bool two = l.smem <= kTwoBlocksSmem;
+  auto kernel =
+      l.code_bytes == 1
+          ? (l.plain ? (two ? hist_dense<uint8_t, 2, true>
+                            : hist_dense<uint8_t, 1, true>)
+                     : (two ? hist_dense<uint8_t, 2, false>
+                            : hist_dense<uint8_t, 1, false>))
+          : (l.plain ? (two ? hist_dense<int32_t, 2, true>
+                            : hist_dense<int32_t, 1, true>)
+                     : (two ? hist_dense<int32_t, 2, false>
+                            : hist_dense<int32_t, 1, false>));
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             l.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(l.n_chunks * a.n_items), l.threads, l.smem,
+           s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The accumulate half: bins: uint8 (code_bytes == 1) or int32 (code_bytes
-// == 4) [rows, F] row-major; rel: int32 [rows]; gh: f32 [rows, 2], 8-byte
-// aligned; scale: f32 [2] on the card (2^k of each lane) and qmax its value
-// limit (see hist_fixed.cuh), made from this launch's rows or from every
-// process's; acc: int64 [n_nodes * F * num_bins * 2 + 2] (the bins, then
-// each lane's overflow mark), zeroed by the caller and left undequantized,
-// so that the accumulators of several processes can be summed before one
-// dmlc_histogram_gh_dequantize.  A block takes `chunk` rows, `node_tile`
-// nodes and `feat_group` features, and 16 * node_tile * feat_group *
-// num_bins bytes of shared memory.  Launches on `stream`, does not
-// synchronise, and returns the first CUDA error (0 on success).
-int dmlc_histogram_gh_accumulate(const void* bins, int code_bytes,
-                                 const void* rel, const void* gh,
-                                 const void* scale, long long qmax, void* acc,
-                                 long long rows, int num_features,
-                                 int num_bins, int n_nodes, int node_tile,
-                                 int feat_group, long long chunk,
-                                 void* stream) {
-  const int64_t n_out = static_cast<int64_t>(n_nodes) * num_features *
-                        num_bins * 2;
-  return static_cast<int>(accumulate(
-      bins, code_bytes, rel, gh, static_cast<const float*>(scale), qmax,
-      static_cast<unsigned long long*>(acc), n_out, rows, num_features,
-      num_bins, n_nodes, node_tile, feat_group, chunk,
-      static_cast<cudaStream_t>(stream)));
+// One histogram call (out != null) or the accumulate half of a sharded one
+// (out == null).  bins: uint8 (code_bytes == 1) or int32 (== 4) [rows, F]
+// row-major; rel: int32 [rows]; gh: f32 [rows, 2], 8-byte aligned.  The
+// geometry (ops/histogram.py): items int4 [n_items] (group, n0, n1, 1 for a
+// plain group: consecutive features, every bin used, none few-bin),
+// groups int4 (first member, at most 16 members, slots a node, first slot
+// key), members int4 (feature, slot offset, flags: 1 few-bin, 2 identity
+// slots; used bins), lists int4 a member (a few-bin member's used codes as
+// 8 int16, -1 past them), slot int16 [F * B], slot_key int32 (f * B + code
+// of each group slot); a few-bin member of at most reduce_keys (node,
+// slot) keys in its item pre-reduces; plain_groups > 0: every item is
+// plain, group item % plain_groups of feat_group features from feature
+// group * feat_group, node tile item / plain_groups of node_tile nodes
+// (the tables are then not read); n_chunks row chunks of `chunk` rows,
+// `threads` a block, `smem` bytes of shared memory (16 * the largest
+// item's nodes x slots).  n_partial: the prologue's blocks.  scratch:
+// int64 [n_out + 2 (+ (2 * n_items + 2) / 2 + n_partial with out)], n_out
+// = n_nodes * F * B * 2: the sums, each lane's overflow mark, then the
+// tickets and the prologue's maxima; the launch zeroes what it needs.
+// With out: the scale is fixed_point_scale(max |gh|, rows), found inside
+// the launch and written to scale_out (f32 [2]), and out (f32 [n_out]) is
+// written whole.  Without: the caller's f32 [2] scale and value limit
+// qmax, and scratch[0, n_out + 2) is left undequantized, so that the
+// accumulators of several processes can be summed before one
+// dmlc_histogram_gh_dequantize.  Two launches on `stream` (the prologue of
+// hist_fixed.cuh, then the histogram), no synchronisation; returns the
+// first CUDA error (0 on success).
+int dmlc_histogram_gh_run(const void* bins, int code_bytes, const void* rel,
+                          const void* gh, long long rows, int num_features,
+                          int num_bins, int n_nodes, const void* items,
+                          int n_items, const void* groups,
+                          const void* members, const void* lists,
+                          const void* slot, const void* slot_key,
+                          int reduce_keys, int plain_groups, int feat_group,
+                          int node_tile, long long chunk,
+                          long long n_chunks, int threads, int smem,
+                          int n_partial, const void* scale, void* scale_out,
+                          long long qmax, void* scratch, void* out,
+                          void* stream) {
+  Dense a;
+  a.bins = bins;
+  a.rel = static_cast<const int*>(rel);
+  a.gh = static_cast<const float2*>(gh);
+  a.qmax = qmax;
+  a.acc = static_cast<unsigned long long*>(scratch);
+  a.n_out = static_cast<int64_t>(n_nodes) * num_features * num_bins * 2;
+  a.out = static_cast<float*>(out);
+  const int64_t n_tickets = out ? (2 * static_cast<int64_t>(n_items) + 2) / 2
+                                : 0;
+  a.tickets = reinterpret_cast<unsigned*>(a.acc + a.n_out + 2);
+  unsigned* partial = reinterpret_cast<unsigned*>(a.acc + a.n_out + 2 +
+                                                  n_tickets);
+  a.sc.scale = static_cast<const float*>(scale);
+  a.sc.amax = nullptr;
+  a.sc.partial = partial;
+  a.sc.n_partial = out ? n_partial : 0;
+  a.sc.n = rows;
+  a.sc.scale_out = static_cast<float*>(scale_out);
+  a.rows = rows;
+  a.chunk = chunk;
+  a.F = num_features;
+  a.B = num_bins;
+  a.n_items = n_items;
+  a.items = static_cast<const int4*>(items);
+  a.groups = static_cast<const int4*>(groups);
+  a.members = static_cast<const int4*>(members);
+  a.lists = static_cast<const int4*>(lists);
+  a.reduce_keys = reduce_keys;
+  a.n_groups = plain_groups;
+  a.feat_group = feat_group;
+  a.node_tile = node_tile;
+  a.n_nodes = n_nodes;
+  a.slot = static_cast<const short*>(slot);
+  a.slot_key = static_cast<const int*>(slot_key);
+  if (plain_groups > 0 &&
+      (feat_group < 1 || node_tile < 1 ||
+       plain_groups * ((n_nodes + node_tile - 1) / node_tile) != n_items))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch l{code_bytes, n_chunks, threads, smem, n_partial, plain_groups > 0};
+  return static_cast<int>(run(a, l, partial, static_cast<cudaStream_t>(stream)));
 }
 
 // The dequantize half: out: f32 [n_out] (n_nodes * F * num_bins * 2 for a

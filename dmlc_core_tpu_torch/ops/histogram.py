@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
@@ -82,12 +83,19 @@ def histogram_gh_plain(bins: torch.Tensor, rel: torch.Tensor,
 
 # ---- the kernel -------------------------------------------------------------
 
+_SMS = 132                 # streaming multiprocessors of an H100 SXM
 _SMEM_MAX = 227 * 1024     # what a Hopper block may take at most
 _WIDE_PAIRS = 14           # (node, feature) pairs a shallow block takes
 _DEEP_GROUP = 3            # features a block takes at deeper levels
-_WIDE_BLOCKS = 264         # blocks a shallow launch aims at (2 per SM)
-_DEEP_BLOCKS = 2112        # blocks a deeper launch aims at (16 per SM)
-_MIN_CHUNK = 4096          # rows per block before another chunk pays off
+_WIDE_BLOCKS = 2 * _SMS    # blocks a shallow launch aims at (2 per SM)
+_DEEP_BLOCKS = 16 * _SMS   # blocks a deeper launch aims at (16 per SM)
+_MIN_CHUNK = 2048          # rows per block before another chunk pays off
+_FEW_BINS = 8              # used bins of a few-bin feature, at most 8 (the
+                           # kernel keeps its codes in a list of 8)
+_REDUCE_KEYS = 2           # (node, slot) keys of a few-bin feature in a
+                           # block up to which its warps pre-reduce
+_PROLOGUE_BLOCKS = 16 * _SMS  # the prologue's blocks at most
+_PROLOGUE_SPAN = 8192      # values a prologue block takes before another
 
 _lib = None
 _launch_lock = threading.Lock()
@@ -97,15 +105,12 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("histogram_gh")
-        lib.dmlc_histogram_gh_accumulate.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-        lib.dmlc_histogram_gh_accumulate.restype = ctypes.c_int
-        lib.dmlc_histogram_gh_dequantize.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dmlc_histogram_gh_run.argtypes = [
+            p, i, p, p, ll, i, i, i, p, i, p, p, p, p, p, i, i, i, i, ll, ll,
+            i, i, i, p, p, ll, p, p, p]
+        lib.dmlc_histogram_gh_run.restype = ctypes.c_int
+        lib.dmlc_histogram_gh_dequantize.argtypes = [p, p, p, ll, i, p]
         lib.dmlc_histogram_gh_dequantize.restype = ctypes.c_int
         lib.dmlc_histogram_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_histogram_error_string.restype = ctypes.c_char_p
@@ -113,40 +118,219 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
+def prologue_blocks(n: int, threads: int) -> int:
+    """Blocks of the prologue launch (``hist_fixed::prologue``) over ``n``
+    values to read or zero: one per ``_PROLOGUE_SPAN``, at most
+    ``_PROLOGUE_BLOCKS`` and four a thread of the histogram's block (each
+    of its threads loads at most four blocks' maxima,
+    ``hist_fixed::kPartialLoads``)."""
+    return max(1, min(_PROLOGUE_BLOCKS, 4 * threads,
+                      -(-n // _PROLOGUE_SPAN)))
+
+
+def block_threads(work: int) -> int:
+    """Threads of a block that takes ``work`` rows or entry quads: the
+    largest power of two not above it, from 128 to 1024."""
+    return max(128, min(1024, 1 << max(int(work), 1).bit_length() - 1))
+
+
 def launch_geometry(rows: int, num_features: int, num_bins: int,
-                    n_nodes: int) -> dict:
-    """How one launch cuts the work: a block's shared histogram holds
-    ``node_tile`` x ``feat_group`` (node, feature) pairs of ``chunk`` rows.
-    While every node of the level fits with more than ``_DEEP_GROUP``
-    features in ``_WIDE_PAIRS`` pairs (depths 0-1), a block takes all nodes
-    and those features; deeper, ``_DEEP_GROUP`` features and as many nodes
-    as fit, in even node tiles (each tile scans all rows, so they are
-    few).  The constants are the fastest geometries at every depth at
-    Higgs width on an H100 (``python3 chip_smoke.py --geometry-sweep``;
-    PERF.md)."""
-    per_pair = 16 * num_bins  # bytes of one (node, feature)'s int64 (g, h)
-    most = _SMEM_MAX // per_pair
+                    n_nodes: int, used=None) -> dict:
+    """How one launch cuts the work (``csrc/histogram_gh.cu``).  ``used``:
+    each feature's used bins, its slots in shared memory (default
+    ``num_bins``).  Features are grouped in order by the rule tuned at
+    Higgs width (PERF.md), with the widest feature's slots: while
+    every node of the level fits with more than ``_DEEP_GROUP`` features
+    in ``_WIDE_PAIRS`` (node, feature) pairs (depths 0-1 at 256 bins), a
+    group is that many features; deeper, ``_DEEP_GROUP`` features.  A
+    group takes as many nodes as the widest group's slots leave room for,
+    in even node tiles (256-bin features at depth 5: two tiles of 16
+    nodes), and a group of few-bin features (at most ``_FEW_BINS`` used
+    bins each) as many as its own slots do (2-bin one-hot columns: every
+    node in one tile).  An item is one group
+    and one node tile; a block takes one item and ``chunk`` rows, aiming at
+    ``_WIDE_BLOCKS`` blocks (``_DEEP_BLOCKS`` at deep levels) with chunks
+    of at least ``min_chunk`` rows: ``_MIN_CHUNK``, and no fewer than the
+    shared slots of the largest item, which every block zeroes and flushes
+    (``python3 chip_smoke.py --geometry-sweep``).  Returns ``groups``
+    (lists of features), ``items`` ((group, n0, n1), groups fastest, then
+    node tiles), ``node_tile`` (of the largest item) and ``feat_group``
+    (features a group), ``chunk``,
+    ``min_chunk``, ``n_chunks``, ``blocks``, ``threads`` and ``smem`` (bytes
+    of the largest item)."""
+    F = num_features
+    used = [num_bins] * F if used is None else [int(u) for u in used]
+    cap = _SMEM_MAX // 16  # (node, slot) pairs a block holds
+    most = cap // max(1, max(used, default=1))
     if most < 1:
         raise ValueError(f"histogram_gh_kernel: num_bins={num_bins} needs "
-                         f"{per_pair} B of shared memory a node (max "
+                         f"{16 * num_bins} B of shared memory a node (max "
                          f"{_SMEM_MAX})")
     per_node = min(_WIDE_PAIRS, most) // n_nodes
     wide = per_node > _DEEP_GROUP
-    feat_group = (min(num_features, per_node) if wide
-                  else min(num_features, _DEEP_GROUP, most))
-    groups = -(-num_features // feat_group)
-    feat_group = -(-num_features // groups)
-    tiles = -(-n_nodes // (most // feat_group))
-    node_tile = -(-n_nodes // tiles)
-    n_chunks = max(1, min(-(-rows // _MIN_CHUNK), -(-(
-        _WIDE_BLOCKS if wide else _DEEP_BLOCKS) // (groups * tiles))))
+    fg = (min(F, per_node) if wide else min(F, _DEEP_GROUP, most))
+    n_groups = -(-F // fg)
+    fg = -(-F // n_groups)
+    groups, items, slots, node_tile = [], [], 0, 1
+    few = _FEW_BINS
+    widest = max(sum(used[g * fg:(g + 1) * fg]) for g in range(n_groups))
+    for g in range(n_groups):
+        feats = list(range(g * fg, min((g + 1) * fg, F)))
+        size = sum(used[f] for f in feats)
+        # a group of few-bin features takes as many nodes as its own slots
+        # leave room for; the others the widest group's tiles
+        own = all(used[f] <= few for f in feats)
+        tiles = -(-n_nodes // max(1, cap // max(
+            size if own else widest, 1)))
+        tile = -(-n_nodes // tiles)
+        groups.append(feats)
+        items.extend((k, g, n0, min(n0 + tile, n_nodes))
+                     for k, n0 in enumerate(range(0, n_nodes, tile)))
+        if tile * size > slots:
+            slots, node_tile = tile * size, tile
+    items = [i[1:] for i in sorted(items)]  # groups fastest, then tiles
+    n_items = len(items)
+    min_chunk = max(_MIN_CHUNK, slots)
+    n_chunks = max(1, min(-(-rows // min_chunk), -(-(
+        _WIDE_BLOCKS if wide else _DEEP_BLOCKS) // n_items)))
     chunk = max(1, -(-rows // n_chunks))
-    return dict(node_tile=node_tile, feat_group=feat_group, chunk=chunk,
-                blocks=-(-rows // chunk) * groups * tiles,
-                smem=node_tile * feat_group * per_pair)
+    n_chunks = -(-rows // chunk)
+    return dict(groups=groups, items=items, node_tile=node_tile,
+                feat_group=fg, chunk=chunk, min_chunk=min_chunk,
+                n_chunks=n_chunks, blocks=n_chunks * n_items,
+                threads=block_threads(chunk), smem=16 * slots)
 
 
-def _check_inputs(bins, rel, gh, n_nodes: int, num_bins: int) -> None:
+class DenseHistLayout:
+    """The codes each feature's rows hold, for :func:`histogram_gh_kernel`.
+
+    ``present`` bool [F, num_bins] (host): code b of feature f occurs.  A
+    feature's used bins are its present codes; the kernel numbers them
+    ``0..used-1`` (``slot``, int16 [F * num_bins] on ``device``, -1 for an
+    absent code) and keeps only those in shared memory, and a feature of
+    few used bins (``_FEW_BINS``) keeps them in a list and, where its keys
+    in a block are few (``_REDUCE_KEYS``), takes the pre-reducing path.  A code a
+    launch meets that the layout does not hold is still added, straight
+    into the global accumulator: a stale layout costs speed, never bits.
+    Built once a fit by :func:`dense_hist_layout`; the launch tables of
+    each level's geometry are kept on the device."""
+
+    __slots__ = ("num_features", "num_bins", "present", "used", "device",
+                 "slot", "_geo", "_tables", "_parts")
+
+    def __init__(self, present: np.ndarray, device):
+        self.present = np.asarray(present, bool)
+        self.num_features, self.num_bins = self.present.shape
+        self.used = self.present.sum(1).astype(np.int64)
+        slot = np.where(self.present, np.cumsum(self.present, 1) - 1, -1)
+        self.slot = torch.from_numpy(slot.astype(np.int16).reshape(-1)).to(
+            device)
+        self.device = self.slot.device
+        self._geo, self._tables, self._parts = {}, {}, {}
+
+    def features(self, f0: int, f1: int) -> "DenseHistLayout":
+        """The layout of features ``[f0, f1)`` (a feature chunk), kept."""
+        if (f0, f1) == (0, self.num_features):
+            return self
+        hit = self._parts.get((f0, f1))
+        if hit is None:
+            hit = self._parts[(f0, f1)] = DenseHistLayout(
+                self.present[f0:f1], self.device)
+        return hit
+
+    def launch(self, rows: int, n_nodes: int) -> tuple:
+        """(geometry, tables) of a launch over ``rows`` rows and ``n_nodes``
+        nodes: :func:`launch_geometry`, and on the device int32 [n, 4]
+        items, groups, members and code lists and the int32 slot keys (f *
+        num_bins + code of every group slot), then the groups of a launch
+        whose items the kernel computes (0 if it reads them); each built
+        once and kept."""
+        key = (rows, n_nodes, _FEW_BINS, _MIN_CHUNK, _DEEP_BLOCKS)
+        geo = self._geo.get(key)
+        if geo is None:
+            geo = self._geo[key] = launch_geometry(
+                rows, self.num_features, self.num_bins, n_nodes, self.used)
+        tables = self._tables.get(key[1:3])
+        if tables is None:  # the same at every row count
+            tables = self._tables[key[1:3]] = self._build_tables(geo, n_nodes)
+        return geo, tables
+
+    def _build_tables(self, geo: dict, n_nodes: int) -> tuple:
+        B = self.num_bins
+
+        def plain(feats):  # consecutive, every bin used, none few-bin
+            return int(all(self.used[f] == B > _FEW_BINS for f in feats)
+                       and list(feats) == list(range(feats[0],
+                                                     feats[0] + len(feats))))
+
+        items = np.array([(g, n0, n1, plain(geo["groups"][g]))
+                          for g, n0, n1 in geo["items"]], np.int32)
+        # every group plain and tiled alike: the kernel computes its items
+        n_groups = len(geo["groups"])
+        plain_groups = n_groups if items[:, 3].all() and len(items) == (
+            n_groups * -(-n_nodes // geo["node_tile"])) else 0
+        groups, members, lists, keys = [], [], [], []
+        for feats in geo["groups"]:
+            groups.append((len(members), len(feats),
+                           sum(int(self.used[f]) for f in feats), len(keys)))
+            off = 0
+            for f in feats:
+                u = int(self.used[f])
+                codes = np.flatnonzero(self.present[f])
+                few = u <= _FEW_BINS
+                members.append((f, off, (1 if few else 0)
+                                | (2 if u == B else 0), u))
+                code_list = np.full(8, -1, np.int16)
+                if few:
+                    code_list[:u] = codes
+                lists.append(code_list.view(np.int32))
+                keys.extend(f * B + codes)
+                off += u
+        dev = self.device
+        as_dev = (lambda a, shape: torch.from_numpy(
+            np.asarray(a, np.int32).reshape(shape)).to(dev))
+        return (as_dev(items, (-1, 4)), as_dev(groups, (-1, 4)),
+                as_dev(members, (-1, 4)), as_dev(lists, (-1, 4)),
+                as_dev(keys or [0], (-1,)), plain_groups)
+
+
+_IDENTITY: dict = {}
+
+
+def _identity_layout(F: int, B: int, device) -> DenseHistLayout:
+    """Every code of every feature present: the layout of a caller with no
+    scan (every feature many-bin unless ``num_bins <= _FEW_BINS``)."""
+    key = (F, B, str(device))
+    hit = _IDENTITY.get(key)
+    if hit is None:
+        hit = _IDENTITY[key] = DenseHistLayout(np.ones((F, B), bool), device)
+    return hit
+
+
+_PRESENT_ELEMS = 1 << 24  # codes a scan step reads (bounds its memory)
+
+
+def dense_hist_layout(bins: torch.Tensor, num_bins: int) -> DenseHistLayout:
+    """The :class:`DenseHistLayout` of ``bins`` [rows, F]: which codes in
+    ``[0, num_bins)`` each feature's rows hold, found on the codes' device
+    in steps of ``_PRESENT_ELEMS`` codes (one host copy of the [F,
+    num_bins] result).  ``GBDT.fit`` builds it once a fit."""
+    rows, F = bins.shape
+    dev = bins.device
+    flat = torch.zeros(F * num_bins + 1, dtype=torch.bool, device=dev)
+    offs = torch.arange(F, dtype=torch.int64, device=dev) * num_bins
+    step = max(1, _PRESENT_ELEMS // max(F, 1))
+    for r0 in range(0, rows, step):
+        c = bins[r0:r0 + step].to(torch.int64)
+        keys = torch.where((c >= 0) & (c < num_bins), c + offs,
+                           F * num_bins)
+        flat[keys.reshape(-1)] = True
+    return DenseHistLayout(flat[:-1].reshape(F, num_bins).cpu().numpy(),
+                           dev)
+
+
+def _check_inputs(bins, rel, gh, n_nodes: int, num_bins: int,
+                  layout: DenseHistLayout | None) -> None:
     """Raise on anything the kernel does not take."""
     if (gh.device.type != "cuda" or bins.device != gh.device
             or rel.device != gh.device):
@@ -170,34 +354,88 @@ def _check_inputs(bins, rel, gh, n_nodes: int, num_bins: int) -> None:
     if gh.data_ptr() % 8:
         raise ValueError("histogram_gh_kernel reads gh as float2: its data "
                          "must be 8-byte aligned")
+    if layout is not None and (
+            (layout.num_features, layout.num_bins) != (bins.shape[1],
+                                                       num_bins)
+            or layout.slot.device != gh.device):
+        raise ValueError(f"histogram_gh_kernel: a layout of "
+                         f"{layout.num_features} features x "
+                         f"{layout.num_bins} bins on {layout.device}, called "
+                         f"with {bins.shape[1]} x {num_bins} on {gh.device}")
+
+
+def _run(bins, rel, gh, n_nodes: int, num_bins: int, layout, *,
+         out=None, scale_out=None, scale=None, qmax: int = 0):
+    """Launch ``dmlc_histogram_gh_run`` on checked CUDA inputs: a one-process
+    histogram into ``out`` (its scale into ``scale_out``), or, with the
+    caller's ``scale`` and ``qmax``, the accumulate half.  Returns the int64
+    scratch, whose first ``n_out + 2`` words are the accumulator."""
+    rows, F = bins.shape
+    n_out = n_nodes * F * num_bins * 2
+    layout = layout or _identity_layout(F, num_bins, gh.device)
+    geo, (items, groups, members, lists, keys, plain_groups) = layout.launch(
+        rows, n_nodes)
+    n_items = len(geo["items"])
+    n_partial = prologue_blocks(max(rows, n_out), geo["threads"])
+    extra = n_items + 1 + n_partial if out is not None else 0
+    scratch = torch.empty(n_out + 2 + extra, dtype=torch.int64,
+                          device=gh.device)
+    if scale is not None:
+        scale = scale.to(device=gh.device, dtype=torch.float32).contiguous()
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    lib = _kernel_lib()
+    with torch.cuda.device(gh.device):
+        err = lib.dmlc_histogram_gh_run(
+            bins.data_ptr(), bins.element_size(), rel.data_ptr(),
+            gh.data_ptr(), rows, F, num_bins, n_nodes, items.data_ptr(),
+            n_items, groups.data_ptr(), members.data_ptr(),
+            lists.data_ptr(), layout.slot.data_ptr(), keys.data_ptr(),
+            _REDUCE_KEYS, plain_groups, geo["feat_group"], geo["node_tile"],
+            geo["chunk"],
+            geo["n_chunks"], geo["threads"], geo["smem"], n_partial,
+            ptr(scale), ptr(scale_out),
+            int(qmax) if scale is not None else value_limit(rows),
+            scratch.data_ptr(), ptr(out),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("histogram_gh launch failed: "
+                           + lib.dmlc_histogram_error_string(err).decode())
+    return scratch
 
 
 def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
-                        gh: torch.Tensor, n_nodes: int,
-                        num_bins: int) -> torch.Tensor:
+                        gh: torch.Tensor, n_nodes: int, num_bins: int,
+                        layout: DenseHistLayout | None = None, *,
+                        return_scale: bool = False):
     """Histogram of f32 ``gh`` [rows, 2] by uint8 or int32 ``bins`` [rows, F]
     and int32 ``rel`` [rows] -> f32 [n_nodes, F, num_bins, 2].
 
-    On a CUDA tensor it runs the kernel's two halves on the calling
-    thread's current stream, the accumulate launch and
-    :func:`histogram_gh_dequantize`, in the fixed point of
-    :mod:`.fixed_point` with ``n_max = rows``, and bumps
-    ``histogram_gh_kernel.launches``.  On a CPU tensor it runs
-    :func:`histogram_gh_plain`.  Raises on anything else the kernel does
-    not take."""
+    On a CUDA tensor it runs the kernel on the calling thread's current
+    stream (two launches: the prologue and the histogram, which finds the
+    scale ``fixed_point_scale(lane_amax(gh), rows)`` of :mod:`.fixed_point`
+    itself and dequantizes) and bumps ``histogram_gh_kernel.launches``.
+    ``layout``: the codes' :class:`DenseHistLayout` (a fit's; else every
+    feature holds every code).  With ``return_scale`` it also returns that
+    f32 [2] scale.  On a CPU tensor it runs :func:`histogram_gh_plain` (and
+    the scale by :mod:`.fixed_point`).  Raises on anything else the kernel
+    does not take."""
     if gh.device.type == "cpu":
-        return histogram_gh_plain(bins, rel, gh, n_nodes, num_bins)
-    _check_inputs(bins, rel, gh, n_nodes, num_bins)
+        out = histogram_gh_plain(bins, rel, gh, n_nodes, num_bins)
+        if not return_scale:
+            return out
+        return out, fixed_point_scale(lane_amax(gh), bins.shape[0])
+    _check_inputs(bins, rel, gh, n_nodes, num_bins, layout)
     rows, F = bins.shape
-    shape = (n_nodes, F, num_bins, 2)
-    if n_nodes * F * num_bins == 0:
-        return torch.empty(shape, dtype=torch.float32, device=gh.device)
-    scale = fixed_point_scale(lane_amax(gh), rows)
-    acc = _accumulate(bins, rel, gh, n_nodes, num_bins, scale,
-                      value_limit(rows))
-    out = histogram_gh_dequantize(acc, scale, shape)
-    _count_launch()  # the dequantize launches even with no rows
-    return out
+    out = torch.empty((n_nodes, F, num_bins, 2), dtype=torch.float32,
+                      device=gh.device)
+    scale = torch.empty(2, dtype=torch.float32, device=gh.device)
+    if out.numel():
+        _run(bins, rel, gh, n_nodes, num_bins, layout, out=out,
+             scale_out=scale if rows else None)
+        if not rows:
+            scale = fixed_point_scale(lane_amax(gh), rows)
+    _count_launch()
+    return (out, scale) if return_scale else out
 
 
 histogram_gh_kernel.launches = 0
@@ -232,31 +470,6 @@ def histogram_gh_accumulate_plain(bins: torch.Tensor, rel: torch.Tensor,
     return acc
 
 
-def _accumulate(bins, rel, gh, n_nodes: int, num_bins: int,
-                scale: torch.Tensor, qmax: int) -> torch.Tensor:
-    """Launch ``dmlc_histogram_gh_accumulate`` on checked CUDA inputs (no
-    launch for no rows); the caller counts."""
-    rows, F = bins.shape
-    acc = torch.zeros(n_nodes * F * num_bins * 2 + 2, dtype=torch.int64,
-                      device=gh.device)
-    if rows == 0:
-        return acc
-    geo = launch_geometry(rows, F, num_bins, n_nodes)
-    scale = scale.to(device=gh.device, dtype=torch.float32).contiguous()
-    lib = _kernel_lib()
-    with torch.cuda.device(gh.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dmlc_histogram_gh_accumulate(
-            bins.data_ptr(), bins.element_size(), rel.data_ptr(),
-            gh.data_ptr(), scale.data_ptr(), int(qmax), acc.data_ptr(),
-            rows, F, num_bins, n_nodes, geo["node_tile"], geo["feat_group"],
-            geo["chunk"], stream)
-    if err != 0:
-        raise RuntimeError("histogram_gh accumulate launch failed: "
-                           + lib.dmlc_histogram_error_string(err).decode())
-    return acc
-
-
 def _count_launch() -> None:
     with _launch_lock:
         histogram_gh_kernel.launches += 1
@@ -264,21 +477,28 @@ def _count_launch() -> None:
 
 def histogram_gh_accumulate(bins: torch.Tensor, rel: torch.Tensor,
                             gh: torch.Tensor, n_nodes: int, num_bins: int,
-                            scale: torch.Tensor, qmax: int) -> torch.Tensor:
+                            scale: torch.Tensor, qmax: int,
+                            layout: DenseHistLayout | None = None
+                            ) -> torch.Tensor:
     """The accumulate half of :func:`histogram_gh_kernel`: int64 [n_nodes *
     F * num_bins * 2 + 2] (the bins' fixed-point sums at the caller's f32
     [2] ``scale`` and value limit ``qmax``, then each lane's overflow
     mark), left undequantized so the accumulators of several processes can
     be summed exactly before one :func:`histogram_gh_dequantize`.  On a
-    CUDA tensor it launches ``dmlc_histogram_gh_accumulate`` (and bumps
-    ``histogram_gh_kernel.launches``; no launch for no rows); on a CPU
-    tensor it runs
-    :func:`histogram_gh_accumulate_plain`.  Takes what the kernel takes."""
+    CUDA tensor it runs the kernel's body with that scale (the prologue
+    zeroes the accumulator; the launch stops before rounding) and bumps
+    ``histogram_gh_kernel.launches`` (not for no rows); on a CPU tensor it
+    runs :func:`histogram_gh_accumulate_plain`.  Takes what the kernel
+    takes."""
     if gh.device.type == "cpu":
         return histogram_gh_accumulate_plain(bins, rel, gh, n_nodes,
                                              num_bins, scale, qmax)
-    _check_inputs(bins, rel, gh, n_nodes, num_bins)
-    acc = _accumulate(bins, rel, gh, n_nodes, num_bins, scale, qmax)
+    _check_inputs(bins, rel, gh, n_nodes, num_bins, layout)
+    n_out = n_nodes * bins.shape[1] * num_bins * 2
+    if n_out == 0:
+        return torch.zeros(2, dtype=torch.int64, device=gh.device)
+    acc = _run(bins, rel, gh, n_nodes, num_bins, layout, scale=scale,
+               qmax=qmax)
     if bins.shape[0]:
         _count_launch()
     return acc
@@ -308,7 +528,9 @@ def histogram_gh_dequantize(acc: torch.Tensor, scale: torch.Tensor,
 def histogram_gh_sharded(bins: torch.Tensor, rel: torch.Tensor,
                          gh: torch.Tensor, n_nodes: int, num_bins: int,
                          plan, chunks: int = 1,
-                         force: str | None = "pallas") -> torch.Tensor:
+                         force: str | None = "pallas",
+                         layout: DenseHistLayout | None = None
+                         ) -> torch.Tensor:
     """One level's histogram over the rows of every process of ``plan`` (a
     ``parallel.MeshPlan``), each process passing its own rows.
 
@@ -322,8 +544,9 @@ def histogram_gh_sharded(bins: torch.Tensor, rel: torch.Tensor,
 
     ``chunks > 1`` splits the features into that many chunks and issues
     chunk k's all-reduce before chunk k + 1's histogram, with at most one
-    reduction in flight; the bits do not change.  f32 [n_nodes, F,
-    num_bins, 2]."""
+    reduction in flight; the bits do not change.  ``layout``: this
+    process's codes' :class:`DenseHistLayout` (a launch takes each chunk's
+    features of it).  f32 [n_nodes, F, num_bins, 2]."""
     check_force(force, "histogram backend")
     rows, F = bins.shape
     g = gh.to(torch.float32).contiguous()
@@ -336,15 +559,16 @@ def histogram_gh_sharded(bins: torch.Tensor, rel: torch.Tensor,
         scale, n_max = global_scale(plan, lane_amax(g), [rows])
         qmax = value_limit(n_max)
 
-        def local(part):
-            return histogram_gh_accumulate(part, r, g, n_nodes, num_bins,
-                                           scale, qmax)
+        def local(part, f0, f1):
+            return histogram_gh_accumulate(
+                part, r, g, n_nodes, num_bins, scale, qmax,
+                layout and layout.features(f0, f1))
 
         def finish(acc, fk):
             return histogram_gh_dequantize(acc, scale,
                                            (n_nodes, fk, num_bins, 2))
     else:
-        def local(part):
+        def local(part, f0, f1):
             return _histogram_gh_xla(part, r, g, n_nodes, num_bins)
 
         def finish(h, fk):
@@ -358,7 +582,7 @@ def histogram_gh_sharded(bins: torch.Tensor, rel: torch.Tensor,
             continue
         # chunk k's histogram runs while chunk k - 1's reduction is in
         # flight; that one ends before chunk k's is issued
-        h = local(bins if K == 1 else bins[:, f0:f1].contiguous())
+        h = local(bins if K == 1 else bins[:, f0:f1].contiguous(), f0, f1)
         if pending is not None:
             outs.append(finish(pending[0].wait(), pending[1]))
         pending = (plan.allreduce_async(h), f1 - f0)
@@ -379,13 +603,15 @@ def _histogram_gh_xla(bins, rel, gh, n_nodes, num_bins):
 
 
 def histogram_gh(bins: torch.Tensor, rel: torch.Tensor, gh: torch.Tensor,
-                 n_nodes: int, num_bins: int,
-                 force: str | None = None) -> torch.Tensor:
+                 n_nodes: int, num_bins: int, force: str | None = None,
+                 layout: DenseHistLayout | None = None) -> torch.Tensor:
     """Per-level GBDT gradient histogram (see the module docstring).
 
     bins: [rows, F] int bin codes; rel: [rows] node ids in [0, n_nodes);
-    gh: [rows, 2] (grad, hess).  Returns [n_nodes, F, num_bins, 2] in gh's
-    dtype on either backend."""
+    gh: [rows, 2] (grad, hess); ``layout``: the codes'
+    :class:`DenseHistLayout` for the kernel (``GBDT.fit`` builds it once a
+    fit).  Returns [n_nodes, F, num_bins, 2] in gh's dtype on either
+    backend."""
     check_force(force, "histogram backend")
     if force == "pallas":
         if bins.dtype not in (torch.uint8, torch.int32):
@@ -395,6 +621,6 @@ def histogram_gh(bins: torch.Tensor, rel: torch.Tensor, gh: torch.Tensor,
             g = g.clone()
         out = histogram_gh_kernel(bins.contiguous(),
                                   rel.to(torch.int32).contiguous(), g,
-                                  n_nodes, num_bins)
+                                  n_nodes, num_bins, layout)
         return out.to(gh.dtype)
     return _histogram_gh_xla(bins, rel, gh, n_nodes, num_bins)

@@ -30,6 +30,7 @@ import torch
 from . import _build
 from .fixed_point import (dequantize_plain, fixed_point_scale, global_scale,
                           lane_amax, quantize_plain, value_limit)
+from .histogram import block_threads, prologue_blocks
 from .segment_sum import check_force, clamp_index, segment_sum
 
 # ---- the layout -------------------------------------------------------------
@@ -56,12 +57,26 @@ class SparseHistLayout:
     feature f's entries being ``[starts[f], starts[f + 1])``."""
 
     __slots__ = ("num_features", "num_bins", "nb", "nnz_live", "gkey", "rid",
-                 "starts", "_tables")
+                 "starts", "_tables", "_used")
 
     def __init__(self, **kw):
-        for k in self.__slots__[:-1]:
+        for k in self.__slots__[:-2]:
             setattr(self, k, kw[k])
-        self._tables = {}
+        self._tables, self._used = {}, None
+
+    def used_bins(self) -> np.ndarray:
+        """int64 [F] (host): the distinct bins of each feature's entries,
+        counted on ``gkey``'s device."""
+        return used_bins(self.gkey, self.num_features, self.nb)
+
+    def used_on_device(self) -> torch.Tensor:
+        """int32 [F] :meth:`used_bins` on ``gkey``'s device, what the kernel
+        reads to pre-reduce a feature of few keys a block (``_REDUCE_KEYS``);
+        counted on first use and kept, as a fit's levels share it."""
+        if self._used is None:
+            self._used = torch.from_numpy(self.used_bins().astype(
+                np.int32)).to(self.gkey.device)
+        return self._used
 
     def span_table(self, span: int) -> tuple:
         """:func:`span_table` of ``starts`` with the table on ``gkey``'s
@@ -74,6 +89,16 @@ class SparseHistLayout:
             hit = self._tables[span] = (
                 n_spans, torch.from_numpy(table).to(self.gkey.device))
         return hit
+
+
+def used_bins(gkey: torch.Tensor, num_features: int, nb: int) -> np.ndarray:
+    """int64 [F] (host): the distinct bins among the keys ``f * nb + bin``
+    of each feature, by one ``bincount`` on the keys' device."""
+    if gkey.numel() == 0:
+        return np.zeros(num_features, np.int64)
+    hits = torch.bincount(gkey.to(torch.int64), minlength=num_features * nb)
+    return (hits[:num_features * nb].reshape(num_features, nb) > 0).sum(
+        1).cpu().numpy()
 
 
 def _tensor(x) -> torch.Tensor:
@@ -261,9 +286,14 @@ def histogram_gh_sparse_plain(gkey: torch.Tensor, rel_e: torch.Tensor,
 
 # ---- the kernel -------------------------------------------------------------
 
+_SMS = 132                   # streaming multiprocessors of an H100 SXM
 _SMEM_MAX = 227 * 1024       # what a Hopper block (and an SM) may take
-_TARGET_SPANS = 1024         # spans a launch aims at (132 SMs, many waves)
+_TARGET_SPANS = 1024         # spans a large launch aims at (many waves)
 _MIN_SPAN = 16384            # entries per span before another span pays off
+_SMALL_SPANS = 2 * _SMS      # spans a launch of fewer entries aims at
+_SPAN_FLOOR = 4096           # entries a span takes at the least
+_REDUCE_KEYS = 2             # (node, bin) keys of a feature in a block up
+                             # to which its warps pre-reduce
 
 _lib = None
 _launch_lock = threading.Lock()
@@ -273,16 +303,12 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("histogram_gh_sparse")
-        lib.dmlc_histogram_gh_sparse_accumulate.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.dmlc_histogram_gh_sparse_accumulate.restype = ctypes.c_int
-        lib.dmlc_histogram_gh_sparse_dequantize.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dmlc_histogram_gh_sparse_run.argtypes = [
+            p, p, p, ll, i, p, ll, p, i, i, i, i, i, i, i, i, ll, p, p, p,
+            ll, p, p, p, p]
+        lib.dmlc_histogram_gh_sparse_run.restype = ctypes.c_int
+        lib.dmlc_histogram_gh_sparse_dequantize.argtypes = [p, p, p, ll, i, p]
         lib.dmlc_histogram_gh_sparse_dequantize.restype = ctypes.c_int
         lib.dmlc_histogram_sparse_error_string.argtypes = [ctypes.c_int]
         lib.dmlc_histogram_sparse_error_string.restype = ctypes.c_char_p
@@ -295,7 +321,13 @@ def launch_geometry(nnz: int, num_features: int, num_bins: int,
     """How one launch cuts the work: a block's shared histogram holds
     ``node_tile`` nodes (every node of the level while they fit, else even
     tiles, one pass over the entries each), and spans of at most ``span``
-    entries of one feature."""
+    entries of one feature: about ``_TARGET_SPANS`` of at least
+    ``_MIN_SPAN`` at Bosch width (the constants it was tuned at), and below
+    ``_SMALL_SPANS * _MIN_SPAN`` entries about ``_SMALL_SPANS`` spans (two
+    blocks an SM) of at least ``min_span``: ``_SPAN_FLOOR``, and no fewer
+    than the shared bins a block zeroes and flushes (``python3
+    chip_smoke.py --geometry-sweep``).  ``threads``: a block's, one a quad
+    of the span's entries, from 128 to 1024."""
     per_node = 16 * num_bins  # bytes of one node's int64 (g, h) bins
     most = _SMEM_MAX // per_node
     if most < 1:
@@ -304,55 +336,35 @@ def launch_geometry(nnz: int, num_features: int, num_bins: int,
                          f"{_SMEM_MAX})")
     tiles = -(-n_nodes // most)
     node_tile = max(1, -(-n_nodes // tiles))
-    span = max(_MIN_SPAN, -(-nnz // _TARGET_SPANS))
-    return dict(node_tile=node_tile, span=span, smem=node_tile * per_node)
+    min_span = max(_SPAN_FLOOR, node_tile * num_bins)
+    span = max(min_span, min(_MIN_SPAN, -(-nnz // _SMALL_SPANS)),
+               -(-nnz // _TARGET_SPANS))
+    return dict(node_tile=node_tile, span=span, min_span=min_span,
+                smem=node_tile * per_node,
+                threads=block_threads(-(-span // 4)))
 
 
 def span_table(starts, span: int) -> tuple:
     """Cut each feature's entries ``[starts[f], starts[f + 1])`` into spans
-    of at most ``span`` entries.  Returns (n_spans, int64 table): span
-    begins, span ends and span features, as the kernel reads them."""
+    of at most ``span`` entries, one empty span for a feature with none (so
+    the launch writes every feature's bins).  Returns (n_spans, int64
+    table): span begins, span ends, span features and each span's
+    feature's span count, as the kernel reads them."""
     st = _tensor(starts).cpu().numpy().astype(np.int64)
-    per = -(-np.diff(st) // span)
+    per = np.maximum(-(-np.diff(st) // span), 1)
     feat_spans = np.zeros(st.size, np.int64)
     np.cumsum(per, out=feat_spans[1:])
     n_spans = int(feat_spans[-1])
     feat = np.repeat(np.arange(st.size - 1, dtype=np.int64), per)
-    begin = st[feat] + (np.arange(n_spans) - feat_spans[feat]) * span
+    begin = np.minimum(st[feat] + (np.arange(n_spans) - feat_spans[feat])
+                       * span, st[feat + 1])
     end = np.minimum(begin + span, st[feat + 1])
-    return n_spans, np.concatenate([begin, end, feat])
+    return n_spans, np.concatenate([begin, end, feat, per[feat]])
 
 
-def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
-                               gh_e: torch.Tensor, starts, n_nodes: int,
-                               num_features: int, num_bins: int,
-                               layout: SparseHistLayout | None = None, *,
-                               gh_amax: torch.Tensor | None = None
-                               ) -> torch.Tensor:
-    """Histogram of feature-sorted entries: int32 ``gkey`` [nnz] (``f * nb
-    + bin``), int32 ``rel_e`` [nnz] (each entry's node), f32 ``gh_e`` [nnz,
-    2], host ``starts`` [F + 1] (feature f's entries are ``[starts[f],
-    starts[f + 1])``) -> f32 [n_nodes, F, num_bins, 2].  The arrays of a
-    :class:`SparseHistLayout` with ``rel_e = rel[layout.rid]`` and ``gh_e =
-    gh[layout.rid]``; pass that ``layout`` too and the launch takes the span
-    table it keeps on the card, else the table is built and copied here.
-
-    On a CUDA tensor it runs the kernel's two halves on the calling
-    thread's current stream, :func:`histogram_gh_sparse_accumulate`'s launch
-    (which bumps ``histogram_gh_sparse_kernel.launches``) and
-    :func:`histogram_gh_sparse_dequantize`, in the fixed point of
-    :mod:`.fixed_point` with ``n_max`` = the most entries of one feature and
-    ``amax`` = ``gh_amax`` (f32 [2] on the card, a bound on ``|gh_e|`` of
-    each lane; default :func:`.fixed_point.lane_amax` of ``gh_e``; the
-    result depends on it, so callers that must agree bit for bit pass the
-    same).  A ``gh_amax`` below the values gives NaN in a lane where a
-    value could carry a bin past int64 (:func:`.fixed_point.value_limit`),
-    else the exact sums at a finer scale.  On a CPU tensor it runs
-    :func:`histogram_gh_sparse_plain`.  Raises on anything else the kernel
-    does not take."""
-    if gh_e.device.type == "cpu":
-        return histogram_gh_sparse_plain(gkey, rel_e, gh_e, starts, n_nodes,
-                                         num_features, num_bins)
+def _check_kernel_inputs(gkey, rel_e, gh_e, st, n_nodes, num_features,
+                         num_bins, gh_amax) -> None:
+    """Raise on anything the kernel does not take."""
     if (gh_e.device.type != "cuda" or gkey.device != gh_e.device
             or rel_e.device != gh_e.device):
         raise ValueError(f"histogram_gh_sparse_kernel: gkey on "
@@ -363,7 +375,6 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
         raise TypeError(f"histogram_gh_sparse_kernel takes int32 gkey and "
                         f"rel_e and f32 gh_e, got {gkey.dtype} / "
                         f"{rel_e.dtype} / {gh_e.dtype}")
-    st = _tensor(starts)
     nnz = gkey.shape[0] if gkey.dim() == 1 else -1
     if (gkey.dim() != 1 or rel_e.shape != (nnz,) or gh_e.shape != (nnz, 2)
             or st.device.type != "cpu" or st.shape != (num_features + 1,)
@@ -384,30 +395,140 @@ def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
         raise ValueError("histogram_gh_sparse_kernel reads gh_e as float2: "
                          "its data must be 8-byte aligned")
     if gh_amax is not None and (gh_amax.shape != (2,)
-                                or gh_amax.device != gh_e.device):
+                                or gh_amax.device != gh_e.device
+                                or gh_amax.dtype != torch.float32):
         raise ValueError(f"histogram_gh_sparse_kernel: gh_amax "
-                         f"{tuple(gh_amax.shape)} on {gh_amax.device}, want "
-                         f"[2] on {gh_e.device}")
-    shape = (n_nodes, num_features, num_bins, 2)
-    if n_nodes * num_features * num_bins == 0:
-        return torch.empty(shape, dtype=torch.float32, device=gh_e.device)
-    geo = launch_geometry(nnz, num_features, num_bins, n_nodes)
-    if layout is not None:
-        n_spans, table = layout.span_table(geo["span"])
-    else:
-        n_spans, table = span_table(st, geo["span"])
-        table = torch.from_numpy(table).to(gh_e.device)
-    if n_spans == 0:
-        return torch.zeros(shape, dtype=torch.float32, device=gh_e.device)
-    n_max = int((st[1:] - st[:-1]).max())
-    scale = fixed_point_scale(
-        lane_amax(gh_e) if gh_amax is None else gh_amax, n_max)
-    acc = _accumulate(gkey, rel_e, gh_e, n_nodes, num_features, num_bins,
-                      geo, n_spans, table, scale, value_limit(n_max))
-    return histogram_gh_sparse_dequantize(acc, scale, shape)
+                         f"{tuple(gh_amax.shape)} {gh_amax.dtype} on "
+                         f"{gh_amax.device}, want f32 [2] on {gh_e.device}")
+
+
+def histogram_gh_sparse_kernel(gkey: torch.Tensor, rel_e: torch.Tensor,
+                               gh_e: torch.Tensor, starts, n_nodes: int,
+                               num_features: int, num_bins: int,
+                               layout: SparseHistLayout | None = None, *,
+                               gh_amax: torch.Tensor | None = None,
+                               return_scale: bool = False):
+    """Histogram of feature-sorted entries: int32 ``gkey`` [nnz] (``f * nb
+    + bin``), int32 ``rel_e`` [nnz] (each entry's node), f32 ``gh_e`` [nnz,
+    2], host ``starts`` [F + 1] (feature f's entries are ``[starts[f],
+    starts[f + 1])``) -> f32 [n_nodes, F, num_bins, 2].  The arrays of a
+    :class:`SparseHistLayout` with ``rel_e = rel[layout.rid]`` and ``gh_e =
+    gh[layout.rid]``; pass that ``layout`` too and the launch takes the span
+    table and the used-bin counts it keeps on the card, else the table is
+    built and copied here (and no feature pre-reduces).
+
+    On a CUDA tensor it runs the kernel on the calling thread's current
+    stream (two launches: the prologue and the histogram, which finds its
+    scale and dequantizes) and bumps
+    ``histogram_gh_sparse_kernel.launches``, in the fixed point of
+    :mod:`.fixed_point` with ``n_max`` = the most entries of one feature and
+    ``amax`` = ``gh_amax`` (f32 [2] on the card, a bound on ``|gh_e|`` of
+    each lane; default ``max |gh_e|``, found inside the launch; the result
+    depends on it, so callers that must agree bit for bit pass the same).
+    A ``gh_amax`` below the values gives NaN in a lane where a value could
+    carry a bin past int64 (:func:`.fixed_point.value_limit`), else the
+    exact sums at a finer scale.  With ``return_scale`` it also returns the
+    f32 [2] scale.  On a CPU tensor it runs :func:`histogram_gh_sparse_plain`
+    (and the scale by :mod:`.fixed_point`).  Raises on anything else the
+    kernel does not take."""
+    st = _tensor(starts)
+    if gh_e.device.type == "cpu":
+        out = histogram_gh_sparse_plain(gkey, rel_e, gh_e, starts, n_nodes,
+                                        num_features, num_bins)
+        if not return_scale:
+            return out
+        n_max = int((st[1:] - st[:-1]).max()) if num_features else 0
+        return out, fixed_point_scale(
+            lane_amax(gh_e) if gh_amax is None else gh_amax, n_max)
+    _check_kernel_inputs(gkey, rel_e, gh_e, st, n_nodes, num_features,
+                         num_bins, gh_amax)
+    if gkey.shape[0] == 0:  # no entries: no launch
+        out = torch.zeros((n_nodes, num_features, num_bins, 2),
+                          dtype=torch.float32, device=gh_e.device)
+        return (out, fixed_point_scale(
+            lane_amax(gh_e) if gh_amax is None else gh_amax, 0)
+        ) if return_scale else out
+    out = torch.empty((n_nodes, num_features, num_bins, 2),
+                      dtype=torch.float32, device=gh_e.device)
+    scale = torch.empty(2, dtype=torch.float32, device=gh_e.device)
+    if out.numel():
+        n_max = int((st[1:] - st[:-1]).max())
+        _run(gkey, rel_e, gh_e, st, n_nodes, num_features, num_bins, layout,
+             n_max=n_max, amax=gh_amax, out=out, scale_out=scale)
+        with _launch_lock:
+            histogram_gh_sparse_kernel.launches += 1
+    return (out, scale) if return_scale else out
 
 
 histogram_gh_sparse_kernel.launches = 0
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(device) -> torch.Tensor:
+    """int64 [4] kept zeroed between the launches on ``device``'s current
+    stream (each launch that uses it zeroes it again at its end): the
+    overflow marks and ticket of a one-launch call."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(4, dtype=torch.int64,
+                                            device=device)
+    return ws
+
+
+def _run(gkey, rel_e, gh_e, starts, n_nodes: int, num_features: int,
+         num_bins: int, layout, *, n_max: int = 0, amax=None, out=None,
+         scale_out=None, scale=None, qmax: int = 0) -> torch.Tensor:
+    """Launch ``dmlc_histogram_gh_sparse_run`` on checked CUDA inputs: a
+    one-process histogram into ``out`` (scale from ``amax`` or the entries,
+    into ``scale_out``), or, with the caller's ``scale`` and ``qmax``, the
+    accumulate half.  Returns the int64 scratch, whose first ``n_out + 2``
+    words are the accumulator."""
+    nnz = gkey.shape[0]
+    geo = launch_geometry(nnz, num_features, num_bins, n_nodes)
+    if layout is not None:
+        n_spans, table = layout.span_table(geo["span"])
+        # no feature pre-reduces once a tile's nodes alone pass the bound
+        used = (layout.used_on_device()
+                if geo["node_tile"] <= _REDUCE_KEYS else None)
+    else:
+        n_spans, table = span_table(starts, geo["span"])
+        table, used = torch.from_numpy(table).to(gh_e.device), None
+    n_out = n_nodes * num_features * num_bins * 2
+    tiles = -(-n_nodes // geo["node_tile"])
+    n_partial = prologue_blocks(max(nnz if amax is None else 0, n_out),
+                                geo["threads"])
+    # one span a feature with the caller's bound: one launch, no scratch
+    alone = out is not None and amax is not None and n_spans == num_features
+    workspace = _workspace(gh_e.device) if alone else None
+    extra = ((num_features * tiles + 2) // 2 + n_partial
+             if out is not None else 0)
+    scratch = None if alone else torch.empty(
+        n_out + 2 + extra, dtype=torch.int64, device=gh_e.device)
+    if scale is not None:
+        scale = scale.to(device=gh_e.device,
+                         dtype=torch.float32).contiguous()
+    vec = all(t.data_ptr() % 16 == 0 for t in (gkey, rel_e, gh_e))
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    lib = _kernel_lib()
+    with torch.cuda.device(gh_e.device):
+        err = lib.dmlc_histogram_gh_sparse_run(
+            gkey.data_ptr(), rel_e.data_ptr(), gh_e.data_ptr(), nnz,
+            int(vec), table.data_ptr(), n_spans, ptr(used), _REDUCE_KEYS,
+            num_features,
+            num_bins, _sparse_geometry(num_features, num_bins), n_nodes,
+            geo["node_tile"], geo["threads"], n_partial, n_max, ptr(amax),
+            ptr(scale), ptr(scale_out),
+            int(qmax) if scale is not None else value_limit(max(n_max, 1)),
+            ptr(scratch), ptr(workspace), ptr(out),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("histogram_gh_sparse launch failed: "
+                           + lib.dmlc_histogram_sparse_error_string(err)
+                           .decode())
+    return scratch
 
 
 # ---- the accumulate / dequantize pair ---------------------------------------
@@ -455,8 +576,9 @@ def histogram_gh_sparse_accumulate(layout: SparseHistLayout,
     ``scale`` and value limit ``qmax``, then each lane's overflow mark,
     left undequantized so the accumulators of several processes can be
     summed exactly before one :func:`histogram_gh_sparse_dequantize`.  On a
-    CUDA tensor it launches ``dmlc_histogram_gh_sparse_accumulate`` (and
-    bumps ``histogram_gh_sparse_kernel.launches``); on a CPU tensor it runs
+    CUDA tensor it runs the kernel's body with that scale (the prologue
+    zeroes the accumulator; the launch stops before rounding) and bumps
+    ``histogram_gh_sparse_kernel.launches``; on a CPU tensor it runs
     :func:`histogram_gh_sparse_accumulate_plain`."""
     F, B = layout.num_features, layout.num_bins
     gkey = layout.gkey
@@ -474,36 +596,11 @@ def histogram_gh_sparse_accumulate(layout: SparseHistLayout,
                          f"{tuple(gh_e.shape)} {gh_e.dtype}, want contiguous "
                          f"int32 [{nnz}] and 8-byte aligned f32 [{nnz}, 2] "
                          "on the layout's CUDA device")
-    geo = launch_geometry(nnz, F, B, n_nodes)
-    n_spans, table = layout.span_table(geo["span"])
-    return _accumulate(gkey, rel_e, gh_e, n_nodes, F, B, geo, n_spans, table,
-                       scale, qmax)
-
-
-def _accumulate(gkey, rel_e, gh_e, n_nodes: int, num_features: int,
-                num_bins: int, geo: dict, n_spans: int, table,
-                scale: torch.Tensor, qmax: int) -> torch.Tensor:
-    """Launch ``dmlc_histogram_gh_sparse_accumulate`` on checked CUDA
-    inputs over the span ``table`` of ``n_spans`` spans."""
-    acc = torch.zeros(n_nodes * num_features * num_bins * 2 + 2,
-                      dtype=torch.int64, device=gh_e.device)
-    if n_spans == 0:
-        return acc
-    scale = scale.to(device=gh_e.device, dtype=torch.float32).contiguous()
-    vec = all(t.data_ptr() % 16 == 0 for t in (gkey, rel_e, gh_e))
-    lib = _kernel_lib()
-    with torch.cuda.device(gh_e.device):
-        err = lib.dmlc_histogram_gh_sparse_accumulate(
-            gkey.data_ptr(), rel_e.data_ptr(), gh_e.data_ptr(),
-            gkey.shape[0], int(vec), scale.data_ptr(), int(qmax),
-            table.data_ptr(), n_spans, num_features, num_bins,
-            _sparse_geometry(num_features, num_bins), n_nodes,
-            geo["node_tile"], acc.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("histogram_gh_sparse accumulate launch failed: "
-                           + lib.dmlc_histogram_sparse_error_string(err)
-                           .decode())
+    if F == 0 or nnz == 0:  # no entries: no launch
+        return torch.zeros(n_nodes * F * B * 2 + 2, dtype=torch.int64,
+                           device=gh_e.device)
+    acc = _run(gkey, rel_e, gh_e, layout.starts, n_nodes, F, B, layout,
+               scale=scale, qmax=qmax)
     with _launch_lock:
         histogram_gh_sparse_kernel.launches += 1
     return acc

@@ -1433,3 +1433,213 @@ def test_segment_accumulate_and_dequantize_match_plain(cuda, name):
     one = ss.segment_sum_dequantize(ss.segment_sum_accumulate(
         c, rid, rows, own, _vlim(nnz)), own, rows, lanes)
     assert torch.equal(one, ss.segment_sum_kernel(c, rid, rows))
+
+
+# ---- the histograms at the example and one-hot shapes ------------------------
+
+def _fixed_point_reference(acc_plain, scale, shape):
+    """The plain fixed-point route on the CPU: the accumulate half's plain
+    version dequantized by the plain rounding; the one-process kernel is
+    this bit for bit (its sums are exact, its one rounding the same)."""
+    return hg.histogram_gh_dequantize(acc_plain, scale.cpu(), shape)
+
+
+def _assert_within_float64(got, keys, src):
+    """``got`` within 1e-5 of float64 sums of ``src`` by flat ``keys``,
+    relative to the largest bin (the kernels' contract; an f32 one-hot
+    contraction drifts past a plain 1e-5 on a bin of ~20,000 rows)."""
+    h64 = torch.zeros(got.numel() // 2, 2, dtype=torch.float64,
+                      device=got.device).index_add_(0, keys, src.double())
+    err = float((got.reshape(-1, 2).double() - h64).abs().max())
+    assert err <= 1e-5 * max(1.0, float(h64.abs().max()))
+
+
+def _dense_example_case(kind, cuda, seed=0):
+    """--missing: 50,000 x 32 codes of 64 bins, 41% in the missing bin 0;
+    Covertype: 100,000 rows of 10 continuous codes then 4 + 40 one-hot
+    columns (two codes each, at 242 and 255 of 256); one-bin: every row of
+    a 3-column level in one code of column 1 (a one-bin column)."""
+    rng = np.random.default_rng(seed)
+    if kind == "--missing":
+        rows, B = 50_000, 64
+        bins = np.where(rng.random((rows, 32)) < 0.41, 0,
+                        rng.integers(1, B, (rows, 32)))
+    elif kind == "Covertype":
+        rows, B = 100_000, 256
+        wild = rng.choice(4, rows, p=[0.449, 0.051, 0.436, 0.064])
+        soil = rng.integers(0, 40, rows)
+        hot = np.concatenate([np.eye(4, dtype=np.int64)[wild],
+                              np.eye(40, dtype=np.int64)[soil]], 1)
+        bins = np.concatenate([rng.integers(0, B, (rows, 10)),
+                               np.where(hot == 1, 255, 242)], 1)
+    else:
+        rows, B = 70_000, 16
+        bins = rng.integers(0, B, (rows, 3))
+        bins[:, 1] = 7
+    gh = np.stack([rng.standard_normal(rows), rng.uniform(0.05, 0.25, rows)],
+                  1).astype(np.float32)
+    return (torch.from_numpy(bins.astype(np.uint8)).to(cuda),
+            torch.from_numpy(gh).to(cuda), B)
+
+
+@pytest.mark.parametrize("kind,depths", [("--missing", range(5)),
+                                         ("Covertype", range(3)),
+                                         ("one-bin", range(3))])
+def test_histogram_kernel_at_example_and_one_hot_shapes(cuda, kind, depths):
+    """With the fit's layout (few-bin columns pre-reduced, compact shared
+    histograms) and without: equal to the plain fixed-point route bit for
+    bit, two launches bitwise, within 1e-5 of float64."""
+    bins, gh, B = _dense_example_case(kind, cuda)
+    rows, F = bins.shape
+    layout = hg.dense_hist_layout(bins, B)
+    if kind == "Covertype":
+        assert list(layout.used[10:]) == [2] * 44
+    if kind == "one-bin":
+        assert layout.used[1] == 1
+    rng = np.random.default_rng(7)
+    scale = fixed_point_scale(lane_amax(gh), rows)
+    for d in depths:
+        n = 2 ** d
+        rel = torch.from_numpy(rng.integers(0, n, rows).astype(
+            np.int32)).to(cuda)
+        want = _fixed_point_reference(hg.histogram_gh_accumulate_plain(
+            bins.cpu(), rel.cpu(), gh.cpu(), n, B, scale.cpu(),
+            _vlim(rows)), scale, (n, F, B, 2))
+        for lay in (layout, None):
+            a = hg.histogram_gh_kernel(bins, rel, gh, n, B, lay)
+            b = hg.histogram_gh_kernel(bins, rel, gh, n, B, lay)
+            assert torch.equal(a, b)
+            assert torch.equal(a.cpu(), want)
+        keys = ((rel.long()[:, None] * F + torch.arange(F, device=cuda)) * B
+                + bins.long()).reshape(-1)
+        _assert_within_float64(a, keys, gh[:, None, :].expand(
+            rows, F, 2).reshape(-1, 2))
+
+
+def _rank_example_level(cuda, few_feature=False, seed=0):
+    """gbdt_train --rank's entry stream: 15,000 rows of 8 of 32 features
+    (~120,000 entries), 64 bins; with ``few_feature``, feature 3's entries
+    all in bin 5."""
+    from dmlc_core_tpu_torch.ops.histogram_sparse import sparse_hist_layout
+    rng = np.random.default_rng(seed)
+    rows, F, B = 15_000, 32, 64
+    fi = np.stack([rng.choice(F, 8, replace=False) for _ in range(rows)])
+    rid = np.repeat(np.arange(rows), 8)
+    fi = fi.reshape(-1)
+    eb = rng.integers(1, B, fi.size)
+    if few_feature:
+        eb[fi == 3] = 5
+    layout = sparse_hist_layout(*(torch.from_numpy(a).to(cuda) for a in (
+        rid.astype(np.int32), fi.astype(np.int32), eb.astype(np.int32),
+        np.ones(fi.size, bool))), F, B)
+    gh = torch.from_numpy(np.stack([rng.standard_normal(rows),
+                                    rng.uniform(0.05, 0.25, rows)], 1).astype(
+        np.float32)).to(cuda)
+    return layout, gh, rows, F, B
+
+
+@pytest.mark.parametrize("few_feature", [False, True])
+def test_sparse_kernel_at_the_rank_example_shape(cuda, few_feature):
+    """The --rank example's level shapes (depths 0-4), with the given-amax
+    route of the fit and the launch's own amax: equal to the plain
+    fixed-point route bit for bit, two launches bitwise, within 1e-5 of
+    float64; a feature of one used bin pre-reduces."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    layout, gh, rows, F, B = _rank_example_level(cuda, few_feature)
+    assert (int(layout.used_on_device()[3]) == 1) == few_feature
+    gh_e = hs.entry_gh(gh, layout=layout)
+    n_max = int(hs.feature_counts(layout).max())
+    rng = np.random.default_rng(11)
+    for d in range(5):
+        n = 2 ** d
+        rel = torch.from_numpy(rng.integers(0, n, rows).astype(
+            np.int32)).to(cuda)
+        rel_e = rel[layout.rid.long()].contiguous()
+        for amax in (lane_amax(gh), None):
+            scale = _fps(lane_amax(gh_e) if amax is None else amax, n_max)
+            want = hs.histogram_gh_sparse_dequantize(
+                hs.histogram_gh_sparse_accumulate_plain(
+                    layout.gkey.cpu(), rel_e.cpu(), gh_e.cpu(), layout.starts,
+                    n, F, B, scale.cpu(), _vlim(n_max)), scale.cpu(),
+                (n, F, B, 2))
+            a = hs.histogram_gh_sparse_kernel(
+                layout.gkey, rel_e, gh_e, layout.starts, n, F, B, layout,
+                gh_amax=amax)
+            b = hs.histogram_gh_sparse_kernel(
+                layout.gkey, rel_e, gh_e, layout.starts, n, F, B, layout,
+                gh_amax=amax)
+            assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+        gk = layout.gkey.long()
+        _assert_within_float64(a, (rel_e.long() * F + gk // layout.nb) * B
+                               + gk % layout.nb, gh_e)
+
+
+@pytest.mark.parametrize("j,rows", [(0, 4096), (-7, 100_000), (12, 3),
+                                    (3, 1 << 20)])
+def test_histogram_kernels_scale_equals_fixed_point_scale(cuda, j, rows):
+    """The scale both histogram kernels find inside their launch is
+    ``fixed_point_scale(lane_amax(gh), n_max)`` bit for bit, at amax = 2^j
+    and just past it (``test_kernel_scale_equals_fixed_point_scale`` for
+    the histograms)."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    rng = np.random.default_rng(j + 20)
+    gh = rng.uniform(-1, 1, (rows, 2)).astype(np.float32) * np.float32(2.0 ** j)
+    gh[0, 0] = 2.0 ** j
+    gh[-1, 1] = np.nextafter(np.float32(2.0 ** j), np.float32(np.inf))
+    g = torch.from_numpy(gh).to(cuda)
+    bins = torch.from_numpy(rng.integers(0, 8, (rows, 3)).astype(
+        np.uint8)).to(cuda)
+    rel = torch.zeros(rows, dtype=torch.int32, device=cuda)
+    _, scale = hg.histogram_gh_kernel(bins, rel, g, 2, 8, return_scale=True)
+    assert torch.equal(scale, fixed_point_scale(lane_amax(g), rows))
+    starts = torch.tensor([0, rows // 2, rows])
+    gkey = torch.cat([torch.full((rows // 2,), 1), torch.full(
+        (rows - rows // 2,), 9)]).to(torch.int32).to(cuda)
+    _, scale = hs.histogram_gh_sparse_kernel(gkey, rel, g, starts, 2, 2, 8,
+                                             return_scale=True)
+    n_max = max(rows // 2, rows - rows // 2)
+    assert torch.equal(scale, fixed_point_scale(lane_amax(g), n_max))
+
+
+def _device_ops(fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) one call
+    of ``fn`` queues, from torch.profiler, after a warm-up call.  A call
+    queues at least one, so a trace that holds none lost its device
+    records (CUPTI) and is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               for _ in range(e.count)]
+        if ops:
+            return ops
+    return []
+
+
+def test_histogram_kernels_queue_two_device_ops_a_call(cuda):
+    """One one-process call of either kernel queues at most two device
+    operations: the prologue (or the zeroing) and the histogram, no amax,
+    scale or dequantize ops around them; a sparse call of one span a
+    feature with the caller's bound on |gh| (the --rank shape) is one."""
+    from dmlc_core_tpu_torch.ops import histogram_sparse as hs
+    bins, gh, B = _dense_example_case("Covertype", cuda)
+    layout = hg.dense_hist_layout(bins, B)
+    rel = torch.zeros(bins.shape[0], dtype=torch.int32, device=cuda)
+    ops = _device_ops(lambda: hg.histogram_gh_kernel(bins, rel, gh, 4, B,
+                                                     layout))
+    print(f"dense call: {ops}")
+    assert len(ops) == 2
+    lay, gh, rows, F, B = _rank_example_level(cuda)
+    gh_e = hs.entry_gh(gh, layout=lay)
+    rel_e = torch.zeros(lay.nnz_live, dtype=torch.int32, device=cuda)
+    amax = lane_amax(gh)
+    ops = _device_ops(lambda: hs.histogram_gh_sparse_kernel(
+        lay.gkey, rel_e, gh_e, lay.starts, 16, F, B, lay, gh_amax=amax))
+    print(f"sparse call: {ops}")
+    assert len(ops) == 1

@@ -126,7 +126,8 @@ def test_launch_geometry_fits_the_card(rows, F, B, n):
     feat_group (node, feature) pairs a block, within a Hopper block's 227
     KB; every node of the level in one tile while they fit beside
     ``_DEEP_GROUP`` features (depths 0-4 at 256 bins), else even node
-    tiles; every pair in some tile and every row in some chunk."""
+    tiles, each group in its own; every pair in some tile and every row in
+    some chunk."""
     geo = hg.launch_geometry(rows, F, B, n)
     assert geo["smem"] <= 227 * 1024
     assert geo["smem"] == geo["node_tile"] * geo["feat_group"] * B * 16
@@ -141,7 +142,10 @@ def test_launch_geometry_fits_the_card(rows, F, B, n):
         assert tiles == (2 if n == 32 else 1)
     chunks = -(-rows // geo["chunk"])
     assert chunks * geo["chunk"] >= rows
-    assert geo["blocks"] == chunks * groups * tiles
+    # each group in its own even node tiles (a narrower last group in fewer)
+    assert groups == len(geo["groups"])
+    assert geo["blocks"] == chunks * len(geo["items"])
+    assert len(geo["items"]) <= groups * tiles
 
 
 def test_launch_geometry_refuses_bins_past_shared_memory():

@@ -205,8 +205,10 @@ def test_launch_geometry_fits_the_card(nnz, F, B, n):
     """One shared histogram of node_tile nodes a block, within a Hopper
     block's 227 KB; every node of the level in one tile while they fit
     (depths 0-5 at 256 bins take one pass over the entries), else even
-    tiles; spans of at least ``_MIN_SPAN`` entries, about
-    ``_TARGET_SPANS`` of them."""
+    tiles; at Bosch width spans of at least ``_MIN_SPAN`` entries, about
+    ``_TARGET_SPANS`` of them; fewer entries, about ``_SMALL_SPANS``
+    spans of at least ``_SPAN_FLOOR``; a block's threads one a quad of
+    its span, 128 to 1024."""
     geo = hs.launch_geometry(nnz, F, B, n)
     assert geo["smem"] <= 227 * 1024
     assert geo["smem"] == geo["node_tile"] * B * 16
@@ -217,22 +219,31 @@ def test_launch_geometry_fits_the_card(nnz, F, B, n):
     assert tiles * geo["node_tile"] - n < tiles
     if B == 256 and n <= 32:
         assert geo["node_tile"] == n
-    assert geo["span"] >= hs._MIN_SPAN
-    assert nnz // geo["span"] <= hs._TARGET_SPANS
+    if nnz >= hs._SMALL_SPANS * hs._MIN_SPAN:
+        assert geo["span"] >= hs._MIN_SPAN
+    assert geo["span"] >= hs._SPAN_FLOOR
+    assert nnz // geo["span"] <= max(hs._TARGET_SPANS, hs._SMALL_SPANS)
+    assert 128 <= geo["threads"] <= 1024
+    assert geo["threads"] <= max(128, geo["span"] / 4)
     with pytest.raises(ValueError, match="shared memory"):
         hs.launch_geometry(100, 2, 40000, 1)
 
 
 def test_span_table_cuts_features_into_spans():
+    """Spans of at most ``span`` entries, one empty span for a feature with
+    none (the launch writes every feature's bins), and each span's
+    feature's span count (its region's tickets)."""
     starts = np.array([0, 0, 5, 12, 12, 30])
     n_spans, table = hs.span_table(starts, 4)
-    assert n_spans == 2 + 2 + 5 and table.shape == (3 * n_spans,)
-    begin, end, feat = table.reshape(3, n_spans)
-    np.testing.assert_array_equal(feat, [1, 1, 2, 2, 4, 4, 4, 4, 4])
+    assert n_spans == 1 + 2 + 2 + 1 + 5 and table.shape == (4 * n_spans,)
+    begin, end, feat, count = table.reshape(4, n_spans)
+    np.testing.assert_array_equal(feat, [0, 1, 1, 2, 2, 3, 4, 4, 4, 4, 4])
+    np.testing.assert_array_equal(count, [1, 2, 2, 2, 2, 1, 5, 5, 5, 5, 5])
     for s in range(n_spans):
         f = feat[s]
-        assert starts[f] <= begin[s] < end[s] <= starts[f + 1]
+        assert starts[f] <= begin[s] <= end[s] <= starts[f + 1]
         assert end[s] - begin[s] <= 4
+        assert (end[s] > begin[s]) == (starts[f + 1] > starts[f])
     # the spans tile every feature's entries in order
     np.testing.assert_array_equal(np.concatenate(
         [np.arange(b, e) for b, e in zip(begin, end)]), np.arange(30))
