@@ -619,17 +619,20 @@ def criteo_train_file(path: Path, rows: int = 0,
 
 def host_packed(uri: str, batch: int, bucket: int,
                 with_field: bool = False, part: int = 0,
-                num_parts: int = 1) -> list:
+                num_parts: int = 1, limit: int = 0) -> list:
     """The staged batches as the port's ``Parser`` RowBlocks packed on the
     host by numpy: ``batch`` rows each (the last zero-padded: weight 0,
     label 0, empty spans), nonzeros padded with zeros to a multiple of
     ``bucket``; with ``with_field``, the libffm field lane too; ``part`` of
-    ``num_parts`` of the file."""
+    ``num_parts`` of the file; with ``limit``, its first ``limit`` batches
+    (read no further than they need)."""
     from dmlc_core_tpu_torch.data import Parser
     labels, weights, offsets, index, value, field = [], [], [], [], [], []
     base = 0
     with Parser(uri, part=part, num_parts=num_parts) as parser:
         for blk in parser:
+            if limit and sum(map(len, labels)) >= limit * batch:
+                break
             labels.append(blk.label)
             weights.append(blk.weight if blk.weight is not None
                            else np.ones(blk.size, np.float32))
@@ -658,7 +661,7 @@ def host_packed(uri: str, batch: int, bucket: int,
             "num_rows": r1 - r0})
         if with_field:
             out[-1]["field"] = np.pad(field[e0:e1], (0, pad))
-    return out
+    return out[:limit] if limit else out
 
 
 STAGED_LEAVES = ("label", "weight", "row_ptr", "index", "value")
@@ -675,6 +678,15 @@ def batch_mismatch(batch, want: dict, leaves=STAGED_LEAVES):
                                                     b.view(np.int32)):
             return k
     return None
+
+
+def leaves_digest(batch: dict, leaves=STAGED_LEAVES) -> str:
+    """sha256 over a host batch's leaves (4-byte words, in ``leaves``
+    order) and its ``num_rows``."""
+    h = hashlib.sha256(str(int(batch["num_rows"])).encode())
+    for k in leaves:
+        h.update(np.ascontiguousarray(batch[k]).view(np.int32).tobytes())
+    return h.hexdigest()
 
 
 def copy_back(torch, batch, host_pin: dict, slot: int,
@@ -1270,6 +1282,12 @@ def segment_timing(torch, ss_mod, c, rid, R: int, what: str,
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, max_abs_err=err, nnz=nnz,
                 bound_by="bytes" if byte_s >= op_s else "operations")
+
+
+def ffm_file_uri(build_dir: Path) -> str:
+    """The FFM phase's libffm training file, as a staging URI."""
+    return (f"{build_dir / f'criteo_{FFM_ROWS}_seed{TRAIN_SEED}.libffm'}"
+            "?format=libfm")
 
 
 def phase_ffm(torch, ss_mod, dev, build_dir: Path) -> dict:
@@ -3972,14 +3990,17 @@ def service_rank(torch, work: Path, rank: int, plan, dev, log: dict, fit,
         "done": lease["done"]}
 
 
-def _timed_plan(torch, plan, log: dict):
+def _timed_plan(torch, plan, log: dict, keep_big: bool = True):
     """Wrap the plan's collectives: host-blocking ms (the call through the
-    result's wait) into ``log["collective_ms"]``, each all-reduce's route
-    into ``log["strategies"]``; the first reduction of
-    more than 1M values is kept in ``log["big"]`` (a data-parallel step's
-    flat gradient)."""
+    result's wait) into ``log["collective_ms"]``, their input bytes into
+    ``log["collective_bytes"]``, the all-reduces' count into
+    ``log["collectives"]`` and routes into ``log["strategies"]``; with
+    ``keep_big``, the
+    first reduction of more than 1M values is kept in ``log["big"]`` (a
+    data-parallel step's flat gradient)."""
     log.setdefault("collective_ms", 0.0)
     log.setdefault("collectives", 0)
+    log.setdefault("collective_bytes", 0)
     log.setdefault("strategies", set())
     orig_async, orig_gather = plan.allreduce_async, plan.all_gather
 
@@ -3993,7 +4014,8 @@ def _timed_plan(torch, plan, log: dict):
                 torch.cuda.current_stream().synchronize()
             log["collective_ms"] += (time.monotonic() - self.t0) * 1e3
             log["collectives"] += 1
-            if self.x.numel() > (1 << 20) and "big" not in log:
+            log["collective_bytes"] += self.x.numel() * self.x.element_size()
+            if keep_big and self.x.numel() > (1 << 20) and "big" not in log:
                 log["big"] = out.detach().cpu().clone()
             return out
 
@@ -4007,6 +4029,7 @@ def _timed_plan(torch, plan, log: dict):
         t0 = time.monotonic()
         out = orig_gather(x)
         log["collective_ms"] += (time.monotonic() - t0) * 1e3
+        log["collective_bytes"] += x.numel() * x.element_size()
         return out
 
     plan.allreduce_async, plan.all_gather = allreduce_async, all_gather
@@ -4040,14 +4063,127 @@ def _events_ms(torch, log: dict) -> float:
     return ms
 
 
+# the dp x tp runs of the 4-rank job: (data, model) plan shapes, and each
+# family's steps on each (a few: gloo stages every exchange through host
+# memory, and the FFM's model-axis sums are 199 MB a step)
+TP_SHAPES = ((2, 2), (1, 4))
+TP_STEPS = {"fm": 5, "ffm": 4}
+
+
+def tp_rank(torch, work: Path, rank: int, dev, out: dict) -> None:
+    """This rank's dp x tp runs (the 4-rank job): the Criteo-width FM and
+    FFM sharded by feature over a (data, model) plan of each TP_SHAPES
+    shape, staged from the training files' parts (part d of D), TP_STEPS
+    steps with ``sdot_backend="pallas"``.  Each run's counts are set to 0
+    just before it and read just after: segment-sum launches and
+    one-process kernel launches (``segment_sum._launch``); each step's wall
+    (host clock, synchronised) and each axis's collectives in it (ms,
+    bytes); the first step's margins, each step's staged-batch digest and
+    global rows, the resident table's size and the blocks after the steps
+    are kept (the blocks under WORK for the parent).  The 2 x 2 FM then
+    stages the rest of its epoch (no steps) for the parent's row count."""
+    from dmlc_core_tpu_torch import parallel
+    from dmlc_core_tpu_torch.data import DeviceStagingIter
+    from dmlc_core_tpu_torch.models import (FactorizationMachine,
+                                            FieldAwareFactorizationMachine)
+    from dmlc_core_tpu_torch.ops import segment_sum as ss_mod
+    uris = {"fm": (work / "uri.txt").read_text(),
+            "ffm": (work / "ffm_uri.txt").read_text()}
+    nnz_max = TRAIN_BATCH * NNZ_PER_ROW
+    one_process = [0]
+    launch = ss_mod._launch
+
+    def counted(*a):
+        one_process[0] += 1
+        return launch(*a)
+
+    ss_mod._launch = counted
+
+    def host_batch(b, leaves):
+        got = {k: getattr(b, k).cpu().numpy() for k in leaves}
+        got["num_rows"] = b.num_rows
+        return got
+
+    for D, M in TP_SHAPES:
+        plan = parallel.MeshPlan(parallel.make_mesh((D, M),
+                                                    ("data", "model")),
+                                 ("data",), collective="flat")
+        logs = {"data": {}, "model": {}}
+        _timed_plan(torch, plan, logs["data"], keep_big=False)
+        _timed_plan(torch, plan.model, logs["model"], keep_big=False)
+        for family, steps in TP_STEPS.items():
+            leaves = FFM_LEAVES if family == "ffm" else STAGED_LEAVES
+            if family == "fm":
+                model = FactorizationMachine(
+                    NUM_FEATURES, num_factors=NUM_FACTORS,
+                    sdot_backend="pallas", mesh_plan=plan, device=dev)
+            else:
+                model = FieldAwareFactorizationMachine(
+                    learning_rate=FFM_LR, l2=FFM_L2, mesh_plan=plan,
+                    device=dev, **FFM_CFG)
+            model.init(0)
+            it = DeviceStagingIter(
+                uris[family], batch_size=TRAIN_BATCH,
+                nnz_bucket=TRAIN_NNZ_BUCKET, nnz_max=nnz_max, num_workers=2,
+                part=plan.shard_index, num_parts=plan.num_shards,
+                sharding=plan, with_field=family == "ffm", device=dev)
+            margins = model.margins
+            kept = []
+
+            def keep(b, margins=margins, kept=kept):
+                m = margins(b)
+                if not kept:
+                    kept.append(m.detach().cpu().numpy())
+                return m
+
+            model.margins = keep
+            batches, losses, per_step = [], [], []
+            ss_mod.segment_sum_kernel.launches = one_process[0] = 0
+            batch_iter = iter(it)
+            for _ in range(steps):
+                b = next(batch_iter)
+                batches.append((leaves_digest(host_batch(b, leaves), leaves),
+                                b.num_rows, b.global_num_rows))
+                for log in logs.values():
+                    log.update(collective_ms=0.0, collective_bytes=0)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                losses.append(float(model.train_step(b)))
+                torch.cuda.synchronize()
+                per_step.append({"secs": time.monotonic() - t0, **{
+                    f"{axis}_{k}": logs[axis][f"collective_{k}"]
+                    for axis in logs for k in ("ms", "bytes")}})
+            run = {"steps": steps, "per_step": per_step, "losses": losses,
+                   "segment_sum": ss_mod.segment_sum_kernel.launches,
+                   "one_process": one_process[0], "batches": batches,
+                   "block": list(model.table_block),
+                   "numel": {k: model.get_parameter(k).numel()
+                             for k in ("w", "v")}}
+            if (D, M) == (2, 2) and family == "fm":
+                rest = [(leaves_digest(host_batch(b, leaves), leaves),
+                         b.num_rows, b.global_num_rows) for b in batch_iter]
+                run["rest"] = rest
+            batch_iter.close()  # stops the epoch's producer threads
+            it.close()
+            np.savez(work / f"tp_{family}_{D}x{M}_rank{rank}.npz",
+                     margins=kept[0],
+                     **{k: v.detach().cpu().numpy()
+                        for k, v in model.state_dict().items()})
+            out[f"tp_{family}_{D}x{M}"] = run
+            del model, it, batch_iter
+            torch.cuda.empty_cache()
+    ss_mod._launch = launch
+
+
 def mesh_worker(argv) -> int:
     """One rank of the mesh phase's job (``chip_smoke.py --mesh-rank WORK
     JOB``): joins the tracker and a gloo process group from the DMLC_*
     contract, fits the Higgs-width forest on its contiguous rows, the
-    Bosch-width one by fit_batch and by fit_streamed, and in the 2-rank job
+    Bosch-width one by fit_batch and by fit_streamed, in the 2-rank job
     trains the FM data-parallel from its part of the training file,
-    checkpoints it and benches the collectives; writes its readings and
-    forests under WORK."""
+    checkpoints it and benches the collectives, and in the 4-rank job
+    trains the FM and FFM sharded by feature (:func:`tp_rank`); writes its
+    readings and forests under WORK."""
     import os
 
     import torch
@@ -4158,6 +4294,10 @@ def mesh_worker(argv) -> int:
     fit("streamed", lambda: smodel.fit_streamed(parts, binner), smodel,
         "_level_histogram_sparse")
     del parts
+
+    if job == "quad":
+        # (b4) the FM and FFM tables sharded by feature (dp x tp)
+        tp_rank(torch, work, rank, dev, out)
 
     if job == "pair":
         # (b3) fit_streamed over the data service, each rank on its share
@@ -4302,6 +4442,216 @@ def _same(a: dict, b: dict, keys=None) -> bool:
     return all(np.array_equal(a[k], b[k]) for k in (keys or a))
 
 
+def global_batch(torch, PaddedBatch, parts: list, dev) -> object:
+    """The JAX package's global batch of the data groups' host batches:
+    rows and lanes concatenated, each group's row boundaries shifted into
+    its own lanes (as multi-process staging's ``global_row_ptr``)."""
+    leaves = [k for k in ("label", "weight", "index", "value", "field")
+              if k in parts[0]]
+    g = {k: np.concatenate([p[k] for p in parts]) for k in leaves}
+    shift = np.cumsum([0] + [len(p["index"]) for p in parts])
+    g["row_ptr"] = np.concatenate(
+        [p["row_ptr"][:-1] + shift[d] for d, p in enumerate(parts)]
+        + [[shift[-1]]]).astype(np.int32)
+    return PaddedBatch(num_rows=sum(int(p["num_rows"]) for p in parts), **{
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        for k, v in g.items()})
+
+
+def tp_checks(torch, dev, work: Path, quad: list, fms: list,
+              dp_bytes: int, smi: str) -> dict:
+    """The 4-rank job's dp x tp runs against a one-process run of the same
+    global batches on the card: (a) every rank's blocks after the steps
+    within TOL of the block's largest entry, b equal on every rank; (b) on
+    the 1 x 4 plan, the first FM step's margins bit for bit the one-process
+    kernel's; (c) 3 segment-sum launches an FM step and 1 an FFM step, all
+    accumulate launches (no one-process launch); (d) resident blocks of
+    F/M rows; (e) each rank's staged batches equal to its data group's
+    part's host packing (so equal within the group), their global rows
+    counting each group once, and the 2 x 2 FM groups' epochs together the
+    training file's rows; (f) steps/s and each axis's collectives a step
+    beside the 2-rank data-parallel FM's.  Returns each shape's first FM
+    batch and the one-process FM's params after its steps."""
+    from dmlc_core_tpu_torch.data import PaddedBatch
+    from dmlc_core_tpu_torch.models import (FactorizationMachine,
+                                            FieldAwareFactorizationMachine)
+    uris = {"fm": (work / "uri.txt").read_text(),
+            "ffm": (work / "ffm_uri.txt").read_text()}
+    nnz_max = TRAIN_BATCH * NNZ_PER_ROW
+    inputs = {}
+    for D, M in TP_SHAPES:
+        for family, steps in TP_STEPS.items():
+            ffm = family == "ffm"
+            leaves = FFM_LEAVES if ffm else STAGED_LEAVES
+            tag = f"{D}x{M} dp x tp {family.upper()}"
+            parts = [host_packed(uris[family], TRAIN_BATCH, nnz_max,
+                                 with_field=ffm, part=d, num_parts=D,
+                                 limit=steps) for d in range(D)]
+            if ffm:
+                one = FieldAwareFactorizationMachine(
+                    learning_rate=FFM_LR, l2=FFM_L2, device=dev, **FFM_CFG)
+            else:
+                one = FactorizationMachine(NUM_FEATURES,
+                                           num_factors=NUM_FACTORS,
+                                           sdot_backend="pallas", device=dev)
+            one.init(0)
+            losses = []
+            for i in range(steps):
+                gb = global_batch(torch, PaddedBatch, [p[i] for p in parts],
+                                  dev)
+                if i == 0:
+                    with torch.no_grad():
+                        margins = one.margins(gb).cpu().numpy()
+                    if not ffm:  # a rank's batch: its data group's
+                        first = global_batch(torch, PaddedBatch,
+                                             [parts[0][0]], dev)
+                losses.append(float(one.train_step(gb)))
+            want = {k: v.detach() for k, v in one.state_dict().items()}
+            if not ffm:
+                inputs[(D, M)] = (first, want)
+            runs = [r[f"tp_{family}_{D}x{M}"] for r in quad]
+            worst = 0.0
+            for r, run in zip(quad, runs):
+                d, lo, hi = r["rank"] // M, *run["block"]
+                got = np.load(work / f"tp_{family}_{D}x{M}_rank{r['rank']}"
+                              ".npz")
+                for k in ("w", "v"):
+                    blk = want[k][lo:hi].cpu().numpy()
+                    err = float(np.abs(got[k] - blk).max()
+                                / max(np.abs(blk).max(), 1e-30))
+                    worst = max(worst, err)
+                    check(err <= TOL, f"{tag} rank {r['rank']}: {k} block "
+                          f"{err:.3e} of its largest entry from the "
+                          "one-process run")
+                check(np.array_equal(got["b"], np.load(
+                    work / f"tp_{family}_{D}x{M}_rank0.npz")["b"])
+                    and abs(float(got["b"]) - float(want["b"])) <= TOL,
+                    f"{tag} rank {r['rank']}: b {got['b']} (one-process "
+                    f"{float(want['b'])})")
+                np.testing.assert_allclose(run["losses"], losses,
+                                           rtol=1e-5, err_msg=tag)
+                if (D, M) == (1, 4) and not ffm:
+                    check(np.array_equal(got["margins"], margins),
+                          f"{tag} rank {r['rank']}: the first step's "
+                          "margins differ from the one-process kernel's")
+                per = {"fm": 3, "ffm": 1}[family]
+                check(run["segment_sum"] == per * steps
+                      and run["one_process"] == 0,
+                      f"{tag} rank {r['rank']}: {run['segment_sum']} "
+                      f"segment-sum launches ({run['one_process']} "
+                      f"one-process) in {steps} steps, want {per} "
+                      "accumulate launches a step")
+                rows = NUM_FEATURES // M
+                check(run["block"] == [(r["rank"] % M) * rows,
+                                       (r["rank"] % M + 1) * rows]
+                      and run["numel"]["w"] == rows
+                      and run["numel"]["v"] == rows * (
+                          FFM_FIELDS * FFM_FACTORS if ffm else NUM_FACTORS),
+                      f"{tag} rank {r['rank']}: block {run['block']}, "
+                      f"resident {run['numel']}")
+                for i, (digest, n, glob) in enumerate(run["batches"]):
+                    check(digest == leaves_digest(parts[d][i], leaves)
+                          and n == parts[d][i]["num_rows"]
+                          and glob == (None if D == 1 else sum(
+                              int(p[i]["num_rows"]) for p in parts)),
+                          f"{tag} rank {r['rank']} batch {i}: not its data "
+                          f"group's part {d} of {D} (rows {n}, global "
+                          f"{glob})")
+            if "rest" in runs[0]:
+                for r, run in zip(quad, runs):
+                    peer = runs[(r["rank"] // M) * M]
+                    check(run["rest"] == peer["rest"],
+                          f"{tag} rank {r['rank']}: the rest of its epoch "
+                          "differs from its data group's first rank's")
+                total = sum(n for run in runs[::M]
+                            for _, n, _ in run["batches"] + run["rest"])
+                check(total == TRAIN_ROWS and all(
+                    g == sum(runs[d * M][key][i][1] for d in range(D))
+                    for key in ("batches", "rest")
+                    for i, (_, _, g) in enumerate(runs[0][key])),
+                    f"{tag}: the groups' epochs hold {total} rows, want "
+                    f"{TRAIN_ROWS}, or a batch's global rows count a group "
+                    "twice")
+            # after the first step (which pays the first launches, pinned
+            # buffers and groups' first use), every rank's mean a step
+            mean = {k: float(np.mean([x[k] for run in runs
+                                      for x in run["per_step"][1:]]))
+                    for k in runs[0]["per_step"][0]}
+            first_s = float(np.mean([run["per_step"][0]["secs"]
+                                     for run in runs]))
+            print(f"mesh {tag}: {steps} steps a rank, blocks of "
+                  f"{NUM_FEATURES // M} features ({runs[0]['numel']} "
+                  f"resident), within {worst:.2e} of their largest entry "
+                  f"from a one-process run of the same global batches; "
+                  + ("first-step margins bit for bit the one-process "
+                     "kernel's; " if (D, M) == (1, 4) and not ffm else "")
+                  + f"{runs[0]['segment_sum'] // steps} accumulate launch(es)"
+                  f" a step, no one-process launch; each rank's batches = "
+                  f"its data group's part (d of {D}) bit for bit; "
+                  f"{1 / mean['secs']:.2f} steps/s a rank after "
+                  f"{first_s:.3f} s for the first; a step's model-axis "
+                  f"collectives {mean['model_ms']:.1f} ms, "
+                  f"{mean['model_bytes'] / 2**20:.2f} MiB, data-axis "
+                  f"{mean['data_ms']:.1f} ms, "
+                  f"{mean['data_bytes'] / 2**20:.2f} MiB (host-blocking; "
+                  f"gloo through host memory, 4 ranks on one card); card "
+                  f"{smi}")
+            del one
+    dp = fms[0]
+    print(f"mesh tp baseline beside the 2-rank data-parallel FM: "
+          f"{dp['steps'] / dp['secs']:.2f} steps/s a rank, all-reduce "
+          f"{dp['collective_ms'] / dp['steps']:.1f} ms and "
+          f"{dp_bytes / 2**20:.2f} MiB a step (the whole gradient); card "
+          f"{smi}")
+    return {"inputs": inputs}
+
+
+def tp_accumulate_cases(torch, ss_mod, inputs: dict, quad: list) -> list:
+    """The dp x tp steps' accumulate launch at a model rank's share of each
+    plan shape's first FM batch (the last block's entries, where indices
+    past the table land; the one-process FM's params after its steps), at
+    the whole batch's scale, L=16 and L=1: for the mesh phase's ``held``,
+    with the launches of every rank's run at that lane count."""
+    from dmlc_core_tpu_torch.ops.fixed_point import (fixed_point_scale,
+                                                     lane_amax, value_limit)
+    from dmlc_core_tpu_torch.ops.segment_sum import clamp_index
+    cases = []
+    for (D, M), (gb, fm_p) in inputs.items():
+        B = gb.batch_size
+        c_all = clamp_index(gb.index, NUM_FEATURES)
+        own = c_all >= NUM_FEATURES // M * (M - 1)
+        rid = gb.row_ids()[own].contiguous()
+        fm_l, ffm_l = (sum(r[f"tp_{f}_{D}x{M}"]["segment_sum"] for r in quad)
+                       for f in ("fm", "ffm"))
+        for lanes in (NUM_FACTORS, 1):
+            tab = fm_p["v"] if lanes > 1 else fm_p["w"][:, None]
+            full = (tab[c_all] * gb.value[:, None]).contiguous()
+            c_m = full[own].contiguous()
+            nnz = full.shape[0]
+            sc = fixed_point_scale(lane_amax(full), nnz)
+            q = value_limit(nnz)
+            z = torch.zeros(B, lanes, device=full.device)
+            cases.append(dict(
+                share=f"a {M}-way model share of the {D}x{M} dp x tp FM's "
+                      f"first batch ({c_m.shape[0]} of {nnz} entries x "
+                      f"L={lanes} into {B} rows, the last block's)",
+                fns=(lambda c=c_m, r=rid, sc=sc, q=q:
+                     ss_mod.segment_sum_accumulate(c, r, B, sc, q),
+                     lambda c=c_m, r=rid, sc=sc, q=q:
+                     ss_mod.segment_sum_accumulate_plain(c, r, B, sc, q),
+                     lambda a, sc=sc, n=lanes:
+                     ss_mod.segment_sum_dequantize(a, sc, B, n),
+                     lambda z=z, i=rid.long(), c=c_m:
+                     torch.index_add(z, 0, i, c)),
+                nbytes=(4 * lanes + 4) * c_m.shape[0] + 8 * lanes * (B + 1),
+                scale=sc, lanes=lanes,
+                launches=fm_l * 2 // 3 if lanes > 1 else fm_l // 3 + ffm_l,
+                of=f"every rank of the 4-rank job's {D}x{M} dp x tp "
+                   + ("FM and FFM steps (their linear terms)" if lanes == 1
+                      else "FM steps (the two factor sums)")))
+    return cases
+
+
 def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
                sparse: dict, sparse_data: dict, streamed: dict,
                train: dict, served_fit: dict) -> dict:
@@ -4314,9 +4664,10 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
     FM trained data-parallel from the training file (staged batches vs the
     host parse, the first reduced gradient vs the one-process gradient of
     the global batch, replicas bitwise equal), its 2-rank checkpoint
-    against a one-process save; collective benches over gloo and over a
-    1-rank NCCL group; each kernel's accumulate half at the ranks' shapes
-    against its plain version."""
+    against a one-process save; the 4-rank job's dp x tp FM and FFM runs
+    (:func:`tp_checks`); collective benches over gloo and over a 1-rank
+    NCCL group; each kernel's accumulate half at the ranks' shapes (the
+    dp x tp model shares included) against its plain version."""
     import torch.distributed as dist
 
     from dmlc_core_tpu_torch import checkpoint, parallel
@@ -4338,6 +4689,7 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
     np.save(work / "higgs_label.npy", label.cpu().numpy())
     np.save(work / "bosch_cuts.npy", sparse["binner"].cuts.cpu().numpy())
     (work / "uri.txt").write_text(train["uri"])
+    (work / "ffm_uri.txt").write_text(ffm_file_uri(build_dir))
     (work / "stream_uri.txt").write_text(streamed["uri"])
     print(f"mesh inputs: Higgs codes and labels written for the ranks in "
           f"{time.monotonic() - t0:.1f} s")
@@ -4608,6 +4960,12 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
           f"(largest {scale:.2e}); replicas bitwise equal; 3 launches a "
           f"step")
 
+    # (c2) the dp x tp runs of the 4-rank job
+    smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]).splitlines()[0]
+    tp = tp_checks(torch, dev, work, quad, fms, 4 * (1 + sum(
+        p.numel() for p in fm1.parameters())), smi)
+
     # (d) the 2-rank checkpoint against a one-process save of its values
     path = work / "fm_two_rank.ckpt"
     check([r["ckpt_leaves"] for r in pair] == [3, 0] and all(
@@ -4649,20 +5007,22 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
     # its plain version (int64 accumulators equal, and the dequantized
     # sums), times, bound, library call
     def held(name, share, acc, plain, deq, lib, nbytes, iters, jobs_of,
-             prior_ms=None, **extra):
+             prior_ms=None, lanes=2, launches=None, of=None, **extra):
         a, p = acc(), plain()
         check(torch.equal(a, p), f"{name} accumulate at {share} != plain")
-        got, want = deq(a), dequantize_plain(p, scale_of[name], 2)
+        got, want = deq(a), dequantize_plain(p, scale_of[name], lanes)
         check(bool(torch.isfinite(got).all()), f"{name} at {share}: "
               "non-finite sums")
         ms, _ = device_ms(torch, acc, iters)
         plain_ms, _ = device_ms(torch, plain, 2, warmup=1)
         lib_ms, _ = device_ms(torch, lib, 5, warmup=1)
-        launches = sum(r[what][name] for job, whats in jobs_of
-                       for r in jobs[job] for what in whats)
-        of = "; ".join(f"every rank of the {len(jobs[job])}-rank job's "
-                       + " and ".join(MESH_FITS[w] for w in whats)
-                       for job, whats in jobs_of)
+        if launches is None:
+            launches = sum(r[what][name] for job, whats in jobs_of
+                           for r in jobs[job] for what in whats)
+        if of is None:
+            of = "; ".join(f"every rank of the {len(jobs[job])}-rank job's "
+                           + " and ".join(MESH_FITS[w] for w in whats)
+                           for job, whats in jobs_of)
         out = dict(name=name, share=share, of=of, launches=launches,
                    max_abs_err=float((got.reshape(-1) - want).abs().max()),
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -4756,6 +5116,11 @@ def phase_mesh(torch, ss_mod, dev, build_dir: Path, gbdt: dict,
             12 * r1 + 16 * n_leaves, 20,
             [(job, ("dense", "sparse", "streamed")
                    + (("service",) if job == "pair" else ()))]))
+    # the dp x tp steps' accumulate at the FM's model shares
+    for case in tp_accumulate_cases(torch, ss_mod, tp["inputs"], quad):
+        scale_of["segment_sum"] = case.pop("scale")
+        kern.append(held("segment_sum", case.pop("share"), *case.pop("fns"),
+                         case.pop("nbytes"), 20, [], **case))
     return {"kern": kern, "fm_launches": sum(f["launches"] for f in fms),
             "fm_steps": sum(f["steps"] for f in fms), "readings": readings}
 
@@ -6273,8 +6638,7 @@ def main(argv) -> int:
                  sparse, sparse_data, streamed, train, served_fit)
     del sparse_data, gbdt["bins"], gbdt["label"]
     obj = timed("objectives", phase_objectives, torch, ss_mod, dev)
-    ffm_uri = (f"{build_dir / f'criteo_{FFM_ROWS}_seed{TRAIN_SEED}.libffm'}"
-               "?format=libfm")
+    ffm_uri = ffm_file_uri(build_dir)
     ex = timed("examples", phase_examples, torch, ss_mod, dev, build_dir,
                train["uri"], ffm_uri, streamed["uri"], bosch_rule)
     print("phases, seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -30,7 +30,9 @@ every process calls ``save`` in the same order.  A leaf sharded over a
 process (a collective); process 0 writes the file, which is byte for byte
 the one-process file of the same values; then every process syncs on the
 write's outcome, so a failed write raises on all of them.  ``load`` reads
-the file on every process.
+the file on every process; a ``DTensor`` leaf of its ``like`` template
+(such as a dp x tp model's ``sharded_state_dict()``) comes back as this
+process's block of the whole array, a plain tensor.
 """
 from __future__ import annotations
 
@@ -49,14 +51,41 @@ from .parallel.mesh import world
 _FORMAT_VERSION = 1
 
 
-def _global_value(leaf):
-    """A ``DTensor`` leaf's global value (a collective); other leaves as
-    they are."""
+def _dtensor_type():
     try:
         from torch.distributed.tensor import DTensor
     except ImportError:  # older torch
         from torch.distributed._tensor import DTensor
-    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+    return DTensor
+
+
+def _global_value(leaf):
+    """A ``DTensor`` leaf's global value (a collective); other leaves as
+    they are."""
+    return leaf.full_tensor() if isinstance(leaf, _dtensor_type()) else leaf
+
+
+def _local_block(like, array):
+    """This process's block of the whole ``array`` when the template leaf
+    ``like`` is a ``DTensor`` (each ``Shard(d)`` placement cuts dimension
+    ``d`` into equal blocks, ordered by the process's coordinate on that
+    mesh axis); else ``array``."""
+    if not isinstance(like, _dtensor_type()):
+        return array
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    index = [slice(None)] * np.ndim(array)
+    for axis, p in enumerate(like.placements):
+        if not p.is_shard():
+            continue
+        d, n = p.dim, mesh.size(axis)
+        if np.shape(array)[d] % n:
+            raise ValueError(f"checkpoint leaf of shape {np.shape(array)} "
+                             f"does not split into {n} equal blocks on "
+                             f"dimension {d}")
+        block = np.shape(array)[d] // n
+        index[d] = slice(coord[axis] * block, (coord[axis] + 1) * block)
+    return array[tuple(index)]
 
 
 def _sync_write(ok: bool) -> bool:
@@ -213,5 +242,6 @@ def load(uri: str, like: Any = None, device="cuda"):
     if len(template) != len(arrays):
         raise ValueError(f"checkpoint has {len(arrays)} leaves, template "
                          f"has {len(template)}")
-    tensors = (torch.as_tensor(a).to(dev) for a in arrays)
+    tensors = (torch.as_tensor(_local_block(t, a)).to(dev)
+               for t, a in zip(template, arrays))
     return _unflatten(like, tensors)

@@ -7,12 +7,16 @@ import torch
 
 from .._device import resolve_device
 from ..data.staging import PaddedBatch, pad_batch_to_bucket
-from ..ops.sparse import padded_row_mean
+from ..ops.sparse import local_entries, padded_row_mean
+from ..parallel.collective import on_group_device
 
 #: each family's parameter names (the flat dict the JAX package's
 #: ``init()`` returns and its snapshots carry)
 PARAM_KEYS = {"linear": ("b", "w"), "fm": ("b", "v", "w"),
               "ffm": ("b", "v", "w")}
+#: the parameters a dp x tp plan shards by feature (``P("model", ...)``);
+#: ``b`` stays replicated
+TABLE_KEYS = ("v", "w")
 
 
 def logistic_nll(margin: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -77,6 +81,22 @@ def params_from_numpy(family: str, params_np: dict,
                             device=dev) for k in want}
 
 
+def params_block_from_numpy(family: str, params_np: dict, plan,
+                            device) -> dict:
+    """The JAX package's full flat param dict as numpy arrays -> this
+    process's share of it under ``plan`` (a ``parallel.MeshPlan`` with a
+    model axis), ready for the ``load_state_dict`` of a module built on
+    that plan: ``w`` and ``v`` cut to this process's block of features
+    (the slice JAX's ``NamedSharding(mesh, P("model", ...))`` puts on the
+    device at this rank's mesh coordinate), ``b`` whole."""
+    from ..parallel.mesh import local_index
+    sl = local_index(plan.table_sharding(),
+                     np.shape(params_np.get("w", ())))[0]
+    return params_from_numpy(family, {
+        k: np.asarray(v)[sl] if k in TABLE_KEYS else v
+        for k, v in params_np.items()}, device)
+
+
 class SGDModelMixin:
     """loss / predict / train_step shared by the margins-based families.
 
@@ -88,24 +108,77 @@ class SGDModelMixin:
     #: the ``parallel.MeshPlan`` of ``place_params``, ``batch_sharding`` and
     #: ``grad_allreduce`` (None: one process)
     mesh_plan = None
+    #: (start, stop): the features whose rows of ``w`` and ``v`` this
+    #: process holds, when the plan has a model axis (None: every feature)
+    table_block = None
 
-    def _set_mesh_plan(self, mesh_plan) -> None:
+    def _set_mesh_plan(self, mesh_plan, num_features: int) -> int:
+        """Take the plan; returns the rows of ``w`` and ``v`` this process
+        holds (its block under a model axis, else ``num_features``)."""
+        from ..parallel.mesh import local_index
         from ..parallel.meshplan import MeshPlan
-        self.mesh_plan = MeshPlan.from_spec(mesh_plan)
+        self.mesh_plan = plan = MeshPlan.from_spec(mesh_plan)
+        if plan is None or plan.model is None:
+            return num_features
+        sl = local_index(plan.table_sharding(), (num_features,))[0]
+        self.table_block = (sl.start, sl.stop)
+        return sl.stop - sl.start
 
     def place_params(self, params: dict) -> dict:
         """Replicate ``params`` over the plan: every process gets rank 0's
         values (a broadcast a tensor, into fresh tensors on each tensor's
-        device).  No plan: passed through."""
+        device).  Under a plan with a model axis, ``params`` is the full
+        table (as every process holds the JAX package's host arrays) and
+        each process gets its block of ``w`` and ``v`` (a copy), ``b``
+        broadcast from rank 0 as above.  No plan: passed through."""
         plan = self.mesh_plan
-        if plan is None or plan.num_shards <= 1:
+        if plan is None or (plan.num_shards <= 1 and plan.model is None):
             return params
         out = {}
         for k, t in params.items():
-            buf, group, back = plan._stage(torch.as_tensor(t))
+            t = torch.as_tensor(t)
+            if self.table_block is not None and k in TABLE_KEYS:
+                out[k] = t[slice(*self.table_block)].clone()
+                continue
+            if self.table_block is not None:  # over the world
+                buf, back = on_group_device(t, None)
+                group = None
+            else:
+                buf, group, back = plan._stage(t)
             torch.distributed.broadcast(buf, src=0, group=group)
             out[k] = back(buf)
         return out
+
+    def sharded_state_dict(self) -> dict:
+        """``state_dict()`` with each feature-sharded block as a
+        ``DTensor`` (``Shard(0)`` over the model axis, ``Replicate`` over
+        the others) whose global value is the whole table: what
+        ``checkpoint.save`` gathers, and the template ``checkpoint.load(like=
+        ...)`` cuts each process's block by.  Without a model axis, the
+        plain ``state_dict()``."""
+        state = self.state_dict()
+        if self.table_block is None:
+            return state
+        try:
+            from torch.distributed.tensor import (DTensor, Replicate,
+                                                  Shard)
+        except ImportError:  # older torch
+            from torch.distributed._tensor import (DTensor, Replicate,
+                                                   Shard)
+        mesh = self.mesh_plan.mesh
+        placements = [Shard(0) if a == self.mesh_plan.model_axis
+                      else Replicate() for a in mesh.mesh_dim_names]
+        return {k: DTensor.from_local(v.to(mesh.device_type), mesh,
+                                      placements, run_check=False)
+                if k in TABLE_KEYS else v for k, v in state.items()}
+
+    def _entries(self, batch: PaddedBatch, rid: torch.Tensor):
+        """This process's entries of ``batch`` under a table sharded by
+        feature (``ops.sparse.local_entries``), else None."""
+        if self.table_block is None:
+            return None
+        return local_entries(batch.index, rid, self.num_features,
+                             self.table_block, self.mesh_plan.model)
 
     def batch_sharding(self):
         """The plan's row sharding for staged batches (``sharding=`` of the
@@ -138,11 +211,19 @@ class SGDModelMixin:
         return 0.5 * self.l2 * sum(torch.sum(t ** 2)
                                    for t in self._l2_terms())
 
+    def _l2_total(self) -> torch.Tensor:
+        """The l2 loss of the whole table: this process's, summed over the
+        model group under a model axis."""
+        l2 = self._l2_loss()
+        if self.table_block is None:
+            return l2
+        return self.mesh_plan.model.allreduce(l2.reshape(1))[0]
+
     def loss(self, batch: PaddedBatch) -> torch.Tensor:
         """Weighted mean loss over the batch's rows (padding rows weigh 0),
         plus the l2 term.  A process's batch of a multi-process epoch
         (``batch.plan`` set) gives the loss over every process's rows."""
-        if batch.plan is not None:
+        if batch.plan is not None or self.table_block is not None:
             with torch.no_grad():
                 return self._sharded_loss_and_step(batch, step=False)
         data_loss = padded_row_mean(self._per_row(batch), batch.weight)
@@ -170,8 +251,18 @@ class SGDModelMixin:
         process's gradient is all-reduced by the plan in one flat buffer,
         and every process applies the same update, so the replicas stay
         equal and N processes' step is one step over their concatenated
-        batches."""
-        if batch.plan is not None:
+        batches.
+
+        Under a plan with a model axis (``mesh_plan=`` a dp x tp plan) the
+        module holds its block of ``w`` and ``v``: the margins sum every
+        model process's partial sums (on the card with
+        ``sdot_backend="pallas"``, the kernel's exact route: the
+        one-process kernel's bits), autograd gives the block's gradient,
+        and one all-reduce over the data group of [the block's gradients,
+        ``b``'s, the loss numerator] steps every process; the l2 loss is
+        summed over the model group.  Every process of the plan calls it
+        (with its data group's batch)."""
+        if batch.plan is not None or self.table_block is not None:
             return self._sharded_loss_and_step(batch, step=True)
         loss = self.loss(batch)
         loss.backward()
@@ -189,15 +280,25 @@ class SGDModelMixin:
         the data loss and its gradient by autograd, then one all-reduce of
         [every parameter's gradient, the loss numerator] flattened into
         one buffer; the l2 term's gradient ``l2 * p`` is added after the
-        reduction, once."""
+        reduction, once.  Under a model axis the plan is the module's (its
+        reductions run over the data group) and the l2 loss is summed over
+        the model group."""
         plan = batch.plan
+        if self.table_block is not None:
+            if plan is not None and plan.num_shards != (
+                    self.mesh_plan.num_shards):
+                raise ValueError(
+                    f"a batch sharded over {plan.num_shards} process(es) "
+                    f"for a model whose plan has "
+                    f"{self.mesh_plan.num_shards} data group(s)")
+            plan = self.mesh_plan
         params = list(self.parameters())
         total_w = torch.clamp(plan.allreduce(
             torch.sum(batch.weight).reshape(1)), min=1.0)
         if not step:
             num = torch.sum(self._per_row(batch) * batch.weight)
             loss = plan.allreduce(num.reshape(1))[0] / total_w[0]
-            return loss + self._l2_loss() if self.l2 > 0.0 else loss
+            return loss + self._l2_total() if self.l2 > 0.0 else loss
         with torch.enable_grad():
             num = torch.sum(self._per_row(batch) * batch.weight)
             grads = torch.autograd.grad(num / total_w[0], params)
@@ -205,7 +306,7 @@ class SGDModelMixin:
                                         + [num.detach().reshape(1)]))
         loss = flat[-1] / total_w[0]
         if self.l2 > 0.0:
-            loss = loss + self._l2_loss().detach()
+            loss = loss + self._l2_total().detach()
         if step:
             l2_ids = {id(t) for t in self._l2_terms()}
             with torch.no_grad():

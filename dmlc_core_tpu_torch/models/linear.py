@@ -20,7 +20,8 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
     (:mod:`..ops.segment_sum`).  ``mesh_plan`` (a ``parallel.MeshPlan``, a
     mesh or the ``(mesh, axis)`` tuple) serves ``place_params``,
     ``batch_sharding`` and ``grad_allreduce``; ``train_step`` takes its
-    plan from a sharded batch."""
+    plan from a sharded batch.  A plan with a model axis (dp x tp) shards
+    ``w`` by feature: the module holds its block (``table_block``)."""
 
     def __init__(self, num_features: int, objective: str = "logistic",
                  l2: float = 0.0, learning_rate: float = 0.1,
@@ -36,9 +37,9 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
         self.l2 = l2
         self.learning_rate = learning_rate
         self.sdot_backend = sdot_backend
-        self.w = nn.Parameter(torch.zeros(num_features, device=dev))
+        rows = self._set_mesh_plan(mesh_plan, num_features)
+        self.w = nn.Parameter(torch.zeros(rows, device=dev))
         self.b = nn.Parameter(torch.zeros((), device=dev))
-        self._set_mesh_plan(mesh_plan)
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "SparseLinearModel":
@@ -51,8 +52,10 @@ class SparseLinearModel(SGDModelMixin, nn.Module):
 
     def margins(self, batch: PaddedBatch) -> torch.Tensor:
         """Per-row scores w.x + b."""
-        return csr_matvec(self.w, batch.index, batch.value, batch.row_ids(),
-                          batch.batch_size, force=self.sdot_backend) + self.b
+        rid = batch.row_ids()
+        return csr_matvec(self.w, batch.index, batch.value, rid,
+                          batch.batch_size, force=self.sdot_backend,
+                          entries=self._entries(batch, rid)) + self.b
 
     @torch.no_grad()
     def evaluate(self, batches) -> dict:

@@ -15,6 +15,10 @@ unchanged (``sdot_backend=`` on the models):
   gradient is the gather ``g[row_id]``.
 * ``None`` / ``"xla"``: ``index_add``, the counterpart of the XLA
   scatter-add the JAX package leaves outside any kernel.
+
+:func:`segment_sum_model` sums the partial results of the processes of a
+model axis (a table sharded by feature, each process holding the entries
+of its own block) under autograd, on either backend.
 """
 from __future__ import annotations
 
@@ -372,6 +376,49 @@ class _SegmentSumFn(torch.autograd.Function):
         (row_id,) = ctx.saved_tensors
         d_contrib = g[clamp_index(row_id, ctx.num_segments)].to(ctx.dtype)
         return d_contrib, None, None
+
+
+class _ModelSumFn(torch.autograd.Function):
+    """The sum of every model-axis process's partial segment-sum under
+    autograd.  The backward is the local gather ``g[row_id]`` with no
+    collective: the upstream gradient of the summed output is the same on
+    every process of the axis, and the sum's Jacobian with respect to each
+    partial is the identity."""
+
+    @staticmethod
+    def forward(ctx, contrib, row_id, num_segments, plan, force):
+        ctx.save_for_backward(row_id)
+        ctx.num_segments = num_segments
+        ctx.dtype = contrib.dtype
+        if force == "pallas":
+            out = segment_sum_sharded(contrib, row_id, num_segments, plan)
+        else:
+            out = plan.allreduce(_segment_sum_xla(contrib, row_id,
+                                                  num_segments))
+        return out.to(contrib.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (row_id,) = ctx.saved_tensors
+        d_contrib = g[clamp_index(row_id, ctx.num_segments)].to(ctx.dtype)
+        return d_contrib, None, None, None, None
+
+
+def segment_sum_model(contrib: torch.Tensor, row_id: torch.Tensor,
+                      num_segments: int, plan,
+                      force: str | None = None) -> torch.Tensor:
+    """The segment-sum of the entries of every process of ``plan`` (a
+    model-axis ``parallel.MeshPlan``), each process passing its own, under
+    autograd.  ``force="pallas"`` takes :func:`segment_sum_sharded`'s
+    exact route (one accumulate launch on the card): when every entry of a
+    batch belongs to exactly one process, the result is the one-process
+    kernel's over the whole batch, bit for bit.  Otherwise the local
+    ``index_add`` and an f32 all-reduce, for contrib of any rank."""
+    check_force(force, "segment-sum backend")
+    if force == "pallas" and contrib.dim() > 2:
+        raise ValueError("pallas segment_sum supports [nnz] or [nnz, L] "
+                         f"contrib, got shape {tuple(contrib.shape)}")
+    return _ModelSumFn.apply(contrib, row_id, num_segments, plan, force)
 
 
 def _segment_sum_xla(contrib, row_id, num_segments):

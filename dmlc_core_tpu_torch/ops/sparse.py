@@ -2,45 +2,125 @@
 
 All ops take flattened COO tensors (index/value/row_id of a PaddedBatch):
 one gather from the dense operand, then one segment-sum whose backend is
-chosen per call (``force``, see :mod:`.segment_sum`).  Gathers clamp their
-indices as JAX's do, so an index past the table reads its last row instead
-of faulting.  Padding convention: value == 0 means the entry contributes
-nothing.
+chosen per call (``force``, see :mod:`.segment_sum`).  Gathers take their
+indices as JAX's do (:func:`take_rows`): an index past the table reads its
+last row instead of faulting, and its gradient is dropped.  Padding
+convention: value == 0 means the entry contributes nothing.
+
+A table sharded by feature over a model axis (the dp x tp layout) holds
+one block of rows on each process.  :func:`local_entries` picks the
+entries of a batch whose (clamped) index falls in this process's block, and
+the ops given them (``entries=``) look up only local rows and sum over the
+model axis (:func:`.segment_sum.segment_sum_model`): every entry, padding
+lanes included, belongs to exactly one process, so the sums are the whole
+batch's.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .segment_sum import clamp_index, segment_sum
+from .segment_sum import clamp_index, segment_sum, segment_sum_model
+
+
+def in_table(index: torch.Tensor, n: int) -> torch.Tensor:
+    """bool: the indices a gather on an axis of length ``n`` takes as they
+    are (a negative one counting from the end)."""
+    return (index >= -n) & (index < n)
+
+
+def take_rows(table: torch.Tensor, rows: torch.Tensor, live: torch.Tensor,
+              *more) -> torch.Tensor:
+    """``table[rows, *more]`` (``rows`` already clamped) with the gradient
+    of the entries where ``live`` is False dropped: JAX's gather reads the
+    clamped row of an index past the table, and its transpose drops that
+    entry's update."""
+    out = table[(rows,) + more]
+    if not out.requires_grad:
+        return out
+    keep = live.reshape((-1,) + (1,) * (out.dim() - 1))
+    return torch.where(keep, out, out.detach())
+
+
+class LocalEntries(NamedTuple):
+    """The entries of a batch that index this process's block of a table
+    sharded by feature."""
+
+    pos: torch.Tensor     # int64 [n]: their positions in the batch
+    row: torch.Tensor     # int64 [n]: their rows of the local block
+    live: torch.Tensor    # bool [n]: their index is inside the table
+    row_id: torch.Tensor  # [n]: their batch rows
+    plan: object          # the model-axis plan their partial sums sum over
+
+
+def local_entries(index: torch.Tensor, row_id: torch.Tensor,
+                  num_features: int, block: tuple, plan) -> LocalEntries:
+    """The entries whose index, clamped into ``[0, num_features)`` as
+    JAX's gather clamps it, falls in ``block`` = (start, stop), this
+    process's rows of the table; the others belong to another process of
+    ``plan`` and are dropped here (a host sync for the count)."""
+    c = clamp_index(index, num_features)
+    start, stop = block
+    pos = torch.nonzero((c >= start) & (c < stop)).reshape(-1)
+    return LocalEntries(pos, c[pos].to(torch.int64) - start,
+                        in_table(index[pos], num_features), row_id[pos],
+                        plan)
+
+
+def _rows(table, index, entries):
+    """The gathered rows of ``table`` for the batch's entries (this
+    process's, with ``entries``) and their values' positions."""
+    if entries is not None:
+        return take_rows(table, entries.row, entries.live), entries.pos
+    n = table.shape[0]
+    return take_rows(table, clamp_index(index, n), in_table(index, n)), None
+
+
+def _sum(contrib, row_id, num_rows, force, entries):
+    if entries is None:
+        return segment_sum(contrib, row_id, num_rows, force=force)
+    return segment_sum_model(contrib, entries.row_id, num_rows,
+                             entries.plan, force)
 
 
 def csr_matvec(weights: torch.Tensor, index: torch.Tensor,
                value: torch.Tensor, row_id: torch.Tensor, num_rows: int,
-               force: str | None = None) -> torch.Tensor:
+               force: str | None = None,
+               entries: LocalEntries | None = None) -> torch.Tensor:
     """Per-row sparse dot product:
-    out[r] = sum over k with row_id[k] == r of w[index[k]] * value[k]."""
-    contrib = weights[clamp_index(index, weights.shape[0])] * value
-    return segment_sum(contrib, row_id, num_rows, force=force)
+    out[r] = sum over k with row_id[k] == r of w[index[k]] * value[k].
+    With ``entries``, ``weights`` is this process's block and the sum runs
+    over the model axis."""
+    rows, pos = _rows(weights, index, entries)
+    return _sum(rows * (value if pos is None else value[pos]), row_id,
+                num_rows, force, entries)
 
 
 def csr_matmul(table: torch.Tensor, index: torch.Tensor, value: torch.Tensor,
                row_id: torch.Tensor, num_rows: int,
-               force: str | None = None) -> torch.Tensor:
+               force: str | None = None,
+               entries: LocalEntries | None = None) -> torch.Tensor:
     """Sparse x dense: out[r, :] = sum_k value[k] * table[index[k], :], with
-    ``table`` [num_features, K] -> [num_rows, K] (K lanes, one pass)."""
-    gathered = table[clamp_index(index, table.shape[0])] * value[:, None]
-    return segment_sum(gathered, row_id, num_rows, force=force)
+    ``table`` [num_features, K] -> [num_rows, K] (K lanes, one pass).  With
+    ``entries``, as :func:`csr_matvec`."""
+    rows, pos = _rows(table, index, entries)
+    val = value if pos is None else value[pos]
+    return _sum(rows * val[:, None], row_id, num_rows, force, entries)
 
 
 def csr_row_sumsq_matmul(table: torch.Tensor, index: torch.Tensor,
                          value: torch.Tensor, row_id: torch.Tensor,
                          num_rows: int,
-                         force: str | None = None) -> torch.Tensor:
+                         force: str | None = None,
+                         entries: LocalEntries | None = None
+                         ) -> torch.Tensor:
     """out[r, :] = sum_k value[k]^2 * table[index[k], :]^2 (the FM
-    second-order term)."""
-    gathered = ((table[clamp_index(index, table.shape[0])] ** 2)
-                * (value[:, None] ** 2))
-    return segment_sum(gathered, row_id, num_rows, force=force)
+    second-order term).  With ``entries``, as :func:`csr_matvec`."""
+    rows, pos = _rows(table, index, entries)
+    val = value if pos is None else value[pos]
+    return _sum((rows ** 2) * (val[:, None] ** 2), row_id, num_rows, force,
+                entries)
 
 
 def csr_to_dense(index: torch.Tensor, value: torch.Tensor,

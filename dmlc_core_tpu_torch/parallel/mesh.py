@@ -8,6 +8,12 @@ is a ``torch.distributed.device_mesh.DeviceMesh`` over the world's ranks.
 A rank's rows are its local tensors; the collectives run over the
 process group (NCCL on cards, gloo on the CPU and for several ranks on one
 card).
+
+A ``("data", "model")`` mesh is the JAX package's dp x tp layout: rows over
+``data``, and a parameter table's leading (feature) dimension over
+``model`` (``RowSharding(mesh, ("model",))``, the counterpart of
+``NamedSharding(mesh, P("model", ...))`` on a parameter).
+:func:`local_index` is each rank's block of such a value.
 """
 from __future__ import annotations
 
@@ -112,3 +118,28 @@ def data_sharding(mesh, axis: str = "data") -> RowSharding:
 def replicated_sharding(mesh) -> Replicated:
     """The fully replicated layout (model parameters in pure DP)."""
     return Replicated(mesh)
+
+
+def local_index(sharding: RowSharding, shape: Sequence[int]) -> tuple:
+    """This rank's index (a tuple of slices) into a value of ``shape``
+    whose leading dimension ``sharding`` splits over its axes: the
+    counterpart of ``sharding.addressable_devices_indices_map(shape)`` for
+    this rank's device.  Blocks are contiguous, equal and ordered by the
+    rank's coordinate on the axes (major to minor), as JAX splits them;
+    a leading dimension the axes' sizes do not divide raises JAX's
+    ``ValueError``."""
+    mesh, names = sharding.mesh, tuple(sharding.mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    n, pos = 1, 0
+    for a in sharding.axes:
+        size = int(mesh.size(names.index(a)))
+        n, pos = n * size, pos * size + int(coord[names.index(a)])
+    rows = int(shape[0])
+    if rows % n:
+        raise ValueError(
+            f"the sharding {sharding.axes} of mesh {names} implies that the "
+            f"global size of its dimension 0 should be divisible by {n}, but"
+            f" it is equal to {rows} (full shape: {tuple(shape)})")
+    block = rows // n
+    return ((slice(pos * block, (pos + 1) * block),)
+            + tuple(slice(None) for _ in shape[1:]))

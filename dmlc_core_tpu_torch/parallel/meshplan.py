@@ -19,6 +19,13 @@ the devices of one process:
   ``DMLCTPU_MESH_OVERLAP_CHUNKS`` sets the GBDT level loop's feature chunks.
 * **Spec adaptation**: every API that takes ``histogram_mesh=`` takes a
   plan, a ``DeviceMesh`` or the ``(mesh, axis)`` tuple (:meth:`from_spec`).
+* **dp x tp**: a plan on a ``("data", "model")`` mesh whose axes are
+  ``("data",)`` shards rows over ``data`` only: its reductions, gathers,
+  ``num_shards`` and ``row_offsets`` run over the ranks that share this
+  rank's ``model`` coordinate (one rank of each data group), and
+  :attr:`model` is the plan over the other axis (the ranks of this rank's
+  data group), which sums the partial results of a table sharded by
+  feature (:meth:`table_sharding`).
 
 A plan's groups are made once, when it is built, in the same order on
 every rank (building a plan is a collective).  A gloo plan stages CUDA
@@ -114,7 +121,7 @@ class MeshPlan:
     def __init__(self, mesh, axes: Optional[Sequence[str]] = None,
                  collective: Optional[str] = None,
                  hier_threshold_bytes: Optional[int] = None,
-                 overlap_chunks: Optional[int] = None):
+                 overlap_chunks: Optional[int] = None, *, _outer=None):
         names = tuple(mesh.mesh_dim_names) if mesh is not None else ("data",)
         axes = tuple(axes) if axes is not None else names
         for a in axes:
@@ -123,6 +130,11 @@ class MeshPlan:
                     f"plan axis {a!r} not in mesh axes {names}")
         if not axes or len(axes) > 2:
             raise ValueError(f"MeshPlan wants 1 or 2 axes, got {axes!r}")
+        rest = tuple(a for a in names if a not in axes)
+        if rest and (len(axes) != 1 or len(rest) != 1):
+            raise ValueError(
+                f"a MeshPlan over mesh axes {names} takes all of them as row"
+                f" axes, or one row axis and one model axis; got {axes!r}")
         collective = (collective if collective is not None
                       else _env_collective())
         if collective not in _STRATEGIES:
@@ -141,9 +153,15 @@ class MeshPlan:
                       {a: int(mesh.size(names.index(a))) for a in axes})
         self.backend = dist.get_backend() if mesh is not None else "none"
         self.fabric = "nvlink" if self.backend == "nccl" else "host"
-        # the groups, made once and in the same order on every rank
+        #: the mesh axis a table's features are sharded over (None: rows
+        #: over every mesh axis), and the plan over it (whose own ``model``
+        #: is this plan)
+        self.model_axis = rest[0] if rest else None
+        self.model: Optional[MeshPlan] = _outer
+        # the groups, made once and in the same order on every rank; the
+        # plan's own collectives run on row_group (None: the world)
         self.chip_group = self.host_group = None
-        self.coord_group = None
+        self.row_group = self.coord_group = None
         self.shard_index = 0
         if mesh is not None:
             ranks = np.asarray(mesh.mesh.tolist()).reshape(-1)
@@ -157,9 +175,20 @@ class MeshPlan:
             self.chip_group = mesh.get_group(self.chip_axis)
             if self.host_axis is not None:
                 self.host_group = mesh.get_group(self.host_axis)
-            # staging coordination runs on host memory: a gloo group
-            self.coord_group = (None if self.backend == "gloo"
-                                else dist.new_group(backend="gloo"))
+            if self.model_axis is None:
+                # staging coordination runs on host memory: a gloo group
+                self.coord_group = (None if self.backend == "gloo"
+                                    else dist.new_group(backend="gloo"))
+            else:
+                self.shard_index = int(mesh.get_coordinate()[
+                    names.index(self.chip_axis)])
+                self.row_group = self.chip_group
+                if self.backend != "gloo":
+                    self.coord_group = _gloo_group_along(mesh,
+                                                         self.chip_axis)
+                if _outer is None:
+                    self.model = MeshPlan(mesh, (self.model_axis,), "flat",
+                                          _outer=self)
 
     # ------------------------------------------------------------------
     # construction
@@ -227,11 +256,22 @@ class MeshPlan:
 
     @property
     def num_shards(self) -> int:
+        """Row shards: the ranks along the plan's axes (data groups, on a
+        plan with a model axis)."""
         return int(np.prod([self.shape[a] for a in self.axes]))
 
     def data_sharding(self):
         """Rows over every plan axis (``mesh.data_sharding``)."""
         return data_sharding(self.mesh, self.axes)
+
+    def table_sharding(self):
+        """A parameter table's leading (feature) dimension over the model
+        axis (``NamedSharding(mesh, P("model", ...))``); raises on a plan
+        without one."""
+        if self.model_axis is None:
+            raise ValueError(f"plan over mesh axes {self.axes} has no model "
+                             "axis to shard a table over")
+        return data_sharding(self.mesh, self.model_axis)
 
     def replicated_sharding(self):
         """Every rank holds the whole value (``mesh.replicated_sharding``)."""
@@ -239,12 +279,16 @@ class MeshPlan:
 
     def describe(self) -> dict:
         c = self.shape[self.chip_axis]
-        return {"devices": self.num_shards,
-                "hosts": self.num_shards // c, "chips_per_host": c,
-                "axes": list(self.axes), "fabric": self.fabric,
-                "backend": self.backend, "collective": self.collective,
-                "hier_threshold_bytes": self.hier_threshold_bytes,
-                "overlap_chunks": self.overlap_chunks}
+        out = {"devices": self.num_shards,
+               "hosts": self.num_shards // c, "chips_per_host": c,
+               "axes": list(self.axes), "fabric": self.fabric,
+               "backend": self.backend, "collective": self.collective,
+               "hier_threshold_bytes": self.hier_threshold_bytes,
+               "overlap_chunks": self.overlap_chunks}
+        if self.model is not None:
+            out["model_axis"] = self.model_axis
+            out["model_shards"] = self.model.num_shards
+        return out
 
     # ------------------------------------------------------------------
     # collectives
@@ -282,7 +326,8 @@ class MeshPlan:
         telemetry.counter_add("mesh.collective_bytes", nbytes)
         n = self.num_shards if op == "mean" else 1
         buf, group, back = self._stage(x)
-        if strat == "flat" or group is not None:
+        if strat == "flat" or (group is not None
+                               and group is not self.row_group):
             work = dist.all_reduce(buf, rop, group=group, async_op=True)
             return _Pending(work, buf, back, n)
         out = back(self._hier(buf, rop))
@@ -294,7 +339,7 @@ class MeshPlan:
         result back to ``x``'s device).  An NCCL plan takes a host tensor on
         its gloo coordination group."""
         group = (self.coord_group if self.backend == "nccl"
-                 and x.device.type == "cpu" else None)
+                 and x.device.type == "cpu" else self.row_group)
         buf, back = on_group_device(x, group)
         return buf, group, back
 
@@ -333,6 +378,21 @@ class MeshPlan:
                                               dtype=torch.int64))
         counts = counts.reshape(-1).tolist()
         return int(sum(counts[:self.shard_index])), int(sum(counts))
+
+
+def _gloo_group_along(mesh, axis: str):
+    """This rank's gloo group along ``axis`` of ``mesh`` (the ranks that
+    differ from it only there), made with every other group along the
+    axis, in the same order on every rank (``new_group`` is a
+    collective)."""
+    names = tuple(mesh.mesh_dim_names)
+    grid = np.moveaxis(np.asarray(mesh.mesh.tolist()), names.index(axis), -1)
+    mine = None
+    for ranks in grid.reshape(-1, grid.shape[-1]).tolist():
+        group = dist.new_group(ranks, backend="gloo")
+        if dist.get_rank() in ranks:
+            mine = group
+    return mine
 
 
 def plan_allreduce_bench(plan: MeshPlan, strategy: str = "auto",

@@ -1643,3 +1643,37 @@ def test_histogram_kernels_queue_two_device_ops_a_call(cuda):
         lay.gkey, rel_e, gh_e, lay.starts, 16, F, B, lay, gh_amax=amax))
     print(f"sparse call: {ops}")
     assert len(ops) == 1
+
+
+@pytest.mark.parametrize("lanes", [1, 16])
+def test_model_axis_kernel_sum_is_the_one_process_kernel(cuda, tmp_path,
+                                                         lanes):
+    """A table sharded by feature over two gloo ranks' model axis on the
+    card: each rank's ``csr_matmul`` of its block (one accumulate launch,
+    the exact route) sums to ``segment_sum_kernel`` over the whole batch
+    bit for bit, padding lanes and indices past the table included; the
+    backward of each rank's contrib is the gather ``g[row_id]``."""
+    from dmlc_core_tpu_torch.ops.segment_sum import clamp_index
+    from torch_ranks import run_ranks
+    rng = np.random.default_rng(11 + lanes)
+    F, nnz, rows = 64, 8192, 512
+    table = rng.standard_normal((F, lanes)).astype(np.float32)
+    index = rng.integers(0, F + 9, nnz).astype(np.int32)
+    index[-500:] = 0
+    value = rng.standard_normal(nnz).astype(np.float32)
+    value[-500:] = 0.0
+    row_id = np.sort(rng.integers(0, rows, nnz)).astype(np.int32)
+    g = rng.standard_normal((rows, lanes)).astype(np.float32)
+    res = run_ranks(2, "tp_model_sum", tmp_path, timeout=180, table=table,
+                    index=index, value=value, row_id=row_id, num_rows=rows,
+                    g=g, device="cuda")
+    t = torch.from_numpy(table).to(cuda)
+    c = (t[clamp_index(torch.from_numpy(index).to(cuda), F)]
+         * torch.from_numpy(value).to(cuda)[:, None]).contiguous()
+    want = ss.segment_sum_kernel(c, torch.from_numpy(row_id).to(cuda),
+                                 rows).cpu().numpy()
+    assert sum(r["entries"] for r in res) == nnz
+    for r in res:
+        assert r["launches"] == 1
+        np.testing.assert_array_equal(r["out"], want)
+        np.testing.assert_array_equal(r["grad"], r["gather"])

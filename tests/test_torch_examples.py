@@ -239,18 +239,27 @@ def _submit(n: int, argv: list) -> subprocess.CompletedProcess:
     ``dmlc_submit`` job on the CPU.  The job's process group listens on
     the tracker's port + 1 (the DMLC_* contract); a tracker another test
     starts meanwhile may take that port first, so a job that lost it runs
-    again."""
+    again, whether it exited or hung (the rank that lost the port exits,
+    and its peer waits on the store it never opened)."""
+    proc = None
     for _ in range(3):
-        proc = subprocess.run(
-            [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.dmlc_submit",
-             "--cluster=local", "-n", str(n), "--", sys.executable, "-m",
-             f"dmlc_core_tpu_torch.examples.{argv[0]}", *argv[1:],
-             "--device", "cpu"],
-            cwd=REPO, capture_output=True, text=True, timeout=120,
-            env={k: v for k, v in os.environ.items()
-                 if not k.startswith("DMLC_")})
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "dmlc_core_tpu_torch.tracker.dmlc_submit",
+                 "--cluster=local", "-n", str(n), "--", sys.executable, "-m",
+                 f"dmlc_core_tpu_torch.examples.{argv[0]}", *argv[1:],
+                 "--device", "cpu"],
+                cwd=REPO, capture_output=True, text=True, timeout=120,
+                env={k: v for k, v in os.environ.items()
+                     if not k.startswith("DMLC_")})
+        except subprocess.TimeoutExpired as e:
+            if b"address already in use" in (e.stderr or b"").lower():
+                continue
+            raise
         if "address already in use" not in proc.stderr.lower():
             break
+    assert proc is not None, "the job lost its port on every attempt"
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return proc
 

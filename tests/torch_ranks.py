@@ -417,6 +417,163 @@ def linear_mesh_helpers(rank, n, params, grads):
             "axes": m.batch_sharding().axes}
 
 
+# ---- dp x tp: tables sharded by feature over a (data, model) mesh -----------
+
+def _tp_plan(shape):
+    """The (D, M) = ``shape`` dp x tp plan.  Its scenarios' shapes are
+    tiny: one intra-op thread a rank keeps their ranks from crowding the
+    cores that concurrently running tests share."""
+    import torch
+
+    from dmlc_core_tpu_torch.parallel import MeshPlan, make_mesh
+    torch.set_num_threads(1)
+    return MeshPlan(make_mesh(tuple(shape), ("data", "model")), ("data",))
+
+
+def tp_steps(rank, n, shape, cases, ckpt=None):
+    """Each case ``(family, backend, params, kw, batches, steps)`` on the
+    ``shape`` = (D, M) dp x tp plan: the module built on the plan, its
+    params placed (``place_params`` of the full params) and carried
+    (``params_block_from_numpy``), ``steps`` steps on data group d's
+    batches (``batches[d]``); the rank's coordinates, table block, the
+    placed and carried blocks, the first batch's ``predict``,
+    ``predict_bucketed`` and ``loss`` before any step, and the losses and
+    parameter blocks after each step.  With ``ckpt`` (a path), the last case's model is saved
+    through ``sharded_state_dict`` and loaded back."""
+    import torch
+
+    from dmlc_core_tpu_torch import checkpoint
+    from dmlc_core_tpu_torch.data.staging import PaddedBatch
+    from dmlc_core_tpu_torch.models import (FactorizationMachine,
+                                            FieldAwareFactorizationMachine,
+                                            SparseLinearModel,
+                                            params_block_from_numpy)
+    plan = _tp_plan(shape)
+    d = plan.shard_index
+    out = {"coord": tuple(plan.mesh.get_coordinate()), "d": d,
+           "m": plan.model.shard_index, "describe": plan.describe(),
+           "cases": []}
+    for family, backend, params, kw, batches, steps in cases:
+        cls = {"linear": SparseLinearModel, "fm": FactorizationMachine,
+               "ffm": FieldAwareFactorizationMachine}[family]
+        model = cls(device="cpu", mesh_plan=plan, sdot_backend=backend, **kw)
+        placed = model.place_params({k: torch.tensor(v)
+                                     for k, v in params.items()})
+        carried = params_block_from_numpy(family, params, plan, "cpu")
+        model.load_state_dict(carried)
+        losses, states = [], []
+        for i in range(steps):
+            b = batches[d][i % len(batches[d])]
+            batch = PaddedBatch(
+                num_rows=b["num_rows"],
+                plan=plan if plan.num_shards > 1 else None,
+                **{k: torch.tensor(v) for k, v in b.items()
+                   if k != "num_rows"})
+            if i == 0:
+                with torch.no_grad():
+                    first = {"predict": model.predict(batch).numpy(),
+                             "bucketed": model.predict_bucketed(
+                                 batch, nnz_bucket=256).numpy(),
+                             "loss": float(model.loss(batch))}
+            losses.append(float(model.train_step(batch)))
+            states.append({k: v.numpy().copy()
+                           for k, v in model.state_dict().items()})
+        out["cases"].append({"block": model.table_block,
+                             "placed": _np(placed), "carried": _np(carried),
+                             "losses": losses, "states": states,
+                             "first": first})
+    if ckpt is not None:
+        wrote = checkpoint.save(model.sharded_state_dict(), ckpt)
+        back = checkpoint.load(ckpt, like=model.sharded_state_dict(),
+                               device="cpu")
+        out["ckpt"] = (wrote, _np(back))
+    return out
+
+
+def tp_staging(rank, n, shape, files, B, nnz_max, num_features):
+    """Each rank of the ``shape`` plan stages part d of D of each of
+    ``files`` (``(uri, with_field, format)``; ``part=plan.shard_index,
+    num_parts=plan.num_shards``): its batches' leaves and global facts;
+    the row layouts of the 1-D and ("host", "chip") plans beside the dp x
+    tp plan's; and the layout's refusals: a table the model axis does not
+    divide, a plan with more than one non-row axis, a table sharding of a
+    plan without a model axis."""
+    from dmlc_core_tpu_torch.data.staging import DeviceStagingIter
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.parallel import MeshPlan, make_mesh
+    plan = _tp_plan(shape)
+    staged = []
+    for uri, with_field, fmt in files:
+        it = DeviceStagingIter(uri, batch_size=B, nnz_bucket=8,
+                               nnz_max=nnz_max, part=plan.shard_index,
+                               num_parts=plan.num_shards, sharding=plan,
+                               format=fmt, with_field=with_field,
+                               device="cpu")
+        batches = []
+        for b in it:
+            leaves = {k: getattr(b, k).numpy().copy() for k in (
+                "label", "weight", "row_ptr", "index", "value")}
+            if with_field:
+                leaves["field"] = b.field.numpy().copy()
+            batches.append(dict(
+                leaves, num_rows=b.num_rows, planned=b.plan is not None,
+                global_num_rows=b.global_num_rows,
+                global_row_ptr=(None if b.global_row_ptr is None
+                                else b.global_row_ptr.numpy())))
+        it.close()
+        staged.append(batches)
+    layouts = {}
+    for name, p in (("tp", plan), ("flat", MeshPlan.build()),
+                    ("hosts", MeshPlan.build(hosts=2))):
+        layouts[name] = (p.num_shards, p.shard_index,
+                         p.row_offsets(10 * (rank + 1)))
+    refusals = {}
+    try:
+        FactorizationMachine(num_features, mesh_plan=plan, device="cpu")
+    except ValueError as e:
+        refusals["indivisible"] = str(e)
+    try:
+        MeshPlan(make_mesh((1, 1, n), ("data", "model", "x")), ("data",))
+    except ValueError as e:
+        refusals["two_model_axes"] = str(e)
+    try:
+        MeshPlan(make_mesh((n,), ("data",))).table_sharding()
+    except ValueError as e:
+        refusals["no_model_axis"] = str(e)
+    return {"d": plan.shard_index, "staged": staged, "layouts": layouts,
+            "refusals": refusals}
+
+
+def tp_model_sum(rank, n, table, index, value, row_id, num_rows, g, device):
+    """``csr_matmul`` of this rank's block of ``table`` on the (1, n) plan's
+    model axis with ``sdot_backend="pallas"``: the summed output, and the
+    gradient of its (leaf) contrib under ``g`` beside ``g[row_id]`` of the
+    rank's entries; the segment-sum launches it took."""
+    import torch
+
+    from dmlc_core_tpu_torch.ops import segment_sum as ss
+    from dmlc_core_tpu_torch.ops.sparse import local_entries
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    plan = _tp_plan((1, n))
+    F = table.shape[0]
+    block = (F // n * rank, F // n * (rank + 1))
+    t = torch.tensor(table[block[0]:block[1]], device=device)
+    idx, val, rid = (torch.tensor(a, device=device)
+                     for a in (index, value, row_id))
+    e = local_entries(idx, rid, F, block, plan.model)
+    contrib = (t[e.row] * val[e.pos][:, None]).detach().requires_grad_()
+    ss.segment_sum_kernel.launches = 0
+    out = ss.segment_sum_model(contrib, e.row_id, num_rows, plan.model,
+                               "pallas")
+    launches = ss.segment_sum_kernel.launches
+    out.backward(torch.tensor(g, device=device))
+    gt = torch.tensor(g, device=device)
+    return {"out": _np(out.detach()), "grad": _np(contrib.grad),
+            "gather": _np(gt[e.row_id.long()]), "launches": launches,
+            "entries": int(e.pos.numel())}
+
+
 # ---- checkpoints --------------------------------------------------------------
 
 def checkpoint_save(rank, n, params, path):
