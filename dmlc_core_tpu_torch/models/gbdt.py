@@ -42,6 +42,7 @@ every process.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import time
@@ -452,6 +453,17 @@ def _cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
     out = torch.cat([inblock[..., :1, :],
                      carry[..., :-1, None] + inblock[..., 1:, :]], -2)
     return out.reshape(*x.shape[:-1], nb * k)[..., :n].movedim(-1, dim)
+
+
+def _fit_span(fit):
+    """Runs a fit entry point inside a ``gbdt.fit`` span
+    (``telemetry.span``), from its input conversion to the stacked
+    forest."""
+    @functools.wraps(fit)
+    def spanned(*args, **kwargs):
+        with telemetry.span("gbdt.fit"):
+            return fit(*args, **kwargs)
+    return spanned
 
 
 def _host(x) -> np.ndarray:
@@ -950,11 +962,19 @@ class GBDT:
         grad_hess = grad_hess or self._grad_hess
         eval_loss_fn = eval_loss_fn or self._objective_loss
         for t_idx in range(self.num_trees):
-            g, h = grad_hess(margin, label)
-            w_t, col_mask, ck = self._tree_keys(t_idx, w)
-            f, t, d, sg, sc, leaf, leaf_rel = build_tree(g * w_t, h * w_t,
-                                                         col_mask, ck)
-            margin = margin + leaf[leaf_rel]
+            with telemetry.span("gbdt.tree"):
+                w_t, col_mask, ck = self._tree_keys(t_idx, w)
+                with telemetry.span("gbdt.grad"):
+                    g, h = grad_hess(margin, label)
+                    g, h = g * w_t, h * w_t
+                f, t, d, sg, sc, leaf, leaf_rel = build_tree(g, h, col_mask,
+                                                             ck)
+                with telemetry.span("gbdt.margin"):
+                    margin = margin + leaf[leaf_rel]
+                    if have_eval:
+                        ev_m = ev_m + eval_margin(f, t, d, leaf)
+                        loss = float(eval_loss_fn(ev_m, eval_label,
+                                                  eval_weight))
             feats.append(f)
             thrs.append(t)
             dirs.append(d)
@@ -962,8 +982,6 @@ class GBDT:
             scovers.append(sc)
             leaves.append(leaf)
             if have_eval:
-                ev_m = ev_m + eval_margin(f, t, d, leaf)
-                loss = float(eval_loss_fn(ev_m, eval_label, eval_weight))
                 if loss < best_loss:
                     best_loss, best_t, since_best = loss, t_idx + 1, 0
                 elif early_stopping_rounds > 0:
@@ -1020,27 +1038,33 @@ class GBDT:
         best_loss, best_round, since_best = float("inf"), 0, 0
         feats, thrs, dirs, sgains, scovers, leaves = [], [], [], [], [], []
         for r in range(self.num_trees):
-            p = torch.softmax(margin, dim=1)
+            with telemetry.span("gbdt.grad"):  # the round's distribution
+                p = torch.softmax(margin, dim=1)
             ev_round = []
             for k in range(K):
-                g = p[:, k] - onehot[:, k]
-                h = torch.clamp(p[:, k] * (1.0 - p[:, k]), min=1e-16)
-                w_t, col_mask, ck = self._tree_keys(r * K + k, w)
-                f, t, d, sg, sc, leaf, leaf_rel = build_tree(
-                    g * w_t, h * w_t, col_mask, ck)
-                margin[:, k] += leaf[leaf_rel]
+                with telemetry.span("gbdt.tree"):
+                    w_t, col_mask, ck = self._tree_keys(r * K + k, w)
+                    with telemetry.span("gbdt.grad"):
+                        g = (p[:, k] - onehot[:, k]) * w_t
+                        h = torch.clamp(p[:, k] * (1.0 - p[:, k]),
+                                        min=1e-16) * w_t
+                    f, t, d, sg, sc, leaf, leaf_rel = build_tree(
+                        g, h, col_mask, ck)
+                    with telemetry.span("gbdt.margin"):
+                        margin[:, k] += leaf[leaf_rel]
+                        if have_eval:
+                            ev_round.append(eval_margin(f, t, d, leaf))
                 feats.append(f)
                 thrs.append(t)
                 dirs.append(d)
                 sgains.append(sg)
                 scovers.append(sc)
                 leaves.append(leaf)
-                if have_eval:
-                    ev_round.append(eval_margin(f, t, d, leaf))
             if have_eval:
-                ev_m = ev_m + torch.stack(ev_round, dim=1)
-                loss = float(self._objective_loss(ev_m, eval_label,
-                                                  eval_weight))
+                with telemetry.span("gbdt.margin"):
+                    ev_m = ev_m + torch.stack(ev_round, dim=1)
+                    loss = float(self._objective_loss(ev_m, eval_label,
+                                                      eval_weight))
                 if loss < best_loss:
                     best_loss, best_round, since_best = loss, r + 1, 0
                 elif early_stopping_rounds > 0:
@@ -1136,25 +1160,28 @@ class GBDT:
         rows) and a feature subset [F] (None: all features).  Derived from
         (seed, tree index) only; the keys stay on the host and the draws
         land on the model's device."""
-        w_t, col_mask = w, None
-        if self.subsample < 1.0:
-            kr = fold_in(root_key, 2 * t_idx)
-            if self._row_index is None:
-                keep = bernoulli(kr, self.subsample, tuple(w.shape),
-                                 self.device)
-            else:
-                # a sharded fit: the one global draw at this process's
-                # global row numbers
-                keep = bernoulli_at(kr, self.subsample, self._row_index)
-            w_t = w * keep.to(torch.float32)
-        if self.colsample_bytree < 1.0:
-            kc = fold_in(root_key, 2 * t_idx + 1)
-            F = self.num_features
-            k_cols = max(1, int(round(self.colsample_bytree * F)))
-            sel = permutation(kc, F, self.device)[:k_cols]
-            col_mask = torch.zeros(F, dtype=torch.bool, device=self.device)
-            col_mask[sel] = True
-        return w_t, col_mask
+        if self.subsample == 1.0 and self.colsample_bytree == 1.0:
+            return w, None
+        with telemetry.span("gbdt.draws"):
+            w_t, col_mask = w, None
+            if self.subsample < 1.0:
+                kr = fold_in(root_key, 2 * t_idx)
+                if self._row_index is None:
+                    keep = bernoulli(kr, self.subsample, tuple(w.shape),
+                                     self.device)
+                else:
+                    # a sharded fit: the one global draw at this process's
+                    # global row numbers
+                    keep = bernoulli_at(kr, self.subsample, self._row_index)
+                w_t = w * keep.to(torch.float32)
+            if self.colsample_bytree < 1.0:
+                kc = fold_in(root_key, 2 * t_idx + 1)
+                F = self.num_features
+                k_cols = max(1, int(round(self.colsample_bytree * F)))
+                sel = permutation(kc, F, self.device)[:k_cols]
+                col_mask = torch.zeros(F, dtype=torch.bool, device=self.device)
+                col_mask[sel] = True
+            return w_t, col_mask
 
     def _tree_keys(self, t_idx: int, w: torch.Tensor):
         """(weights, col_mask, col_key) of tree ``t_idx``: its draws under
@@ -1238,70 +1265,75 @@ class GBDT:
         for depth in range(self.max_depth):
             first = 2 ** depth - 1          # heap id of the level's first node
             n_nodes = 2 ** depth
-            rel = node - first              # [rows] in [0, n_nodes)
-            hist = self._level_histogram(bins, rel, gh, n_nodes, layout)
-            hist_g = hist[..., 0]
-            hist_h = hist[..., 1]
-            # left cumulative mass for "go right if bin > b" at each cut b
-            gl = _cumsum_f32(hist_g, dim=2)
-            hl = _cumsum_f32(hist_h, dim=2)
-            g_tot = gl[:, :, -1:]
-            h_tot = hl[:, :, -1:]
+            with telemetry.span("gbdt.hist"):
+                rel = node - first          # [rows] in [0, n_nodes)
+                hist = self._level_histogram(bins, rel, gh, n_nodes,
+                                             layout)
+            with telemetry.span("gbdt.split"):
+                hist_g = hist[..., 0]
+                hist_h = hist[..., 1]
+                # left cumulative mass for "go right if bin > b" at each cut b
+                gl = _cumsum_f32(hist_g, dim=2)
+                hl = _cumsum_f32(hist_h, dim=2)
+                g_tot = gl[:, :, -1:]
+                h_tot = hl[:, :, -1:]
 
-            def split_gain(gl_, hl_):
-                gr_ = g_tot - gl_
-                hr_ = h_tot - hl_
-                g = (gl_ ** 2 / (hl_ + lam) + gr_ ** 2 / (hr_ + lam)
-                     - g_tot ** 2 / (h_tot + lam))          # [nodes, F, B]
-                ok = ((hl_ >= self.min_child_weight)
-                      & (hr_ >= self.min_child_weight))
-                return torch.where(ok, g, -torch.inf)
+                def split_gain(gl_, hl_):
+                    gr_ = g_tot - gl_
+                    hr_ = h_tot - hl_
+                    g = (gl_ ** 2 / (hl_ + lam) + gr_ ** 2 / (hr_ + lam)
+                         - g_tot ** 2 / (h_tot + lam))          # [nodes, F, B]
+                    ok = ((hl_ >= self.min_child_weight)
+                          & (hr_ >= self.min_child_weight))
+                    return torch.where(ok, g, -torch.inf)
 
-            if self.missing_aware:
-                # every cut twice from the same histograms: missing (bin 0)
-                # mass on the left (its natural cumsum side) vs the right
-                dirs = [(gl, hl),
-                        (gl - hist_g[:, :, 0:1], hl - hist_h[:, :, 0:1])]
-            else:
-                dirs = [(gl, hl)]
-            gain = torch.stack([split_gain(a, b) for a, b in dirs], dim=3)
-            if mono:
-                wl, wr = self._dir_child_weights(dirs, g_tot, h_tot)
-                gain = self._apply_monotone(gain, wl, wr, lo, hi)
-            gain = self._collapse_dir_ties(gain)
-            node_mask = self._level_feature_mask(col_mask, col_key, depth,
-                                                 active)
-            split_f, split_b, split_d, split_g = self._pick_splits(gain,
-                                                                   node_mask)
-            if mono:
-                lo, hi = self._child_bounds(split_f, split_b, split_d,
-                                            wl, wr, lo, hi)
-            if active is not None:
-                active = self._next_active(active, split_f, split_b)
-            features.append(split_f)
-            thresholds.append(split_b)
-            defaults.append(split_d)
-            gains.append(split_g)
-            covers.append(h_tot[:, 0, 0])   # node hessian mass (any f)
-            # route rows: children of heap node n are 2n+1 (left), 2n+2
-            rel_l = rel.to(torch.int64)
-            row_bin = torch.gather(bins, 1, split_f[rel_l].to(torch.int64)
-                                   [:, None])[:, 0].to(torch.int32)
-            go_right = row_bin > split_b[rel_l]
-            if self.missing_aware:
-                go_right = torch.where(row_bin == 0, split_d[rel_l] == 1,
-                                       go_right)
-            node = 2 * node + 1 + go_right.to(torch.int32)
+                if self.missing_aware:
+                    # every cut twice from the same histograms: missing (bin 0)
+                    # mass on the left (its natural cumsum side) vs the right
+                    dirs = [(gl, hl),
+                            (gl - hist_g[:, :, 0:1], hl - hist_h[:, :, 0:1])]
+                else:
+                    dirs = [(gl, hl)]
+                gain = torch.stack([split_gain(a, b) for a, b in dirs], dim=3)
+                if mono:
+                    wl, wr = self._dir_child_weights(dirs, g_tot, h_tot)
+                    gain = self._apply_monotone(gain, wl, wr, lo, hi)
+                gain = self._collapse_dir_ties(gain)
+                node_mask = self._level_feature_mask(col_mask, col_key, depth,
+                                                     active)
+                split_f, split_b, split_d, split_g = self._pick_splits(
+                    gain, node_mask)
+                if mono:
+                    lo, hi = self._child_bounds(split_f, split_b, split_d,
+                                                wl, wr, lo, hi)
+                if active is not None:
+                    active = self._next_active(active, split_f, split_b)
+                features.append(split_f)
+                thresholds.append(split_b)
+                defaults.append(split_d)
+                gains.append(split_g)
+                covers.append(h_tot[:, 0, 0])   # node hessian mass (any f)
+            with telemetry.span("gbdt.route"):
+                # route rows: children of heap node n are 2n+1 (left), 2n+2
+                rel_l = rel.to(torch.int64)
+                row_bin = torch.gather(bins, 1, split_f[rel_l].to(torch.int64)
+                                       [:, None])[:, 0].to(torch.int32)
+                go_right = row_bin > split_b[rel_l]
+                if self.missing_aware:
+                    go_right = torch.where(row_bin == 0, split_d[rel_l] == 1,
+                                           go_right)
+                node = 2 * node + 1 + go_right.to(torch.int32)
 
         # leaf weights: -G/(H + lambda) per leaf, shrunken (clamped into the
         # node's propagated bounds first under monotone constraints)
         n_leaves = 2 ** self.max_depth
         leaf_rel = node - (n_leaves - 1)
-        gh_leaf = self._seg_sum(gh, leaf_rel, n_leaves)
-        leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
-        if mono:
-            leaf_w = torch.clamp(leaf_w, lo, hi)
-        leaf = self.learning_rate * leaf_w
+        with telemetry.span("gbdt.leaf"):
+            gh_leaf = self._seg_sum(gh, leaf_rel, n_leaves)
+            leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
+            if mono:
+                leaf_w = torch.clamp(leaf_w, lo, hi)
+            leaf = self.learning_rate * leaf_w
         return (torch.cat(features), torch.cat(thresholds),
                 torch.cat(defaults), torch.cat(gains), torch.cat(covers),
                 leaf, leaf_rel)
@@ -1408,42 +1440,47 @@ class GBDT:
         features, thresholds, defaults, gains, covers = [], [], [], [], []
         for depth in range(self.max_depth):
             n_nodes = 2 ** depth
-            rel = node - (n_nodes - 1)
             impl = (self._hist_impl_sparse(n_nodes) if layout is not None
                     else "xla")
-            if impl not in gh_e:
-                gh_e[impl] = entry_gh(gh_row, rid, emask, layout
-                                      if impl == "pallas" else None)
-            if impl == "pallas":
-                hist = self._level_histogram_sparse(layout, rel, gh_row,
-                                                    gh_e[impl], n_nodes)
-            else:                                      # bin 0 is empty
-                hist = histogram_gh_sparse(rid, fi, ebin, emask, rel, gh_row,
-                                           n_nodes, F, B, gh_e=gh_e[impl])
-                if self.mesh_plan is not None:
-                    hist = self.mesh_plan.allreduce(hist)
-            gh_node = self._seg_sum(gh_row, rel, n_nodes)
-            (split_f, split_b, split_d, split_g,
-             lo, hi, active) = self._level_splits_from_hist(
-                hist, gh_node, lo, hi, active, col_mask, col_key, depth)
-            features.append(split_f)
-            thresholds.append(split_b)
-            defaults.append(split_d)
-            gains.append(split_g)
-            covers.append(gh_node[:, 1])
-            rel_l = rel.to(torch.int64)
-            go_right = self._route_sparse(fi, ebin, emask, rid,
-                                          split_f[rel_l], split_b[rel_l],
-                                          split_d[rel_l], rows)
-            node = 2 * node + 1 + go_right.to(torch.int32)
+            with telemetry.span("gbdt.hist"):  # and the node totals
+                rel = node - (n_nodes - 1)
+                if impl not in gh_e:
+                    gh_e[impl] = entry_gh(gh_row, rid, emask, layout
+                                          if impl == "pallas" else None)
+                if impl == "pallas":
+                    hist = self._level_histogram_sparse(layout, rel, gh_row,
+                                                        gh_e[impl], n_nodes)
+                else:                                  # bin 0 is empty
+                    hist = histogram_gh_sparse(rid, fi, ebin, emask, rel,
+                                               gh_row, n_nodes, F, B,
+                                               gh_e=gh_e[impl])
+                    if self.mesh_plan is not None:
+                        hist = self.mesh_plan.allreduce(hist)
+                gh_node = self._seg_sum(gh_row, rel, n_nodes)
+            with telemetry.span("gbdt.split"):
+                (split_f, split_b, split_d, split_g,
+                 lo, hi, active) = self._level_splits_from_hist(
+                    hist, gh_node, lo, hi, active, col_mask, col_key, depth)
+                features.append(split_f)
+                thresholds.append(split_b)
+                defaults.append(split_d)
+                gains.append(split_g)
+                covers.append(gh_node[:, 1])
+            with telemetry.span("gbdt.route"):
+                rel_l = rel.to(torch.int64)
+                go_right = self._route_sparse(fi, ebin, emask, rid,
+                                              split_f[rel_l], split_b[rel_l],
+                                              split_d[rel_l], rows)
+                node = 2 * node + 1 + go_right.to(torch.int32)
 
         n_leaves = 2 ** self.max_depth
         leaf_rel = node - (n_leaves - 1)
-        gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
-        leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
-        if mono:
-            leaf_w = torch.clamp(leaf_w, lo, hi)
-        leaf = self.learning_rate * leaf_w
+        with telemetry.span("gbdt.leaf"):
+            gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
+            leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
+            if mono:
+                leaf_w = torch.clamp(leaf_w, lo, hi)
+            leaf = self.learning_rate * leaf_w
         return (torch.cat(features), torch.cat(thresholds),
                 torch.cat(defaults), torch.cat(gains), torch.cat(covers),
                 leaf, leaf_rel)
@@ -1489,6 +1526,7 @@ class GBDT:
     # ---- public API ---------------------------------------------------------
 
     @torch.no_grad()
+    @_fit_span
     def fit(self, bins, label, weight=None, eval_set: Optional[tuple] = None,
             early_stopping_rounds: int = 0, qid=None) -> dict:
         """Train the forest on binned features.
@@ -1572,6 +1610,7 @@ class GBDT:
                 self._t(ebin), self._t(emask))
 
     @torch.no_grad()
+    @_fit_span
     def fit_batch(self, batch, binner: QuantileBinner, weight=None,
                   eval_set=None, early_stopping_rounds: int = 0) -> dict:
         """Train directly on a staged CSR ``PaddedBatch``, with no densify.
@@ -1632,6 +1671,7 @@ class GBDT:
                       early_stopping_rounds=early_stopping_rounds)
 
     @torch.no_grad()
+    @_fit_span
     def fit_streamed(self, batches, binner: QuantileBinner, eval_set=None,
                      early_stopping_rounds: int = 0,
                      staging_options: Optional[dict] = None) -> dict:
@@ -1754,51 +1794,64 @@ class GBDT:
                         if layout is not None else "xla")
                 if impl == "pallas":
                     if prev is not None:
-                        node = route_pass(node, prev, 2 ** (depth - 1) - 1)
+                        with telemetry.span("gbdt.route"):
+                            node = route_pass(node, prev,
+                                              2 ** (depth - 1) - 1)
                         prev = None
                     rel = node - first
-                    hist = self._level_histogram_sparse(layout, rel, gh_row,
-                                                        gh_e, n_nodes)
+                    with telemetry.span("gbdt.hist"):
+                        hist = self._level_histogram_sparse(
+                            layout, rel, gh_row, gh_e, n_nodes)
+                        gh_node = self._seg_sum(gh_row, rel, n_nodes)
                 else:
-                    hist = torch.zeros(n_nodes, F, B, 2, device=self.device)
-                    parts = []
-                    for off, e, nb in stream():
-                        node_b = node[off:off + nb]
+                    # one streamed pass routes the previous level and
+                    # accumulates this one: the span cannot split them
+                    with telemetry.span("gbdt.hist"):
+                        hist = torch.zeros(n_nodes, F, B, 2,
+                                           device=self.device)
+                        parts = []
+                        for off, e, nb in stream():
+                            node_b = node[off:off + nb]
+                            if prev is not None:
+                                # route through the previous level's
+                                # splits in the pass that accumulates this
+                                # level
+                                node_b = routed(node_b, prev,
+                                                2 ** (depth - 1) - 1, e, nb)
+                                parts.append(node_b)
+                            hist = hist + histogram_gh_sparse(
+                                *e, node_b - first, gh_row[off:off + nb],
+                                n_nodes, F, B)
                         if prev is not None:
-                            # route through the previous level's splits in
-                            # the pass that accumulates this level
-                            node_b = routed(node_b, prev,
-                                            2 ** (depth - 1) - 1, e, nb)
-                            parts.append(node_b)
-                        hist = hist + histogram_gh_sparse(
-                            *e, node_b - first, gh_row[off:off + nb],
-                            n_nodes, F, B)
-                    if prev is not None:
-                        node = torch.cat(parts)
-                        prev = None
-                    rel = node - first
-                    if self.mesh_plan is not None:
-                        hist = self.mesh_plan.allreduce(hist)
-                gh_node = self._seg_sum(gh_row, rel, n_nodes)
-                (split_f, split_b, split_d, split_g,
-                 lo, hi, active) = self._level_splits_from_hist(
-                    hist, gh_node, lo, hi, active, col_mask, col_key, depth)
-                features.append(split_f)
-                thresholds.append(split_b)
-                defaults.append(split_d)
-                gains.append(split_g)
-                covers.append(gh_node[:, 1])
+                            node = torch.cat(parts)
+                            prev = None
+                        rel = node - first
+                        if self.mesh_plan is not None:
+                            hist = self.mesh_plan.allreduce(hist)
+                        gh_node = self._seg_sum(gh_row, rel, n_nodes)
+                with telemetry.span("gbdt.split"):
+                    (split_f, split_b, split_d, split_g,
+                     lo, hi, active) = self._level_splits_from_hist(
+                        hist, gh_node, lo, hi, active, col_mask, col_key,
+                        depth)
+                    features.append(split_f)
+                    thresholds.append(split_b)
+                    defaults.append(split_d)
+                    gains.append(split_g)
+                    covers.append(gh_node[:, 1])
                 prev = (split_f, split_b, split_d)
 
             # the last pass: route through the deepest splits to the leaves
-            node = route_pass(node, prev, 2 ** (self.max_depth - 1) - 1)
+            with telemetry.span("gbdt.route"):
+                node = route_pass(node, prev, 2 ** (self.max_depth - 1) - 1)
             n_leaves = 2 ** self.max_depth
             leaf_rel = node - (n_leaves - 1)
-            gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
-            leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
-            if self.monotone_constraints is not None:
-                leaf_w = torch.clamp(leaf_w, lo, hi)
-            leaf = self.learning_rate * leaf_w
+            with telemetry.span("gbdt.leaf"):
+                gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
+                leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
+                if self.monotone_constraints is not None:
+                    leaf_w = torch.clamp(leaf_w, lo, hi)
+                leaf = self.learning_rate * leaf_w
             return (torch.cat(features), torch.cat(thresholds),
                     torch.cat(defaults), torch.cat(gains), torch.cat(covers),
                     leaf, leaf_rel)

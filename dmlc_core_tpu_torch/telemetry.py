@@ -20,6 +20,7 @@ import contextlib
 import ctypes
 import json
 import os
+import sys
 import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -182,14 +183,21 @@ def trace_armed() -> bool:
     return _trace_armed
 
 
+# True between trace_start() and trace_stop(): the Python mirror of the
+# native trace flag, so that span() decides without a ctypes call
+_tracing = False
+
+
 def trace_start() -> None:
     """Start buffering spans (clears the spans of an earlier trace)."""
-    global _trace_armed
+    global _trace_armed, _tracing
     _native.check(_native.lib().DmlcTpuTelemetryTraceStart())
-    _trace_armed = True
+    _trace_armed = _tracing = True
 
 
 def trace_stop() -> None:
+    global _tracing
+    _tracing = False
     _native.check(_native.lib().DmlcTpuTelemetryTraceStop())
 
 
@@ -211,14 +219,67 @@ def record_span(name: str, ts_us: int, dur_us: int) -> None:
         name.encode(), int(ts_us), int(dur_us)))
 
 
-@contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
-    """Context manager recording its body as a span when tracing is on."""
-    t0 = now_us()
-    try:
-        yield
-    finally:
-        record_span(name, t0, now_us() - t0)
+class _NoSpan:
+    """The context :func:`span` returns when no sink records."""
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """A span open in the native ring (``ring``) and in the torch
+    profiler's timeline (``profiled``: a ``record_function``)."""
+    __slots__ = ("name", "ring", "rf", "t0")
+
+    def __init__(self, name: str, ring: bool, profiled):
+        self.name, self.ring, self.t0 = name, ring, 0
+        self.rf = profiled.record_function(name) if profiled else None
+
+    def __enter__(self) -> None:
+        if self.rf is not None:
+            self.rf.__enter__()
+        if self.ring:
+            self.t0 = now_us()
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            if self.ring:
+                record_span(self.name, self.t0, now_us() - self.t0)
+        finally:
+            if self.rf is not None:
+                self.rf.__exit__(*exc)
+        return False
+
+
+def _torch_profiler():
+    """``torch.autograd.profiler`` while a torch profiler records, else
+    None; torch is never imported for it (a process that has not loaded
+    torch runs no profiler)."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    return mod if mod is not None and mod._is_profiler_enabled else None
+
+
+def span(name: str):
+    """Context manager recording its body as a span named ``name``.
+
+    Two sinks: the native trace ring while this package's
+    :func:`trace_start` has armed it (a trace armed through the JAX
+    package in the same process is not seen), and, while a
+    ``torch.profiler`` records, the profiler's timeline as a
+    ``record_function`` user annotation, on kineto's clock beside the
+    device work the body launches.  With neither on it returns one shared
+    no-op context: no clock read, no native call."""
+    profiled = _torch_profiler()
+    if not (_tracing or profiled):
+        return _NO_SPAN
+    return _Span(name, _tracing, profiled)
 
 
 # ---- trace context ----------------------------------------------------------

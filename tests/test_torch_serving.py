@@ -443,13 +443,14 @@ def test_503_during_swap_and_jax_pusher_interop():
 def test_trace_context_rides_score_and_snapshot_push():
     """The pusher's ambient context rides FRAME_SNAPSHOT and a /score body
     may carry one: the server adopts each, so the swap span and the
-    micro-batch spans land in the caller's trace (read back through the
-    JAX package's trace dump: both packages share the native registry)."""
+    micro-batch spans land in the caller's trace (armed through the port's
+    switch, which the port's spans see, and read back through the JAX
+    package's trace dump: both packages share the native registry)."""
     from dmlc_core_tpu import telemetry as native_trace
     if not native_trace.enabled():
         pytest.skip("tracing is compiled out")
     before = telemetry.counter_get("trace.ctx_propagated")
-    native_trace.trace_start()
+    telemetry.trace_start()
     try:
         with ScoringServer(max_delay_us=200, device="cpu") as srv:
             tid_push = telemetry.new_trace_id()
@@ -472,7 +473,7 @@ def test_trace_context_rides_score_and_snapshot_push():
             assert len(json.loads(_post(url + "/score", body).read())
                        ["scores"]) == 2
     finally:
-        native_trace.trace_stop()
+        telemetry.trace_stop()
         telemetry.clear_trace_context()
     assert telemetry.counter_get("trace.ctx_propagated") >= before + 2
     by = {}

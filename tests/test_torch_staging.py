@@ -223,8 +223,9 @@ def test_watchdog_no_false_positive_on_slow_epoch(libsvm_file):
 def test_lineage_minted_untraced_and_tracing_bit_identity(libsvm_file):
     """Lineage ids are a pure function of the partitioning: present with
     tracing off, identical with tracing on, and the batches bit-identical
-    either way.  Tracing is switched in the shared native registry (the
-    JAX package's switch; the port records into the same trace)."""
+    either way.  Tracing is armed through the port's switch (the port's
+    spans see only that one) and read back through the JAX package's dump
+    of the shared native registry."""
     def drain():
         it = DeviceStagingIter(libsvm_file, batch_size=128, nnz_bucket=512,
                                num_workers=2, device="cpu")
@@ -234,12 +235,12 @@ def test_lineage_minted_untraced_and_tracing_bit_identity(libsvm_file):
     ref_bits, ref_lin = drain()
     assert len(ref_bits) == 8
     assert all(lin >= 0 for lin in ref_lin) and ref_lin[0] == 0
-    jax_telemetry.trace_start()
+    telemetry.trace_start()
     try:
         got_bits, got_lin = drain()
         spans = jax_telemetry.trace_dump_json()
     finally:
-        jax_telemetry.trace_stop()
+        telemetry.trace_stop()
     assert got_bits == ref_bits and got_lin == ref_lin
     assert "h2d.stage_batch" in spans
 
