@@ -1824,9 +1824,11 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     """One fit of the main path, with the launch counts set to 0 just
     before it and read just after.  Returns (forest, seconds, histogram
     launches, segment-sum launches, peak device memory of the fit in
-    bytes)."""
+    bytes, row-draw launches)."""
+    from dmlc_core_tpu_torch.ops import draws
     hg.histogram_gh_kernel.launches = 0
     ss_mod.segment_sum_kernel.launches = 0
+    draws.sample_weights.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -1835,7 +1837,7 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     secs = time.monotonic() - t0
     return (forest, secs, hg.histogram_gh_kernel.launches,
             ss_mod.segment_sum_kernel.launches,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), draws.sample_weights.launches)
 
 
 # stochastic boosting: rows and columns drawn from jax.random's threefry
@@ -1878,6 +1880,67 @@ def check_draws(torch, model, rows: int, what: str) -> list:
     check(all(abs(x - model.subsample) <= KEEP_TOL for x in shares),
           f"{what}: kept shares {shares}")
     return shares
+
+
+# shifts and logic a row that only the integer ALU pipe runs: threefry.cu's
+# SASS has 85 LOP3 and 82 SHF for the 4 rows a thread takes (its 20
+# rotations, 21 xors and the uniform's shift and or, with some merged into
+# three-input LOP3s); its adds may go to the FMA pipe as IMAD
+DRAW_ALU_OPS = (85 + 82) / 4
+ALU_OPS_S = 132 * 64 * 1.98e9  # H100 SXM: 64 ALU lanes an SM at 1.98 GHz
+
+
+def time_draws(torch, dev) -> dict:
+    """The row-draw kernel (``ops.draws.sample_weights``) at Higgs's 11M
+    rows, without and with an index past 2^32: its ptxas report, its output
+    against the plain version bit for bit, both device times beside the
+    bound (the hash's ALU-only operations or the bytes, the larger), and
+    the host column draw's time at 28 and 968 features.  Returns the
+    unindexed timing."""
+    from dmlc_core_tpu_torch import random as tr
+    from dmlc_core_tpu_torch.ops import _build, draws
+    for line in _build.build_log("threefry").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  threefry ptxas: {line.strip()}")
+    key = tr.fold_in(tr.PRNGKey(3_100_000_007, device="cpu"), 0)
+    n = HIGGS_ROWS
+    w = torch.rand(n, device=dev)
+    out = {}
+    for index in (None, torch.arange(n, device=dev) + (2 ** 32 - n // 2)):
+        what = "indexed" if index is not None else "rows"
+        got = draws.sample_weights(key, 0.8, w, index)
+        want = draws.sample_weights_plain(key, 0.8, w, index)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"sample_weights ({what}) differs from its plain version")
+        k_ms, covered = device_ms(
+            torch, lambda: draws.sample_weights(key, 0.8, w, index), 200)
+        p_ms, _ = device_ms(
+            torch, lambda: draws.sample_weights_plain(key, 0.8, w, index),
+            5, warmup=1)
+        byte_s = n * (8 if index is None else 16) / HBM_BYTES_PER_S
+        op_s = n * DRAW_ALU_OPS / ALU_OPS_S
+        bound_ms = max(byte_s, op_s) * 1e3
+        print(f"row draws {what}, {n} rows: kernel {k_ms:.4f} ms (queued "
+              f"back to back: {covered}), plain {p_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes {byte_s * 1e3:.4f}, hash "
+              f"{op_s * 1e3:.4f}), {100 * bound_ms / k_ms:.1f}% of it")
+        out.setdefault("ms", k_ms)
+        out.setdefault("plain_ms", p_ms)
+        out.setdefault("bound_ms", bound_ms)
+        out.setdefault("bound_by", "bytes" if byte_s >= op_s
+                       else "operations")
+    for F in (HIGGS_FEATURES, 968):
+        key = tr.fold_in(tr.PRNGKey(3_100_000_007, device="cpu"), 1)
+        draws.column_mask(key, F, round(0.8 * F), dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(200):
+            draws.column_mask(key, F, round(0.8 * F), dev)
+        host_ms = (time.monotonic() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        print(f"column draw, {F} features: {host_ms:.4f} ms a draw on the "
+              f"host")
+    return {**out, "max_abs_err": 0.0, "library_ms": None}
 
 
 def phase_gbdt(torch, ss_mod, dev) -> dict:
@@ -1960,7 +2023,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     fits = [fit_timed(torch, hg, ss_mod, model, bins, label)
             for _ in range(2)]
     forest = fits[0][0]
-    for f_i, secs, h_l, s_l, peak in fits:
+    for f_i, secs, h_l, s_l, peak, d_l in fits:
         print(f"gbdt fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
               f"row_trees_s; launches: histogram_gh {h_l}, segment_sum "
               f"{s_l}; peak device memory of the fit {peak / 2**30:.2f} GiB "
@@ -1969,6 +2032,8 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
               f"a fit (want {trees * depth})")
         check(s_l == trees, f"segment_sum launched {s_l} times in a fit "
               f"(want {trees}: one leaf sum a tree)")
+        check(d_l == 0, f"an unsampled fit launched the row draw {d_l} "
+              "times")
         check(all(torch.equal(f_i[k], forest[k]) and
                   torch.equal(warm[k], forest[k]) for k in forest),
               "two fits gave different forests")
@@ -2031,13 +2096,18 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
           "two sampled fits gave different forests")
     check(not torch.equal(sforest["feature"], forest["feature"]),
           "the sampled forest equals the unsampled one")
+    check(all(f[5] == trees for f in sfits), "the row draw launched "
+          f"{[f[5] for f in sfits]} times in the sampled fits (want {trees}:"
+          " one a tree)")
     check_draws(torch, sm, rows, "gbdt")
+    draw = {**time_draws(torch, dev), "launches": sfits[0][5]}
     s_losses = tree_losses(torch, sm, sforest, bins, label)
     a = split_audit(torch, hg, sm, sforest, bins, label, "pallas")
     print(f"gbdt sampled fit ({SAMPLE_KW}): {sfits[0][1]:.3f} / "
           f"{sfits[1][1]:.3f} s wall (unsampled {fits[0][1]:.3f}), two fits "
           f"bitwise equal, launches histogram_gh {sfits[0][2]}, segment_sum "
-          f"{sfits[0][3]}; train logloss after 20 trees {s_losses[-1]:.6f} "
+          f"{sfits[0][3]}, threefry {sfits[0][5]}; train logloss after 20 "
+          f"trees {s_losses[-1]:.6f} "
           f"(unsampled {losses[-1]:.6f}); audit over the sampled features: "
           f"histogram vs float64 {a['hist_err']:.3e}, {a['off_best']} of "
           f"{a['nodes']} splits off the float64 best, {a['beyond']} beyond "
@@ -2092,7 +2162,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
             "bound_by": per_level[0]["bound_by"], **mean,
             "leaf": {**leaf, "launches": fits[0][3]},
             "bins": bins, "label": label, "forest": forest,
-            "fit_s": fits[0][1]}
+            "fit_s": fits[0][1], "draws": draw}
 
 
 # ---- phase 6: the sparse GBDT (fit_batch) at Bosch width ---------------------
@@ -6740,6 +6810,14 @@ def main(argv) -> int:
         "bound_ms": gbdt["bound_ms"],
         "bound_by": gbdt["bound_by"],
         "library_ms": gbdt["library_ms"],
+    }, {
+        "name": "threefry",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/threefry.cu",
+        "replaces": None,
+        "shape": f"a sampled tree's row draw, {HIGGS_ROWS} rows, subsample "
+                 "0.8; launches: a sampled Higgs fit's (one a tree)",
+        **{k: gbdt["draws"][k] for k in ("launches", "max_abs_err", *keys)},
     }, {
         "name": "histogram_gh_sparse",
         "route": "cuda",

@@ -56,6 +56,7 @@ from .. import telemetry
 from .._device import resolve_device
 from ..data.staging import (DeviceStagingIter, bucket_pow2,
                             pad_batch_to_bucket)
+from ..ops.draws import column_mask, sample_weights
 from ..ops.histogram import (dense_hist_layout, histogram_gh,
                              histogram_gh_sharded)
 from ..ops.histogram_sparse import (entry_gh, feature_counts,
@@ -64,8 +65,7 @@ from ..ops.histogram_sparse import (entry_gh, feature_counts,
                                     sparse_hist_layout)
 from ..ops.segment_sum import clamp_index, segment_sum, segment_sum_sharded
 from ..parallel.meshplan import MeshPlan
-from ..random import (PRNGKey, bernoulli, bernoulli_at, fold_in,
-                      permutation, uniform)
+from ..random import PRNGKey, fold_in, uniform
 from .common import logistic_nll
 
 
@@ -1158,29 +1158,24 @@ class GBDT:
         """Per-tree stochastic-GBM draws, shared by every boosting driver: a
         Bernoulli row mask folded into the weights (routing still sees all
         rows) and a feature subset [F] (None: all features).  Derived from
-        (seed, tree index) only; the keys stay on the host and the draws
-        land on the model's device."""
+        (seed, tree index) only; the keys stay on the host, the row draw
+        runs on the model's device (``ops.draws.sample_weights``: one
+        kernel launch on the card) and the column draw on the host."""
         if self.subsample == 1.0 and self.colsample_bytree == 1.0:
             return w, None
         with telemetry.span("gbdt.draws"):
             w_t, col_mask = w, None
             if self.subsample < 1.0:
+                # a sharded fit draws the one global stream at this
+                # process's global row numbers
                 kr = fold_in(root_key, 2 * t_idx)
-                if self._row_index is None:
-                    keep = bernoulli(kr, self.subsample, tuple(w.shape),
-                                     self.device)
-                else:
-                    # a sharded fit: the one global draw at this process's
-                    # global row numbers
-                    keep = bernoulli_at(kr, self.subsample, self._row_index)
-                w_t = w * keep.to(torch.float32)
+                w_t = sample_weights(kr, self.subsample, w.contiguous(),
+                                     self._row_index)
             if self.colsample_bytree < 1.0:
                 kc = fold_in(root_key, 2 * t_idx + 1)
                 F = self.num_features
                 k_cols = max(1, int(round(self.colsample_bytree * F)))
-                sel = permutation(kc, F, self.device)[:k_cols]
-                col_mask = torch.zeros(F, dtype=torch.bool, device=self.device)
-                col_mask[sel] = True
+                col_mask = column_mask(kc, F, k_cols, self.device)
             return w_t, col_mask
 
     def _tree_keys(self, t_idx: int, w: torch.Tensor):

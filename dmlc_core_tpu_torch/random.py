@@ -17,7 +17,9 @@ reproduces JAX's output exactly for its defaults (``jax_default_prng_impl
   an int64 masked to 32 bits.
 
 The hash and the sort are plain XLA in the JAX package; they are plain
-torch here.
+torch here, but for GBDT's per-tree row draw on the card: that runs as one
+hand-written kernel, ``ops/csrc/threefry.cu`` (``ops.draws.sample_weights``),
+whose plain version is :func:`bernoulli` / :func:`bernoulli_at`.
 """
 from __future__ import annotations
 
