@@ -21,7 +21,14 @@ inputs.
   of batches (a file, the binned epoch cache, a sequence), with only the
   rows' state and the sorted layout resident;
 * trees are fixed-depth complete binary heaps in flat arrays, so a forest is
-  a dict of tensors with the JAX package's keys, shapes and dtypes.
+  a dict of tensors with the JAX package's keys, shapes and dtypes;
+* a dense unsampled softmax fit on the card (``fit``, ``objective=
+  "softmax"``) runs its first round eagerly, captures one round (K trees,
+  their margins, the held-out loss) as a CUDA graph and replays it for the
+  other rounds, and for later fits on the same code tensors: a round is
+  ~3,000 small launches that would leave the card waiting on the host
+  (`_RoundGraph`).  The replay runs the same kernels on the same inputs,
+  so the forest is the eager one's bit for bit.
 
 Sampling below 1.0 (``subsample``, ``colsample_bytree``,
 ``colsample_bylevel``) draws from :mod:`..random`, ``jax.random``'s threefry
@@ -58,12 +65,13 @@ from ..data.staging import (DeviceStagingIter, bucket_pow2,
                             pad_batch_to_bucket)
 from ..ops.draws import column_mask, sample_weights
 from ..ops.histogram import (dense_hist_layout, histogram_gh,
-                             histogram_gh_sharded)
+                             histogram_gh_kernel, histogram_gh_sharded)
 from ..ops.histogram_sparse import (entry_gh, feature_counts,
                                     histogram_gh_sparse,
                                     histogram_gh_sparse_sharded,
                                     sparse_hist_layout)
-from ..ops.segment_sum import clamp_index, segment_sum, segment_sum_sharded
+from ..ops.segment_sum import (clamp_index, segment_sum, segment_sum_kernel,
+                               segment_sum_sharded)
 from ..parallel.meshplan import MeshPlan
 from ..random import PRNGKey, fold_in, uniform
 from .common import logistic_nll
@@ -470,6 +478,52 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+# the kernels whose Python launch counters a replayed round bumps as the
+# eager round would
+_COUNTED_KERNELS = (histogram_gh_kernel, segment_sum_kernel)
+
+
+class _RoundGraph:
+    """One softmax round captured as a CUDA graph, and the tensors it reads
+    and writes in place: the train margins, one-hot labels and weights, the
+    held-out margins, labels and weights.  A fit copies its own values into
+    them and replays the graph once a round.  ``key`` names the inputs and
+    settings the capture baked in (`GBDT._round_graph_key`); ``layout``,
+    the codes' histogram layout the graph's launches read."""
+
+    def __init__(self, key, layout, rows: int, n_eval: int, K: int,
+                 weighted: bool, device):
+        self.key, self.layout = key, layout
+        zeros = functools.partial(torch.zeros, device=device)
+        self.margin, self.onehot, self.w = (zeros(rows, K), zeros(rows, K),
+                                            zeros(rows))
+        self.ev_m, self.eval_label = zeros(n_eval, K), zeros(n_eval)
+        self.eval_weight = zeros(n_eval) if weighted else None
+        self.graph = self.trees = self.loss = None
+        self.launches = (0,) * len(_COUNTED_KERNELS)
+
+    def capture(self, one_round) -> None:
+        """Capture ``one_round()`` (which must not read back to the host);
+        nothing runs, and the launch counters are left as they were."""
+        before = tuple(k.launches for k in _COUNTED_KERNELS)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.trees, self.loss = one_round()
+        self.launches = tuple(k.launches - b
+                              for k, b in zip(_COUNTED_KERNELS, before))
+        for k, b in zip(_COUNTED_KERNELS, before):
+            k.launches = b
+        self.graph = graph
+
+    def replay(self) -> tuple:
+        """Run the round: (its trees' stacked arrays, copied out of the
+        graph's memory; the held-out loss tensor, or None)."""
+        self.graph.replay()
+        for k, n in zip(_COUNTED_KERNELS, self.launches):
+            k.launches += n
+        return [t.clone() for t in self.trees], self.loss
+
+
 # ---- the model ----------------------------------------------------------------
 
 
@@ -493,6 +547,12 @@ class GBDT:
     or the ``(mesh, axis)`` tuple) shards the fit's rows over the plan's
     processes (see the module docstring); each process passes its own rows
     and gets the same forest.
+
+    ``eval_history``: the held-out losses of the last fit with an
+    ``eval_set``, host floats, one a tree (one a round under softmax), up
+    to the last tree built; empty after a fit without one.  Each fit
+    counts its trees (``gbdt.trees``) and, under softmax, its rounds
+    (``gbdt.rounds``) in the telemetry registry.
 
     The forest is a dict of tensors on that device::
 
@@ -562,6 +622,8 @@ class GBDT:
         self.colsample_bytree = colsample_bytree
         self.colsample_bylevel = colsample_bylevel
         self.seed = seed
+        self.eval_history = []
+        self._rounds = None  # the last softmax fit's _RoundGraph
         if monotone_constraints is not None:
             raw = np.asarray(monotone_constraints)
             # validate before casting: int32 truncation would silently
@@ -648,6 +710,34 @@ class GBDT:
                 for d in range(self.max_depth)):
             return None
         return dense_hist_layout(bins, self.num_bins)
+
+    # dense unsampled softmax fits on the card replay a captured round
+    # (False: every round eagerly, as on the CPU)
+    _GRAPH_ROUNDS = True
+
+    def _round_graph_key(self, bins: torch.Tensor, eval_bins, eval_weight):
+        """The `_RoundGraph` key of a dense fit on these codes: the code
+        tensors' storage, shape and version and every setting a round's
+        kernels take; None where a fit runs each round eagerly (another
+        objective, the CPU, a sharded or a sampled fit, whose draws change
+        from tree to tree)."""
+        if (not self._GRAPH_ROUNDS or self.objective != "softmax"
+                or self.device.type != "cuda" or self.mesh_plan is not None
+                or min(self.subsample, self.colsample_bytree,
+                       self.colsample_bylevel) < 1.0
+                or any(t is not None and t.is_inference()
+                       for t in (bins, eval_bins))):
+            return None
+
+        def ident(t):
+            return None if t is None else (t.data_ptr(), tuple(t.shape),
+                                           t.stride(), t.dtype, t._version)
+
+        return (ident(bins), ident(eval_bins), eval_weight is not None,
+                self.num_class, self.num_bins, self.max_depth,
+                self.learning_rate, self.lambda_, self.gamma,
+                self.min_child_weight, self.missing_aware, self.histogram,
+                id(self.monotone_constraints), id(self._interaction_groups))
 
     def _level_histogram(self, bins: torch.Tensor, rel: torch.Tensor,
                          gh: torch.Tensor, n_nodes: int,
@@ -961,6 +1051,7 @@ class GBDT:
         feats, thrs, dirs, sgains, scovers, leaves = [], [], [], [], [], []
         grad_hess = grad_hess or self._grad_hess
         eval_loss_fn = eval_loss_fn or self._objective_loss
+        self.eval_history = []
         for t_idx in range(self.num_trees):
             with telemetry.span("gbdt.tree"):
                 w_t, col_mask, ck = self._tree_keys(t_idx, w)
@@ -975,6 +1066,7 @@ class GBDT:
                         ev_m = ev_m + eval_margin(f, t, d, leaf)
                         loss = float(eval_loss_fn(ev_m, eval_label,
                                                   eval_weight))
+            telemetry.counter_add("gbdt.trees", 1)
             feats.append(f)
             thrs.append(t)
             dirs.append(d)
@@ -982,6 +1074,7 @@ class GBDT:
             scovers.append(sc)
             leaves.append(leaf)
             if have_eval:
+                self.eval_history.append(loss)
                 if loss < best_loss:
                     best_loss, best_t, since_best = loss, t_idx + 1, 0
                 elif early_stopping_rounds > 0:
@@ -998,10 +1091,14 @@ class GBDT:
 
     def _boost_multi(self, label: torch.Tensor, w: torch.Tensor, build_tree,
                      eval_margin=None, eval_label=None, eval_weight=None,
-                     early_stopping_rounds: int = 0) -> dict:
+                     early_stopping_rounds: int = 0, graph_key=None,
+                     layout=None) -> dict:
         """Softmax boosting: K one-vs-rest trees per round against the
         shared softmax distribution (XGBoost multi:softprob).  Tree i
-        belongs to class ``i % K``; early stopping works on whole rounds."""
+        belongs to class ``i % K``; early stopping works on whole rounds.
+        With a ``graph_key`` (`_round_graph_key`; ``layout``, the codes'
+        histogram layout ``build_tree`` reads) the rounds replay one
+        captured `_RoundGraph`, kept for the next fit of the same key."""
         K = self.num_class
         params = self.init()
         label = label.to(torch.int32)
@@ -1031,16 +1128,38 @@ class GBDT:
             prior = torch.clamp(class_w / sum_w, 1e-6, 1.0)
             params["base"] = torch.log(prior)
 
-        margin = params["base"].expand(label.shape[0], K).clone()
         have_eval = eval_margin is not None
-        ev_m = (params["base"].expand(eval_label.shape[0], K).clone()
-                if have_eval else None)
-        best_loss, best_round, since_best = float("inf"), 0, 0
-        feats, thrs, dirs, sgains, scovers, leaves = [], [], [], [], [], []
-        for r in range(self.num_trees):
-            with telemetry.span("gbdt.grad"):  # the round's distribution
+        n_eval = eval_label.shape[0] if have_eval else 0
+        rounds = None
+        if graph_key is not None:
+            rounds = self._rounds
+            if rounds is None or rounds.key != graph_key:
+                self._rounds = None  # the old graph's memory goes first
+                rounds = self._rounds = _RoundGraph(
+                    graph_key, layout, label.shape[0], n_eval, K,
+                    eval_weight is not None, self.device)
+            rounds.onehot.copy_(onehot)
+            rounds.w.copy_(w)
+            onehot, w = rounds.onehot, rounds.w
+            if have_eval:
+                rounds.eval_label.copy_(eval_label)
+                eval_label = rounds.eval_label
+                if eval_weight is not None:
+                    rounds.eval_weight.copy_(eval_weight)
+                    eval_weight = rounds.eval_weight
+            margin, ev_m = rounds.margin, rounds.ev_m
+            margin.copy_(params["base"].expand_as(margin))
+            ev_m.copy_(params["base"].expand_as(ev_m))
+        else:
+            margin = params["base"].expand(label.shape[0], K).clone()
+            ev_m = params["base"].expand(n_eval, K).clone()
+
+        def one_round(r: int, read=float):
+            """Round ``r``'s K trees, stacked field by field, and its
+            held-out loss through ``read``; updates the margins in place."""
+            with telemetry.span("gbdt.softmax"):  # the round's p
                 p = torch.softmax(margin, dim=1)
-            ev_round = []
+            trees, ev_round = [], []
             for k in range(K):
                 with telemetry.span("gbdt.tree"):
                     w_t, col_mask, ck = self._tree_keys(r * K + k, w)
@@ -1048,23 +1167,42 @@ class GBDT:
                         g = (p[:, k] - onehot[:, k]) * w_t
                         h = torch.clamp(p[:, k] * (1.0 - p[:, k]),
                                         min=1e-16) * w_t
-                    f, t, d, sg, sc, leaf, leaf_rel = build_tree(
-                        g, h, col_mask, ck)
+                    *tree, leaf_rel = build_tree(g, h, col_mask, ck)
+                    f, t, d, _, _, leaf = tree
                     with telemetry.span("gbdt.margin"):
                         margin[:, k] += leaf[leaf_rel]
                         if have_eval:
                             ev_round.append(eval_margin(f, t, d, leaf))
-                feats.append(f)
-                thrs.append(t)
-                dirs.append(d)
-                sgains.append(sg)
-                scovers.append(sc)
-                leaves.append(leaf)
+                trees.append(tree)
+            loss = None
             if have_eval:
-                with telemetry.span("gbdt.margin"):
-                    ev_m = ev_m + torch.stack(ev_round, dim=1)
-                    loss = float(self._objective_loss(ev_m, eval_label,
-                                                      eval_weight))
+                with telemetry.span("gbdt.eval"):
+                    ev_m.add_(torch.stack(ev_round, dim=1))
+                    loss = read(self._objective_loss(ev_m, eval_label,
+                                                     eval_weight))
+            return [torch.stack(field) for field in zip(*trees)], loss
+
+        best_loss, best_round, since_best = float("inf"), 0, 0
+        # feats, thrs, dirs, split gains, split covers, leaves
+        forest = [], [], [], [], [], []
+        self.eval_history = []
+        for r in range(self.num_trees):
+            with telemetry.span("gbdt.round"):
+                if rounds is not None and rounds.graph is not None:
+                    trees, loss = rounds.replay()
+                    if have_eval:
+                        with telemetry.span("gbdt.eval"):
+                            loss = float(loss)
+                else:
+                    trees, loss = one_round(r)
+                    if rounds is not None:
+                        rounds.capture(lambda: one_round(r, read=lambda x: x))
+            telemetry.counter_add("gbdt.trees", K)
+            telemetry.counter_add("gbdt.rounds", 1)
+            for out, field in zip(forest, trees):
+                out.extend(field.unbind(0))
+            if have_eval:
+                self.eval_history.append(loss)
                 if loss < best_loss:
                     best_loss, best_round, since_best = loss, r + 1, 0
                 elif early_stopping_rounds > 0:
@@ -1072,9 +1210,8 @@ class GBDT:
                     if since_best >= early_stopping_rounds:
                         break
         stop_on = have_eval and early_stopping_rounds > 0
-        trees_used = best_round * K if stop_on else len(feats)
-        return self._stack_forest(params, feats, thrs, dirs, sgains,
-                                  scovers, leaves, trees_used,
+        trees_used = best_round * K if stop_on else len(forest[0])
+        return self._stack_forest(params, *forest, trees_used,
                                   self.num_trees * K)
 
     def _dir_child_weights(self, dirs, g_tot, h_tot):
@@ -1539,7 +1676,7 @@ class GBDT:
         w = (torch.ones_like(label) if weight is None
              else self._t(weight, torch.float32))
         self._start_fit(int(label.shape[0]), [(0, int(label.shape[0]))])
-        eval_margin = eval_label = eval_weight = None
+        eval_margin = eval_label = eval_weight = eval_bins = None
         if eval_set is not None:
             eval_bins = self._bins(eval_set[0])
             eval_label = self._t(eval_set[1], torch.float32)
@@ -1548,7 +1685,11 @@ class GBDT:
             eval_margin = (lambda f, t, d, leaf:
                            self._tree_margins(f, t, d, leaf, eval_bins))
 
-        layout = self._dense_fit_layout(bins)
+        graph_key = self._round_graph_key(bins, eval_bins, eval_weight)
+        layout = (self._rounds.layout if graph_key is not None
+                  and self._rounds is not None
+                  and self._rounds.key == graph_key
+                  else self._dense_fit_layout(bins))
 
         def build(g, h, col_mask, col_key):
             return self._build_tree(bins, g, h, col_mask, col_key, layout)
@@ -1565,11 +1706,15 @@ class GBDT:
                                early_stopping_rounds=early_stopping_rounds,
                                grad_hess=grad_hess,
                                eval_loss_fn=eval_loss_fn)
-        driver = (self._boost_multi if self.objective == "softmax"
-                  else self._boost)
-        return driver(label, w, build, eval_margin=eval_margin,
-                      eval_label=eval_label, eval_weight=eval_weight,
-                      early_stopping_rounds=early_stopping_rounds)
+        if self.objective == "softmax":
+            return self._boost_multi(
+                label, w, build, eval_margin=eval_margin,
+                eval_label=eval_label, eval_weight=eval_weight,
+                early_stopping_rounds=early_stopping_rounds,
+                graph_key=graph_key, layout=layout)
+        return self._boost(label, w, build, eval_margin=eval_margin,
+                           eval_label=eval_label, eval_weight=eval_weight,
+                           early_stopping_rounds=early_stopping_rounds)
 
     @staticmethod
     def _entry_arrays(batch):

@@ -625,6 +625,59 @@ def test_objective_fit_on_card_matches_cpu(cuda, objective):
     torch.testing.assert_close(m_gpu, m_carried, rtol=0, atol=2e-5)
 
 
+def _fit_counted(model, bins, y, **kw):
+    """(forest, eval_history, histogram launches, segment-sum launches) of
+    one fit."""
+    h0, s0 = hg.histogram_gh_kernel.launches, ss.segment_sum_kernel.launches
+    forest = model.fit(bins, y, **kw)
+    torch.cuda.synchronize()
+    return (forest, list(model.eval_history),
+            hg.histogram_gh_kernel.launches - h0,
+            ss.segment_sum_kernel.launches - s0)
+
+
+@pytest.mark.parametrize("weighted,stop", [(False, 0), (True, 2)])
+def test_softmax_round_graph_replays_the_eager_forest(cuda, weighted, stop):
+    """A dense softmax fit on the card replays one captured round: its
+    forest, held-out losses and launch counts equal the eager rounds'
+    bit for bit, on the first fit (which captures) and the next (which
+    replays every round); codes changed in place are captured again."""
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((6000, 5)).astype(np.float32)
+    x = np.concatenate([x, np.eye(4, dtype=np.float32)[
+        rng.integers(0, 4, 6000)]], axis=1)
+    latent = x[:, 0] + 0.5 * np.sin(3 * x[:, 1]) + x[:, 5] - x[:, 7]
+    y = np.searchsorted(np.quantile(latent, np.cumsum(
+        [0.30, 0.25, 0.15, 0.10, 0.08, 0.07])), latent).astype(np.float32)
+    binner = QuantileBinner(num_bins=64, device=cuda).fit(x[:4000])
+    bins, ev = binner.transform(x[:4500]), binner.transform(x[4500:])
+    ev_set = (ev, y[4500:]) + ((rng.uniform(0.5, 2, 1500),) if weighted
+                               else ())
+    kw = dict(num_features=9, num_trees=6, max_depth=4, num_bins=64,
+              objective="softmax", num_class=7, device=cuda)
+    fit_kw = dict(eval_set=ev_set, early_stopping_rounds=stop)
+    graphed, eager = GBDT(**kw), GBDT(**kw)
+    eager._GRAPH_ROUNDS = False
+    want = _fit_counted(eager, bins, y[:4500], **fit_kw)
+    first = _fit_counted(graphed, bins, y[:4500], **fit_kw)
+    captured = graphed._rounds
+    again = _fit_counted(graphed, bins, y[:4500], **fit_kw)
+    assert captured is not None and graphed._rounds is captured
+    assert eager._rounds is None and len(want[1]) >= 3
+    for got in (first, again):
+        assert set(got[0]) == set(want[0])
+        for k in want[0]:
+            assert torch.equal(got[0][k], want[0][k]), k
+        assert got[1:] == want[1:]
+    bins.copy_(binner.transform(x[1500:6000]))  # new codes, same tensor
+    want = _fit_counted(eager, bins, y[1500:6000], **fit_kw)
+    got = _fit_counted(graphed, bins, y[1500:6000], **fit_kw)
+    assert graphed._rounds is not captured
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert got[1:] == want[1:]
+
+
 @pytest.mark.parametrize("histogram", ["pallas", "xla"])
 def test_gbdt_leaf_sums_run_on_the_kernel_for_either_histogram(cuda,
                                                               histogram):

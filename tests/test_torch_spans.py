@@ -8,6 +8,9 @@ neither on it reads no clock and makes no native call.  A fit under a CPU
 profiler shows one ``gbdt.fit``, a ``gbdt.tree`` per tree and a
 ``gbdt.hist`` / ``gbdt.split`` / ``gbdt.route`` per level, nested as the
 driver nests them, and grows the same forest as without the profiler.
+Under softmax each round is a ``gbdt.round`` holding its ``gbdt.softmax``,
+its class trees and, with an eval set, its ``gbdt.eval``; every fit counts
+its trees (``gbdt.trees``) and softmax rounds (``gbdt.rounds``).
 """
 import collections
 
@@ -183,25 +186,92 @@ def test_fit_spans_nest_and_keep_the_forest(kind, sampling):
         assert torch.equal(plain[k], traced[k]), k
 
 
-def test_softmax_opens_a_tree_span_per_class_tree():
-    bins, _, x = _dense(seed=3)
+def _softmax_data(rows=600):
+    bins, _, x = _dense(seed=3, rows=rows)
     y = np.digitize(x[:, 0], [-0.5, 0.5]).astype(np.float32)  # 3 classes
-    K = 3
+    return bins, y
 
-    def model():
-        return GBDT(F, num_trees=2, max_depth=DEPTH, num_bins=BINS,
-                    objective="softmax", num_class=K, device="cpu")
 
-    plain = model().fit(bins, y)
+def _softmax(rounds, K=3):
+    return GBDT(F, num_trees=rounds, max_depth=DEPTH, num_bins=BINS,
+                objective="softmax", num_class=K, device="cpu")
+
+
+def _counters():
+    return {k: telemetry.counter_get(k) for k in ("gbdt.trees",
+                                                  "gbdt.rounds")}
+
+
+def test_softmax_opens_a_tree_span_per_class_tree():
+    bins, y = _softmax_data()
+    K, rounds = 3, 2
+    plain = _softmax(rounds, K).fit(bins, y)
+    before = _counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        traced = model().fit(bins, y)
+        traced = _softmax(rounds, K).fit(bins, y)
+    after = _counters()
     paths = _paths(prof)
-    tree = "gbdt.fit/gbdt.tree"
-    assert paths[tree] == 2 * K
-    assert all(paths[tree + "/" + n] == 2 * K * DEPTH for n in LEVEL)
-    assert paths["gbdt.fit/gbdt.grad"] == 2  # the round's softmax
+    rnd = "gbdt.fit/gbdt.round"
+    tree = rnd + "/gbdt.tree"
+    assert paths[rnd] == rounds
+    assert paths[tree] == rounds * K
+    assert all(paths[tree + "/" + n] == rounds * K * DEPTH for n in LEVEL)
+    assert paths[tree + "/gbdt.grad"] == rounds * K
+    assert paths[rnd + "/gbdt.softmax"] == rounds  # the round's softmax
+    assert not [p for p in paths if p.startswith("gbdt.fit/gbdt.tree")]
+    assert paths[rnd + "/gbdt.eval"] == 0  # no eval set
+    assert after["gbdt.trees"] - before["gbdt.trees"] == rounds * K
+    assert after["gbdt.rounds"] - before["gbdt.rounds"] == rounds
     for k in plain:
         assert torch.equal(plain[k], traced[k]), k
+
+
+def test_softmax_eval_sits_in_the_round_eval_span():
+    bins, y = _softmax_data()
+    K, rounds = 3, 3
+    model = _softmax(rounds, K)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.fit(bins[:400], y[:400], eval_set=(bins[400:], y[400:]))
+    paths = _paths(prof)
+    rnd = "gbdt.fit/gbdt.round"
+    assert paths[rnd + "/gbdt.eval"] == rounds
+    assert paths[rnd + "/gbdt.tree/gbdt.margin"] == rounds * K
+    assert not [p for p in paths if p.count("gbdt.eval") > 1
+                or "gbdt.tree/gbdt.eval" in p]
+    assert len(model.eval_history) == rounds
+
+
+def test_softmax_round_spans_reach_the_ring():
+    if not telemetry.enabled():
+        pytest.skip("tracing is compiled out")
+    bins, y = _softmax_data()
+    K, rounds = 3, 2
+    telemetry.trace_start()
+    try:
+        _softmax(rounds, K).fit(bins[:400], y[:400],
+                                eval_set=(bins[400:], y[400:]))
+    finally:
+        telemetry.trace_stop()
+    events = [e for e in telemetry.trace_dump()["traceEvents"]
+              if e.get("name", "").startswith("gbdt.")]
+    names = collections.Counter(e["name"] for e in events)
+    assert names["gbdt.fit"] == 1 and names["gbdt.round"] == rounds
+    assert names["gbdt.softmax"] == rounds and names["gbdt.eval"] == rounds
+    assert names["gbdt.tree"] == rounds * K
+    rounds_us = [e["dur"] for e in events if e["name"] == "gbdt.round"]
+    trees_us = [e["dur"] for e in events if e["name"] == "gbdt.tree"]
+    assert min(rounds_us) > 0 and sum(rounds_us) >= sum(trees_us)
+
+
+@pytest.mark.parametrize("kind", ["fit", "fit_batch"])
+def test_fits_count_their_trees(kind):
+    model = GBDT(F, num_trees=TREES, max_depth=DEPTH, num_bins=BINS,
+                 missing_aware=kind == "fit_batch", device="cpu")
+    before = _counters()
+    _fit(kind, model)
+    after = _counters()
+    assert after["gbdt.trees"] - before["gbdt.trees"] == TREES
+    assert after["gbdt.rounds"] == before["gbdt.rounds"]
 
 
 def test_eval_margin_and_loss_sit_in_the_margin_span():
@@ -213,6 +283,10 @@ def test_eval_margin_and_loss_sit_in_the_margin_span():
     paths = _paths(prof)
     assert paths["gbdt.fit/gbdt.tree/gbdt.margin"] == TREES
     assert not [p for p in paths if p.count("gbdt.margin") > 1]
+    assert not [p for p in paths if "gbdt.round" in p or "gbdt.eval" in p]
+    assert len(model.eval_history) == TREES
+    model.fit(bins[:400], y[:400])  # a fit without one resets it
+    assert model.eval_history == []
 
 
 def test_fit_spans_reach_the_ring():
