@@ -19,8 +19,9 @@ and the segment-sum kernel timed at the training shape, then trains a
 Higgs-width histogram GBDT (11M rows x 28 features, 256 bins, 20 trees of
 depth 6) through ``GBDT.fit`` and checks its histograms (every level of
 the first tree timed beside the previous kernel, ``index_add`` and the
-bound),
-forests and predictions against float64 oracles, and a sampled fit
+bound, and below the root built by sibling subtraction, as a fit builds
+it, bit for bit the full level), the fit against one with every level in
+full, forests and predictions against float64 oracles, and a sampled fit
 (subsample, colsample_bytree and colsample_bylevel 0.8: draws on the card
 equal to the CPU's bit for bit), then trains a Bosch-width sparse GBDT
 (1,183,747 rows x 968 features, ~19% present) on a CSR batch through
@@ -1703,6 +1704,59 @@ def dense_level_time(torch, hg, bins, rel, gh, n: int, B: int,
             err, nbytes, cov)
 
 
+def subtracted_level_time(torch, hg, bins, rel, parent_rel, gh, n: int,
+                          B: int, layout=None) -> tuple:
+    """The dense kernel at one level built as a fit builds it below the
+    root, by sibling subtraction from its parent level (``parent_rel``,
+    n / 2 nodes; the parent's launch not timed): its device time and the
+    share of the rows it adds (the child of fewer rows of each pair), with
+    its histogram and accumulator checked equal to the full level's bit
+    for bit.  Returns (ms, share of rows added)."""
+    _, parent = hg.histogram_gh_kernel(bins, parent_rel, gh, n // 2, B,
+                                       layout, return_acc=True)
+    ms, _ = device_ms(torch, lambda: hg.histogram_gh_kernel(
+        bins, rel, gh, n, B, layout, parent=parent), 20)
+    got, acc = hg.histogram_gh_kernel(bins, rel, gh, n, B, layout,
+                                      parent=parent, return_acc=True)
+    want, want_acc = hg.histogram_gh_kernel(bins, rel, gh, n, B, layout,
+                                            return_acc=True)
+    n_acc = n * bins.shape[1] * B * 2 + 2
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+          and torch.equal(acc[:n_acc], want_acc[:n_acc]),
+          f"histogram at n={n}: the subtracted level is not the full one")
+    counts = torch.bincount(rel, minlength=n)
+    return ms, float(counts.view(-1, 2).amin(1).sum()) / rel.shape[0]
+
+
+def level_times(torch, hg, bins, levels, gh, B, layout) -> list:
+    """:func:`dense_level_time` at each of a tree's levels, and below the
+    root :func:`subtracted_level_time` as ``sub_ms`` and ``built`` (the
+    root: its full level, every row); each with its error, bytes and
+    coverage."""
+    out = []
+    for d, (rel, n) in enumerate(levels):
+        lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
+                                                B, layout)
+        lv["sub_ms"], lv["built"] = (subtracted_level_time(
+            torch, hg, bins, rel, levels[d - 1][0], gh, n, B, layout)
+            if d else (lv["ms"], 1.0))
+        out.append((lv, err, nbytes, cov))
+    return out
+
+
+def tree_ms(per_level) -> dict:
+    """A tree's histogram time, the levels' sum, with every level in full
+    and with the levels below the root subtracted (the kernels line)."""
+    return {"tree_ms": float(sum(lv["ms"] for lv in per_level)),
+            "tree_ms_subtracted": float(sum(lv["sub_ms"]
+                                            for lv in per_level))}
+
+
+def subtraction_text(lv) -> str:
+    return (f"; subtracted {lv['sub_ms']:.4f} ms ({100 * lv['built']:.1f}% "
+            f"of rows added)")
+
+
 def level_error(h32, h64) -> float:
     """max |f32 histogram - float64 sums| relative to max(1, the largest
     float64 bin)."""
@@ -1718,12 +1772,20 @@ def print_level(what, d, n, lv, before_ms, err, nbytes, cov,
           f"{before_ms:.3f}), plain "
           f"{lv['plain_ms']:.1f} ms, index_add {lv['library_ms']:.3f} ms, bound {lv['bound_ms']:.4f} ms "
           f"({nbytes} bytes, {lv['bound_by']}); |kernel - float64| "
-          f"{err:.3e} of the largest bin; queue covered: {cov}")
+          f"{err:.3e} of the largest bin; queue covered: {cov}"
+          + (subtraction_text(lv) if "sub_ms" in lv else ""))
 
 
 def level_summary(what, per_level, before_ms=None, prior_ms=None) -> None:
     ms = [lv["ms"] for lv in per_level]
     lib = [lv["library_ms"] for lv in per_level]
+    if "sub_ms" in per_level[0]:
+        sub = [lv["sub_ms"] for lv in per_level]
+        print(f"{what} a tree (the levels' sum): {sum(ms):.4f} ms in full, "
+              f"{sum(sub):.4f} ms with the levels below the root "
+              f"subtracted ({sum(sub) / sum(ms):.3f}); rows added "
+              f"{100 * np.mean([lv['built'] for lv in per_level[1:]]):.1f}% "
+              "a level below the root")
     old = ([f"previous kernel: {np.mean(prior_ms):.4f}"] if prior_ms else []) + (
         [f"per-warp f64 kernel: {np.mean(before_ms):.3f}"] if before_ms
         else [])
@@ -1824,9 +1886,10 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     """One fit of the main path, with the launch counts set to 0 just
     before it and read just after.  Returns (forest, seconds, histogram
     launches, segment-sum launches, peak device memory of the fit in
-    bytes, row-draw launches)."""
+    bytes, row-draw launches, levels built by subtraction)."""
     from dmlc_core_tpu_torch.ops import draws
     hg.histogram_gh_kernel.launches = 0
+    hg.histogram_gh_kernel.subtracted = 0
     ss_mod.segment_sum_kernel.launches = 0
     draws.sample_weights.launches = 0
     torch.cuda.synchronize()
@@ -1837,7 +1900,8 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     secs = time.monotonic() - t0
     return (forest, secs, hg.histogram_gh_kernel.launches,
             ss_mod.segment_sum_kernel.launches,
-            torch.cuda.max_memory_allocated(), draws.sample_weights.launches)
+            torch.cuda.max_memory_allocated(), draws.sample_weights.launches,
+            hg.histogram_gh_kernel.subtracted)
 
 
 # stochastic boosting: rows and columns drawn from jax.random's threefry
@@ -1946,6 +2010,7 @@ def time_draws(torch, dev) -> dict:
 def phase_gbdt(torch, ss_mod, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    from dmlc_core_tpu_torch import telemetry
     from dmlc_core_tpu_torch.models import GBDT, QuantileBinner
     from dmlc_core_tpu_torch.ops import histogram as hg
     rows, F, B = HIGGS_ROWS, HIGGS_FEATURES, GBDT_KW["num_bins"]
@@ -2005,9 +2070,9 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     # prebuilt flattened keys; the error against float64 sums by index_add
     # at every level
     per_level = []
-    for d, (rel, n) in enumerate(levels):
-        lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
-                                                B, layout)
+    for d, (lv, err, nbytes, cov) in enumerate(level_times(
+            torch, hg, bins, levels, gh, B, layout)):
+        n = levels[d][1]
         per_level.append(lv)
         print_level("histogram", d, n, per_level[-1], F64_WARP_DENSE_MS[d], err,
                     nbytes, cov, PRIOR_MS["Higgs"][d])
@@ -2023,13 +2088,17 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     fits = [fit_timed(torch, hg, ss_mod, model, bins, label)
             for _ in range(2)]
     forest = fits[0][0]
-    for f_i, secs, h_l, s_l, peak, d_l in fits:
+    for f_i, secs, h_l, s_l, peak, d_l, sub_l in fits:
         print(f"gbdt fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
-              f"row_trees_s; launches: histogram_gh {h_l}, segment_sum "
-              f"{s_l}; peak device memory of the fit {peak / 2**30:.2f} GiB "
-              f"(codes {bins.numel() / 2**30:.2f} GiB)")
+              f"row_trees_s; launches: histogram_gh {h_l} ({sub_l} levels "
+              f"subtracted, gbdt.hist_built_permille "
+              f"{telemetry.gauge_get('gbdt.hist_built_permille')}), "
+              f"segment_sum {s_l}; peak device memory of the fit "
+              f"{peak / 2**30:.2f} GiB (codes {bins.numel() / 2**30:.2f} GiB)")
         check(h_l == trees * depth, f"histogram_gh launched {h_l} times in "
               f"a fit (want {trees * depth})")
+        check(sub_l == trees * (depth - 1), f"{sub_l} levels subtracted in "
+              f"a fit (want {trees * (depth - 1)})")
         check(s_l == trees, f"segment_sum launched {s_l} times in a fit "
               f"(want {trees}: one leaf sum a tree)")
         check(d_l == 0, f"an unsampled fit launched the row draw {d_l} "
@@ -2038,6 +2107,19 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
                   torch.equal(warm[k], forest[k]) for k in forest),
               "two fits gave different forests")
     print(f"gbdt: warm-up fit {t_warm:.3f} s; three fits bitwise identical")
+    # the same fit with every level built in full
+    full = GBDT(num_features=F, device=dev, **GBDT_KW)
+    full._SUBTRACT = False
+    f_full, t_full, h_full, *_, sub_full = [
+        fit_timed(torch, hg, ss_mod, full, bins, label) for _ in range(2)][1]
+    check(sub_full == 0 and h_full == trees * depth
+          and all(torch.equal(f_full[k], forest[k]) for k in forest),
+          "the fit with every level in full differs from the subtracted fit")
+    print(f"gbdt fit, every level in full: {t_full:.3f} s wall, "
+          f"{rows * trees / t_full:.0f} row_trees_s (subtracted: "
+          f"{fits[1][1]:.3f} s, {t_full / fits[1][1]:.3f} x faster); forest "
+          "bitwise the subtracted fit's")
+    del full, f_full
     losses = tree_losses(torch, model, forest, bins, label)
     print("gbdt train logloss after 0/1/5/10/20 trees: " + ", ".join(
         f"{losses[i]:.6f}" for i in (0, 1, 5, 10, trees)))
@@ -2160,6 +2242,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"launches": fits[0][2], "max_abs_err": max_err,
             "bound_by": per_level[0]["bound_by"], **mean,
+            **tree_ms(per_level),
             "leaf": {**leaf, "launches": fits[0][3]},
             "bins": bins, "label": label, "forest": forest,
             "fit_s": fits[0][1], "draws": draw}
@@ -5929,10 +6012,12 @@ def objective_fit(torch, hg, ss_mod, model, bins, label, qid, what: str,
     after; the forests bitwise equal.  Returns (forest, [(seconds,
     histogram launches, segment-sum launches, peak bytes)] of the
     fits)."""
+    from dmlc_core_tpu_torch import telemetry
     kw = {} if qid is None else {"qid": qid}
     warm, out = None, []
     for _ in range(2):
         hg.histogram_gh_kernel.launches = 0
+        hg.histogram_gh_kernel.subtracted = 0
         ss_mod.segment_sum_kernel.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5942,14 +6027,17 @@ def objective_fit(torch, hg, ss_mod, model, bins, label, qid, what: str,
         secs = time.monotonic() - t0
         out.append((secs, hg.histogram_gh_kernel.launches,
                     ss_mod.segment_sum_kernel.launches,
-                    torch.cuda.max_memory_allocated()))
+                    torch.cuda.max_memory_allocated(),
+                    hg.histogram_gh_kernel.subtracted))
         warm = forest if warm is None else warm
         check(all(torch.equal(forest[k], warm[k]) for k in warm),
               f"{what}: two fits gave different forests")
     rows = bins.shape[0]
-    for secs, h_l, s_l, peak in out:
+    for secs, h_l, s_l, peak, sub_l in out:
         print(f"{what} fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
-              f"row_trees_s ({trees} trees); launches: histogram_gh {h_l}, "
+              f"row_trees_s ({trees} trees); launches: histogram_gh {h_l} "
+              f"({sub_l} levels subtracted, gbdt.hist_built_permille "
+              f"{telemetry.gauge_get('gbdt.hist_built_permille')}), "
               f"segment_sum {s_l}; peak device memory {peak / 2**30:.2f} "
               "GiB")
     return forest, out
@@ -5974,16 +6062,17 @@ def objective_kernel_levels(torch, hg, ss_mod, model, forest, bins, label,
         rel, n = levels[d]
         max_err = max(max_err, check_hist(torch, hg, f"{what} depth {d}",
                                           bins, rel, gh, n, B, layout))
-    for d, (rel, n) in enumerate(levels):
-        lv, err, nbytes, cov = dense_level_time(torch, hg, bins, rel, gh, n,
-                                                B, layout)
+    for d, (lv, err, nbytes, cov) in enumerate(level_times(
+            torch, hg, bins, levels, gh, B, layout)):
+        n = levels[d][1]
         per_level.append(lv)
         print(f"time [{what} histogram, depth {d}, n={n}]: kernel "
               f"{lv['ms']:.4f} ms (previous kernel: {PRIOR_MS[what][d]:.3f}), "
               f"plain {lv['plain_ms']:.1f} ms, index_add "
               f"{lv['library_ms']:.4f} ms, bound {lv['bound_ms']:.4f} ms "
               f"({nbytes} bytes, {lv['bound_by']}); |kernel - float64| "
-              f"{err:.3e} of the largest bin; queue covered: {cov}")
+              f"{err:.3e} of the largest bin; queue covered: {cov}"
+              + subtraction_text(lv))
         check(err <= HIST_TOL, f"{what} depth {d}: {err} from float64")
     level_summary(f"{what} histogram", per_level, prior_ms=PRIOR_MS[what])
     ops_line(torch, f"histogram_gh, {what} depth 5",
@@ -5991,7 +6080,7 @@ def objective_kernel_levels(torch, hg, ss_mod, model, forest, bins, label,
     mean = {k: float(np.mean([lv[k] for lv in per_level]))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {"max_abs_err": max_err, "bound_by": per_level[0]["bound_by"],
-            **mean, "leaf": leaf}
+            **mean, **tree_ms(per_level), "leaf": leaf}
 
 
 def objective_audit(torch, hg, model, forest, bins, label, qid,
@@ -6080,10 +6169,25 @@ def phase_objectives(torch, ss_mod, dev) -> dict:
     model = GBDT(**kw)
     forest, fits = objective_fit(torch, hg, ss_mod, model, bins, label, None,
                                  "Covertype softmax", rounds * K)
-    for _, h_l, s_l, _ in fits:
-        check(h_l == rounds * K * depth and s_l == rounds * K,
-              f"Covertype: {h_l} histogram and {s_l} segment-sum launches "
-              f"(want {rounds * K * depth} and {rounds * K})")
+    for _, h_l, s_l, _, sub_l in fits:
+        check(h_l == rounds * K * depth and s_l == rounds * K
+              and sub_l == rounds * K * (depth - 1),
+              f"Covertype: {h_l} histogram and {s_l} segment-sum launches, "
+              f"{sub_l} levels subtracted (want {rounds * K * depth}, "
+              f"{rounds * K} and {rounds * K * (depth - 1)})")
+    full = GBDT(**kw)
+    full._SUBTRACT = False
+    f_full, fits_full = objective_fit(
+        torch, hg, ss_mod, full, bins, label, None,
+        "Covertype softmax, every level in full", rounds * K)
+    check(fits_full[1][4] == 0 and all(torch.equal(f_full[k], forest[k])
+                                       for k in forest),
+          "Covertype: the fit with every level in full differs from the "
+          "subtracted fit")
+    print(f"Covertype fit, every level in full: {fits_full[1][0]:.3f} s "
+          f"(subtracted {fits[1][0]:.3f} s, {fits_full[1][0] / fits[1][0]:.3f}"
+          " x faster); forest bitwise the subtracted fit's")
+    del full, f_full
     # the first round's (grad, hess) against float64
     gh0 = next(objective_tree_inputs(torch, model, forest, bins, label))[0]
     p0 = torch.softmax(forest["base"].expand(COVER_ROWS, K), dim=1)
@@ -6190,10 +6294,12 @@ def phase_objectives(torch, ss_mod, dev) -> dict:
     model = GBDT(**kw)
     forest, fits = objective_fit(torch, hg, ss_mod, model, bins, rel, qid,
                                  "MSLR rank:pairwise", rounds)
-    for _, h_l, s_l, _ in fits:
-        check(h_l == rounds * depth and s_l == rounds,
-              f"MSLR: {h_l} histogram and {s_l} segment-sum launches (want "
-              f"{rounds * depth} and {rounds})")
+    for _, h_l, s_l, _, sub_l in fits:
+        check(h_l == rounds * depth and s_l == rounds
+              and sub_l == rounds * (depth - 1),
+              f"MSLR: {h_l} histogram and {s_l} segment-sum launches, "
+              f"{sub_l} levels subtracted (want {rounds * depth}, {rounds} "
+              f"and {rounds * (depth - 1)})")
     ones = torch.ones_like(rel)
     grad_hess, _ = model._rank_fns(qid, ones)
     host_rel = rel.cpu().numpy()
@@ -6258,22 +6364,26 @@ EX_TIMEOUT_S = 300
 def first_calls(mod, name: str, keep: int):
     """Keep the arguments of the first ``keep`` calls of ``mod.name`` (a
     kernel's wrapper) while the block runs.  The wrapper counts its launches
-    on the object the module's name holds, so the spy carries the count
-    and hands it back when the block ends."""
+    (the dense one also its subtracted levels) on the object the module's
+    name holds, so the spy carries the counts and hands them back when the
+    block ends."""
     orig = getattr(mod, name)
     calls = []
+    counters = [c for c in ("launches", "subtracted") if hasattr(orig, c)]
 
     def spy(*args, **kwargs):
         if len(calls) < keep:
             calls.append((args, kwargs))
         return orig(*args, **kwargs)
 
-    spy.launches = orig.launches
+    for c in counters:
+        setattr(spy, c, getattr(orig, c))
     setattr(mod, name, spy)
     try:
         yield calls
     finally:
-        orig.launches = spy.launches
+        for c in counters:
+            setattr(orig, c, getattr(spy, c))
         setattr(mod, name, orig)
 
 
@@ -6810,6 +6920,8 @@ def main(argv) -> int:
         "bound_ms": gbdt["bound_ms"],
         "bound_by": gbdt["bound_by"],
         "library_ms": gbdt["library_ms"],
+        "tree_ms": gbdt["tree_ms"],
+        "tree_ms_subtracted": gbdt["tree_ms_subtracted"],
     }, {
         "name": "threefry",
         "route": "cuda",
@@ -6872,9 +6984,12 @@ def main(argv) -> int:
         "source": "dmlc_core_tpu_torch/ops/csrc/histogram_gh.cu",
         "replaces": "dmlc_core_tpu/ops/pallas_segment.py:168",
         "shape": f"{what}, {rows} rows x {F} features x 256 bins, mean of "
-                 f"depths 0-5 of the first tree; launches: a fit's",
+                 f"depths 0-5 of the first tree (tree_ms: their sum, "
+                 f"tree_ms_subtracted: with depths 1-5 subtracted); "
+                 f"launches: a fit's",
         "launches": o["launches"],
-        **{k: o[k] for k in ("max_abs_err", *keys)},
+        **{k: o[k] for k in ("max_abs_err", *keys, "tree_ms",
+                             "tree_ms_subtracted")},
     } for what, rows, F, o in (
         ("Covertype softmax", COVER_ROWS, 54, obj["cover"]),
         ("MSLR-WEB10K rank:pairwise", MSLR_ROWS, MSLR_FEATURES,

@@ -9,8 +9,10 @@ inputs.
   entries to int32 codes with a per-entry binary search;
 * dense path (``fit``): each tree level builds ONE ``[nodes, features,
   bins]`` (grad, hess) histogram (``ops.histogram.histogram_gh``: the
-  hand-written CUDA kernel on the card), finds splits with a cumsum and a
-  flat argmax over it, and routes rows to the children with a gather;
+  hand-written CUDA kernel on the card, which below the root adds only
+  the rows of the child of each node pair with fewer rows and subtracts
+  the other from the parent's exact sums), finds splits with a cumsum and
+  a flat argmax over it, and routes rows to the children with a gather;
 * sparse path (``fit_batch``, on a CSR ``PaddedBatch`` or a pre-binned
   ``BinnedBatch`` from the epoch cache, no densify): each level's histogram
   comes from the present entries only (``ops.histogram_sparse``: a
@@ -63,6 +65,7 @@ from .. import telemetry
 from .._device import resolve_device
 from ..data.staging import (DeviceStagingIter, bucket_pow2,
                             pad_batch_to_bucket)
+from ..ops import histogram as hist_ops
 from ..ops.draws import column_mask, sample_weights
 from ..ops.histogram import (dense_hist_layout, histogram_gh,
                              histogram_gh_kernel, histogram_gh_sharded)
@@ -478,9 +481,11 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-# the kernels whose Python launch counters a replayed round bumps as the
-# eager round would
-_COUNTED_KERNELS = (histogram_gh_kernel, segment_sum_kernel)
+# the kernels' Python launch counters that a replayed round bumps as the
+# eager round would: (kernel, counter)
+_COUNTED_KERNELS = ((histogram_gh_kernel, "launches"),
+                    (histogram_gh_kernel, "subtracted"),
+                    (segment_sum_kernel, "launches"))
 
 
 class _RoundGraph:
@@ -505,22 +510,22 @@ class _RoundGraph:
     def capture(self, one_round) -> None:
         """Capture ``one_round()`` (which must not read back to the host);
         nothing runs, and the launch counters are left as they were."""
-        before = tuple(k.launches for k in _COUNTED_KERNELS)
+        before = tuple(getattr(k, c) for k, c in _COUNTED_KERNELS)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.trees, self.loss = one_round()
-        self.launches = tuple(k.launches - b
-                              for k, b in zip(_COUNTED_KERNELS, before))
-        for k, b in zip(_COUNTED_KERNELS, before):
-            k.launches = b
+        self.launches = tuple(getattr(k, c) - b for (k, c), b in
+                              zip(_COUNTED_KERNELS, before))
+        for (k, c), b in zip(_COUNTED_KERNELS, before):
+            setattr(k, c, b)
         self.graph = graph
 
     def replay(self) -> tuple:
         """Run the round: (its trees' stacked arrays, copied out of the
         graph's memory; the held-out loss tensor, or None)."""
         self.graph.replay()
-        for k, n in zip(_COUNTED_KERNELS, self.launches):
-            k.launches += n
+        for (k, c), n in zip(_COUNTED_KERNELS, self.launches):
+            setattr(k, c, getattr(k, c) + n)
         return [t.clone() for t in self.trees], self.loss
 
 
@@ -552,7 +557,10 @@ class GBDT:
     ``eval_set``, host floats, one a tree (one a round under softmax), up
     to the last tree built; empty after a fit without one.  Each fit
     counts its trees (``gbdt.trees``) and, under softmax, its rounds
-    (``gbdt.rounds``) in the telemetry registry.
+    (``gbdt.rounds``) in the telemetry registry; a dense fit whose levels
+    below the root were built by subtraction sets the gauge
+    ``gbdt.hist_built_permille``, the rows the histogram kernel added at
+    those levels per thousand of rows x levels.
 
     The forest is a dict of tensors on that device::
 
@@ -624,6 +632,9 @@ class GBDT:
         self.seed = seed
         self.eval_history = []
         self._rounds = None  # the last softmax fit's _RoundGraph
+        # int64 [] on the card: rows the histogram kernel added at
+        # subtracted levels since the fit began (`_build_tree`)
+        self._hist_built = None
         if monotone_constraints is not None:
             raw = np.asarray(monotone_constraints)
             # validate before casting: int32 truncation would silently
@@ -715,6 +726,20 @@ class GBDT:
     # (False: every round eagerly, as on the CPU)
     _GRAPH_ROUNDS = True
 
+    # dense levels below the root build the smaller child of each node pair
+    # and take its sibling from the parent's accumulator, where both levels
+    # run the kernel in one process (False: every level in full)
+    _SUBTRACT = True
+
+    def _kernel_levels(self, device) -> list:
+        """Per depth of a dense tree on ``device``: whether its level runs
+        the one-process kernel route, whose int64 accumulator a subtracted
+        level takes from its parent (`_build_tree`)."""
+        one = (self._SUBTRACT and device.type == "cuda"
+               and self.mesh_plan is None)
+        return [one and self._hist_impl(2 ** d) == "pallas"
+                for d in range(self.max_depth)]
+
     def _round_graph_key(self, bins: torch.Tensor, eval_bins, eval_weight):
         """The `_RoundGraph` key of a dense fit on these codes: the code
         tensors' storage, shape and version and every setting a round's
@@ -737,7 +762,8 @@ class GBDT:
                 self.num_class, self.num_bins, self.max_depth,
                 self.learning_rate, self.lambda_, self.gamma,
                 self.min_child_weight, self.missing_aware, self.histogram,
-                id(self.monotone_constraints), id(self._interaction_groups))
+                self._SUBTRACT, id(self.monotone_constraints),
+                id(self._interaction_groups))
 
     def _level_histogram(self, bins: torch.Tensor, rel: torch.Tensor,
                          gh: torch.Tensor, n_nodes: int,
@@ -1380,11 +1406,23 @@ class GBDT:
         ``col_key``: the tree's feature draws (`_tree_keys`); ``layout``:
         the fit's `_dense_fit_layout`.  Returns
         (feature, threshold, default_right, split_gain, split_cover, leaf,
-        leaf_rel) where leaf_rel is each row's final leaf index."""
+        leaf_rel) where leaf_rel is each row's final leaf index.
+
+        A level below the root whose level above also ran the kernel in
+        one process (`_kernel_levels`) is built by sibling subtraction, as
+        XGBoost's hist builds it: the kernel counts each node's rows, adds
+        only the rows of the child of each pair with fewer and takes the
+        sibling as the parent's int64 sums less the built child's.  Those
+        sums are exact at one scale for the whole tree, so every histogram,
+        and the forest, is the full level's bit for bit.  The JAX package
+        builds every level in full (on the TPU a level is one
+        bandwidth-bound contraction); on the card a level is bound by the
+        kernel's shared-memory atomics, one a row and feature, so rows not
+        added are time saved."""
         B = self.num_bins
         rows = bins.shape[0]
         dev = bins.device
-        node = torch.zeros(rows, dtype=torch.int32, device=dev)
+        rel = torch.zeros(rows, dtype=torch.int32, device=dev)  # in level
         mono = self.monotone_constraints is not None
         lo = torch.full((1,), -torch.inf, device=dev)
         hi = torch.full((1,), torch.inf, device=dev)
@@ -1394,13 +1432,22 @@ class GBDT:
         gh = torch.stack([grad, hess], dim=-1).contiguous()  # [rows, 2]
         features, thresholds, defaults, gains, covers = [], [], [], [], []
         lam = self.lambda_
+        kept = self._kernel_levels(dev)
+        sub = [d > 0 and kept[d] and kept[d - 1]
+               for d in range(self.max_depth)]
+        acc = None
         for depth in range(self.max_depth):
-            first = 2 ** depth - 1          # heap id of the level's first node
             n_nodes = 2 ** depth
             with telemetry.span("gbdt.hist"):
-                rel = node - first          # [rows] in [0, n_nodes)
-                hist = self._level_histogram(bins, rel, gh, n_nodes,
-                                             layout)
+                if kept[depth]:  # looked up per call, as histogram_gh does
+                    hist, acc = hist_ops.histogram_gh_kernel(
+                        bins, rel, gh, n_nodes, B, layout,
+                        parent=acc if sub[depth] else None,
+                        built=self._hist_built if sub[depth] else None,
+                        return_acc=True)
+                else:
+                    hist = self._level_histogram(bins, rel, gh, n_nodes,
+                                                 layout)
             with telemetry.span("gbdt.split"):
                 hist_g = hist[..., 0]
                 hist_h = hist[..., 1]
@@ -1446,7 +1493,8 @@ class GBDT:
                 gains.append(split_g)
                 covers.append(h_tot[:, 0, 0])   # node hessian mass (any f)
             with telemetry.span("gbdt.route"):
-                # route rows: children of heap node n are 2n+1 (left), 2n+2
+                # route rows: the children of node n of a level are nodes
+                # 2n (left) and 2n + 1 of the next (heap ids 2m+1, 2m+2)
                 rel_l = rel.to(torch.int64)
                 row_bin = torch.gather(bins, 1, split_f[rel_l].to(torch.int64)
                                        [:, None])[:, 0].to(torch.int32)
@@ -1454,12 +1502,12 @@ class GBDT:
                 if self.missing_aware:
                     go_right = torch.where(row_bin == 0, split_d[rel_l] == 1,
                                            go_right)
-                node = 2 * node + 1 + go_right.to(torch.int32)
+                rel = torch.add(go_right.to(torch.int32), rel, alpha=2)
 
         # leaf weights: -G/(H + lambda) per leaf, shrunken (clamped into the
         # node's propagated bounds first under monotone constraints)
         n_leaves = 2 ** self.max_depth
-        leaf_rel = node - (n_leaves - 1)
+        leaf_rel = rel
         with telemetry.span("gbdt.leaf"):
             gh_leaf = self._seg_sum(gh, leaf_rel, n_leaves)
             leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
@@ -1694,27 +1742,43 @@ class GBDT:
         def build(g, h, col_mask, col_key):
             return self._build_tree(bins, g, h, col_mask, col_key, layout)
 
+        # the same tensor every fit: a captured round adds into it
+        if self._hist_built is None:
+            self._hist_built = torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+        self._hist_built.zero_()
+        subtracted = hist_ops.histogram_gh_kernel.subtracted
         if self.objective == "rank:pairwise":
             grad_hess, eval_loss_fn = self._rank_fns(
                 qid, w,
                 eval_qid=(eval_set[3] if eval_set is not None and
                           len(eval_set) > 3 else None),
                 eval_w=eval_weight, have_eval=eval_set is not None)
-            return self._boost(label, w, build, eval_margin=eval_margin,
-                               eval_label=eval_label,
-                               eval_weight=eval_weight,
-                               early_stopping_rounds=early_stopping_rounds,
-                               grad_hess=grad_hess,
-                               eval_loss_fn=eval_loss_fn)
-        if self.objective == "softmax":
-            return self._boost_multi(
+            forest = self._boost(label, w, build, eval_margin=eval_margin,
+                                 eval_label=eval_label,
+                                 eval_weight=eval_weight,
+                                 early_stopping_rounds=early_stopping_rounds,
+                                 grad_hess=grad_hess,
+                                 eval_loss_fn=eval_loss_fn)
+        elif self.objective == "softmax":
+            forest = self._boost_multi(
                 label, w, build, eval_margin=eval_margin,
                 eval_label=eval_label, eval_weight=eval_weight,
                 early_stopping_rounds=early_stopping_rounds,
                 graph_key=graph_key, layout=layout)
-        return self._boost(label, w, build, eval_margin=eval_margin,
-                           eval_label=eval_label, eval_weight=eval_weight,
-                           early_stopping_rounds=early_stopping_rounds)
+        else:
+            forest = self._boost(label, w, build, eval_margin=eval_margin,
+                                 eval_label=eval_label,
+                                 eval_weight=eval_weight,
+                                 early_stopping_rounds=early_stopping_rounds)
+        levels = hist_ops.histogram_gh_kernel.subtracted - subtracted
+        if levels and label.shape[0]:
+            # read once, after the forest's stacking has waited for the
+            # stream (its trees_used copy)
+            telemetry.gauge_set("gbdt.hist_built_permille",
+                                1000 * int(self._hist_built)
+                                // (levels * int(label.shape[0])))
+        return forest
 
     @staticmethod
     def _entry_arrays(batch):

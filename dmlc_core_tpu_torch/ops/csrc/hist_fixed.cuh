@@ -28,7 +28,8 @@
 // reductions (add_reduced): the same integer, one shared add per key.
 //
 // A one-process histogram call is two launches: `prologue` (zero the
-// accumulator, its marks and tickets; each block's max |g|, |h|), then the
+// accumulator, its marks and tickets; each block's max |g|, |h|; for a
+// dense level built by subtraction, each node's rows), then the
 // histogram, whose every block turns those maxima into the scale itself
 // (block_scale, scale_of: fixed_point_scale step for step, in double);
 // the last block of each output region rounds that region (last_of), and
@@ -262,15 +263,24 @@ __device__ __forceinline__ void poison_marked(unsigned long long* over,
   }
 }
 
+// nodes whose rows a prologue block counts in shared memory before it adds
+// its counts to the caller's (more: straight to the caller's)
+constexpr int kCountShared = 4096;
+
 // The prologue of a launch: zero[0, n_zero) = 0 and fill[0, n_fill) = 0.0f
 // (the accumulator, its marks and tickets; the outputs no slot writes;
 // both 16-byte aligned), and, with gh, each block's max |gh| bits of both
 // lanes over a grid-stride share of gh[0, n_gh) into partial[2 * block +
-// lane].  256 threads.
+// lane]; with rel too, counts[n] += the rows i < n_gh with rel[i] == n, for
+// n in [0, n_count) (each warp's rows of one node summed first, then each
+// block's in shared memory; a dense histogram's subtracted level counts
+// its nodes' rows so).  256 threads, 4 * min(n_count, kCountShared) bytes
+// of dynamic shared memory with rel.
 __global__ void __launch_bounds__(256)
 prologue(const float2* __restrict__ gh, int64_t n_gh,
          unsigned* __restrict__ partial, unsigned long long* __restrict__ zero,
-         int64_t n_zero, float* __restrict__ fill, int64_t n_fill) {
+         int64_t n_zero, float* __restrict__ fill, int64_t n_fill,
+         const int* __restrict__ rel, int* __restrict__ counts, int n_count) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   const int64_t step = static_cast<int64_t>(gridDim.x) * 256;
   // 16-byte stores (both arrays start 16-byte aligned), then the tails
@@ -290,17 +300,44 @@ prologue(const float2* __restrict__ gh, int64_t n_gh,
     f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   if (tid < (n_fill & 3)) fill[n_fill - 1 - tid] = 0.0f;
   if (gh == nullptr) return;  // the same for every thread
+  extern __shared__ int s_count[];
+  const bool shared = n_count <= kCountShared;
+  if (rel != nullptr && shared)
+    for (int k = threadIdx.x; k < n_count; k += 256) s_count[k] = 0;
+  __syncthreads();
   unsigned mg = 0u, mh = 0u;
-  for (int64_t i = tid; i < n_gh; i += step) {
-    const float2 v = gh[i];
-    mg = max(mg, abs_bits(v.x));
-    mh = max(mh, abs_bits(v.y));
+  const int lane = threadIdx.x & 31;
+  // a warp's lanes take consecutive rows and stay together (the match);
+  // each lane loads kPrologueRows rows before it uses them
+  constexpr int kPrologueRows = 4;
+  for (int64_t base = tid - lane; base < n_gh;
+       base += kPrologueRows * step) {
+    float2 v[kPrologueRows];
+    int nd[kPrologueRows];
+#pragma unroll
+    for (int k = 0; k < kPrologueRows; ++k) {
+      const int64_t i = base + k * step + lane;
+      v[k] = i < n_gh ? gh[i] : make_float2(0.f, 0.f);
+      nd[k] = rel != nullptr && i < n_gh ? rel[i] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kPrologueRows; ++k) {
+      mg = max(mg, abs_bits(v[k].x));
+      mh = max(mh, abs_bits(v[k].y));
+      if (rel == nullptr) continue;  // the same for every thread
+      const unsigned peers = __match_any_sync(0xffffffffu, nd[k]);
+      if (nd[k] >= 0 && nd[k] < n_count && lane == __ffs(peers) - 1)
+        atomicAdd(shared ? s_count + nd[k] : counts + nd[k], __popc(peers));
+    }
   }
   mg = __reduce_max_sync(0xffffffffu, mg);
   mh = __reduce_max_sync(0xffffffffu, mh);
   __shared__ unsigned s_max[2];
   if (threadIdx.x < 2) s_max[threadIdx.x] = 0u;
   __syncthreads();
+  if (rel != nullptr && shared)
+    for (int k = threadIdx.x; k < n_count; k += 256)
+      if (s_count[k]) atomicAdd(counts + k, s_count[k]);
   if ((threadIdx.x & 31) == 0) {
     atomicMax(s_max, mg);
     atomicMax(s_max + 1, mh);
@@ -310,17 +347,23 @@ prologue(const float2* __restrict__ gh, int64_t n_gh,
 }
 
 // The prologue on stream s: with neither gh nor fill (nothing but zeroes
-// to write) one cudaMemsetAsync, which zeroes faster than the kernel
+// to write) one cudaMemsetAsync, which zeroes faster than the kernel; rel,
+// counts and n_count (with gh only) count each node's rows
 inline cudaError_t launch_prologue(const void* gh, int64_t n_gh,
                                    unsigned* partial, int blocks,
                                    unsigned long long* zero, int64_t n_zero,
                                    float* fill, int64_t n_fill,
-                                   cudaStream_t s) {
-  if (blocks < 1) return cudaErrorInvalidValue;
+                                   cudaStream_t s, const int* rel = nullptr,
+                                   int* counts = nullptr, int n_count = 0) {
+  if (blocks < 1 || (rel != nullptr && (gh == nullptr || counts == nullptr)))
+    return cudaErrorInvalidValue;
   if (gh == nullptr && (fill == nullptr || n_fill == 0))
     return cudaMemsetAsync(zero, 0, 8 * static_cast<size_t>(n_zero), s);
-  prologue<<<blocks, 256, 0, s>>>(static_cast<const float2*>(gh), n_gh,
-                                  partial, zero, n_zero, fill, n_fill);
+  const size_t smem = rel != nullptr && n_count <= kCountShared
+                          ? 4 * static_cast<size_t>(n_count) : 0;
+  prologue<<<blocks, 256, smem, s>>>(static_cast<const float2*>(gh), n_gh,
+                                     partial, zero, n_zero, fill, n_fill, rel,
+                                     counts, n_count);
   return cudaGetLastError();
 }
 

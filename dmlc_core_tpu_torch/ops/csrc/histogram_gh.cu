@@ -35,7 +35,14 @@
 // and feature group reads again, not by bytes: 8-20x the byte bound on an
 // H100 80GB HBM3 (chip_smoke's per-level lines).  On a column of few used
 // bins every row of a node lands on one of a few words (Covertype's 44
-// one-hot columns: two), and those atomics serialise.
+// one-hot columns: two), and those atomics serialise.  So a level below
+// the root is built by sibling subtraction (XGBoost hist's): only the
+// child of each node pair with fewer rows adds its rows, and the other is
+// the parent's accumulator less the built child's.  The sums are exact
+// int64 at the same scale at every level of a tree (the scale depends on
+// gh and the row count only), so the difference is the sibling's own sum
+// bit for bit.  The JAX package builds every level in full: on the TPU a
+// level is one fused, bandwidth-bound contraction.
 //
 // Design.  One call is two launches, the prologue of hist_fixed.cuh and
 // the accumulate, which also dequantizes.  A cooperative launch (one
@@ -47,14 +54,32 @@
 // ops/fixed_point.py does, so the scale is fixed_point_scale(amax, rows)
 // bit for bit and nothing else is queued.
 //
+// A subtracted level (Sub: given the previous level's scratch) runs the
+// same launch over the n / 2 node pairs, building the child of each pair
+// with fewer rows (the left on a tie; its prologue counts each node's rows
+// into the parent's scratch, which the parent's prologue zeroed):
+// the geometry and its node tiles count pairs, a row whose node is not its
+// pair's built child is skipped before its codes and gh are read, and a
+// built row adds under its pair.  Each warp first gathers the rows that
+// add into a queue in shared memory and adds them 32 at a time, so that
+// its lanes add together (about a third of the rows add at a Higgs level;
+// left in place, nearly every warp would run the adds for a few lanes).
+// The accumulator and the outputs stay full-level.  The ticket block of
+// each item (below) also writes each pair's sibling, into the accumulator
+// (parent - built, in int64) and, rounded once, into the outputs, over the
+// item's slots, or over every bin of its features where this launch or an
+// earlier level added a code the layout does not hold.  The launch's last
+// block adds the rows the level added to a caller's counter and zeroes
+// the counts again.
+//
 // The accumulate block (chunk, item) takes `chunk` rows and one item: a
 // feature group and a node tile (n0, n1).  It holds ONE shared histogram of
 // (n1 - n0) nodes x the group's used slots, which all its warps add into.
 // Groups follow the rule tuned at Higgs width (ops/histogram.py,
 // launch_geometry): 14 (node, feature) pairs a block while that leaves
 // more than 3 features a node (depths 0-1), else 3 features and as many
-// nodes as the widest group's slots leave room for (16 at 256 bins, so
-// depth 5 takes two tiles); a group of few-bin features (at most 8 used
+// nodes as the widest group's slots leave room for (16 at 256 bins: depth
+// 5's 32 nodes would take two tiles, its 16 pairs take one); a group of few-bin features (at most 8 used
 // bins each: Covertype's one-hot columns, two slots each) takes every node
 // its own slots leave room for, one tile at depth 5.  A block takes at
 // least as many rows as the slots it zeroes and flushes.
@@ -87,8 +112,9 @@
 // The last block of an item's chunks (a ticket) rounds the item's slots to
 // f32 (the whole item when it holds an unslotted code or a lane is NaN);
 // the last block of the launch makes a lane NaN everywhere if a value
-// reached the value limit.  The sharded route's accumulate entry runs the
-// same body with the caller's scale and stops before the rounding.
+// reached the value limit (or a subtracted level's parent carries that
+// lane's mark).  The sharded route's accumulate entry runs the same body
+// with the caller's scale and stops before the rounding.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,6 +127,7 @@ constexpr int kIdentity = 2;    // member flag: slot == code (every bin used)
 constexpr int kMaxMembers = 16; // features a group holds at most
 constexpr int kBatch = 4;       // features whose codes a thread loads at once
 constexpr int kTwoBlocksSmem = 100 * 1024;  // dynamic bytes two blocks fit
+constexpr int kQueue = 64;      // rows a warp's queue holds (Sub)
 // An item (int4): group, n0, n1, and 1 when the group is plain (consecutive
 // features, every bin used, none few-bin): the many-bin loop tuned at
 // Higgs width,
@@ -114,13 +141,15 @@ struct Dense {
   long long qmax;
   unsigned long long* acc; // [n_out] sums, then each lane's overflow mark
   int64_t n_out;
-  unsigned* tickets;       // [n_items] tickets, [n_items] marks, [1] launch
+  unsigned* tickets;       // [1] launch, [1] spill flag, [n_items] tickets,
+                           // [n_items] marks (after the children's counts)
   float* out;              // [n_out], or null: accumulate only
   int64_t rows;
   int64_t chunk;
   int F, B;
   int n_items;
   int n_groups, feat_group, node_tile, n_nodes;  // a Plain launch's geometry
+                                                 // (n_nodes: pairs if Sub)
   int reduce_keys;         // pre-reduce a few-bin feature of at most this
                            // many (node, slot) keys in the block
   const int4* items;       // group, n0, n1, plain
@@ -129,6 +158,13 @@ struct Dense {
   const int4* lists;       // a few-bin member's used codes, 8 x int16 (-1 pad)
   const short* slot;       // [F * B] slot of a code in its feature, or -1
   const int* slot_key;     // f * B + code of each group slot
+  // Sub: the previous level's scratch (its n_out / 2 sums, its marks, this
+  // level's row counts, its launch ticket and spill flag), the counts
+  // within it (pair p: rows of node 2p, of 2p + 1), and where to add the
+  // rows the level adds, or null
+  const unsigned long long* parent;
+  int2* counts;
+  unsigned long long* built;
 };
 
 // the slot of `code` among a few-bin feature's used codes (8 x int16), or -1
@@ -150,7 +186,11 @@ __device__ __forceinline__ int list_slot(int4 l, int code) {
 // node tiles (Higgs, MSLR, the sharded shares): the item is group item %
 // n_groups and tile item / n_groups, computed, with no table read before
 // the rows and no code but that loop in the kernel.
-template <typename Code, int MinBlocks, bool Plain>
+//
+// Sub: a subtracted level (see the header): node ids n0..n1 of the items
+// and the shared histogram count pairs; pair c's built node is 2c + 1
+// where that child has fewer rows than 2c, else 2c.
+template <typename Code, int MinBlocks, bool Plain, bool Sub>
 __global__ void __launch_bounds__(1024, MinBlocks)
 hist_dense(const Dense a) {
   extern __shared__ unsigned s_hist[];
@@ -159,6 +199,7 @@ hist_dense(const Dense a) {
   __shared__ int s_flag[2];
   __shared__ int4 s_mem[kMaxMembers];
   __shared__ int4 s_list[kMaxMembers];
+  __shared__ int s_queue[Sub ? 32 * kQueue : 1];  // each warp's row offsets
   const int item = static_cast<int>(blockIdx.x % a.n_items);
   const int64_t c = blockIdx.x / a.n_items;
   int4 it, gp;  // (group, n0, n1, plain), (first member, members, S, key0)
@@ -184,43 +225,104 @@ hist_dense(const Dense a) {
   });
   const float sg = s_scale[0], sh = s_scale[1];
   unsigned long long* over = a.acc + a.n_out;
+  const unsigned* p_spill = nullptr;  // Sub: the parent's spill flag
+  if constexpr (Sub) {  // the parent's marks and spill flag are this level's
+    const unsigned long long* p_over = a.parent + a.n_out / 2;
+    p_spill = reinterpret_cast<const unsigned*>(p_over + 2 + a.n_nodes) + 1;
+    if (blockIdx.x == 0 && threadIdx.x < 2) {
+      if (__ldg(p_over + threadIdx.x)) over[threadIdx.x] = 1ull;
+      if (threadIdx.x == 0 && __ldg(p_spill)) atomicOr(a.tickets + 1, 1u);
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  // Sub: the built child (0 left, 1 right) of pair p; an item of at most
+  // 32 pairs keeps its pairs' as bits in a register
+  auto side_of = [&](int p) -> int {
+    const int2 n = __ldg(a.counts + p);
+    return n.y < n.x;
+  };
+  const bool few_pairs = n1 - n0 <= 32;
+  unsigned sides = 0u;
+  if (Sub && few_pairs)
+    sides = __ballot_sync(0xffffffffu, lane < n1 - n0 && side_of(n0 + lane));
+  // Sub: whether a row of node nd adds (its pair's built child, in the item)
+  auto adds = [&](int nd) -> bool {
+    const int p = nd >> 1;
+    if (p < n0 || p >= n1) return false;
+    return (nd & 1) == (few_pairs ? static_cast<int>(sides >> (p - n0)) & 1
+                                  : side_of(p));
+  };
+  // the full-level node of pair (or node) nd
+  auto node_of = [&](int nd) -> int64_t {
+    return Sub ? 2 * static_cast<int64_t>(nd) + side_of(nd) : nd;
+  };
   const int64_t r0 = c * a.chunk;
   const int64_t r1 = r0 + a.chunk < a.rows ? r0 + a.chunk : a.rows;
-  const int lane = threadIdx.x & 31;
   bool spill = false;
+
+  // Sub: body(r, node) for every row r of the chunk that adds in this item
+  // (node: its pair less n0), 32 a call, the warp's lanes together; the
+  // last call passes r = -1 to the lanes it has no row for
+  int* const queue = s_queue + (threadIdx.x >> 5) * kQueue;
+  auto built_rows = [&](auto&& body) {
+    int count = 0;  // the same in the whole warp
+    for (int64_t base = r0 + (threadIdx.x & ~31); base < r1;
+         base += blockDim.x) {
+      const int64_t r = base + lane;
+      const bool add = r < r1 && adds(__ldg(a.rel + r));
+      const unsigned m = __ballot_sync(0xffffffffu, add);
+      if (add) queue[count + __popc(m & ((1u << lane) - 1u))] =
+          static_cast<int>(r - r0);
+      count += __popc(m);
+      if (count >= 32) {
+        __syncwarp();
+        const int64_t q = r0 + queue[lane];
+        body(q, (__ldg(a.rel + q) >> 1) - n0);
+        __syncwarp();
+        if (lane < count - 32) queue[lane] = queue[32 + lane];
+        __syncwarp();
+        count -= 32;
+      }
+    }
+    __syncwarp();
+    const int64_t q = lane < count ? r0 + queue[lane] : -1;
+    body(q, q >= 0 ? (__ldg(a.rel + q) >> 1) - n0 : -1);
+  };
 
   if (it.w) {  // plain: consecutive features, every bin used, none few
     const int f0 = Plain ? gp.x : s_mem[0].x;
-    for (int64_t r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-      const int nd = __ldg(a.rel + r);
-      if (nd < n0 || nd >= n1) continue;
+    auto add_row = [&](int64_t r, int node) {
       const float2 v = __ldg(a.gh + r);
       const long long qg = hist_fixed::quantize(v.x, sg, a.qmax, over);
       const long long qh = hist_fixed::quantize(v.y, sh, a.qmax, over + 1);
       const Code* __restrict__ row =
           static_cast<const Code*>(a.bins) + r * a.F + f0;
-      const int base = (nd - n0) * S;
+      const int base = node * S;
       for (int j = 0; j < nm; ++j) {
         const int code = static_cast<int>(__ldg(row + j));
         if (code >= 0 && code < a.B)
           hist_fixed::add(s_hist, size, base + j * a.B + code, qg, qh);
       }
+    };
+    if constexpr (Sub) {
+      built_rows([&](int64_t r, int node) {
+        if (r >= 0) add_row(r, node);
+      });
+    } else {
+      for (int64_t r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+        const int nd = __ldg(a.rel + r);
+        if (nd >= n0 && nd < n1) add_row(r, nd - n0);
+      }
     }
   }
-  // a warp's lanes take consecutive rows and stay together (add_reduced)
-  for (int64_t base = r0 + (threadIdx.x & ~31); !Plain && !it.w && base < r1;
-       base += blockDim.x) {
-    const int64_t r = base + lane;
-    int node = -1;
+  // a warp's lanes take consecutive rows and stay together (add_reduced):
+  // node -1 for a lane with nothing to add
+  auto add_rows = [&](int64_t r, int node) {
     long long qg = 0, qh = 0;
-    if (r < r1) {
-      const int nd = __ldg(a.rel + r);
-      if (nd >= n0 && nd < n1) {
-        node = nd - n0;
-        const float2 v = __ldg(a.gh + r);
-        qg = hist_fixed::quantize(v.x, sg, a.qmax, over);
-        qh = hist_fixed::quantize(v.y, sh, a.qmax, over + 1);
-      }
+    if (node >= 0) {
+      const float2 v = __ldg(a.gh + r);
+      qg = hist_fixed::quantize(v.x, sg, a.qmax, over);
+      qh = hist_fixed::quantize(v.y, sh, a.qmax, over + 1);
     }
     const Code* __restrict__ row = static_cast<const Code*>(a.bins) +
                                    (node >= 0 ? r * a.F : 0);
@@ -243,8 +345,8 @@ hist_dense(const Dense a) {
           if (s >= 0) {
             key = node * S + m.y + s;
           } else {  // a code the layout does not hold: straight to global
-            const int64_t o = (static_cast<int64_t>(node + n0) * a.F + m.x) *
-                                  a.B + code[k];
+            const int64_t o = (node_of(node + n0) * a.F + m.x) * a.B +
+                              code[k];
             atomicAdd(a.acc + 2 * o, static_cast<unsigned long long>(qg));
             atomicAdd(a.acc + 2 * o + 1, static_cast<unsigned long long>(qh));
             spill = true;
@@ -256,59 +358,99 @@ hist_dense(const Dense a) {
           hist_fixed::add(s_hist, size, key, qg, qh);
       }
     }
+  };
+  if (!Plain && !it.w) {
+    if constexpr (Sub) {
+      built_rows([&](int64_t r, int node) { add_rows(r, r >= 0 ? node : -1); });
+    } else {
+      for (int64_t base = r0 + (threadIdx.x & ~31); base < r1;
+           base += blockDim.x) {
+        const int64_t r = base + lane;
+        const int nd = r < r1 ? __ldg(a.rel + r) : -1;
+        add_rows(r, nd >= n0 && nd < n1 ? nd - n0 : -1);
+      }
+    }
   }
   const bool spilled = __syncthreads_or(spill);
 
-  // a slot's output: in a plain group slot s is code s % B of feature
+  // a slot's column: in a plain group slot s is code s % B of feature
   // f0 + s / B, so f0 * B + s; else its key
   const int64_t node_stride = static_cast<int64_t>(a.F) * a.B;
   const int64_t plain_base =
       it.w ? static_cast<int64_t>(Plain ? gp.x : s_mem[0].x) * a.B : -1;
-  auto output = [&](int i) -> int64_t {
-    return (n0 + i / S) * node_stride +
-           (plain_base >= 0 ? plain_base + i % S : a.slot_key[gp.w + i % S]);
+  auto column = [&](int i) -> int64_t {
+    return plain_base >= 0 ? plain_base + i % S : a.slot_key[gp.w + i % S];
   };
   for (int i = threadIdx.x; i < size; i += blockDim.x) {
     const long long g = hist_fixed::plane_value(s_hist, size, i);
     const long long h = hist_fixed::plane_value(s_hist + 2 * size, size, i);
     if (!(g | h)) continue;
-    const int64_t o = output(i);
+    const int64_t o = node_of(n0 + i / S) * node_stride + column(i);
     if (g) atomicAdd(a.acc + 2 * o, static_cast<unsigned long long>(g));
     if (h) atomicAdd(a.acc + 2 * o + 1, static_cast<unsigned long long>(h));
   }
   if (a.out == nullptr) return;  // the same for every block
 
-  if (spilled && threadIdx.x == 0) atomicOr(a.tickets + a.n_items + item, 1u);
+  if (spilled && threadIdx.x == 0) {
+    atomicOr(a.tickets + 2 + a.n_items + item, 1u);
+    atomicOr(a.tickets + 1, 1u);
+  }
   const unsigned chunks = gridDim.x / a.n_items;
-  if (hist_fixed::last_of(a.tickets + item, chunks, s_flag)) {
-    const bool whole = __ldcg(a.tickets + a.n_items + item) != 0u ||
-                       !hist_fixed::lane_ok(sg) || !hist_fixed::lane_ok(sh);
+  if (hist_fixed::last_of(a.tickets + 2 + item, chunks, s_flag)) {
+    // node (or pair) nd's column col: the built node's output, and under
+    // Sub its sibling's sums and output from the parent's, in int64
+    // modulo 2^64, which is the sibling's own sum (its adds wrap alike)
+    auto finish = [&](int nd, int64_t col) {
+      const int64_t built = node_of(nd);
+      const int64_t o = built * node_stride + col;
+      const long long g = hist_fixed::acc_at(a.acc, 2 * o);
+      const long long h = hist_fixed::acc_at(a.acc, 2 * o + 1);
+      a.out[2 * o] = hist_fixed::dequantize_one(g, sg);
+      a.out[2 * o + 1] = hist_fixed::dequantize_one(h, sh);
+      if constexpr (Sub) {
+        const int64_t q = nd * node_stride + col;
+        const int64_t os = (built ^ 1) * node_stride + col;
+        const unsigned long long gs =
+            __ldg(a.parent + 2 * q) - static_cast<unsigned long long>(g);
+        const unsigned long long hs =
+            __ldg(a.parent + 2 * q + 1) - static_cast<unsigned long long>(h);
+        a.acc[2 * os] = gs;
+        a.acc[2 * os + 1] = hs;
+        a.out[2 * os] =
+            hist_fixed::dequantize_one(static_cast<long long>(gs), sg);
+        a.out[2 * os + 1] =
+            hist_fixed::dequantize_one(static_cast<long long>(hs), sh);
+      }
+    };
+    const bool whole = __ldcg(a.tickets + 2 + a.n_items + item) != 0u ||
+                       !hist_fixed::lane_ok(sg) || !hist_fixed::lane_ok(sh) ||
+                       (Sub && __ldg(p_spill) != 0u);
     if (whole) {  // every output of the item, slotted or not
       const int64_t n = static_cast<int64_t>(n1 - n0) * nm * a.B;
       for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
         const int b = static_cast<int>(i % a.B);
         const int j = static_cast<int>((i / a.B) % nm);
         const int nd = n0 + static_cast<int>(i / (static_cast<int64_t>(a.B) * nm));
-        const int64_t o =
-            nd * node_stride +
-            static_cast<int64_t>(Plain ? gp.x + j : s_mem[j].x) * a.B + b;
-        a.out[2 * o] = hist_fixed::dequantize_one(
-            hist_fixed::acc_at(a.acc, 2 * o), sg);
-        a.out[2 * o + 1] = hist_fixed::dequantize_one(
-            hist_fixed::acc_at(a.acc, 2 * o + 1), sh);
+        finish(nd, static_cast<int64_t>(Plain ? gp.x + j : s_mem[j].x) * a.B +
+                       b);
       }
     } else {  // the slots; the prologue zeroed every other output
-      for (int i = threadIdx.x; i < size; i += blockDim.x) {
-        const int64_t o = output(i);
-        a.out[2 * o] = hist_fixed::dequantize_one(
-            hist_fixed::acc_at(a.acc, 2 * o), sg);
-        a.out[2 * o + 1] = hist_fixed::dequantize_one(
-            hist_fixed::acc_at(a.acc, 2 * o + 1), sh);
-      }
+      for (int i = threadIdx.x; i < size; i += blockDim.x)
+        finish(n0 + i / S, column(i));
     }
   }
-  if (hist_fixed::last_of(a.tickets + 2 * a.n_items, gridDim.x, s_flag + 1))
+  if (hist_fixed::last_of(a.tickets, gridDim.x, s_flag + 1)) {
     hist_fixed::poison_marked(over, nullptr, false, a.out, a.n_out);
+    if constexpr (Sub) {  // the rows this level added; counts zeroed again
+      unsigned long long n = 0;
+      for (int p = threadIdx.x; p < a.n_nodes; p += blockDim.x) {
+        const int2 k = __ldcg(a.counts + p);
+        n += static_cast<unsigned long long>(k.y < k.x ? k.y : k.x);
+        a.counts[p] = make_int2(0, 0);
+      }
+      if (n && a.built != nullptr) atomicAdd(a.built, n);
+    }
+  }
 }
 
 struct Launch {
@@ -317,8 +459,24 @@ struct Launch {
   int threads;
   int smem;
   int n_partial;  // prologue blocks (each writes its maxima with out)
-  bool plain;     // every item plain, tiles uniform: hist_dense<..., true>
+  bool plain;     // every item plain, tiles uniform: hist_dense<..., true, .>
+  bool sub;       // a subtracted level: hist_dense<..., true>
 };
+
+using Kernel = void (*)(const Dense);
+
+template <typename Code, bool Plain, bool Sub>
+Kernel pick(bool two) {
+  return two ? hist_dense<Code, 2, Plain, Sub> : hist_dense<Code, 1, Plain, Sub>;
+}
+
+template <typename Code>
+Kernel pick(bool two, bool plain, bool sub) {
+  return plain ? (sub ? pick<Code, true, true>(two)
+                      : pick<Code, true, false>(two))
+               : (sub ? pick<Code, false, true>(two)
+                      : pick<Code, false, false>(two));
+}
 
 cudaError_t run(Dense& a, const Launch& l, unsigned* partial,
                 cudaStream_t s) {
@@ -326,24 +484,24 @@ cudaError_t run(Dense& a, const Launch& l, unsigned* partial,
       a.chunk < 1 || l.n_chunks < 0 || a.rows < 0 || a.qmax < 1 ||
       l.threads < 32 || l.threads > 1024 || l.threads % 32 || l.smem < 0 ||
       l.n_chunks * a.n_items > 0x7fffffff ||
-      (a.out != nullptr) == (a.sc.scale != nullptr))
+      (a.out != nullptr) == (a.sc.scale != nullptr) ||
+      (l.sub && (a.out == nullptr || a.parent == nullptr)))
     return cudaErrorInvalidValue;
   const int64_t n_tickets = a.out ? (2 * a.n_items + 2) / 2 : 0;
+  // the sums, marks, the children's counts and the tickets
+  const int64_t n_zero = a.tickets ? reinterpret_cast<unsigned long long*>(
+                                         a.tickets) - a.acc + n_tickets
+                                   : a.n_out + 2;
   cudaError_t err = hist_fixed::launch_prologue(
-      a.out ? a.gh : nullptr, a.rows, partial, l.n_partial, a.acc,
-      a.n_out + 2 + n_tickets, a.out, a.out ? a.n_out : 0, s);
+      a.out ? a.gh : nullptr, a.rows, partial, l.n_partial, a.acc, n_zero,
+      a.out, a.out ? a.n_out : 0, s, l.sub ? a.rel : nullptr,
+      reinterpret_cast<int*>(a.counts), 2 * a.n_nodes);
+  // no rows: every sum is 0, a subtracted level's parent's too
   if (err != cudaSuccess || a.rows == 0 || a.n_out == 0) return err;
   const bool two = l.smem <= kTwoBlocksSmem;
-  auto kernel =
-      l.code_bytes == 1
-          ? (l.plain ? (two ? hist_dense<uint8_t, 2, true>
-                            : hist_dense<uint8_t, 1, true>)
-                     : (two ? hist_dense<uint8_t, 2, false>
-                            : hist_dense<uint8_t, 1, false>))
-          : (l.plain ? (two ? hist_dense<int32_t, 2, true>
-                            : hist_dense<int32_t, 1, true>)
-                     : (two ? hist_dense<int32_t, 2, false>
-                            : hist_dense<int32_t, 1, false>));
+  const Kernel kernel = l.code_bytes == 1
+                            ? pick<uint8_t>(two, l.plain, l.sub)
+                            : pick<int32_t>(two, l.plain, l.sub);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              l.smem);
@@ -375,14 +533,27 @@ extern "C" {
 // item's nodes x slots).  n_partial: the prologue's blocks.  scratch:
 // int64 [n_out + 2 (+ (2 * n_items + 2) / 2 + n_partial with out)], n_out
 // = n_nodes * F * B * 2: the sums, each lane's overflow mark, then the
-// tickets and the prologue's maxima; the launch zeroes what it needs.
-// With out: the scale is fixed_point_scale(max |gh|, rows), found inside
-// the launch and written to scale_out (f32 [2]), and out (f32 [n_out]) is
-// written whole.  Without: the caller's f32 [2] scale and value limit
-// qmax, and scratch[0, n_out + 2) is left undequantized, so that the
-// accumulators of several processes can be summed before one
-// dmlc_histogram_gh_dequantize.  Two launches on `stream` (the prologue of
-// hist_fixed.cuh, then the histogram), no synchronisation; returns the
+// tickets (with out: the launch's ticket, its spill flag, the items'
+// tickets and marks as uint32) and the prologue's maxima; the launch
+// zeroes what it needs.  With out: the scale is fixed_point_scale(max
+// |gh|, rows), found inside the launch and written to scale_out (f32
+// [2]), and out (f32 [n_out]) is written whole.  Without: the caller's
+// f32 [2] scale and value limit qmax, and scratch[0, n_out + 2) is left
+// undequantized, so that the accumulators of several processes can be
+// summed before one dmlc_histogram_gh_dequantize.  With out, scratch
+// also holds, after the marks, n_nodes words the next level counts its
+// nodes' rows in (zeroed here), and the tickets follow them.  parent
+// (with out only; else null): a subtracted level, n_nodes even; parent
+// the scratch of the previous level's one-process call on the same gh,
+// rows and layout (n_nodes / 2 nodes, where each row's node was rel / 2):
+// the prologue counts each node's rows in it, the child of each pair with
+// fewer rows is built (the left on a tie), the other child's rows add
+// nothing and its sums are the parent's less the built child's; the
+// geometry (items, node tiles) is then over the n_nodes / 2 pairs, the
+// block holds 8 KB more static shared memory (each warp's row queue),
+// and scratch ends as the full level's; built (uint64 [1], or null)
+// gains the rows the level added.  Two launches on `stream` (the prologue
+// of hist_fixed.cuh, then the histogram), no synchronisation; returns the
 // first CUDA error (0 on success).
 int dmlc_histogram_gh_run(const void* bins, int code_bytes, const void* rel,
                           const void* gh, long long rows, int num_features,
@@ -395,6 +566,7 @@ int dmlc_histogram_gh_run(const void* bins, int code_bytes, const void* rel,
                           long long n_chunks, int threads, int smem,
                           int n_partial, const void* scale, void* scale_out,
                           long long qmax, void* scratch, void* out,
+                          const void* parent, void* built,
                           void* stream) {
   Dense a;
   a.bins = bins;
@@ -406,9 +578,10 @@ int dmlc_histogram_gh_run(const void* bins, int code_bytes, const void* rel,
   a.out = static_cast<float*>(out);
   const int64_t n_tickets = out ? (2 * static_cast<int64_t>(n_items) + 2) / 2
                                 : 0;
-  a.tickets = reinterpret_cast<unsigned*>(a.acc + a.n_out + 2);
-  unsigned* partial = reinterpret_cast<unsigned*>(a.acc + a.n_out + 2 +
-                                                  n_tickets);
+  a.tickets = out ? reinterpret_cast<unsigned*>(a.acc + a.n_out + 2 + n_nodes)
+                  : nullptr;
+  unsigned* partial = reinterpret_cast<unsigned*>(
+      a.acc + a.n_out + 2 + (out ? n_nodes + n_tickets : 0));
   a.sc.scale = static_cast<const float*>(scale);
   a.sc.amax = nullptr;
   a.sc.partial = partial;
@@ -428,14 +601,24 @@ int dmlc_histogram_gh_run(const void* bins, int code_bytes, const void* rel,
   a.n_groups = plain_groups;
   a.feat_group = feat_group;
   a.node_tile = node_tile;
-  a.n_nodes = n_nodes;
+  const bool sub = parent != nullptr;
+  a.n_nodes = sub ? n_nodes / 2 : n_nodes;  // the nodes the items tile
   a.slot = static_cast<const short*>(slot);
   a.slot_key = static_cast<const int*>(slot_key);
-  if (plain_groups > 0 &&
-      (feat_group < 1 || node_tile < 1 ||
-       plain_groups * ((n_nodes + node_tile - 1) / node_tile) != n_items))
+  a.parent = static_cast<const unsigned long long*>(parent);
+  // this level's row counts in the parent's scratch, after its sums and
+  // marks (its n_out is this level's / 2)
+  a.counts = sub ? reinterpret_cast<int2*>(const_cast<unsigned long long*>(
+                       a.parent + a.n_out / 2 + 2))
+                 : nullptr;
+  a.built = static_cast<unsigned long long*>(built);
+  if ((plain_groups > 0 &&
+       (feat_group < 1 || node_tile < 1 ||
+        plain_groups * ((a.n_nodes + node_tile - 1) / node_tile) != n_items))
+      || (sub && n_nodes % 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch l{code_bytes, n_chunks, threads, smem, n_partial, plain_groups > 0};
+  Launch l{code_bytes, n_chunks, threads, smem, n_partial,
+           plain_groups > 0, sub};
   return static_cast<int>(run(a, l, partial, static_cast<cudaStream_t>(stream)));
 }
 

@@ -89,6 +89,9 @@ _WIDE_PAIRS = 14           # (node, feature) pairs a shallow block takes
 _DEEP_GROUP = 3            # features a block takes at deeper levels
 _WIDE_BLOCKS = 2 * _SMS    # blocks a shallow launch aims at (2 per SM)
 _DEEP_BLOCKS = 16 * _SMS   # blocks a deeper launch aims at (16 per SM)
+_SUB_DEEP_BLOCKS = 8 * _SMS  # a deeper subtracted level's: its blocks add
+                             # ~1/3 of the rows (swept at Higgs and
+                             # Covertype width on the H100; PERF.md)
 _MIN_CHUNK = 2048          # rows per block before another chunk pays off
 _FEW_BINS = 8              # used bins of a few-bin feature, at most 8 (the
                            # kernel keeps its codes in a list of 8)
@@ -96,6 +99,8 @@ _REDUCE_KEYS = 2           # (node, slot) keys of a few-bin feature in a
                            # block up to which its warps pre-reduce
 _PROLOGUE_BLOCKS = 16 * _SMS  # the prologue's blocks at most
 _PROLOGUE_SPAN = 8192      # values a prologue block takes before another
+_QUEUE_SMEM = 32 * 64 * 4  # static shared bytes a subtracted level's row
+                           # queues take (csrc/histogram_gh.cu, kQueue)
 
 _lib = None
 _launch_lock = threading.Lock()
@@ -108,7 +113,7 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dmlc_histogram_gh_run.argtypes = [
             p, i, p, p, ll, i, i, i, p, i, p, p, p, p, p, i, i, i, i, ll, ll,
-            i, i, i, p, p, ll, p, p, p]
+            i, i, i, p, p, ll, p, p, p, p, p]
         lib.dmlc_histogram_gh_run.restype = ctypes.c_int
         lib.dmlc_histogram_gh_dequantize.argtypes = [p, p, p, ll, i, p]
         lib.dmlc_histogram_gh_dequantize.restype = ctypes.c_int
@@ -135,7 +140,7 @@ def block_threads(work: int) -> int:
 
 
 def launch_geometry(rows: int, num_features: int, num_bins: int,
-                    n_nodes: int, used=None) -> dict:
+                    n_nodes: int, used=None, sub: bool = False) -> dict:
     """How one launch cuts the work (``csrc/histogram_gh.cu``).  ``used``:
     each feature's used bins, its slots in shared memory (default
     ``num_bins``).  Features are grouped in order by the rule tuned at
@@ -147,7 +152,10 @@ def launch_geometry(rows: int, num_features: int, num_bins: int,
     in even node tiles (256-bin features at depth 5: two tiles of 16
     nodes), and a group of few-bin features (at most ``_FEW_BINS`` used
     bins each) as many as its own slots do (2-bin one-hot columns: every
-    node in one tile).  An item is one group
+    node in one tile).  A subtracted level (``sub``; ``n_nodes``: its
+    pairs) keeps ``_QUEUE_SMEM`` bytes of shared memory for its row queues
+    and aims its deeper launches at ``_SUB_DEEP_BLOCKS``.  An item is one
+    group
     and one node tile; a block takes one item and ``chunk`` rows, aiming at
     ``_WIDE_BLOCKS`` blocks (``_DEEP_BLOCKS`` at deep levels) with chunks
     of at least ``min_chunk`` rows: ``_MIN_CHUNK``, and no fewer than the
@@ -160,7 +168,8 @@ def launch_geometry(rows: int, num_features: int, num_bins: int,
     of the largest item)."""
     F = num_features
     used = [num_bins] * F if used is None else [int(u) for u in used]
-    cap = _SMEM_MAX // 16  # (node, slot) pairs a block holds
+    # (node, slot) pairs a block holds
+    cap = (_SMEM_MAX - (_QUEUE_SMEM if sub else 0)) // 16
     most = cap // max(1, max(used, default=1))
     if most < 1:
         raise ValueError(f"histogram_gh_kernel: num_bins={num_bins} needs "
@@ -191,8 +200,9 @@ def launch_geometry(rows: int, num_features: int, num_bins: int,
     items = [i[1:] for i in sorted(items)]  # groups fastest, then tiles
     n_items = len(items)
     min_chunk = max(_MIN_CHUNK, slots)
+    deep = _SUB_DEEP_BLOCKS if sub else _DEEP_BLOCKS
     n_chunks = max(1, min(-(-rows // min_chunk), -(-(
-        _WIDE_BLOCKS if wide else _DEEP_BLOCKS) // n_items)))
+        _WIDE_BLOCKS if wide else deep) // n_items)))
     chunk = max(1, -(-rows // n_chunks))
     n_chunks = -(-rows // chunk)
     return dict(groups=groups, items=items, node_tile=node_tile,
@@ -238,21 +248,24 @@ class DenseHistLayout:
                 self.present[f0:f1], self.device)
         return hit
 
-    def launch(self, rows: int, n_nodes: int) -> tuple:
+    def launch(self, rows: int, n_nodes: int, sub: bool = False) -> tuple:
         """(geometry, tables) of a launch over ``rows`` rows and ``n_nodes``
-        nodes: :func:`launch_geometry`, and on the device int32 [n, 4]
-        items, groups, members and code lists and the int32 slot keys (f *
-        num_bins + code of every group slot), then the groups of a launch
-        whose items the kernel computes (0 if it reads them); each built
-        once and kept."""
-        key = (rows, n_nodes, _FEW_BINS, _MIN_CHUNK, _DEEP_BLOCKS)
+        nodes (a subtracted level's: its pairs, with its row queues'
+        shared memory kept): :func:`launch_geometry`, and on the device
+        int32 [n, 4] items, groups, members and code lists and the int32
+        slot keys (f * num_bins + code of every group slot), then the
+        groups of a launch whose items the kernel computes (0 if it reads
+        them); each built once and kept."""
+        key = (rows, n_nodes, sub, _FEW_BINS, _MIN_CHUNK, _DEEP_BLOCKS,
+               _SUB_DEEP_BLOCKS)
         geo = self._geo.get(key)
         if geo is None:
             geo = self._geo[key] = launch_geometry(
-                rows, self.num_features, self.num_bins, n_nodes, self.used)
-        tables = self._tables.get(key[1:3])
+                rows, self.num_features, self.num_bins, n_nodes, self.used,
+                sub)
+        tables = self._tables.get(key[1:4])
         if tables is None:  # the same at every row count
-            tables = self._tables[key[1:3]] = self._build_tables(geo, n_nodes)
+            tables = self._tables[key[1:4]] = self._build_tables(geo, n_nodes)
         return geo, tables
 
     def _build_tables(self, geo: dict, n_nodes: int) -> tuple:
@@ -365,19 +378,25 @@ def _check_inputs(bins, rel, gh, n_nodes: int, num_bins: int,
 
 
 def _run(bins, rel, gh, n_nodes: int, num_bins: int, layout, *,
-         out=None, scale_out=None, scale=None, qmax: int = 0):
+         out=None, scale_out=None, scale=None, qmax: int = 0, parent=None,
+         built=None):
     """Launch ``dmlc_histogram_gh_run`` on checked CUDA inputs: a one-process
     histogram into ``out`` (its scale into ``scale_out``), or, with the
-    caller's ``scale`` and ``qmax``, the accumulate half.  Returns the int64
-    scratch, whose first ``n_out + 2`` words are the accumulator."""
+    caller's ``scale`` and ``qmax``, the accumulate half.  With ``parent``
+    (checked by :func:`_check_parent`) a subtracted level, whose launch
+    geometry is over the ``n_nodes // 2`` node pairs.  Returns the int64
+    scratch, whose first ``n_out + 2`` words are the accumulator (a
+    one-process call's then holds ``n_nodes`` words the next level counts
+    its rows in, the tickets and the prologue's maxima)."""
     rows, F = bins.shape
     n_out = n_nodes * F * num_bins * 2
     layout = layout or _identity_layout(F, num_bins, gh.device)
+    sub = parent is not None
     geo, (items, groups, members, lists, keys, plain_groups) = layout.launch(
-        rows, n_nodes)
+        rows, n_nodes // 2 if sub else n_nodes, sub)
     n_items = len(geo["items"])
     n_partial = prologue_blocks(max(rows, n_out), geo["threads"])
-    extra = n_items + 1 + n_partial if out is not None else 0
+    extra = n_nodes + n_items + 1 + n_partial if out is not None else 0
     scratch = torch.empty(n_out + 2 + extra, dtype=torch.int64,
                           device=gh.device)
     if scale is not None:
@@ -395,7 +414,7 @@ def _run(bins, rel, gh, n_nodes: int, num_bins: int, layout, *,
             geo["n_chunks"], geo["threads"], geo["smem"], n_partial,
             ptr(scale), ptr(scale_out),
             int(qmax) if scale is not None else value_limit(rows),
-            scratch.data_ptr(), ptr(out),
+            scratch.data_ptr(), ptr(out), ptr(parent), ptr(built),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("histogram_gh launch failed: "
@@ -406,7 +425,8 @@ def _run(bins, rel, gh, n_nodes: int, num_bins: int, layout, *,
 def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
                         gh: torch.Tensor, n_nodes: int, num_bins: int,
                         layout: DenseHistLayout | None = None, *,
-                        return_scale: bool = False):
+                        return_scale: bool = False, parent=None, built=None,
+                        return_acc: bool = False):
     """Histogram of f32 ``gh`` [rows, 2] by uint8 or int32 ``bins`` [rows, F]
     and int32 ``rel`` [rows] -> f32 [n_nodes, F, num_bins, 2].
 
@@ -418,27 +438,88 @@ def histogram_gh_kernel(bins: torch.Tensor, rel: torch.Tensor,
     feature holds every code).  With ``return_scale`` it also returns that
     f32 [2] scale.  On a CPU tensor it runs :func:`histogram_gh_plain` (and
     the scale by :mod:`.fixed_point`).  Raises on anything else the kernel
-    does not take."""
+    does not take.
+
+    Sibling subtraction (on the card only): ``parent`` is the int64
+    scratch a call with ``return_acc`` returned for the previous level,
+    over the same ``bins``, ``gh`` and ``layout`` at ``n_nodes // 2``
+    nodes, where each row's node was ``rel // 2``.  The prologue counts
+    each node's rows (into ``parent``, which the launch leaves as it found
+    it), only the rows of the child of each node pair with fewer rows add
+    (:func:`smaller_sides`), each sibling is its parent's int64 sums less
+    its built child's, and the result is the full level's bit for bit
+    (:func:`histogram_gh_subtract_plain`); bumps
+    ``histogram_gh_kernel.subtracted`` too, and ``built`` (int64 [] on the
+    card, or None) gains the rows the level added.  With ``return_acc``
+    the int64 scratch comes last in the result: its first ``n_out + 2``
+    words are the level's accumulator and marks, what the next level takes
+    as ``parent``."""
+    sub = parent is not None
     if gh.device.type == "cpu":
+        if sub or return_acc:
+            raise ValueError("histogram_gh_kernel: sibling subtraction and "
+                             "the accumulator are the kernel's, on the card")
         out = histogram_gh_plain(bins, rel, gh, n_nodes, num_bins)
         if not return_scale:
             return out
         return out, fixed_point_scale(lane_amax(gh), bins.shape[0])
     _check_inputs(bins, rel, gh, n_nodes, num_bins, layout)
     rows, F = bins.shape
+    if sub:
+        _check_parent(parent, built, n_nodes, F * num_bins * 2, gh.device)
     out = torch.empty((n_nodes, F, num_bins, 2), dtype=torch.float32,
                       device=gh.device)
     scale = torch.empty(2, dtype=torch.float32, device=gh.device)
+    acc = None
     if out.numel():
-        _run(bins, rel, gh, n_nodes, num_bins, layout, out=out,
-             scale_out=scale if rows else None)
+        acc = _run(bins, rel, gh, n_nodes, num_bins, layout, out=out,
+                   scale_out=scale if rows else None, parent=parent,
+                   built=built)
         if not rows:
             scale = fixed_point_scale(lane_amax(gh), rows)
-    _count_launch()
-    return (out, scale) if return_scale else out
+    _count_launch(sub)
+    result = (out,) + ((scale,) if return_scale else ())
+    if return_acc:
+        if acc is None:  # no outputs: no sums, no marks
+            acc = torch.zeros(3, dtype=torch.int64, device=gh.device)
+        result += (acc,)
+    return result if len(result) > 1 else out
 
 
 histogram_gh_kernel.launches = 0
+histogram_gh_kernel.subtracted = 0
+
+
+def _check_parent(parent, built, n_nodes: int, node_words: int,
+                  device) -> None:
+    """Raise unless ``parent`` (a one-process scratch of ``n_nodes // 2``
+    nodes of ``node_words`` int64 sums) and ``built`` can make a
+    subtracted level of ``n_nodes`` nodes."""
+    half = n_nodes // 2
+    need = half * node_words + 2 + half + 1  # sums, marks, counts, ticket
+    ok = (parent is not None and n_nodes % 2 == 0
+          and parent.device == device and parent.dtype == torch.int64
+          and parent.is_contiguous() and parent.numel() >= need
+          and (built is None or (built.device == device
+                                 and built.dtype == torch.int64
+                                 and built.numel() == 1)))
+    if not ok:
+        desc = ", ".join(
+            f"{k} {None if t is None else (t.dtype, tuple(t.shape), str(t.device))}"
+            for k, t in (("parent", parent), ("built", built)))
+        raise ValueError(
+            f"histogram_gh_kernel: a subtracted level of {n_nodes} nodes "
+            f"takes an int64 parent scratch of at least {need} words and an "
+            f"int64 [] built counter or None, on {device}; got {desc}")
+
+
+def smaller_sides(counts: torch.Tensor) -> torch.Tensor:
+    """The built child of each node pair of a subtracted level: bool [n],
+    True (the right child, node 2p + 1) where it holds fewer rows than the
+    left, from ``counts`` [2n], each node's rows; ties build the left.  The
+    kernel's time follows the rows it adds (a null split sends every row
+    left, so its empty right child is built)."""
+    return counts[1::2] < counts[0::2]
 
 
 # ---- the accumulate / dequantize pair ---------------------------------------
@@ -470,9 +551,45 @@ def histogram_gh_accumulate_plain(bins: torch.Tensor, rel: torch.Tensor,
     return acc
 
 
-def _count_launch() -> None:
+def histogram_gh_subtract_plain(bins: torch.Tensor, rel: torch.Tensor,
+                                gh: torch.Tensor, n_nodes: int,
+                                num_bins: int, scale: torch.Tensor,
+                                qmax: int, parent: torch.Tensor,
+                                counts: torch.Tensor) -> torch.Tensor:
+    """A subtracted level in plain PyTorch, the kernel's int64 route: the
+    rows of each pair's built child (:func:`smaller_sides` of ``counts``,
+    each node's rows, as the kernel counts them) accumulated at ``scale``
+    and ``qmax`` (:func:`histogram_gh_accumulate_plain`), each sibling the
+    ``parent`` accumulator's sums (the previous level's, int64 [n_nodes //
+    2 * F * num_bins * 2 + 2]) less its built child's, in int64 modulo
+    2^64, and each lane's mark the built rows' or the parent's.  Returns
+    int64 [n_nodes * F * num_bins * 2 + 2], the full level's accumulator
+    bit for bit."""
+    half = n_nodes // 2
+    r = rel.to(torch.int64)
+    pair = torch.div(r, 2, rounding_mode="floor")
+    s = smaller_sides(counts).to(torch.int64)
+    live = (r >= 0) & (pair < half)
+    built_row = live & ((r % 2) == s[pair.clamp(0, max(half - 1, 0))])
+    acc = histogram_gh_accumulate_plain(
+        bins, torch.where(built_row, pair, -1).to(torch.int32), gh, half,
+        num_bins, scale, qmax)
+    n_half = acc.numel() - 2
+    built = acc[:n_half].reshape(half, -1)
+    sib = parent[:n_half].reshape(half, -1) - built
+    full = torch.empty(n_nodes, built.shape[1], dtype=torch.int64,
+                       device=built.device)
+    p = torch.arange(half, device=built.device)
+    full[2 * p + s] = built
+    full[2 * p + 1 - s] = sib
+    marks = acc[n_half:] | (parent[n_half:n_half + 2] != 0).to(torch.int64)
+    return torch.cat([full.reshape(-1), marks])
+
+
+def _count_launch(subtracted: bool = False) -> None:
     with _launch_lock:
         histogram_gh_kernel.launches += 1
+        histogram_gh_kernel.subtracted += int(subtracted)
 
 
 def histogram_gh_accumulate(bins: torch.Tensor, rel: torch.Tensor,

@@ -1678,8 +1678,9 @@ def _device_ops(fn) -> list:
 def test_histogram_kernels_queue_two_device_ops_a_call(cuda):
     """One one-process call of either kernel queues at most two device
     operations: the prologue (or the zeroing) and the histogram, no amax,
-    scale or dequantize ops around them; a sparse call of one span a
-    feature with the caller's bound on |gh| (the --rank shape) is one."""
+    scale or dequantize ops around them, also for a dense level built by
+    subtraction; a sparse call of one span a feature with the caller's
+    bound on |gh| (the --rank shape) is one."""
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
     bins, gh, B = _dense_example_case("Covertype", cuda)
     layout = hg.dense_hist_layout(bins, B)
@@ -1688,6 +1689,16 @@ def test_histogram_kernels_queue_two_device_ops_a_call(cuda):
                                                      layout))
     print(f"dense call: {ops}")
     assert len(ops) == 2
+    # a level built by sibling subtraction too, its device time under a
+    # name that holds hist_dense (the benchmark's roofline reader counts it)
+    _, acc = hg.histogram_gh_kernel(bins, rel, gh, 4, B, layout,
+                                    return_acc=True)
+    child = (2 * rel + (torch.rand(rel.shape, device=cuda) < 0.3)).to(
+        torch.int32)
+    ops = _device_ops(lambda: hg.histogram_gh_kernel(bins, child, gh, 8, B,
+                                                     layout, parent=acc))
+    print(f"subtracted call: {ops}")
+    assert len(ops) == 2 and sum("hist_dense" in op for op in ops) == 1
     lay, gh, rows, F, B = _rank_example_level(cuda)
     gh_e = hs.entry_gh(gh, layout=lay)
     rel_e = torch.zeros(lay.nnz_live, dtype=torch.int32, device=cuda)
@@ -1730,3 +1741,196 @@ def test_model_axis_kernel_sum_is_the_one_process_kernel(cuda, tmp_path,
         assert r["launches"] == 1
         np.testing.assert_array_equal(r["out"], want)
         np.testing.assert_array_equal(r["grad"], r["gather"])
+
+
+# ---- sibling subtraction of the dense histogram ------------------------------
+
+def _subtract_case(kind, cuda, seed=0):
+    """(bins, gh, B, the layout a fit would build) of a level stack:
+    Higgs width (200,000 x 28, b-tag columns 8, 12, 16, 20 of three codes,
+    the rest any of 256), Covertype width (_dense_example_case), Higgs
+    width with a NaN in the grad lane, and Covertype width with a layout
+    scanned before a one-hot column took a third code (codes the layout
+    does not hold, added straight to the global accumulator)."""
+    rng = np.random.default_rng(seed)
+    if kind.startswith("Higgs"):
+        rows, B = 200_000, 256
+        bins = rng.integers(0, B, (rows, 28))
+        bins[:, [8, 12, 16, 20]] = rng.integers(0, 3, (rows, 4))
+        bins = torch.from_numpy(bins.astype(np.uint8)).to(cuda)
+        gh = torch.from_numpy(np.stack([rng.standard_normal(rows),
+                                        rng.uniform(0.05, 0.25, rows)],
+                                       1).astype(np.float32)).to(cuda)
+        if kind == "Higgs, NaN grad":
+            gh[1234, 0] = float("nan")
+        return bins, gh, B, hg.dense_hist_layout(bins, B)
+    bins, gh, B = _dense_example_case("Covertype", cuda, seed)
+    layout = hg.dense_hist_layout(bins, B)
+    if kind == "Covertype, codes past the layout":
+        bins[rng.integers(0, bins.shape[0], 300), 20] = 250
+    return bins, gh, B, layout
+
+
+@pytest.mark.parametrize("kind", ["Higgs", "Covertype", "Higgs, NaN grad",
+                                  "Covertype, codes past the layout"])
+def test_subtracted_levels_equal_the_full_levels_bit_for_bit(cuda, kind):
+    """Every depth of a six-level stack built by subtraction from the
+    level above (itself subtracted) equals the kernel's full level bit for
+    bit, in the f32 histogram and in the int64 accumulator with its marks,
+    and the plain subtracted route; with the fit's layout and with none.
+    Routing draws each pair's split anywhere from 5% to 95% of its rows,
+    and null splits (every row left) at depths 2 and 4."""
+    bins, gh, B, layout = _subtract_case(kind, cuda)
+    rows, F = bins.shape
+    rng = np.random.default_rng(23)
+    scale = fixed_point_scale(lane_amax(gh), rows).cpu()
+    for lay in (layout, None):
+        rel = torch.zeros(rows, dtype=torch.int32, device=cuda)
+        _, acc = hg.histogram_gh_kernel(bins, rel, gh, 1, B, lay,
+                                        return_acc=True)
+        for d in range(1, 6):
+            n = 2 ** d
+            share = rng.uniform(0.05, 0.95, n // 2)
+            if d in (2, 4):
+                share[::3] = 0.0
+            right = torch.from_numpy(rng.random(rows) < share[
+                rel.cpu().numpy()]).to(cuda)
+            rel = (2 * rel + right).to(torch.int32)
+            counts = torch.bincount(rel, minlength=n)
+            before = (hg.histogram_gh_kernel.launches,
+                      hg.histogram_gh_kernel.subtracted)
+            built = torch.zeros((), dtype=torch.int64, device=cuda)
+            kept = acc.clone()
+            got, got_acc = hg.histogram_gh_kernel(
+                bins, rel, gh, n, B, lay, parent=acc, built=built,
+                return_acc=True)
+            torch.cuda.synchronize()
+            assert (hg.histogram_gh_kernel.launches,
+                    hg.histogram_gh_kernel.subtracted) == (before[0] + 1,
+                                                           before[1] + 1)
+            assert int(built) == int(counts.view(-1, 2).amin(1).sum())
+            assert torch.equal(acc, kept)  # the parent as it was
+            want, want_acc = hg.histogram_gh_kernel(bins, rel, gh, n, B, lay,
+                                                    return_acc=True)
+            n_acc = n * F * B * 2 + 2
+            assert torch.equal(got_acc[:n_acc], want_acc[:n_acc]), d
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            if kind != "Higgs, NaN grad":  # plain zeroes a bad value
+                plain = hg.histogram_gh_subtract_plain(
+                    bins.cpu(), rel.cpu(), gh.cpu(), n, B, scale,
+                    _vlim(rows), acc[:n_acc // 2 + 1].cpu(), counts.cpu())
+                assert torch.equal(plain, got_acc[:n_acc].cpu()), d
+            acc = got_acc
+    if kind == "Higgs, NaN grad":
+        assert bool(got[..., 0].isnan().all()) and not bool(
+            got[..., 1].isnan().any())
+
+
+def test_subtracted_level_rejects_what_it_does_not_take(cuda):
+    bins, rel, gh = _hist_case(64, 3, 8, 2, torch.uint8, cuda)
+    _, acc = hg.histogram_gh_kernel(bins, rel // 2, gh, 1, 8,
+                                    return_acc=True)
+    for kw in (dict(parent=acc[:10]), dict(parent=acc.int()),
+               dict(parent=acc, built=torch.zeros(2, dtype=torch.int64,
+                                                  device=cuda)),
+               dict(parent=acc, built=torch.zeros((), device=cuda))):
+        with pytest.raises(ValueError, match="subtracted level"):
+            hg.histogram_gh_kernel(bins, rel, gh, 2, 8, **kw)
+    with pytest.raises(ValueError, match="subtracted level"):
+        hg.histogram_gh_kernel(bins, rel, gh, 3, 8, parent=acc)
+
+
+def _built_rows(forest, bins, depth):
+    """Rows in the child of fewer rows of each node pair at levels 1 ..
+    depth - 1, summed over the forest's trees: what the kernel adds at the
+    subtracted levels of a fit, from the forest's own routing."""
+    total = 0
+    missing = forest.get("missing_aware", False)
+    for t in range(forest["feature"].shape[0]):
+        node = torch.zeros(bins.shape[0], dtype=torch.int64,
+                           device=bins.device)
+        for d in range(depth - 1):
+            b = torch.gather(bins, 1, forest["feature"][t][node].long()
+                             [:, None])[:, 0].to(torch.int32)
+            right = b > forest["threshold"][t][node]
+            if missing:
+                right = torch.where(b == 0,
+                                    forest["default_right"][t][node] == 1,
+                                    right)
+            node = 2 * node + 1 + right.long()
+            counts = torch.bincount(node - (2 ** (d + 1) - 1),
+                                    minlength=2 ** (d + 1))
+            total += int(counts.view(-1, 2).amin(1).sum())
+    return total
+
+
+def _subtract_fit_case(kind, cuda):
+    """(data, labels, GBDT keywords, fit keywords) of a fit of ``kind``."""
+    rng = np.random.default_rng(29)
+    rows = 30_000
+    x = rng.standard_normal((rows, 10)).astype(np.float32)
+    x[:, 7:] = rng.integers(0, 3, (rows, 3))  # few-bin columns
+    kw = dict(num_features=10, num_trees=5, max_depth=6, num_bins=64,
+              device=cuda)
+    if kind == "missing-aware":
+        x[rng.random((rows, 10)) < 0.2] = np.nan
+        kw.update(missing_aware=True)
+    if kind == "sampled":
+        kw.update(subsample=0.8, colsample_bytree=0.8, colsample_bylevel=0.8,
+                  seed=5)
+    y = (x[:, 0] * x[:, 1] + 0.5 * np.nan_to_num(x[:, 2]) + x[:, 8] > 0.5)
+    fit_kw = {}
+    if kind.startswith("softmax"):
+        latent = np.nan_to_num(x[:, 0] + 0.5 * np.sin(3 * x[:, 1]) + x[:, 8])
+        y = np.searchsorted(np.quantile(latent, np.cumsum(
+            [0.30, 0.25, 0.15, 0.10, 0.08, 0.07])), latent)
+        kw.update(objective="softmax", num_class=7, num_trees=3,
+                  max_depth=4)
+        fit_kw = dict(eval_set=(x[-5000:], y[-5000:].astype(np.float32)))
+        x, y = x[:-5000], y[:-5000]
+    return x, y.astype(np.float32), kw, fit_kw
+
+
+@pytest.mark.parametrize("kind", ["binary", "sampled", "missing-aware",
+                                  "softmax, rounds replayed",
+                                  "softmax, rounds eager"])
+def test_subtracted_fit_equals_the_full_fit_byte_for_byte(cuda, kind):
+    """A fit with every level below the root built by subtraction gives
+    the forest and held-out losses of the fit built level by level in full
+    (``_SUBTRACT = False``), byte for byte, with the same launches;
+    ``histogram_gh_kernel.subtracted`` counts every level below the root
+    of every tree (also when a captured round replays) and
+    ``gbdt.hist_built_permille`` the rows the kernel added there, out of
+    rows x those levels, from the forest's own routing."""
+    from dmlc_core_tpu_torch import telemetry
+    x, y, kw, fit_kw = _subtract_fit_case(kind, cuda)
+    binner = QuantileBinner(num_bins=kw["num_bins"], device=cuda,
+                            missing_aware=kw.get("missing_aware", False))
+    binner.fit(x)
+    bins = binner.transform(x)
+    if "eval_set" in fit_kw:
+        fit_kw["eval_set"] = (binner.transform(fit_kw["eval_set"][0]),
+                              fit_kw["eval_set"][1])
+    full, sub = GBDT(**kw), GBDT(**kw)
+    full._SUBTRACT = False
+    if kind == "softmax, rounds eager":
+        full._GRAPH_ROUNDS = sub._GRAPH_ROUNDS = False
+    trees = kw["num_trees"] * kw.get("num_class", 1)
+    levels = trees * (kw["max_depth"] - 1)
+    s0 = hg.histogram_gh_kernel.subtracted
+    want = _fit_counted(full, bins, y, **fit_kw)
+    assert hg.histogram_gh_kernel.subtracted == s0
+    for _ in range(2):  # the second softmax fit replays every round
+        s0 = hg.histogram_gh_kernel.subtracted
+        got = _fit_counted(sub, bins, y, **fit_kw)
+        assert hg.histogram_gh_kernel.subtracted - s0 == levels
+        for k in want[0]:
+            assert torch.equal(got[0][k], want[0][k]), k
+        assert got[1:] == want[1:]
+        forest = dict(got[0], missing_aware=kw.get("missing_aware", False))
+        built = _built_rows(forest, bins, kw["max_depth"])
+        permille = telemetry.gauge_get("gbdt.hist_built_permille")
+        print(f"{kind}: gbdt.hist_built_permille {permille}")
+        assert permille == 1000 * built // (levels * bins.shape[0])
+        assert 0 < permille <= 500
+
