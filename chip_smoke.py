@@ -2391,8 +2391,9 @@ def missing_aware_gains(torch, present, node, lam, mcw):
 
 
 def dense_missing_gains(torch, h, lam, mcw):
-    """[n, F, B, 2] gains of ``GBDT._build_tree``'s missing-aware split
-    finder from a dense histogram whose bin 0 holds the missing mass."""
+    """[n, F, B, 2] gains of ``GBDT._find_splits`` over a dense fit's
+    missing-aware candidates, from a histogram whose bin 0 holds the
+    missing mass."""
     gl, hl = torch.cumsum(h[..., 0], 2), torch.cumsum(h[..., 1], 2)
     gt, ht = gl[:, :, -1:], hl[:, :, -1:]
 
@@ -2411,11 +2412,12 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
     level of every tree against float64 on the fit's own inputs.  The f32
     side is the sparse kernel's histogram and the segment-sum kernel's node
     totals (``dense_bins`` None: the fit_batch route, replayed through
-    ``GBDT._level_splits_from_hist``), or the dense kernel's histogram of
+    ``GBDT._find_splits``), or the dense kernel's histogram of
     ``dense_bins`` (the ``fit`` route).  The float64 side is the same for
     both: present-entry sums and node totals by ``index_add``, missing mass
     as their difference.  A split is within rounding when its float64
     regret is at most twice the node's largest |f32 - float64| gain."""
+    from dmlc_core_tpu_torch.models.gbdt import _SparseRows
     from dmlc_core_tpu_torch.ops import histogram as hg
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
     from dmlc_core_tpu_torch.ops.fixed_point import lane_amax
@@ -2449,9 +2451,10 @@ def sparse_split_audit(torch, model, forest, ent, layout, label,
                 node32 = segment_sum(gh, rel, n, force="pallas")
                 g32 = missing_aware_gains(torch, h32, node32, lam, mcw)
                 err = (h32.double() - h64).abs().max()
-                rf, rb, rd, *_ = model._level_splits_from_hist(
-                    h32, node32, torch.full((1,), -torch.inf,
-                                            device=gh.device),
+                dirs, g_tot, h_tot, _ = _SparseRows.candidates((h32, node32))
+                rf, rb, rd, *_ = model._find_splits(
+                    dirs, g_tot, h_tot, torch.full((1,), -torch.inf,
+                                                   device=gh.device),
                     torch.full((1,), torch.inf, device=gh.device), None,
                     col_mask, col_key, depth)
             else:
@@ -2550,6 +2553,7 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
 
     from dmlc_core_tpu_torch.data.staging import PaddedBatch
     from dmlc_core_tpu_torch.models import GBDT, QuantileBinner, logistic_nll
+    from dmlc_core_tpu_torch.models.gbdt import _SparseRows
     from dmlc_core_tpu_torch.ops import histogram as hg
     from dmlc_core_tpu_torch.ops import histogram_sparse as hs
     from dmlc_core_tpu_torch.ops.fixed_point import lane_amax
@@ -2887,12 +2891,12 @@ def phase_gbdt_sparse(torch, ss_mod, dev, build_dir: Path) -> dict:
 
     # where one sparse tree's time goes on the card
     g, h = model._grad_hess(forest["base"].expand(R).clone(), label)
-    model._build_tree_sparse(ent, g, h, layout=layout)
+    model._grow_tree(_SparseRows(model, ent, layout), g, h)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        model._build_tree_sparse(ent, g, h, layout=layout)
+        model._grow_tree(_SparseRows(model, ent, layout), g, h)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -6601,7 +6605,7 @@ STUDY_SEEDS = (2014, 2015, 2016)
 
 def split_gains(torch, h, lam: float, min_child_weight: float):
     """[n, F, B] gains of "go right if bin > b" from a [n, F, B, 2]
-    histogram, by GBDT._build_tree's formula (no missing lane), in h's
+    histogram, by GBDT._find_splits' formula (no missing lane), in h's
     dtype."""
     gl, hl = torch.cumsum(h[..., 0], 2), torch.cumsum(h[..., 1], 2)
     gt, ht = gl[:, :, -1:], hl[:, :, -1:]

@@ -51,6 +51,7 @@ every process.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import os
@@ -489,23 +490,29 @@ _COUNTED_KERNELS = ((histogram_gh_kernel, "launches"),
 
 
 class _RoundGraph:
-    """One softmax round captured as a CUDA graph, and the tensors it reads
-    and writes in place: the train margins, one-hot labels and weights, the
+    """One boosting round captured as a CUDA graph, and the tensors it reads
+    and writes in place (`place`): the margins, the objective's inputs, the
     held-out margins, labels and weights.  A fit copies its own values into
     them and replays the graph once a round.  ``key`` names the inputs and
     settings the capture baked in (`GBDT._round_graph_key`); ``layout``,
     the codes' histogram layout the graph's launches read."""
 
-    def __init__(self, key, layout, rows: int, n_eval: int, K: int,
-                 weighted: bool, device):
+    def __init__(self, key, layout):
         self.key, self.layout = key, layout
-        zeros = functools.partial(torch.zeros, device=device)
-        self.margin, self.onehot, self.w = (zeros(rows, K), zeros(rows, K),
-                                            zeros(rows))
-        self.ev_m, self.eval_label = zeros(n_eval, K), zeros(n_eval)
-        self.eval_weight = zeros(n_eval) if weighted else None
+        self.buffers = []
         self.graph = self.trees = self.loss = None
         self.launches = (0,) * len(_COUNTED_KERNELS)
+
+    def place(self, *tensors) -> list:
+        """Each tensor copied into the graph's own tensor in its position
+        (made by the first fit of the key; None stays None)."""
+        if not self.buffers:
+            self.buffers = [None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+        for buf, t in zip(self.buffers, tensors):
+            if t is not None:
+                buf.copy_(t)
+        return self.buffers
 
     def capture(self, one_round) -> None:
         """Capture ``one_round()`` (which must not read back to the host);
@@ -513,7 +520,10 @@ class _RoundGraph:
         before = tuple(getattr(k, c) for k, c in _COUNTED_KERNELS)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.trees, self.loss = one_round()
+            trees, self.loss = one_round()
+            # the round's trees stacked field by field in the graph's
+            # memory: one copy out a field a replay
+            self.trees = [torch.stack(field) for field in zip(*trees)]
         self.launches = tuple(getattr(k, c) - b for (k, c), b in
                               zip(_COUNTED_KERNELS, before))
         for (k, c), b in zip(_COUNTED_KERNELS, before):
@@ -521,12 +531,224 @@ class _RoundGraph:
         self.graph = graph
 
     def replay(self) -> tuple:
-        """Run the round: (its trees' stacked arrays, copied out of the
-        graph's memory; the held-out loss tensor, or None)."""
+        """Run the round: (its trees, each a tuple of fields copied out of
+        the graph's memory; the held-out loss tensor, or None)."""
         self.graph.replay()
         for (k, c), n in zip(_COUNTED_KERNELS, self.launches):
             setattr(k, c, getattr(k, c) + n)
-        return [t.clone() for t in self.trees], self.loss
+        return (list(zip(*(t.clone().unbind(0) for t in self.trees))),
+                self.loss)
+
+
+# ---- row sources: where a tree level's histogram and routing come from --------
+#
+# `GBDT._grow_tree` grows every tree over one of these.  Per tree: `begin`
+# takes the rows' [rows, 2] (grad, hess); per depth: `histogram` builds the
+# level's histogram, `candidates` forms the split finder's (left G, left H)
+# per default direction, the node totals and the split cover from it,
+# `route` takes the chosen splits; `leaves` gives each row's leaf.  Each
+# opens the `gbdt.hist` and `gbdt.route` spans where its work runs.
+
+
+class _Rows:
+    """What every row source keeps: the tree's (grad, hess) and each row's
+    node in its level (``rel``, int32; children 2 rel and 2 rel + 1)."""
+
+    def begin(self, gh: torch.Tensor) -> None:
+        self.gh = gh
+        self.rel = torch.zeros(gh.shape[0], dtype=torch.int32,
+                               device=gh.device)
+
+    def leaves(self) -> torch.Tensor:
+        return self.rel
+
+
+class _DenseRows(_Rows):
+    """The codes [rows, F] of a dense fit and its `GBDT._dense_fit_layout`.
+
+    Kernel levels (`GBDT._kernel_levels`) run the kernel, and one below
+    the root whose level above ran it too is built by sibling subtraction,
+    as XGBoost's hist builds it: the kernel counts each node's rows, adds
+    only the rows of the child of each pair with fewer and takes the
+    sibling as the parent's int64 sums less the built child's.  Those sums
+    are exact at one scale for the whole tree, so every histogram, and the
+    forest, is the full level's bit for bit.  The JAX package builds every
+    level in full (on the TPU a level is one bandwidth-bound contraction);
+    on the card a level is bound by the kernel's shared-memory atomics, one
+    a row and feature, so rows not added are time saved.  Other levels go
+    through `GBDT._level_histogram` (sharded, ``index_add``, the CPU).  The
+    missing mass is bin 0's."""
+
+    def __init__(self, model, bins: torch.Tensor, layout):
+        self.model, self.bins, self.layout = model, bins, layout
+        self.kept = model._kernel_levels(bins.device)
+        self.sub = [d > 0 and self.kept[d] and self.kept[d - 1]
+                    for d in range(model.max_depth)]
+
+    def begin(self, gh: torch.Tensor) -> None:
+        super().begin(gh)
+        self.acc = None  # the kernel level's int64 sums
+
+    def histogram(self, depth: int) -> torch.Tensor:
+        m, n_nodes, sub = self.model, 2 ** depth, self.sub[depth]
+        with telemetry.span("gbdt.hist"):
+            if self.kept[depth]:  # looked up per call, as histogram_gh does
+                hist, self.acc = hist_ops.histogram_gh_kernel(
+                    self.bins, self.rel, self.gh, n_nodes, m.num_bins,
+                    self.layout, parent=self.acc if sub else None,
+                    built=m._hist_built if sub else None, return_acc=True)
+            else:
+                hist = m._level_histogram(self.bins, self.rel, self.gh,
+                                          n_nodes, self.layout)
+        return hist
+
+    def candidates(self, hist: torch.Tensor):
+        hist_g, hist_h = hist[..., 0], hist[..., 1]
+        # left cumulative mass for "go right if bin > b" at each cut b
+        gl = _cumsum_f32(hist_g, dim=2)
+        hl = _cumsum_f32(hist_h, dim=2)
+        g_tot, h_tot = gl[:, :, -1:], hl[:, :, -1:]
+        dirs = [(gl, hl)]
+        if self.model.missing_aware:
+            # every cut twice from the same histograms: missing (bin 0)
+            # mass on the left (its natural cumsum side) vs the right
+            dirs.append((gl - hist_g[:, :, 0:1], hl - hist_h[:, :, 0:1]))
+        return dirs, g_tot, h_tot, h_tot[:, 0, 0]  # node mass (any f)
+
+    def route(self, split_f, split_b, split_d) -> None:
+        with telemetry.span("gbdt.route"):
+            self.rel = self.model._route_dense(self.bins, self.rel, split_f,
+                                               split_b, split_d)
+
+
+class _SparseRows(_Rows):
+    """The COO entries of a resident sparse fit (`GBDT._sparse_entries`)
+    and its once-a-fit feature-sorted layout (None: every level on
+    ``index_add``).  Present entries add their row's (grad, hess) into
+    [nodes, features, bins] by (node of the row, feature, bin) on the
+    sparse kernel or ``index_add`` (`GBDT._hist_impl`; under a mesh plan
+    over every process's entries); bin 0 stays empty, and the missing mass
+    is the node totals (`GBDT._seg_sum`) less the present sums.  Rows route
+    by `GBDT._route_sparse`."""
+
+    def __init__(self, model, entries, layout):
+        self.model, self.entries, self.layout = model, entries, layout
+
+    def begin(self, gh: torch.Tensor) -> None:
+        super().begin(gh)
+        # entry (grad, hess), gathered once a tree for each backend its
+        # levels take: the kernel's in feature order, index_add's in entry
+        # order with padding lanes carrying 0 mass
+        self.gh_e = {}
+
+    def _impl(self, n_nodes: int) -> str:
+        return (self.model._hist_impl(n_nodes) if self.layout is not None
+                else "xla")
+
+    def histogram(self, depth: int):
+        m, n_nodes = self.model, 2 ** depth
+        with telemetry.span("gbdt.hist"):  # and the node totals
+            if self._impl(n_nodes) == "pallas":
+                if "pallas" not in self.gh_e:
+                    self.gh_e["pallas"] = entry_gh(self.gh,
+                                                   layout=self.layout)
+                hist = m._level_histogram_sparse(self.layout, self.rel,
+                                                 self.gh, self.gh_e["pallas"],
+                                                 n_nodes)
+            else:
+                hist = self._index_add(n_nodes)
+                if m.mesh_plan is not None:
+                    hist = m.mesh_plan.allreduce(hist)
+            return hist, m._seg_sum(self.gh, self.rel, n_nodes)
+
+    def _index_add(self, n_nodes: int) -> torch.Tensor:
+        m = self.model
+        rid, fi, ebin, emask = self.entries
+        if "xla" not in self.gh_e:
+            self.gh_e["xla"] = entry_gh(self.gh, rid, emask)
+        return histogram_gh_sparse(rid, fi, ebin, emask, self.rel, self.gh,
+                                   n_nodes, m.num_features, m.num_bins,
+                                   gh_e=self.gh_e["xla"])
+
+    @staticmethod
+    def candidates(level):
+        """From a level's present-entry [n, F, B, 2] histogram and [n, 2]
+        node totals: each (node, feature)'s missing mass is the node total
+        less its present sum; dir 0 sends it left, dir 1 right."""
+        hist, gh_node = level
+        gl = _cumsum_f32(hist, dim=2)                  # present mass
+        miss = gh_node[:, None, :] - torch.sum(hist, dim=2)  # [n, F, 2]
+        dirs = [(gl[..., 0] + miss[:, :, None, 0],
+                 gl[..., 1] + miss[:, :, None, 1]),
+                (gl[..., 0], gl[..., 1])]
+        return (dirs, gh_node[:, 0][:, None, None],
+                gh_node[:, 1][:, None, None], gh_node[:, 1])
+
+    def _routed(self, entries, rel: torch.Tensor, splits) -> torch.Tensor:
+        """``rel`` of the rows of ``entries`` after one level's splits."""
+        rid, fi, ebin, emask = entries
+        rel_l = rel.to(torch.int64)
+        split_f, split_b, split_d = splits
+        go_right = self.model._route_sparse(
+            fi, ebin, emask, rid, split_f[rel_l], split_b[rel_l],
+            split_d[rel_l], rel.shape[0])
+        return torch.add(go_right.to(torch.int32), rel, alpha=2)
+
+    def route(self, split_f, split_b, split_d) -> None:
+        with telemetry.span("gbdt.route"):
+            self.rel = self._routed(self.entries, self.rel,
+                                    (split_f, split_b, split_d))
+
+
+class _StreamedRows(_SparseRows):
+    """The rows of `GBDT.fit_streamed`: ``stream()`` yields each batch's
+    (row offset, cast entry arrays, rows) again for every pass.  A level's
+    routing waits for the next pass: a kernel level's own (under
+    `gbdt.route`), an ``index_add`` level's accumulating one (under its
+    `gbdt.hist`), and a last one to the leaves."""
+
+    def __init__(self, model, stream, layout):
+        self.model, self.stream, self.layout = model, stream, layout
+
+    def begin(self, gh: torch.Tensor) -> None:
+        super().begin(gh)
+        self.prev = None  # the previous level's splits, not yet routed
+
+    def _route_pass(self) -> None:
+        self.rel = torch.cat([self._routed(e, self.rel[off:off + nb],
+                                           self.prev)
+                              for off, e, nb in self.stream()])
+        self.prev = None
+
+    def histogram(self, depth: int):
+        if self._impl(2 ** depth) == "pallas" and self.prev is not None:
+            with telemetry.span("gbdt.route"):
+                self._route_pass()
+        return super().histogram(depth)
+
+    def _index_add(self, n_nodes: int) -> torch.Tensor:
+        m = self.model
+        F, B = m.num_features, m.num_bins
+        hist = torch.zeros(n_nodes, F, B, 2, device=m.device)
+        parts = []
+        for off, e, nb in self.stream():
+            rel_b = self.rel[off:off + nb]
+            if self.prev is not None:
+                rel_b = self._routed(e, rel_b, self.prev)
+                parts.append(rel_b)
+            hist = hist + histogram_gh_sparse(
+                *e, rel_b, self.gh[off:off + nb], n_nodes, F, B)
+        if self.prev is not None:
+            self.rel, self.prev = torch.cat(parts), None
+        return hist
+
+    def route(self, split_f, split_b, split_d) -> None:
+        self.prev = (split_f, split_b, split_d)  # routed by the next pass
+
+    def leaves(self) -> torch.Tensor:
+        with telemetry.span("gbdt.route"):
+            self._route_pass()
+        return self.rel
 
 
 # ---- the model ----------------------------------------------------------------
@@ -633,7 +855,7 @@ class GBDT:
         self.eval_history = []
         self._rounds = None  # the last softmax fit's _RoundGraph
         # int64 [] on the card: rows the histogram kernel added at
-        # subtracted levels since the fit began (`_build_tree`)
+        # subtracted levels since the fit began (`_DenseRows`)
         self._hist_built = None
         if monotone_constraints is not None:
             raw = np.asarray(monotone_constraints)
@@ -687,15 +909,16 @@ class GBDT:
         self._grad_hess = (_logistic_grad_hess if objective == "logistic"
                            else _squared_grad_hess)
 
-    # "auto" caps the kernel at this many nodes per level, as the JAX
-    # package does: the kernel's node tiles grow with n_nodes, and past the
-    # cap the level goes to index_add
+    # "auto" caps both kernels at this many nodes per level, as the JAX
+    # package does: their shared-memory node tiles grow with n_nodes, and
+    # past the cap the level goes to index_add
     _PALLAS_NODE_LIMIT = 512
 
     def _hist_impl(self, n_nodes: int) -> str:
-        """Histogram backend for a level with ``n_nodes`` nodes: an explicit
-        "xla"/"pallas" wins; "auto" is the kernel on a CUDA device within
-        the node cap, ``index_add`` ("xla") elsewhere (so on the CPU)."""
+        """Histogram backend for a level with ``n_nodes`` nodes, dense or
+        sparse: an explicit "xla"/"pallas" wins; "auto" is the kernel on a
+        CUDA device within the node cap, ``index_add`` ("xla") elsewhere
+        (so on the CPU)."""
         if self.histogram != "auto":
             return self.histogram
         if (self.device.type == "cuda"
@@ -716,11 +939,17 @@ class GBDT:
         """The once-a-fit :func:`dense_hist_layout` of this process's codes
         (each feature's used bins, which shape the kernel's shared
         histograms), or None when no level runs the kernel on the card."""
-        if self.device.type != "cuda" or not any(
-                self._hist_impl(2 ** d) == "pallas"
-                for d in range(self.max_depth)):
+        if self.device.type != "cuda" or not self._any_kernel_level():
             return None
         return dense_hist_layout(bins, self.num_bins)
+
+    def _any_kernel_level(self) -> bool:
+        """Whether any level of a fit takes the kernel (`_hist_impl`), so
+        whether the fit builds the kernel's once-a-fit layout.  A dense
+        layout serves only the CUDA kernel; a sparse one also the CPU's
+        fixed-point route of an explicit "pallas"."""
+        return any(self._hist_impl(2 ** d) == "pallas"
+                   for d in range(self.max_depth))
 
     # dense unsampled softmax fits on the card replay a captured round
     # (False: every round eagerly, as on the CPU)
@@ -734,7 +963,7 @@ class GBDT:
     def _kernel_levels(self, device) -> list:
         """Per depth of a dense tree on ``device``: whether its level runs
         the one-process kernel route, whose int64 accumulator a subtracted
-        level takes from its parent (`_build_tree`)."""
+        level takes from its parent (`_DenseRows`)."""
         one = (self._SUBTRACT and device.type == "cuda"
                and self.mesh_plan is None)
         return [one and self._hist_impl(2 ** d) == "pallas"
@@ -804,37 +1033,13 @@ class GBDT:
         return segment_sum_sharded(x.to(torch.float32), zeros, 1,
                                    self.mesh_plan)[0]
 
-    # the sparse kernel's node cap for "auto", as the JAX package sets it:
-    # its shared-memory node tiles grow with n_nodes like the dense one's
-    _SPARSE_PALLAS_NODE_LIMIT = 512
-
-    def _hist_impl_sparse(self, n_nodes: int) -> str:
-        """Sparse-histogram backend for a level: an explicit "xla"/"pallas"
-        wins; "auto" is the kernel on a CUDA device within the sparse node
-        cap, ``index_add`` ("xla") elsewhere."""
-        if self.histogram != "auto":
-            return self.histogram
-        if (self.device.type == "cuda"
-                and n_nodes <= self._SPARSE_PALLAS_NODE_LIMIT):
-            return "pallas"
-        return "xla"
-
-    def _sparse_layout_enabled(self) -> bool:
-        """Whether any level of this fit can resolve to the sparse kernel,
-        i.e. whether `_sparse_fit_layout` builds a layout."""
-        if self.histogram == "xla":
-            return False
-        return self.histogram == "pallas" or any(
-            self._hist_impl_sparse(2 ** d) == "pallas"
-            for d in range(self.max_depth))
-
     def _sparse_fit_layout(self, row_id, findex, ebin, emask):
         """The once-a-fit feature-sorted entry layout, or None when no level
         can resolve to the kernel (``index_add`` needs no layout).  Built on
         the model's device; ``findex`` is the same at every level of every
         tree, so the sort serves all ``num_trees * max_depth`` levels.  Its
         cost is published as ``gbdt.entry_sort_us``."""
-        if not self._sparse_layout_enabled():
+        if not self._any_kernel_level():
             return None
         t0 = time.monotonic()
         layout = sparse_hist_layout(row_id, findex, ebin, emask,
@@ -1027,9 +1232,16 @@ class GBDT:
         _, _, loss, npairs = _pairwise_terms(m, label, qid, w, max_group - 1)
         return loss / torch.clamp(npairs, min=1)
 
-    def _base_margin(self, label: torch.Tensor, w: torch.Tensor
-                     ) -> torch.Tensor:
+    def _base_margin(self, label: torch.Tensor, w: torch.Tensor,
+                     onehot=None) -> torch.Tensor:
+        """The initial margin: ``base_score`` (a probability under
+        logistic, one score for every class under softmax) or the weighted
+        prior of the rows: log-odds (logistic), each class's log share
+        (softmax, from ``onehot``), the mean label otherwise."""
         if self.base_score is not None:
+            if self.objective == "softmax":
+                return self._t(np.broadcast_to(np.asarray(
+                    self.base_score, np.float32), (self.num_class,)).copy())
             bs = torch.tensor(float(self.base_score), device=self.device)
             if self.objective == "logistic":
                 # XGBoost semantics: base_score is a PROBABILITY for the
@@ -1037,6 +1249,17 @@ class GBDT:
                 bs = torch.clamp(bs, 1e-6, 1 - 1e-6)
                 return torch.log(bs / (1 - bs))
             return bs
+        if self.objective == "softmax":
+            K = self.num_class
+            if self.mesh_plan is not None:
+                # every process's rows, on the exact route
+                tot = self._row_sums(torch.cat([onehot * w[:, None],
+                                                w[:, None]], dim=1))
+                class_w, sum_w = tot[:K], torch.clamp(tot[K], min=1e-12)
+            else:
+                sum_w = torch.clamp(torch.sum(w), min=1e-12)
+                class_w = torch.sum(onehot * w[:, None], dim=0)
+            return torch.log(torch.clamp(class_w / sum_w, 1e-6, 1.0))
         if self.objective == "logistic":
             num = torch.where(label > 0.5, w, 0.0)
         else:
@@ -1054,166 +1277,109 @@ class GBDT:
             return torch.log(p / (1 - p))
         return sum_num / sum_w
 
-    def _boost(self, label: torch.Tensor, w: torch.Tensor, build_tree,
-               eval_margin=None, eval_label=None, eval_weight=None,
-               early_stopping_rounds: int = 0,
-               grad_hess=None, eval_loss_fn=None) -> dict:
-        """Boosting driver: base prior, tree loop, early stopping, stacking.
-        ``build_tree(grad, hess, col_mask, col_key)`` returns `_build_tree`'s
-        7-tuple; ``eval_margin(f, t, d, leaf)`` gives one tree's margins on
-        the held-out set.  With early stopping the forest is truncated at
-        the best round and null-padded to its static shapes."""
+    def _boost(self, rows, label: torch.Tensor, w: torch.Tensor,
+               eval_route=None, eval_label=None, eval_weight=None,
+               early_stopping_rounds: int = 0, qid=None, eval_qid=None,
+               graph_key=None) -> dict:
+        """The boosting driver of every fit: rounds of K trees over the row
+        source ``rows`` (K = ``num_class`` under softmax, one-vs-rest
+        against the round's shared p as XGBoost's multi:softprob; else 1).
+        ``eval_route(f, t, d, leaf)`` gives one tree's held-out margins.
+        Early stopping works on whole rounds; the forest is truncated at
+        the best round and null-padded to its static shapes.  With a
+        ``graph_key`` (`_round_graph_key`) the rounds replay one captured
+        `_RoundGraph`, kept with the layout ``rows`` reads for the next fit
+        of the same key."""
+        K = max(self.num_class, 1)
+        have_eval = eval_route is not None
         params = self.init()
-        if self.scale_pos_weight != 1.0:
+        onehot = None
+        if self.objective == "softmax":
+            label = label.to(torch.int32)
+            lo, hi = int(label.min()), int(label.max())
+            if self.mesh_plan is not None:  # every process checks them all
+                neg_lo, hi = self.mesh_plan.allreduce(
+                    torch.tensor([-lo, hi]), "max").tolist()
+                lo = -neg_lo
+            if lo < 0 or hi >= K:
+                # out-of-range classes would silently train a corrupted
+                # forest
+                raise ValueError("softmax labels must be integers in "
+                                 f"[0, {K}); got range [{lo}, {hi}]")
+            onehot = torch.nn.functional.one_hot(label.to(torch.int64),
+                                                 K).to(torch.float32)
+        elif self.scale_pos_weight != 1.0:
             # XGBoost's positive-class reweighting, as weight sugar
             w = w * torch.where(label > 0.5, self.scale_pos_weight, 1.0)
-        params["base"] = self._base_margin(label, w).to(torch.float32)
-
-        margin = params["base"].expand(label.shape).clone()
-        have_eval = eval_margin is not None
-        ev_m = (params["base"].expand(eval_label.shape).clone() if have_eval
-                else None)
-        best_loss, best_t, since_best = float("inf"), 0, 0
-        feats, thrs, dirs, sgains, scovers, leaves = [], [], [], [], [], []
-        grad_hess = grad_hess or self._grad_hess
-        eval_loss_fn = eval_loss_fn or self._objective_loss
-        self.eval_history = []
-        for t_idx in range(self.num_trees):
-            with telemetry.span("gbdt.tree"):
-                w_t, col_mask, ck = self._tree_keys(t_idx, w)
-                with telemetry.span("gbdt.grad"):
-                    g, h = grad_hess(margin, label)
-                    g, h = g * w_t, h * w_t
-                f, t, d, sg, sc, leaf, leaf_rel = build_tree(g, h, col_mask,
-                                                             ck)
-                with telemetry.span("gbdt.margin"):
-                    margin = margin + leaf[leaf_rel]
-                    if have_eval:
-                        ev_m = ev_m + eval_margin(f, t, d, leaf)
-                        loss = float(eval_loss_fn(ev_m, eval_label,
-                                                  eval_weight))
-            telemetry.counter_add("gbdt.trees", 1)
-            feats.append(f)
-            thrs.append(t)
-            dirs.append(d)
-            sgains.append(sg)
-            scovers.append(sc)
-            leaves.append(leaf)
-            if have_eval:
-                self.eval_history.append(loss)
-                if loss < best_loss:
-                    best_loss, best_t, since_best = loss, t_idx + 1, 0
-                elif early_stopping_rounds > 0:
-                    since_best += 1
-                    if since_best >= early_stopping_rounds:
-                        break
-        # truncation at the best round only when stopping was requested:
-        # an eval_set alone is monitoring, not a pruning instruction
-        stop_on = have_eval and early_stopping_rounds > 0
-        trees_used = best_t if stop_on else len(feats)
-        return self._stack_forest(params, feats, thrs, dirs, sgains,
-                                  scovers, leaves, trees_used,
-                                  self.num_trees)
-
-    def _boost_multi(self, label: torch.Tensor, w: torch.Tensor, build_tree,
-                     eval_margin=None, eval_label=None, eval_weight=None,
-                     early_stopping_rounds: int = 0, graph_key=None,
-                     layout=None) -> dict:
-        """Softmax boosting: K one-vs-rest trees per round against the
-        shared softmax distribution (XGBoost multi:softprob).  Tree i
-        belongs to class ``i % K``; early stopping works on whole rounds.
-        With a ``graph_key`` (`_round_graph_key`; ``layout``, the codes'
-        histogram layout ``build_tree`` reads) the rounds replay one
-        captured `_RoundGraph`, kept for the next fit of the same key."""
-        K = self.num_class
-        params = self.init()
-        label = label.to(torch.int32)
-        lo, hi = int(label.min()), int(label.max())
-        if self.mesh_plan is not None:  # every process checks every label
-            neg_lo, hi = self.mesh_plan.allreduce(torch.tensor([-lo, hi]),
-                                                  "max").tolist()
-            lo = -neg_lo
-        if lo < 0 or hi >= K:
-            # out-of-range classes would silently train a corrupted forest
-            raise ValueError(f"softmax labels must be integers in [0, {K}); "
-                             f"got range [{lo}, {hi}]")
-        onehot = torch.nn.functional.one_hot(label.to(torch.int64), K).to(
+        base = params["base"] = self._base_margin(label, w, onehot).to(
             torch.float32)
-        if self.base_score is not None:
-            params["base"] = self._t(np.broadcast_to(
-                np.asarray(self.base_score, np.float32), (K,)).copy())
-        else:
-            if self.mesh_plan is not None:
-                # every process's rows, on the exact route
-                tot = self._row_sums(torch.cat([onehot * w[:, None],
-                                                w[:, None]], dim=1))
-                class_w, sum_w = tot[:K], torch.clamp(tot[K], min=1e-12)
-            else:
-                sum_w = torch.clamp(torch.sum(w), min=1e-12)
-                class_w = torch.sum(onehot * w[:, None], dim=0)
-            prior = torch.clamp(class_w / sum_w, 1e-6, 1.0)
-            params["base"] = torch.log(prior)
+        grad_hess, eval_loss = self._grad_hess, self._objective_loss
+        if self.objective == "rank:pairwise":
+            grad_hess, eval_loss = self._rank_fns(qid, w, eval_qid,
+                                                  eval_weight, have_eval)
 
-        have_eval = eval_margin is not None
-        n_eval = eval_label.shape[0] if have_eval else 0
+        margin = base.expand(label.shape + base.shape)
+        ev_m = base.expand(eval_label.shape + base.shape) if have_eval \
+            else None
         rounds = None
         if graph_key is not None:
             rounds = self._rounds
             if rounds is None or rounds.key != graph_key:
                 self._rounds = None  # the old graph's memory goes first
-                rounds = self._rounds = _RoundGraph(
-                    graph_key, layout, label.shape[0], n_eval, K,
-                    eval_weight is not None, self.device)
-            rounds.onehot.copy_(onehot)
-            rounds.w.copy_(w)
-            onehot, w = rounds.onehot, rounds.w
-            if have_eval:
-                rounds.eval_label.copy_(eval_label)
-                eval_label = rounds.eval_label
-                if eval_weight is not None:
-                    rounds.eval_weight.copy_(eval_weight)
-                    eval_weight = rounds.eval_weight
-            margin, ev_m = rounds.margin, rounds.ev_m
-            margin.copy_(params["base"].expand_as(margin))
-            ev_m.copy_(params["base"].expand_as(ev_m))
+                rounds = self._rounds = _RoundGraph(graph_key, rows.layout)
+            margin, ev_m, onehot, w, eval_label, eval_weight = rounds.place(
+                margin, ev_m, onehot, w, eval_label, eval_weight)
         else:
-            margin = params["base"].expand(label.shape[0], K).clone()
-            ev_m = params["base"].expand(n_eval, K).clone()
+            margin = margin.clone()
+            ev_m = ev_m.clone() if have_eval else None
 
-        def one_round(r: int, read=float):
-            """Round ``r``'s K trees, stacked field by field, and its
-            held-out loss through ``read``; updates the margins in place."""
+        def round_gh():
+            """Tree k's (grad, hess) of this round, before the weights."""
+            if K == 1:
+                return lambda k: grad_hess(margin, label)
             with telemetry.span("gbdt.softmax"):  # the round's p
                 p = torch.softmax(margin, dim=1)
-            trees, ev_round = [], []
+            return lambda k: (p[:, k] - onehot[:, k], torch.clamp(
+                p[:, k] * (1.0 - p[:, k]), min=1e-16))
+
+        def eval_add(ev_round, read):
+            ev_m.add_(ev_round[0] if K == 1 else torch.stack(ev_round, dim=1))
+            return read(eval_loss(ev_m, eval_label, eval_weight))
+
+        def one_round(r: int, read=float):
+            """Round ``r``'s K trees and its held-out loss through ``read``
+            (None without an eval set); adds to the margins in place."""
+            tree_gh = round_gh()
+            trees, ev_round, loss = [], [], None
             for k in range(K):
                 with telemetry.span("gbdt.tree"):
                     w_t, col_mask, ck = self._tree_keys(r * K + k, w)
                     with telemetry.span("gbdt.grad"):
-                        g = (p[:, k] - onehot[:, k]) * w_t
-                        h = torch.clamp(p[:, k] * (1.0 - p[:, k]),
-                                        min=1e-16) * w_t
-                    *tree, leaf_rel = build_tree(g, h, col_mask, ck)
+                        g, h = tree_gh(k)
+                        g, h = g * w_t, h * w_t
+                    *tree, leaf_rel = self._grow_tree(rows, g, h, col_mask,
+                                                      ck)
                     f, t, d, _, _, leaf = tree
                     with telemetry.span("gbdt.margin"):
-                        margin[:, k] += leaf[leaf_rel]
+                        (margin if K == 1 else margin[:, k]).add_(
+                            leaf[leaf_rel])
                         if have_eval:
-                            ev_round.append(eval_margin(f, t, d, leaf))
+                            ev_round.append(eval_route(f, t, d, leaf))
+                            if K == 1:
+                                loss = eval_add(ev_round, read)
                 trees.append(tree)
-            loss = None
-            if have_eval:
+            if have_eval and K > 1:
                 with telemetry.span("gbdt.eval"):
-                    ev_m.add_(torch.stack(ev_round, dim=1))
-                    loss = read(self._objective_loss(ev_m, eval_label,
-                                                     eval_weight))
-            return [torch.stack(field) for field in zip(*trees)], loss
+                    loss = eval_add(ev_round, read)
+            return trees, loss
 
         best_loss, best_round, since_best = float("inf"), 0, 0
         # feats, thrs, dirs, split gains, split covers, leaves
         forest = [], [], [], [], [], []
         self.eval_history = []
         for r in range(self.num_trees):
-            with telemetry.span("gbdt.round"):
+            with (telemetry.span("gbdt.round") if K > 1
+                  else contextlib.nullcontext()):
                 if rounds is not None and rounds.graph is not None:
                     trees, loss = rounds.replay()
                     if have_eval:
@@ -1224,9 +1390,11 @@ class GBDT:
                     if rounds is not None:
                         rounds.capture(lambda: one_round(r, read=lambda x: x))
             telemetry.counter_add("gbdt.trees", K)
-            telemetry.counter_add("gbdt.rounds", 1)
-            for out, field in zip(forest, trees):
-                out.extend(field.unbind(0))
+            if K > 1:
+                telemetry.counter_add("gbdt.rounds", 1)
+            for tree in trees:
+                for out, field in zip(forest, tree):
+                    out.append(field)
             if have_eval:
                 self.eval_history.append(loss)
                 if loss < best_loss:
@@ -1235,6 +1403,8 @@ class GBDT:
                     since_best += 1
                     if since_best >= early_stopping_rounds:
                         break
+        # truncation at the best round only when stopping was requested:
+        # an eval_set alone is monitoring, not a pruning instruction
         stop_on = have_eval and early_stopping_rounds > 0
         trees_used = best_round * K if stop_on else len(forest[0])
         return self._stack_forest(params, *forest, trees_used,
@@ -1317,41 +1487,38 @@ class GBDT:
                    @ self._interaction_groups.to(torch.float32)) > 0
         return allowed if eff is None else allowed & eff[None, :]
 
-    def _tree_sampling(self, root_key, t_idx: int, w: torch.Tensor):
-        """Per-tree stochastic-GBM draws, shared by every boosting driver: a
-        Bernoulli row mask folded into the weights (routing still sees all
-        rows) and a feature subset [F] (None: all features).  Derived from
-        (seed, tree index) only; the keys stay on the host, the row draw
-        runs on the model's device (``ops.draws.sample_weights``: one
-        kernel launch on the card) and the column draw on the host."""
+    def _tree_keys(self, t_idx: int, w: torch.Tensor):
+        """(weights, col_mask, col_key) of tree ``t_idx``, the per-tree
+        stochastic-GBM draws under ``PRNGKey(seed)`` as the JAX package's
+        driver takes them: a Bernoulli row mask folded into the weights
+        (routing still sees all rows), a feature subset [F] (None: all
+        features), and the key its levels fold their depth into
+        (``fold_in(root, 1_000_000 + t_idx)``).  Derived from (seed, tree
+        index) only; the keys stay on the host, the row draw runs on the
+        model's device (``ops.draws.sample_weights``: one kernel launch on
+        the card) and the column draw on the host.  Without sampling
+        nothing is drawn."""
+        if min(self.subsample, self.colsample_bytree,
+               self.colsample_bylevel) == 1.0:
+            return w, None, None
+        root = PRNGKey(self.seed, device="cpu")
+        col_key = fold_in(root, 1_000_000 + t_idx)
         if self.subsample == 1.0 and self.colsample_bytree == 1.0:
-            return w, None
+            return w, None, col_key
         with telemetry.span("gbdt.draws"):
             w_t, col_mask = w, None
             if self.subsample < 1.0:
                 # a sharded fit draws the one global stream at this
                 # process's global row numbers
-                kr = fold_in(root_key, 2 * t_idx)
+                kr = fold_in(root, 2 * t_idx)
                 w_t = sample_weights(kr, self.subsample, w.contiguous(),
                                      self._row_index)
             if self.colsample_bytree < 1.0:
-                kc = fold_in(root_key, 2 * t_idx + 1)
+                kc = fold_in(root, 2 * t_idx + 1)
                 F = self.num_features
                 k_cols = max(1, int(round(self.colsample_bytree * F)))
                 col_mask = column_mask(kc, F, k_cols, self.device)
-            return w_t, col_mask
-
-    def _tree_keys(self, t_idx: int, w: torch.Tensor):
-        """(weights, col_mask, col_key) of tree ``t_idx``: its draws under
-        ``PRNGKey(seed)``, and the key its levels fold their depth into
-        (``fold_in(root, 1_000_000 + t_idx)``), as the JAX package's
-        drivers take them.  Without sampling nothing is drawn."""
-        if min(self.subsample, self.colsample_bytree,
-               self.colsample_bylevel) == 1.0:
-            return w, None, None
-        root = PRNGKey(self.seed, device="cpu")
-        w_t, col_mask = self._tree_sampling(root, t_idx, w)
-        return w_t, col_mask, fold_in(root, 1_000_000 + t_idx)
+            return w_t, col_mask, col_key
 
     def _next_active(self, active, split_f, split_b):
         """Propagate interaction-constraint group sets to the children: a
@@ -1396,175 +1563,66 @@ class GBDT:
         return params
 
     @torch.no_grad()
-    def _build_tree(self, bins: torch.Tensor, grad: torch.Tensor,
-                    hess: torch.Tensor, col_mask=None, col_key=None,
-                    layout=None):
-        """One tree from per-row (grad, hess), level by level.
+    def _grow_tree(self, rows, grad: torch.Tensor, hess: torch.Tensor,
+                   col_mask=None, col_key=None):
+        """One tree from per-row (grad, hess), level by level, over the row
+        source ``rows`` (`_DenseRows`, `_SparseRows`, `_StreamedRows`).
 
-        bins: u8 (or i32) [rows, features]; grad/hess: f32 [rows]
-        (weight-scaled, padding rows carry 0 mass); ``col_mask`` /
-        ``col_key``: the tree's feature draws (`_tree_keys`); ``layout``:
-        the fit's `_dense_fit_layout`.  Returns
-        (feature, threshold, default_right, split_gain, split_cover, leaf,
-        leaf_rel) where leaf_rel is each row's final leaf index.
-
-        A level below the root whose level above also ran the kernel in
-        one process (`_kernel_levels`) is built by sibling subtraction, as
-        XGBoost's hist builds it: the kernel counts each node's rows, adds
-        only the rows of the child of each pair with fewer and takes the
-        sibling as the parent's int64 sums less the built child's.  Those
-        sums are exact at one scale for the whole tree, so every histogram,
-        and the forest, is the full level's bit for bit.  The JAX package
-        builds every level in full (on the TPU a level is one
-        bandwidth-bound contraction); on the card a level is bound by the
-        kernel's shared-memory atomics, one a row and feature, so rows not
-        added are time saved."""
-        B = self.num_bins
-        rows = bins.shape[0]
-        dev = bins.device
-        rel = torch.zeros(rows, dtype=torch.int32, device=dev)  # in level
-        mono = self.monotone_constraints is not None
+        grad/hess: f32 [rows] (weight-scaled, padding rows carry 0 mass);
+        ``col_mask`` / ``col_key``: the tree's feature draws (`_tree_keys`).
+        Returns (feature, threshold, default_right, split_gain, split_cover,
+        leaf, leaf_rel) where leaf_rel is each row's final leaf index."""
+        dev = grad.device
         lo = torch.full((1,), -torch.inf, device=dev)
         hi = torch.full((1,), torch.inf, device=dev)
         active = (torch.ones(1, self._interaction_groups.shape[0],
                              dtype=torch.bool, device=dev)
                   if self._interaction_groups is not None else None)
         gh = torch.stack([grad, hess], dim=-1).contiguous()  # [rows, 2]
-        features, thresholds, defaults, gains, covers = [], [], [], [], []
-        lam = self.lambda_
-        kept = self._kernel_levels(dev)
-        sub = [d > 0 and kept[d] and kept[d - 1]
-               for d in range(self.max_depth)]
-        acc = None
+        rows.begin(gh)
+        levels = []
         for depth in range(self.max_depth):
-            n_nodes = 2 ** depth
-            with telemetry.span("gbdt.hist"):
-                if kept[depth]:  # looked up per call, as histogram_gh does
-                    hist, acc = hist_ops.histogram_gh_kernel(
-                        bins, rel, gh, n_nodes, B, layout,
-                        parent=acc if sub[depth] else None,
-                        built=self._hist_built if sub[depth] else None,
-                        return_acc=True)
-                else:
-                    hist = self._level_histogram(bins, rel, gh, n_nodes,
-                                                 layout)
+            level = rows.histogram(depth)
             with telemetry.span("gbdt.split"):
-                hist_g = hist[..., 0]
-                hist_h = hist[..., 1]
-                # left cumulative mass for "go right if bin > b" at each cut b
-                gl = _cumsum_f32(hist_g, dim=2)
-                hl = _cumsum_f32(hist_h, dim=2)
-                g_tot = gl[:, :, -1:]
-                h_tot = hl[:, :, -1:]
-
-                def split_gain(gl_, hl_):
-                    gr_ = g_tot - gl_
-                    hr_ = h_tot - hl_
-                    g = (gl_ ** 2 / (hl_ + lam) + gr_ ** 2 / (hr_ + lam)
-                         - g_tot ** 2 / (h_tot + lam))          # [nodes, F, B]
-                    ok = ((hl_ >= self.min_child_weight)
-                          & (hr_ >= self.min_child_weight))
-                    return torch.where(ok, g, -torch.inf)
-
-                if self.missing_aware:
-                    # every cut twice from the same histograms: missing (bin 0)
-                    # mass on the left (its natural cumsum side) vs the right
-                    dirs = [(gl, hl),
-                            (gl - hist_g[:, :, 0:1], hl - hist_h[:, :, 0:1])]
-                else:
-                    dirs = [(gl, hl)]
-                gain = torch.stack([split_gain(a, b) for a, b in dirs], dim=3)
-                if mono:
-                    wl, wr = self._dir_child_weights(dirs, g_tot, h_tot)
-                    gain = self._apply_monotone(gain, wl, wr, lo, hi)
-                gain = self._collapse_dir_ties(gain)
-                node_mask = self._level_feature_mask(col_mask, col_key, depth,
-                                                     active)
-                split_f, split_b, split_d, split_g = self._pick_splits(
-                    gain, node_mask)
-                if mono:
-                    lo, hi = self._child_bounds(split_f, split_b, split_d,
-                                                wl, wr, lo, hi)
-                if active is not None:
-                    active = self._next_active(active, split_f, split_b)
-                features.append(split_f)
-                thresholds.append(split_b)
-                defaults.append(split_d)
-                gains.append(split_g)
-                covers.append(h_tot[:, 0, 0])   # node hessian mass (any f)
-            with telemetry.span("gbdt.route"):
-                # route rows: the children of node n of a level are nodes
-                # 2n (left) and 2n + 1 of the next (heap ids 2m+1, 2m+2)
-                rel_l = rel.to(torch.int64)
-                row_bin = torch.gather(bins, 1, split_f[rel_l].to(torch.int64)
-                                       [:, None])[:, 0].to(torch.int32)
-                go_right = row_bin > split_b[rel_l]
-                if self.missing_aware:
-                    go_right = torch.where(row_bin == 0, split_d[rel_l] == 1,
-                                           go_right)
-                rel = torch.add(go_right.to(torch.int32), rel, alpha=2)
-
+                dirs, g_tot, h_tot, cover = rows.candidates(level)
+                split_f, split_b, split_d, split_g, lo, hi, active = \
+                    self._find_splits(dirs, g_tot, h_tot, lo, hi, active,
+                                      col_mask, col_key, depth)
+                levels.append((split_f, split_b, split_d, split_g, cover))
+            rows.route(split_f, split_b, split_d)
+        leaf_rel = rows.leaves()
         # leaf weights: -G/(H + lambda) per leaf, shrunken (clamped into the
         # node's propagated bounds first under monotone constraints)
-        n_leaves = 2 ** self.max_depth
-        leaf_rel = rel
         with telemetry.span("gbdt.leaf"):
-            gh_leaf = self._seg_sum(gh, leaf_rel, n_leaves)
+            gh_leaf = self._seg_sum(gh, leaf_rel, 2 ** self.max_depth)
             leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
-            if mono:
+            if self.monotone_constraints is not None:
                 leaf_w = torch.clamp(leaf_w, lo, hi)
             leaf = self.learning_rate * leaf_w
-        return (torch.cat(features), torch.cat(thresholds),
-                torch.cat(defaults), torch.cat(gains), torch.cat(covers),
-                leaf, leaf_rel)
+        return (*(torch.cat(field) for field in zip(*levels)), leaf,
+                leaf_rel)
 
-    def _tree_margins(self, feature: torch.Tensor, threshold: torch.Tensor,
-                      default_right: torch.Tensor, leaf: torch.Tensor,
-                      bins: torch.Tensor) -> torch.Tensor:
-        """Route every row down one tree; returns its leaf weight per row."""
-        rows = bins.shape[0]
-        node = torch.zeros(rows, dtype=torch.int64, device=bins.device)
-        for _ in range(self.max_depth):
-            f = feature[node].to(torch.int64)
-            t = threshold[node]
-            b = torch.gather(bins, 1, f[:, None])[:, 0].to(torch.int32)
-            go_right = b > t
-            if self.missing_aware:
-                go_right = torch.where(b == 0, default_right[node] == 1,
-                                       go_right)
-            node = 2 * node + 1 + go_right.to(torch.int64)
-        return leaf[node - (2 ** self.max_depth - 1)]
-
-    # ---- the sparse (COO-entry) path ----------------------------------------
-
-    def _level_splits_from_hist(self, hist: torch.Tensor,
-                                gh_node: torch.Tensor, lo, hi, active,
-                                col_mask=None, col_key=None, depth: int = 0):
-        """Split finding for one level from its present-entry [n_nodes, F,
-        B, 2] histogram and [n_nodes, 2] node totals: each (node, feature)'s
-        missing mass is the node total minus its present sum; dir 0 sends
-        it left, dir 1 right.  Kept apart from `_build_tree`'s inline split
-        code, as the JAX package keeps it.  Returns (split_f, split_b,
-        split_d, split_g, lo, hi, active)."""
+    def _find_splits(self, dirs, g_tot, h_tot, lo, hi, active, col_mask,
+                     col_key, depth: int):
+        """One level's splits from a row source's `candidates`: ``dirs``,
+        the (left G, left H) [nodes, F, B] of each cut per default
+        direction (dir 0 sends the missing mass left, dir 1 right), and the
+        node totals ``g_tot``/``h_tot``.  Gain, monotone masking, the
+        direction tie-break, the level's feature mask and the pick; then
+        the children's output bounds and active interaction groups.
+        Returns (split_f, split_b, split_d, split_g, lo, hi, active)."""
         lam = self.lambda_
         mono = self.monotone_constraints is not None
-        gl = _cumsum_f32(hist, dim=2)                  # present mass
-        miss = gh_node[:, None, :] - torch.sum(hist, dim=2)  # [n, F, 2]
-        g_tot = gh_node[:, 0][:, None, None]           # [n, 1, 1]
-        h_tot = gh_node[:, 1][:, None, None]
 
         def split_gain(gl_, hl_):
             gr_ = g_tot - gl_
             hr_ = h_tot - hl_
             g = (gl_ ** 2 / (hl_ + lam) + gr_ ** 2 / (hr_ + lam)
-                 - g_tot ** 2 / (h_tot + lam))
+                 - g_tot ** 2 / (h_tot + lam))          # [nodes, F, B]
             ok = ((hl_ >= self.min_child_weight)
                   & (hr_ >= self.min_child_weight))
             return torch.where(ok, g, -torch.inf)
 
-        dirs = [(gl[..., 0] + miss[:, :, None, 0],
-                 gl[..., 1] + miss[:, :, None, 1]),
-                (gl[..., 0], gl[..., 1])]
         gain = torch.stack([split_gain(a, b) for a, b in dirs], dim=3)
         if mono:
             wl, wr = self._dir_child_weights(dirs, g_tot, h_tot)
@@ -1579,91 +1637,41 @@ class GBDT:
             active = self._next_active(active, split_f, split_b)
         return split_f, split_b, split_d, split_g, lo, hi, active
 
+    def _route_dense(self, bins: torch.Tensor, rel: torch.Tensor, split_f,
+                     split_b, split_d) -> torch.Tensor:
+        """One level of dense routing, shared by training and inference:
+        ``rel`` (int32, each row's node in its level) through that level's
+        split arrays to the next level (children 2 rel and 2 rel + 1)."""
+        rel_l = rel.to(torch.int64)
+        row_bin = torch.gather(bins, 1, split_f[rel_l].to(torch.int64)
+                               [:, None])[:, 0].to(torch.int32)
+        go_right = row_bin > split_b[rel_l]
+        if self.missing_aware:
+            go_right = torch.where(row_bin == 0, split_d[rel_l] == 1,
+                                   go_right)
+        return torch.add(go_right.to(torch.int32), rel, alpha=2)
+
+    def _tree_margins(self, feature: torch.Tensor, threshold: torch.Tensor,
+                      default_right: torch.Tensor, leaf: torch.Tensor,
+                      bins: torch.Tensor) -> torch.Tensor:
+        """Route every row down one tree; returns its leaf weight per row."""
+        rel = torch.zeros(bins.shape[0], dtype=torch.int32,
+                          device=bins.device)
+        for depth in range(self.max_depth):
+            level = slice(2 ** depth - 1, 2 ** (depth + 1) - 1)
+            rel = self._route_dense(bins, rel, feature[level],
+                                    threshold[level], default_right[level])
+        return leaf[rel]
+
+    # ---- the sparse (COO-entry) path ----------------------------------------
+
     @staticmethod
     def _sparse_entries(row_id, findex, ebin, emask):
-        """The entry arrays `_build_tree_sparse` reads, cast once a fit:
+        """The entry arrays `_SparseRows` reads, cast once a fit:
         int64 row ids (the routing scatter's index), int32 features and
         bins, the bool mask."""
         return (row_id.to(torch.int64), findex.to(torch.int32),
                 ebin.to(torch.int32), emask)
-
-    @torch.no_grad()
-    def _build_tree_sparse(self, entries, grad: torch.Tensor,
-                           hess: torch.Tensor, col_mask=None, col_key=None,
-                           layout=None):
-        """One tree from COO entries, O(nnz) histogram work a level.
-
-        Present entries add their row's (grad, hess) into [nodes, features,
-        bins] by (node of the row, feature, bin); missing mass comes from
-        the node totals (`_level_splits_from_hist`).  Needs missing-aware
-        codes from ``transform_entries`` (bin 0 stays empty).  A level's
-        histogram goes to the kernel over ``layout`` or to ``index_add``
-        (`_hist_impl_sparse`); node totals and leaf sums go through the
-        segment-sum kernel on the card whatever ``histogram`` says
-        (`_leaf_impl`).  Returns `_build_tree`'s 7-tuple."""
-        F, B = self.num_features, self.num_bins
-        rows = grad.shape[0]
-        dev = grad.device
-        mono = self.monotone_constraints is not None
-        rid, fi, ebin, emask = entries
-        gh_row = torch.stack([grad, hess], dim=-1).contiguous()  # [rows, 2]
-        # entry (grad, hess), gathered once a tree for each backend its
-        # levels take: the kernel's in feature order, index_add's in entry
-        # order with padding lanes carrying 0 mass
-        gh_e = {}
-        node = torch.zeros(rows, dtype=torch.int32, device=dev)
-        lo = torch.full((1,), -torch.inf, device=dev)
-        hi = torch.full((1,), torch.inf, device=dev)
-        active = (torch.ones(1, self._interaction_groups.shape[0],
-                             dtype=torch.bool, device=dev)
-                  if self._interaction_groups is not None else None)
-        features, thresholds, defaults, gains, covers = [], [], [], [], []
-        for depth in range(self.max_depth):
-            n_nodes = 2 ** depth
-            impl = (self._hist_impl_sparse(n_nodes) if layout is not None
-                    else "xla")
-            with telemetry.span("gbdt.hist"):  # and the node totals
-                rel = node - (n_nodes - 1)
-                if impl not in gh_e:
-                    gh_e[impl] = entry_gh(gh_row, rid, emask, layout
-                                          if impl == "pallas" else None)
-                if impl == "pallas":
-                    hist = self._level_histogram_sparse(layout, rel, gh_row,
-                                                        gh_e[impl], n_nodes)
-                else:                                  # bin 0 is empty
-                    hist = histogram_gh_sparse(rid, fi, ebin, emask, rel,
-                                               gh_row, n_nodes, F, B,
-                                               gh_e=gh_e[impl])
-                    if self.mesh_plan is not None:
-                        hist = self.mesh_plan.allreduce(hist)
-                gh_node = self._seg_sum(gh_row, rel, n_nodes)
-            with telemetry.span("gbdt.split"):
-                (split_f, split_b, split_d, split_g,
-                 lo, hi, active) = self._level_splits_from_hist(
-                    hist, gh_node, lo, hi, active, col_mask, col_key, depth)
-                features.append(split_f)
-                thresholds.append(split_b)
-                defaults.append(split_d)
-                gains.append(split_g)
-                covers.append(gh_node[:, 1])
-            with telemetry.span("gbdt.route"):
-                rel_l = rel.to(torch.int64)
-                go_right = self._route_sparse(fi, ebin, emask, rid,
-                                              split_f[rel_l], split_b[rel_l],
-                                              split_d[rel_l], rows)
-                node = 2 * node + 1 + go_right.to(torch.int32)
-
-        n_leaves = 2 ** self.max_depth
-        leaf_rel = node - (n_leaves - 1)
-        with telemetry.span("gbdt.leaf"):
-            gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
-            leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
-            if mono:
-                leaf_w = torch.clamp(leaf_w, lo, hi)
-            leaf = self.learning_rate * leaf_w
-        return (torch.cat(features), torch.cat(thresholds),
-                torch.cat(defaults), torch.cat(gains), torch.cat(covers),
-                leaf, leaf_rel)
 
     @staticmethod
     def _route_sparse(fi, ebin, emask, rid, row_feat, row_thr, row_dir,
@@ -1724,53 +1732,32 @@ class GBDT:
         w = (torch.ones_like(label) if weight is None
              else self._t(weight, torch.float32))
         self._start_fit(int(label.shape[0]), [(0, int(label.shape[0]))])
-        eval_margin = eval_label = eval_weight = eval_bins = None
+        eval_route = eval_label = eval_weight = eval_bins = eval_qid = None
         if eval_set is not None:
             eval_bins = self._bins(eval_set[0])
             eval_label = self._t(eval_set[1], torch.float32)
-            eval_weight = (self._t(eval_set[2]) if len(eval_set) > 2
-                           and eval_set[2] is not None else None)
-            eval_margin = (lambda f, t, d, leaf:
-                           self._tree_margins(f, t, d, leaf, eval_bins))
+            eval_weight = (self._t(eval_set[2], torch.float32)
+                           if len(eval_set) > 2 and eval_set[2] is not None
+                           else None)
+            eval_qid = eval_set[3] if len(eval_set) > 3 else None
+            eval_route = (lambda f, t, d, leaf:
+                          self._tree_margins(f, t, d, leaf, eval_bins))
 
         graph_key = self._round_graph_key(bins, eval_bins, eval_weight)
         layout = (self._rounds.layout if graph_key is not None
                   and self._rounds is not None
                   and self._rounds.key == graph_key
                   else self._dense_fit_layout(bins))
-
-        def build(g, h, col_mask, col_key):
-            return self._build_tree(bins, g, h, col_mask, col_key, layout)
-
         # the same tensor every fit: a captured round adds into it
         if self._hist_built is None:
             self._hist_built = torch.zeros((), dtype=torch.int64,
                                            device=self.device)
         self._hist_built.zero_()
         subtracted = hist_ops.histogram_gh_kernel.subtracted
-        if self.objective == "rank:pairwise":
-            grad_hess, eval_loss_fn = self._rank_fns(
-                qid, w,
-                eval_qid=(eval_set[3] if eval_set is not None and
-                          len(eval_set) > 3 else None),
-                eval_w=eval_weight, have_eval=eval_set is not None)
-            forest = self._boost(label, w, build, eval_margin=eval_margin,
-                                 eval_label=eval_label,
-                                 eval_weight=eval_weight,
-                                 early_stopping_rounds=early_stopping_rounds,
-                                 grad_hess=grad_hess,
-                                 eval_loss_fn=eval_loss_fn)
-        elif self.objective == "softmax":
-            forest = self._boost_multi(
-                label, w, build, eval_margin=eval_margin,
-                eval_label=eval_label, eval_weight=eval_weight,
-                early_stopping_rounds=early_stopping_rounds,
-                graph_key=graph_key, layout=layout)
-        else:
-            forest = self._boost(label, w, build, eval_margin=eval_margin,
-                                 eval_label=eval_label,
-                                 eval_weight=eval_weight,
-                                 early_stopping_rounds=early_stopping_rounds)
+        forest = self._boost(_DenseRows(self, bins, layout), label, w,
+                             eval_route, eval_label, eval_weight,
+                             early_stopping_rounds, qid, eval_qid,
+                             graph_key)
         levels = hist_ops.histogram_gh_kernel.subtracted - subtracted
         if levels and label.shape[0]:
             # read once, after the forest's stacking has waited for the
@@ -1842,37 +1829,23 @@ class GBDT:
         # kernel) the feature-sorted layout, built once
         entries = self._sparse_entries(row_id, findex, ebin, emask)
         layout = self._sparse_fit_layout(row_id, findex, ebin, emask)
-        eval_margin = eval_label = eval_weight = None
-        if eval_set is not None:
-            ev = self._sparse_entries(*self._entry_bins(eval_set, binner))
-            eval_label = self._t(eval_set.label, torch.float32)
-            eval_weight = self._t(eval_set.weight, torch.float32)
-            ev_rows = eval_label.shape[0]
-            eval_margin = (lambda f, t, d, leaf:
-                           self._tree_margins_sparse_one(
-                               f, t, d, leaf, ev[0], ev[1], ev[2], ev[3],
-                               ev_rows))
+        return self._boost(_SparseRows(self, entries, layout), label, w,
+                           *self._sparse_eval(eval_set, binner),
+                           early_stopping_rounds, batch.qid,
+                           None if eval_set is None else eval_set.qid)
 
-        def build(g, h, col_mask, col_key):
-            return self._build_tree_sparse(entries, g, h, col_mask, col_key,
-                                           layout=layout)
-
-        if self.objective == "rank:pairwise":
-            grad_hess, eval_loss_fn = self._rank_fns(
-                batch.qid, w,
-                eval_qid=(eval_set.qid if eval_set is not None else None),
-                eval_w=eval_weight, have_eval=eval_set is not None)
-            return self._boost(label, w, build, eval_margin=eval_margin,
-                               eval_label=eval_label,
-                               eval_weight=eval_weight,
-                               early_stopping_rounds=early_stopping_rounds,
-                               grad_hess=grad_hess,
-                               eval_loss_fn=eval_loss_fn)
-        driver = (self._boost_multi if self.objective == "softmax"
-                  else self._boost)
-        return driver(label, w, build, eval_margin=eval_margin,
-                      eval_label=eval_label, eval_weight=eval_weight,
-                      early_stopping_rounds=early_stopping_rounds)
+    def _sparse_eval(self, eval_set, binner: QuantileBinner) -> tuple:
+        """(eval_route, eval_label, eval_weight) of a held-out
+        ``PaddedBatch`` (Nones without one): its trees' margins by sparse
+        routing."""
+        if eval_set is None:
+            return None, None, None
+        ev = self._sparse_entries(*self._entry_bins(eval_set, binner))
+        eval_label = self._t(eval_set.label, torch.float32)
+        rows = eval_label.shape[0]
+        return ((lambda f, t, d, leaf: self._tree_margins_sparse_one(
+                    f, t, d, leaf, *ev, rows)),
+                eval_label, self._t(eval_set.weight, torch.float32))
 
     @torch.no_grad()
     @_fit_span
@@ -1930,7 +1903,7 @@ class GBDT:
         # device for the once-a-fit sort (under a mesh, of this process's
         # rows: its kernel levels take the exact sharded route, as
         # fit_batch's do)
-        want_layout = self._sparse_layout_enabled()
+        want_layout = self._any_kernel_level()
         labels, weights, qids, offsets, real = [], [], [], [0], []
         ent = ([], [], [], []) if want_layout else None
         for b in replay():
@@ -1951,8 +1924,6 @@ class GBDT:
         label, w = torch.cat(labels), torch.cat(weights)
         self._start_fit(int(label.shape[0]), real)
         qid = torch.cat(qids) if len(qids) == len(labels) else None
-        rows = int(label.shape[0])
-        F, B = self.num_features, self.num_bins
         layout = None
         if want_layout:
             layout = self._sparse_fit_layout(*(torch.cat(e) for e in ent))
@@ -1964,132 +1935,10 @@ class GBDT:
                 yield (offsets[i], self._sparse_entries(
                     *self._entry_bins(b, binner)), int(b.label.shape[0]))
 
-        def routed(node_b, prev, first_prev, e, nb):
-            pf, pb, pd = prev
-            rid, fi, ebin, emask = e
-            rel_p = (node_b - first_prev).to(torch.int64)
-            go_right = self._route_sparse(fi, ebin, emask, rid, pf[rel_p],
-                                          pb[rel_p], pd[rel_p], nb)
-            return 2 * node_b + 1 + go_right.to(torch.int32)
-
-        def route_pass(node, prev, first_prev):
-            # one streamed pass routing every row through prev's splits
-            return torch.cat([routed(node[off:off + nb], prev, first_prev,
-                                     e, nb) for off, e, nb in stream()])
-
-        def build_tree(grad, hess, col_mask, col_key):
-            gh_row = torch.stack([grad, hess], dim=-1).contiguous()
-            # the kernel levels' entry (grad, hess) in layout order, once a
-            # tree; only the rows' node ids change by level
-            gh_e = (entry_gh(gh_row, layout=layout)
-                    if layout is not None else None)
-            node = torch.zeros(rows, dtype=torch.int32, device=self.device)
-            lo = torch.full((1,), -torch.inf, device=self.device)
-            hi = torch.full((1,), torch.inf, device=self.device)
-            active = (torch.ones(1, self._interaction_groups.shape[0],
-                                 dtype=torch.bool, device=self.device)
-                      if self._interaction_groups is not None else None)
-            features, thresholds, defaults, gains, covers = [], [], [], [], []
-            prev = None  # the previous level's (split_f, split_b, split_d)
-            for depth in range(self.max_depth):
-                first = 2 ** depth - 1
-                n_nodes = 2 ** depth
-                impl = (self._hist_impl_sparse(n_nodes)
-                        if layout is not None else "xla")
-                if impl == "pallas":
-                    if prev is not None:
-                        with telemetry.span("gbdt.route"):
-                            node = route_pass(node, prev,
-                                              2 ** (depth - 1) - 1)
-                        prev = None
-                    rel = node - first
-                    with telemetry.span("gbdt.hist"):
-                        hist = self._level_histogram_sparse(
-                            layout, rel, gh_row, gh_e, n_nodes)
-                        gh_node = self._seg_sum(gh_row, rel, n_nodes)
-                else:
-                    # one streamed pass routes the previous level and
-                    # accumulates this one: the span cannot split them
-                    with telemetry.span("gbdt.hist"):
-                        hist = torch.zeros(n_nodes, F, B, 2,
-                                           device=self.device)
-                        parts = []
-                        for off, e, nb in stream():
-                            node_b = node[off:off + nb]
-                            if prev is not None:
-                                # route through the previous level's
-                                # splits in the pass that accumulates this
-                                # level
-                                node_b = routed(node_b, prev,
-                                                2 ** (depth - 1) - 1, e, nb)
-                                parts.append(node_b)
-                            hist = hist + histogram_gh_sparse(
-                                *e, node_b - first, gh_row[off:off + nb],
-                                n_nodes, F, B)
-                        if prev is not None:
-                            node = torch.cat(parts)
-                            prev = None
-                        rel = node - first
-                        if self.mesh_plan is not None:
-                            hist = self.mesh_plan.allreduce(hist)
-                        gh_node = self._seg_sum(gh_row, rel, n_nodes)
-                with telemetry.span("gbdt.split"):
-                    (split_f, split_b, split_d, split_g,
-                     lo, hi, active) = self._level_splits_from_hist(
-                        hist, gh_node, lo, hi, active, col_mask, col_key,
-                        depth)
-                    features.append(split_f)
-                    thresholds.append(split_b)
-                    defaults.append(split_d)
-                    gains.append(split_g)
-                    covers.append(gh_node[:, 1])
-                prev = (split_f, split_b, split_d)
-
-            # the last pass: route through the deepest splits to the leaves
-            with telemetry.span("gbdt.route"):
-                node = route_pass(node, prev, 2 ** (self.max_depth - 1) - 1)
-            n_leaves = 2 ** self.max_depth
-            leaf_rel = node - (n_leaves - 1)
-            with telemetry.span("gbdt.leaf"):
-                gh_leaf = self._seg_sum(gh_row, leaf_rel, n_leaves)
-                leaf_w = -gh_leaf[:, 0] / (gh_leaf[:, 1] + self.lambda_)
-                if self.monotone_constraints is not None:
-                    leaf_w = torch.clamp(leaf_w, lo, hi)
-                leaf = self.learning_rate * leaf_w
-            return (torch.cat(features), torch.cat(thresholds),
-                    torch.cat(defaults), torch.cat(gains), torch.cat(covers),
-                    leaf, leaf_rel)
-
-        eval_margin = eval_label = eval_weight = None
-        if eval_set is not None:
-            ev = self._sparse_entries(*self._entry_bins(eval_set, binner))
-            eval_label = self._t(eval_set.label, torch.float32)
-            eval_weight = self._t(eval_set.weight, torch.float32)
-            ev_rows = eval_label.shape[0]
-            eval_margin = (lambda f, t, d, leaf:
-                           self._tree_margins_sparse_one(
-                               f, t, d, leaf, ev[0], ev[1], ev[2], ev[3],
-                               ev_rows))
-        if self.objective == "rank:pairwise":
-            if qid is None:
-                raise ValueError("rank:pairwise fit_streamed needs batches "
-                                 "staged with_qid=True")
-            grad_hess, eval_loss_fn = self._rank_fns(
-                qid, w,
-                eval_qid=(eval_set.qid if eval_set is not None else None),
-                eval_w=eval_weight, have_eval=eval_set is not None)
-            return self._boost(label, w, build_tree,
-                               eval_margin=eval_margin,
-                               eval_label=eval_label,
-                               eval_weight=eval_weight,
-                               early_stopping_rounds=early_stopping_rounds,
-                               grad_hess=grad_hess,
-                               eval_loss_fn=eval_loss_fn)
-        driver = (self._boost_multi if self.objective == "softmax"
-                  else self._boost)
-        return driver(label, w, build_tree, eval_margin=eval_margin,
-                      eval_label=eval_label, eval_weight=eval_weight,
-                      early_stopping_rounds=early_stopping_rounds)
+        return self._boost(_StreamedRows(self, stream, layout), label, w,
+                           *self._sparse_eval(eval_set, binner),
+                           early_stopping_rounds, qid,
+                           None if eval_set is None else eval_set.qid)
 
     def _batch_routing(self, params: dict, batch, binner: QuantileBinner,
                        what: str):

@@ -345,9 +345,36 @@ def test_fit_batch_plain_kernel_equals_jax_pallas():
                          _jax_forest("logistic", "pallas"))
 
 
-def test_sparse_forest_equals_dense_missing_aware_fit():
-    """fit_batch on the CSR batch and fit on its NaN-densified matrix grow
-    the same forest and predict alike (tests/test_gbdt.py:367)."""
+def _row_batches(rid, idx, val, label, cuts):
+    """The port batches of rows [0, cuts[0]), [cuts[0], cuts[1]), ...: a
+    stream of the same rows."""
+    out = []
+    for r0, r1 in zip((0,) + cuts, cuts + (len(label),)):
+        keep = (rid >= r0) & (rid < r1)
+        out.append(_batches(rid[keep] - r0, idx[keep], val[keep],
+                            label[r0:r1])[1])
+    return out
+
+
+# the settings that the one split finder carries for the three growers
+THREE_GROWER_CASES = {
+    "plain": {},
+    "monotone": dict(monotone_constraints=[1, -1, 0, 0, 1]),
+    "interaction": dict(interaction_constraints=[[0, 1], [2, 3, 4]]),
+    "bylevel": dict(colsample_bylevel=0.6, seed=5),
+    "early_stopping": dict(num_trees=12, eval=True),
+}
+
+
+@pytest.mark.parametrize("case", list(THREE_GROWER_CASES))
+def test_sparse_forest_equals_dense_missing_aware_fit(case):
+    """fit_batch on the CSR batch, fit_streamed over its rows in three
+    batches and fit on its NaN-densified matrix grow the same forest and
+    predict alike (tests/test_gbdt.py:367), under each setting the shared
+    split finder carries: monotone and interaction constraints, a column
+    draw a level, and a held-out set with early stopping."""
+    kw = dict(THREE_GROWER_CASES[case])
+    held_out = kw.pop("eval", False)
     rid, idx, val, dense = _coo(11, 512, 5)
     y = _rule(dense)
     _, tb = _batches(rid, idx, val, y)
@@ -355,19 +382,44 @@ def test_sparse_forest_equals_dense_missing_aware_fit():
     np.testing.assert_array_equal(x.numpy(), dense)
     binner = QuantileBinner(num_bins=16, missing_aware=True,
                             device="cpu").fit(x.numpy())
-    model = GBDT(num_features=5, num_trees=3, max_depth=3, num_bins=16,
-                 learning_rate=0.5, missing_aware=True, device="cpu")
-    p_dense = model.fit(binner.transform(x), y)
-    p_sparse = model.fit_batch(tb, binner)
-    for k in ("feature", "threshold", "default_right"):
-        assert torch.equal(p_dense[k], p_sparse[k]), k
-    np.testing.assert_allclose(p_dense["leaf"].numpy(),
-                               p_sparse["leaf"].numpy(), rtol=1e-4,
-                               atol=1e-6)
+    model = GBDT(**{**dict(num_features=5, num_trees=3, max_depth=3,
+                           num_bins=16, learning_rate=0.5,
+                           missing_aware=True, device="cpu"), **kw})
+    dense_kw = sparse_kw = {}
+    if held_out:
+        erid, eidx, evals, edense = _coo(12, 256, 5)
+        ey = (_rule(edense).astype(bool)
+              ^ (np.random.default_rng(12).random(256) < 0.2)).astype(
+            np.float32)
+        eb = _batches(erid, eidx, evals, ey)[1]
+        ex = csr_to_dense_missing(eb.index, eb.value, eb.row_ids(), 256, 5)
+        dense_kw = dict(eval_set=(binner.transform(ex), ey),
+                        early_stopping_rounds=2)
+        sparse_kw = dict(eval_set=eb, early_stopping_rounds=2)
+    forests, histories = [], []
+    for fit in (lambda: model.fit(binner.transform(x), y, **dense_kw),
+                lambda: model.fit_batch(tb, binner, **sparse_kw),
+                lambda: model.fit_streamed(
+                    _row_batches(rid, idx, val, y, (200, 400)), binner,
+                    **sparse_kw)):
+        forests.append(fit())
+        histories.append(model.eval_history)
+    p_dense = forests[0]
+    if held_out:
+        assert 1 <= int(p_dense["trees_used"]) < 12
+        assert len(histories[0]) < 12
+    for p_sparse, history in zip(forests[1:], histories[1:]):
+        for k in ("feature", "threshold", "default_right", "trees_used"):
+            assert torch.equal(p_dense[k], p_sparse[k]), k
+        np.testing.assert_allclose(p_dense["leaf"].numpy(),
+                                   p_sparse["leaf"].numpy(), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(history, histories[0], rtol=1e-4)
     pred_d = model.predict(p_dense, binner.transform(x)).numpy()
-    pred_s = model.predict_batch(p_sparse, tb, binner).numpy()
-    np.testing.assert_allclose(pred_d, pred_s, rtol=1e-4, atol=1e-6)
-    assert np.mean((pred_s > 0.5) == (y > 0.5)) > 0.9
+    for p_sparse in forests[1:]:
+        pred_s = model.predict_batch(p_sparse, tb, binner).numpy()
+        np.testing.assert_allclose(pred_d, pred_s, rtol=1e-4, atol=1e-6)
+        assert np.mean((pred_s > 0.5) == (y > 0.5)) > 0.9
 
 
 # ---- prediction on a forest carried across ------------------------------------
@@ -445,13 +497,13 @@ def test_sparse_backend_routing_and_layout():
     """On the CPU "auto" is index_add and builds no layout; "pallas"
     builds one layout a fit and publishes its sort time."""
     m = GBDT(num_features=4, missing_aware=True, device="cpu")
-    assert m._hist_impl_sparse(1) == "xla" and not m._sparse_layout_enabled()
+    assert m._hist_impl(1) == "xla" and not m._any_kernel_level()
     p = GBDT(num_features=4, missing_aware=True, device="cpu",
              histogram="pallas")
-    assert p._hist_impl_sparse(4096) == "pallas"
-    assert p._sparse_layout_enabled()
+    assert p._hist_impl(4096) == "pallas"
+    assert p._any_kernel_level()
     assert not GBDT(num_features=4, device="cpu",
-                    histogram="xla")._sparse_layout_enabled()
+                    histogram="xla")._any_kernel_level()
     before = telemetry.counter_get("gbdt.entry_sort_us")
     layout = p._sparse_fit_layout(torch.tensor([0, 1]), torch.tensor([2, 0]),
                                   torch.tensor([1, 3]),

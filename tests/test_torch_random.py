@@ -5,8 +5,8 @@ seeds, shapes and ``fold_in`` data, with permutation sizes 28 and 968
 (the Higgs and Bosch widths) and 2^16 (two sort rounds).  The JAX side
 runs with its defaults, asserted here: a JAX upgrade that changes them
 fails loudly instead of moving the port's forests.  Also GBDT's per-tree
-draws (``_tree_sampling``, the ``colsample_bylevel`` mask) against the
-JAX package's own, equal exactly."""
+draws (``_tree_keys``, the ``colsample_bylevel`` mask) against the JAX
+package's own (``_tree_sampling``), equal exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
