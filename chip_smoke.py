@@ -83,6 +83,14 @@ main-path shapes under every launch geometry of ``segment_sweep``, beside
 the one ``segment_sum.launch_geometry`` picks.  It prints its readings and
 no result line.
 
+    python3 chip_smoke.py --route
+
+builds the kernels, then holds the dense route kernel to its plain version
+bit for bit and times both beside the kernel's bound at a Higgs and a
+Covertype training level and at Covertype's held-out walk of a whole tree
+(``phase_route``, which the full run also runs after the Higgs GBDT).  It
+prints its readings and no result line.
+
     python3 chip_smoke.py --service-sweep
 
 builds the kernels, then times epochs of the Bosch out-of-core cell over
@@ -1886,8 +1894,11 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     """One fit of the main path, with the launch counts set to 0 just
     before it and read just after.  Returns (forest, seconds, histogram
     launches, segment-sum launches, peak device memory of the fit in
-    bytes, row-draw launches, levels built by subtraction)."""
+    bytes, row-draw launches, levels built by subtraction, route-kernel
+    launches)."""
     from dmlc_core_tpu_torch.ops import draws
+    from dmlc_core_tpu_torch.ops.route import route_dense_kernel
+    route_dense_kernel.launches = 0
     hg.histogram_gh_kernel.launches = 0
     hg.histogram_gh_kernel.subtracted = 0
     ss_mod.segment_sum_kernel.launches = 0
@@ -1901,7 +1912,7 @@ def fit_timed(torch, hg, ss_mod, model, bins, label) -> tuple:
     return (forest, secs, hg.histogram_gh_kernel.launches,
             ss_mod.segment_sum_kernel.launches,
             torch.cuda.max_memory_allocated(), draws.sample_weights.launches,
-            hg.histogram_gh_kernel.subtracted)
+            hg.histogram_gh_kernel.subtracted, route_dense_kernel.launches)
 
 
 # stochastic boosting: rows and columns drawn from jax.random's threefry
@@ -2007,6 +2018,75 @@ def time_draws(torch, dev) -> dict:
     return {**out, "max_abs_err": 0.0, "library_ms": None}
 
 
+ROUTE_SHAPES = (  # (what, rows, features, first level, levels walked)
+    ("Higgs training level at depth 5", HIGGS_ROWS, HIGGS_FEATURES, 5, 1),
+    ("Covertype training level at depth 5", 435_759, 54, 5, 1),
+    ("Covertype eval walk, 6 levels", 145_253, 54, 0, 6))
+
+
+def route_bound_ms(rows: int, F: int, code_bytes: int, first: int,
+                   levels: int) -> float:
+    """The route kernel's bound: each row's node read (not for a walk from
+    the root) and written once, and at each level walked the 32-byte
+    sector of the row's codes that holds its split feature's code, but
+    no more than the whole row once, at 3.35 TB/s."""
+    row_bytes = (4 if first else 0) + 4 + min(levels * 32, F * code_bytes)
+    return rows * row_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_route(torch, dev) -> dict:
+    """The route kernel (``ops.route.route_dense_kernel``) at the dense
+    fits' shapes: a Higgs and a Covertype training level at depth 5 and
+    Covertype's held-out walk of a whole depth-6 tree.  Random uint8 codes
+    and split tables (a fifth of the nodes unsplit), rows spread over the
+    level's nodes; the kernel's output equals the plain version's bit for
+    bit with and without ``missing_aware``, and its device time is printed
+    beside its bound and the plain version's.  Returns the Higgs level's
+    timing."""
+    from dmlc_core_tpu_torch.ops import _build
+    from dmlc_core_tpu_torch.ops.route import (route_dense_kernel,
+                                               route_dense_plain)
+    _build.build("route_dense")
+    for line in _build.build_log("route_dense").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  route_dense ptxas: {line.strip()}")
+    g = torch.Generator(device=dev).manual_seed(2_718_281_829)
+    out = {}
+    for what, rows, F, first, levels in ROUTE_SHAPES:
+        bins = torch.randint(0, 256, (rows, F), generator=g, device=dev,
+                             dtype=torch.uint8)
+        n = 2 ** 6 - 1
+        tables = [torch.randint(0, top, (n,), generator=g, device=dev,
+                                dtype=torch.int32) for top in (F, 256, 2)]
+        null = torch.rand(n, generator=g, device=dev) < 0.2
+        for t, v in zip(tables, (0, 256, 0)):
+            t[null] = v
+        lo, hi = 2 ** first - 1, 2 ** (first + levels) - 1
+        walk = [t[lo:hi].contiguous() for t in tables]
+        rel = (torch.randint(0, 2 ** first, (rows,), generator=g, device=dev,
+                             dtype=torch.int32) if first else None)
+        for missing in (False, True):
+            got = route_dense_kernel(bins, rel, *walk, first, levels,
+                                     missing)
+            want = route_dense_plain(bins, rel, *walk, first, levels,
+                                     missing)
+            check(torch.equal(got, want), f"route_dense ({what}, "
+                  f"missing_aware={missing}) differs from its plain version")
+        k_ms, covered = device_ms(torch, lambda: route_dense_kernel(
+            bins, rel, *walk, first, levels, False), 200)
+        p_ms, _ = device_ms(torch, lambda: route_dense_plain(
+            bins, rel, *walk, first, levels, False), 20, warmup=2)
+        bound_ms = route_bound_ms(rows, F, 1, first, levels)
+        print(f"route {what}, {rows} x {F}: kernel {k_ms:.4f} ms (queued "
+              f"back to back: {covered}), plain {p_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms, {k_ms / bound_ms:.2f}x the bound")
+        if not out:
+            out = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes", "library_ms": None,
+                   "max_abs_err": 0.0}
+    return out
+
+
 def phase_gbdt(torch, ss_mod, dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -2088,12 +2168,13 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     fits = [fit_timed(torch, hg, ss_mod, model, bins, label)
             for _ in range(2)]
     forest = fits[0][0]
-    for f_i, secs, h_l, s_l, peak, d_l, sub_l in fits:
+    for f_i, secs, h_l, s_l, peak, d_l, sub_l, r_l in fits:
         print(f"gbdt fit: {secs:.3f} s wall, {rows * trees / secs:.0f} "
               f"row_trees_s; launches: histogram_gh {h_l} ({sub_l} levels "
               f"subtracted, gbdt.hist_built_permille "
               f"{telemetry.gauge_get('gbdt.hist_built_permille')}), "
-              f"segment_sum {s_l}; peak device memory of the fit "
+              f"segment_sum {s_l}, route_dense {r_l}; peak device memory "
+              f"of the fit "
               f"{peak / 2**30:.2f} GiB (codes {bins.numel() / 2**30:.2f} GiB)")
         check(h_l == trees * depth, f"histogram_gh launched {h_l} times in "
               f"a fit (want {trees * depth})")
@@ -2101,6 +2182,8 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
               f"a fit (want {trees * (depth - 1)})")
         check(s_l == trees, f"segment_sum launched {s_l} times in a fit "
               f"(want {trees}: one leaf sum a tree)")
+        check(r_l == trees * depth, f"route_dense launched {r_l} times in "
+              f"a fit (want {trees * depth}: one a level)")
         check(d_l == 0, f"an unsampled fit launched the row draw {d_l} "
               "times")
         check(all(torch.equal(f_i[k], forest[k]) and
@@ -2110,7 +2193,7 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
     # the same fit with every level built in full
     full = GBDT(num_features=F, device=dev, **GBDT_KW)
     full._SUBTRACT = False
-    f_full, t_full, h_full, *_, sub_full = [
+    f_full, t_full, h_full, *_, sub_full, _ = [
         fit_timed(torch, hg, ss_mod, full, bins, label) for _ in range(2)][1]
     check(sub_full == 0 and h_full == trees * depth
           and all(torch.equal(f_full[k], forest[k]) for k in forest),
@@ -2245,7 +2328,8 @@ def phase_gbdt(torch, ss_mod, dev) -> dict:
             **tree_ms(per_level),
             "leaf": {**leaf, "launches": fits[0][3]},
             "bins": bins, "label": label, "forest": forest,
-            "fit_s": fits[0][1], "draws": draw}
+            "fit_s": fits[0][1], "draws": draw,
+            "route_launches": fits[0][7]}
 
 
 # ---- phase 6: the sparse GBDT (fit_batch) at Bosch width ---------------------
@@ -6769,6 +6853,9 @@ def main(argv) -> int:
     if "--segment-sweep" in argv:
         segment_sweep(torch, torch.device("cuda"))
         return 0
+    if "--route" in argv:
+        phase_route(torch, torch.device("cuda"))
+        return 0
     if "--service-sweep" in argv:
         service_sweep(torch, torch.device("cuda"))
         return 0
@@ -6800,6 +6887,7 @@ def main(argv) -> int:
     ffm_served = timed("ffm serving", phase_ffm_serving, torch, ss_mod,
                        ffm["model"], dev)
     gbdt = timed("gbdt", phase_gbdt, torch, ss_mod, dev)
+    route = timed("route", phase_route, torch, dev)
     sparse = timed("gbdt sparse", phase_gbdt_sparse, torch, ss_mod, dev,
                    build_dir)
     sparse_data = sparse.pop("data")
@@ -6934,6 +7022,16 @@ def main(argv) -> int:
         "shape": f"a sampled tree's row draw, {HIGGS_ROWS} rows, subsample "
                  "0.8; launches: a sampled Higgs fit's (one a tree)",
         **{k: gbdt["draws"][k] for k in ("launches", "max_abs_err", *keys)},
+    }, {
+        "name": "route_dense",
+        "route": "cuda",
+        "source": "dmlc_core_tpu_torch/ops/csrc/route_dense.cu",
+        "replaces": None,
+        "shape": f"a Higgs training level at depth 5, {HIGGS_ROWS} rows x "
+                 f"{HIGGS_FEATURES} uint8 codes; launches: a Higgs fit's "
+                 "(one a level)",
+        "launches": gbdt["route_launches"],
+        **route,
     }, {
         "name": "histogram_gh_sparse",
         "route": "cuda",

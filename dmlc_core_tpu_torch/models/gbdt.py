@@ -12,7 +12,9 @@ inputs.
   hand-written CUDA kernel on the card, which below the root adds only
   the rows of the child of each node pair with fewer rows and subtracts
   the other from the parent's exact sums), finds splits with a cumsum and
-  a flat argmax over it, and routes rows to the children with a gather;
+  a flat argmax over it, and routes rows to the children (``ops.route``:
+  a hand-written CUDA kernel on the card, one launch a level, and one a
+  tree when a held-out or scored set walks a whole tree);
 * sparse path (``fit_batch``, on a CSR ``PaddedBatch`` or a pre-binned
   ``BinnedBatch`` from the epoch cache, no densify): each level's histogram
   comes from the present entries only (``ops.histogram_sparse``: a
@@ -74,6 +76,7 @@ from ..ops.histogram_sparse import (entry_gh, feature_counts,
                                     histogram_gh_sparse,
                                     histogram_gh_sparse_sharded,
                                     sparse_hist_layout)
+from ..ops.route import route_dense_kernel
 from ..ops.segment_sum import (clamp_index, segment_sum, segment_sum_kernel,
                                segment_sum_sharded)
 from ..parallel.meshplan import MeshPlan
@@ -486,7 +489,9 @@ def _host(x) -> np.ndarray:
 # eager round would: (kernel, counter)
 _COUNTED_KERNELS = ((histogram_gh_kernel, "launches"),
                     (histogram_gh_kernel, "subtracted"),
-                    (segment_sum_kernel, "launches"))
+                    (segment_sum_kernel, "launches"),
+                    (route_dense_kernel, "launches"),
+                    (route_dense_kernel, "levels"))
 
 
 class _RoundGraph:
@@ -1637,30 +1642,25 @@ class GBDT:
             active = self._next_active(active, split_f, split_b)
         return split_f, split_b, split_d, split_g, lo, hi, active
 
-    def _route_dense(self, bins: torch.Tensor, rel: torch.Tensor, split_f,
-                     split_b, split_d) -> torch.Tensor:
-        """One level of dense routing, shared by training and inference:
-        ``rel`` (int32, each row's node in its level) through that level's
-        split arrays to the next level (children 2 rel and 2 rel + 1)."""
-        rel_l = rel.to(torch.int64)
-        row_bin = torch.gather(bins, 1, split_f[rel_l].to(torch.int64)
-                               [:, None])[:, 0].to(torch.int32)
-        go_right = row_bin > split_b[rel_l]
-        if self.missing_aware:
-            go_right = torch.where(row_bin == 0, split_d[rel_l] == 1,
-                                   go_right)
-        return torch.add(go_right.to(torch.int32), rel, alpha=2)
+    def _route_dense(self, bins: torch.Tensor, rel, split_f, split_b,
+                     split_d, levels: int = 1) -> torch.Tensor:
+        """Dense routing, shared by training and inference: ``rel`` (int32,
+        each row's node in its level; None: every row at the root) through
+        ``levels`` levels of split arrays in heap order from that level's
+        first node, to the level below (children 2 rel and 2 rel + 1).  One
+        launch of the route kernel on the card (`ops.route`)."""
+        first = 0 if rel is None else (
+            split_f.shape[0] // (2 ** levels - 1)).bit_length() - 1
+        return route_dense_kernel(bins, rel, split_f, split_b, split_d,
+                                  first, levels, self.missing_aware)
 
     def _tree_margins(self, feature: torch.Tensor, threshold: torch.Tensor,
                       default_right: torch.Tensor, leaf: torch.Tensor,
                       bins: torch.Tensor) -> torch.Tensor:
-        """Route every row down one tree; returns its leaf weight per row."""
-        rel = torch.zeros(bins.shape[0], dtype=torch.int32,
-                          device=bins.device)
-        for depth in range(self.max_depth):
-            level = slice(2 ** depth - 1, 2 ** (depth + 1) - 1)
-            rel = self._route_dense(bins, rel, feature[level],
-                                    threshold[level], default_right[level])
+        """Route every row down one tree, all its levels in one walk;
+        returns its leaf weight per row."""
+        rel = self._route_dense(bins, None, feature, threshold,
+                                default_right, levels=self.max_depth)
         return leaf[rel]
 
     # ---- the sparse (COO-entry) path ----------------------------------------
